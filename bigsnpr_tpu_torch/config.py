@@ -1,0 +1,75 @@
+"""Global configuration: device choice, matmul precision, scoped options.
+
+Mirrors `bigsnpr_tpu/config.py`. Entry points run on the CUDA device unless
+the caller asks for the CPU, either globally (`set_device("cpu")`) or per
+call (`device="cpu"`). With no CUDA and no request for the CPU an entry
+point raises: there is no silent fallback.
+
+Precision: float32 products are full float32 everywhere (no TF32), the
+counterpart of the JAX package's `matmul_precision="highest"`.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+device: str = "cuda"
+
+
+def set_device(name: str) -> None:
+    """Default device of every entry point ("cuda", "cuda:1", "cpu")."""
+    global device
+    torch.device(name)  # validates the string
+    device = name
+
+
+def resolve_device(dev=None) -> torch.device:
+    """The device a call runs on: `dev` if given, else the configured one.
+
+    Raises when that is a CUDA device and no CUDA device is present."""
+    d = torch.device(device if dev is None else dev)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "bigsnpr_tpu_torch: no CUDA device is available; pass "
+            "device='cpu' or call config.set_device('cpu') to run on the CPU")
+    return d
+
+
+def get_option(name: str):
+    from bigsnpr_tpu_torch.utils import assertions
+
+    if name == "device":
+        return device
+    if name == "check_args":
+        return assertions.get_check_args()
+    raise KeyError(name)
+
+
+def set_option(name: str, value) -> None:
+    from bigsnpr_tpu_torch.utils import assertions
+
+    if name == "device":
+        set_device(value)
+    elif name == "check_args":
+        assertions.set_check_args(bool(value))
+    else:
+        raise KeyError(name)
+
+
+@contextmanager
+def options(**kw):
+    """Scoped option override: `with options(device="cpu"):`"""
+    old = {k: get_option(k) for k in kw}
+    try:
+        for k, v in kw.items():
+            set_option(k, v)
+        yield
+    finally:
+        for k, v in old.items():
+            set_option(k, v)

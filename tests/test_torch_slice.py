@@ -1,0 +1,170 @@
+"""The port's first slice end to end: .bed -> scaling -> randomSVD ->
+simuPheno -> GWAS (covariates = PCs) -> p-values -> C+T scores, through
+both packages on the same file; the port alone with jax, pandas and the
+JAX package blocked; and the device rule (no CUDA and no request for the
+CPU -> an entry point raises)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import bigsnpr_tpu as bt
+from bigsnpr_tpu.core.genotypes import GenoPack as JaxGenoPack
+import bigsnpr_tpu_torch as pt
+from bigsnpr_tpu_torch.core import unpack
+
+torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV2 = {**os.environ, "OMP_NUM_THREADS": "2"}   # subprocesses: 2 threads
+
+
+def structured_cohort(n, m, seed):
+    """Three populations (the first two PCs stand out), 1% NA."""
+    rng = np.random.default_rng(seed)
+    pop = rng.integers(0, 3, n)
+    p = np.clip(rng.uniform(0.1, 0.5, m)[:, None]
+                + rng.normal(0, 0.1, (m, 3)), 0.02, 0.98)
+    X = rng.binomial(2, p[:, pop]).astype(float)
+    X[rng.random((m, n)) < 0.01] = np.nan
+    return unpack.np_pack_codes(unpack.np_dosage_to_codes(X))
+
+
+def test_chain_matches_jax(tmp_path):
+    n, m, k = 601, 2000, 2
+    meta = bt.snp_fake(n, m, seed=1)
+    jsrc = JaxGenoPack(packed=structured_cohort(n, m, 1), n=n, fam=meta.fam,
+                       map=meta.map)
+    bed = bt.snp_writeBed(jsrc, tmp_path / "cohort.bed")
+    jp, pp = bt.snp_readBed(bed), pt.snp_readBed(bed)
+    test = np.arange(0, n, 3)
+    train = np.setdiff1d(np.arange(n), test)
+    with pt.config.options(device="cpu"):
+        # scaling: float64 on equal counts (1e-12)
+        jsc, psc = bt.bed_scaleBinom(jp), pt.bed_scaleBinom(pp)
+        np.testing.assert_allclose(psc["scale"], jsc["scale"], rtol=1e-12)
+        # PCA: d within 1e-4; the two population PCs vector by vector
+        jsvd = bt.snp_randomSVD(jp, k=k, tol=1e-7)
+        psvd = pt.snp_randomSVD(pp, k=k, tol=1e-7)
+        np.testing.assert_allclose(psvd.d, jsvd.d, rtol=1e-4)
+        np.testing.assert_allclose(psvd.u, jsvd.u, atol=1e-4)
+        # phenotype: same causal set, float32 liabilities (1e-5)
+        jsim = bt.snp_simuPheno(jp, h2=0.5, M=100, seed=3)
+        psim = pt.snp_simuPheno(pp, h2=0.5, M=100, seed=3)
+        np.testing.assert_array_equal(psim["set"], jsim["set"])
+        np.testing.assert_allclose(psim["pheno"], jsim["pheno"], atol=1e-5)
+        y = psim["pheno"]
+        # GWAS on each package's own PCs (rtol 1e-4, atol 1e-4 * max)
+        jg = bt.big_univLinReg(jp, y[train], covar=jsvd.u[train],
+                               ind_row=train)
+        pg = pt.big_univLinReg(pp, y[train], covar=psvd.u[train],
+                               ind_row=train)
+        for key in ("estim", "std.err"):
+            ref = jg[key].to_numpy()
+            np.testing.assert_allclose(pg[key], ref, rtol=1e-4,
+                                       atol=1e-4 * np.abs(ref).max())
+        from bigsnpr_tpu.assoc.gwas import gwas_pvalues as j_pvalues
+
+        jl = -j_pvalues(jg, log10=True)
+        np.testing.assert_allclose(-pt.gwas_pvalues(pg, log10=True), jl,
+                                   rtol=1e-3, atol=1e-3)
+        # scores over 10 thresholds on the test samples, from one GWAS
+        thr = np.linspace(0, np.quantile(jl, 0.99), 10)
+        beta = jg["estim"].to_numpy()
+        jprs = bt.snp_PRS(jp, beta, ind_test=test, lpS_keep=jl, thr_list=thr)
+        pprs = pt.snp_PRS(pp, beta, ind_test=test, lpS_keep=jl, thr_list=thr)
+        np.testing.assert_allclose(pprs, jprs, rtol=1e-4,
+                                   atol=1e-4 * np.abs(jprs).max())
+        r = max(np.corrcoef(pprs[:, i], y[test])[0, 1] for i in range(10))
+        assert r > 0.2, r
+
+
+# Blocks the imports with a finder that raises, which has the effect of
+# sys.modules[name] = None; None entries themselves trip scipy's array-API
+# helpers, which look up sys.modules["jax"].Array.
+SCRIPT = textwrap.dedent("""
+    import importlib.abc
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "pandas", "bigsnpr_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    import bigsnpr_tpu_torch as pt
+    from bigsnpr_tpu_torch import interop  # noqa: F401
+
+    pt.config.set_device("cpu")
+    pack = pt.snp_fake(203, 300, seed=1, na_prob=0.02)
+    bed = pt.snp_writeBed(pack, sys.argv[2] + "/x.bed")
+    pack = pt.snp_readBed(bed)
+    sc = pt.bed_scaleBinom(pack)
+    svd = pt.snp_randomSVD(pack, k=3)
+    sim = pt.snp_simuPheno(pack, h2=0.5, M=10, seed=1)
+    g = pt.big_univLinReg(pack, sim["pheno"], covar=svd.u)
+    lp = -pt.gwas_pvalues(g, log10=True)
+    prs = pt.snp_PRS(pack, g["estim"], lpS_keep=lp, thr_list=[0, 1, 2])
+    lr = pt.big_univLogReg(pack, (sim["pheno"] > 0).astype(int))
+    assert prs.shape == (203, 3) and np.isfinite(prs).all()
+    assert np.isfinite(lr["estim"]).all()
+    bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not bad, bad
+    print("PORT-ONLY-OK")
+""")
+
+
+def test_port_runs_without_jax_pandas_or_jax_package(tmp_path):
+    out = subprocess.run([sys.executable, "-c", SCRIPT, REPO, str(tmp_path)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(tmp_path), env=ENV2)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "PORT-ONLY-OK" in out.stdout
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    pack = pt.snp_fake(20, 10, seed=1)
+    with pt.config.options(device="cuda"):
+        for call in (lambda: pt.snp_counts(pack),
+                     lambda: pt.snp_randomSVD(pack, k=2),
+                     lambda: pt.snp_prodVec(pack, np.ones(10)),
+                     lambda: pack.device_packed()):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    # a per-call request for the CPU works whatever the default
+    assert pt.snp_counts(pack, device="cpu").shape == (4, 10)
+
+
+def test_chip_smoke_alone_or_without_cuda_prints_no_result(tmp_path):
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    (tmp_path / "chip_smoke.py").write_text(src)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=120, env=ENV2)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_rehearses_every_phase_on_cpu():
+    """The chip script's phases run through the twins at a small size;
+    the rehearsal ends non-zero and prints no result, by design."""
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--rehearse-cpu",
+                          "--n", "803", "--m", "1200"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300, env=ENV2)
+    assert out.returncode == 3, out.stdout[-2000:] + out.stderr[-2000:]
+    assert "CPU rehearsal passed" in out.stderr
+    assert '"ok"' not in out.stdout
+    for phase in ("[3]", "[3b]", "[4]", "[5]", "r(PRS, y)"):
+        assert phase in out.stdout
