@@ -1,10 +1,17 @@
 """bigsnpr_tpu_torch — the PyTorch / CUDA port of bigsnpr_tpu.
 
-A second package beside the JAX one, ported slice by slice. This slice
-carries the genotype-operator path: PLINK .bed ingest -> scaling ->
-randomized SVD -> phenotype simulation -> GWAS -> C+T scores, with the
-fused 2-bit decode + GEMM running as hand-written CUDA kernels on the
-card (`ops/geno_kernels.py`, `csrc/geno_gemm.cu`).
+A second package beside the JAX one, ported slice by slice.
+
+- Slice 1, the genotype-operator path: PLINK .bed ingest -> scaling ->
+  randomized SVD -> phenotype simulation -> GWAS -> C+T scores, with the
+  fused 2-bit decode + GEMM as hand-written CUDA kernels
+  (`ops/geno_kernels.py`, `csrc/geno_gemm.cu`).
+- Slice 2, LD and LDpred2: windowed LD (`snp_cor`, exact integer pair
+  sums) -> LDSC h2 (`snp_ldsc2`) -> LD blocks (`auto_blocks`,
+  `snp_ldsplit`, `build_block_bands`) -> LDpred2-auto and -grid on the
+  blocked sampler -> chain QC -> `snp_PRS`, with the Gibbs sweep as a
+  hand-written CUDA kernel (`ops/gibbs_kernels.py`,
+  `csrc/gibbs_sweep.cu`).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`config.set_device("cpu")` or `device="cpu"`). The package imports
@@ -42,5 +49,24 @@ from bigsnpr_tpu_torch.linalg.randomsvd import snp_randomSVD, bed_randomSVD, Big
 from bigsnpr_tpu_torch.assoc.simu import snp_simuPheno
 from bigsnpr_tpu_torch.assoc.gwas import big_univLinReg, big_univLogReg, gwas_pvalues
 from bigsnpr_tpu_torch.pgs.prs import snp_PRS, snp_thr_correct
+from bigsnpr_tpu_torch.ops.corr import SparseLD, snp_cor, bed_cor
+from bigsnpr_tpu_torch.ops.ldscores import (
+    snp_ld_scores,
+    bed_ld_scores,
+    ld_scores_sfbm,
+)
+from bigsnpr_tpu_torch.ops.splitld import snp_ldsplit, block_num
+from bigsnpr_tpu_torch.pgs.ldsc import snp_ldsc, snp_ldsc2, coef_to_liab
+from bigsnpr_tpu_torch.pgs.gibbs_blocked import (
+    BlockBands,
+    auto_blocks,
+    build_block_bands,
+)
+from bigsnpr_tpu_torch.pgs.ldpred2 import (
+    snp_ldpred2_inf,
+    snp_ldpred2_grid,
+    snp_ldpred2_auto,
+    ldpred2_auto_chain_qc,
+)
 
 __version__ = "0.1.0"

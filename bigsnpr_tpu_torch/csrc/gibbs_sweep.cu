@@ -1,0 +1,293 @@
+// One lockstep LDpred2 Gibbs sweep over every LD block and every chain,
+// for sm_90a (H100), with a plain C interface for ctypes.
+//
+// Replaces the TPU kernels K3 `_sweep_kernel` (bigsnpr_tpu/pgs/
+// gibbs_pallas.py:37), K4 `_sweep_kernel_mc` (:171) and K5
+// `_sweep_kernel_v3` (:302). The three compute one function; their split
+// into one chain / chain-batched / width-paneled versions, with the j % 8
+// row pre-shift and the lane padding of the bands, exists only for the
+// TPU's VMEM budget and Mosaic's alignment rules. Here one kernel takes
+// every block of every bucket in one launch, from per-block offset tables.
+//
+// Per block b and chain c, rows j = 0..rows_b-1 run in order:
+//   dotprod = dp[j + W];  res = bh - shrink (dotprod - cb);  C3 = C2 res
+//   postp = 1 / (1 + inv_odd_p sqrt1pC1 exp(-C3^2 / C4 / 2))
+//   samp = C3 + z sqrt(C4)
+//   sampled = postp > u  &&  !(sparse && postp < p)  &&  !(no_jump && samp cb < 0)
+//   new_beta = sampled ? samp : 0;  diff = new_beta - cb
+//   dp[j .. j + 2W] += diff * band[j, :]
+//   h2_inc += diff (2 dps + diff);  gap += sampled ? samp^2 : 0
+// with dps = shrink dotprod + (1 - shrink) cb, and outputs
+// [new_beta, sampled, postp, C3 postp, dps] written at the variant's
+// global index (postp and C3 postp are 0 where the sparse skip fires).
+//
+// Design (a simple kernel that is right first):
+// - one CTA per (LD block, chain tile); each chain's dp for the block
+//   (rows + 2W values) lives in dynamic shared memory for the whole sweep;
+// - one thread per chain takes the scalar step of the row; the row's
+//   2W + 1 band values are read from global memory once per CTA and
+//   applied to every chain of the tile; __syncthreads() brackets the AXPY;
+// - the next row's band values and per-chain inputs are loaded into
+//   registers while the current row runs, so the dependent chain of rows
+//   does not wait on global memory;
+// - h2_inc and gap are summed per (chain, block) in row order and written
+//   as partials; the caller adds the blocks in a fixed order. No float
+//   atomics, so launches repeat bit for bit. Built with --fmad=false, the
+//   arithmetic rounds as the plain torch twin's separate operations do.
+//
+// Bound: each chain tile reads the block's band once (bytes), but the
+// rows of a block are a chain of dependent steps, so the longest block's
+// rows x one step's latency bounds the sweep at these sizes.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int KMAX = 8;  // band columns a thread holds per row
+
+template <typename T>
+struct SweepArgs {
+  const T* band;             // flat band arena: block b at blk_band[b], rows x (2W+1)
+  const int64_t* blk_band;   // (nblk,) element offset of the block's band
+  const int64_t* blk_dp;     // (nblk,) element offset of the block's dp
+  const int64_t* blk_gidx;   // (nblk,) offset of the block's slot -> variant table
+  const int32_t* blk_rows;   // (nblk,) rows to run
+  const int32_t* blk_W;      // (nblk,) half-width W; dp length rows_pad + 2W
+  const int32_t* blk_L;      // (nblk,) dp length of the block
+  const int32_t* gidx;       // flat slot -> global variant (-1 = pad slot)
+  T* dp;                     // (NC, dp_stride), updated in place
+  int64_t dp_stride;
+  const T* cb;               // (NC, m) current betas
+  const T* bh;               // (m,) scaled marginal effects
+  const T* C2;               // (NC, m)
+  const T* C4;               // (NC, m)
+  const T* s1;               // (NC, m) sqrt(1 + C1)
+  const T* u;                // (NC, m) uniforms
+  const T* z;                // (NC, m) normals
+  int64_t m;
+  const T* inv_odd_p;        // (NC,)
+  const T* p;                // (NC,)
+  const uint8_t* sparse;     // (NC,)
+  T shrink;
+  int no_jump;
+  T* out_beta;               // (NC, m)
+  uint8_t* out_causal;       // (NC, m)
+  T* out_postp;              // (NC, m)
+  T* out_binc;               // (NC, m)
+  T* out_dps;                // (NC, m)
+  T* part_h2;                // (NC, nblk)
+  T* part_gap;               // (NC, nblk)
+  int nblk;
+  int NC;
+  int nct;                   // chains per CTA
+  int Ls;                    // shared-memory stride of one chain's dp
+};
+
+template <typename T>
+struct RowIn {
+  T bh, c2, c4, s1, u, z, cb;
+  int64_t g;
+};
+
+template <typename T>
+__device__ __forceinline__ RowIn<T> load_row(const SweepArgs<T>& a,
+                                             const int32_t* gidx, int j,
+                                             int c) {
+  RowIn<T> r;
+  r.g = gidx[j];
+  if (r.g >= 0) {
+    const int64_t o = (int64_t)c * a.m + r.g;
+    r.bh = a.bh[r.g];
+    r.c2 = a.C2[o];
+    r.c4 = a.C4[o];
+    r.s1 = a.s1[o];
+    r.u = a.u[o];
+    r.z = a.z[o];
+    r.cb = a.cb[o];
+  } else {  // pad slot: inert (never sampled, diff 0)
+    r.bh = T(0); r.c2 = T(0); r.c4 = T(1); r.s1 = T(1);
+    r.u = T(2); r.z = T(0); r.cb = T(0);
+  }
+  return r;
+}
+
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+
+template <typename T>
+__global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
+  const int b = blockIdx.x;
+  const int c0 = blockIdx.y * a.nct;
+  const int nct = min(a.nct, a.NC - c0);
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int rows = a.blk_rows[b];
+  const int W = a.blk_W[b];
+  const int wk = 2 * W + 1;
+  const int L = a.blk_L[b];
+  const T* band = a.band + a.blk_band[b];
+  const int32_t* gidx = a.gidx + a.blk_gidx[b];
+  const int64_t dp_off = a.blk_dp[b];
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sdp = reinterpret_cast<T*>(smem_raw);  // nct x Ls
+  T* sdiff = sdp + (int64_t)a.nct * a.Ls;    // nct
+
+  for (int t = 0; t < nct; ++t) {
+    const T* src = a.dp + (int64_t)(c0 + t) * a.dp_stride + dp_off;
+    for (int i = tid; i < L; i += nthr) sdp[t * a.Ls + i] = src[i];
+  }
+
+  const bool scalar = tid < nct;
+  const int c = c0 + tid;
+  T inv_odd_p = T(0), pc = T(0);
+  bool sp = false;
+  if (scalar) {
+    inv_odd_p = a.inv_odd_p[c];
+    pc = a.p[c];
+    sp = a.sparse[c] != 0;
+  }
+  const T shrink = a.shrink;
+  const T one_m_shrink = T(1) - shrink;
+  T h2 = T(0), gap = T(0);
+
+  RowIn<T> cur;
+  if (scalar && rows > 0) cur = load_row(a, gidx, 0, c);
+  T bcur[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const int d = tid + k * nthr;
+    bcur[k] = (rows > 0 && d < wk) ? band[d] : T(0);
+  }
+  __syncthreads();
+
+  for (int j = 0; j < rows; ++j) {
+    const bool more = j + 1 < rows;
+    RowIn<T> nxt;
+    if (scalar && more) nxt = load_row(a, gidx, j + 1, c);
+    T bnext[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      const int d = tid + k * nthr;
+      bnext[k] = (more && d < wk) ? band[(int64_t)(j + 1) * wk + d] : T(0);
+    }
+
+    if (scalar) {
+      const T dotprod = sdp[tid * a.Ls + j + W];
+      const T res = cur.bh - shrink * (dotprod - cur.cb);
+      const T C3 = cur.c2 * res;
+      const T postp =
+          T(1) / (T(1) + inv_odd_p * cur.s1 *
+                             exp_t(-C3 * C3 / cur.c4 * T(0.5)));
+      const T samp = C3 + cur.z * sqrt_t(cur.c4);
+      const bool sparse_skip = sp && (postp < pc);
+      const bool jump = a.no_jump && (samp * cur.cb < T(0));
+      const bool sampled = (postp > cur.u) && !sparse_skip && !jump;
+      const T new_beta = sampled ? samp : T(0);
+      const T dps = shrink * dotprod + one_m_shrink * cur.cb;
+      const T diff = new_beta - cur.cb;
+      sdiff[tid] = diff;
+      h2 = h2 + diff * (T(2) * dps + diff);
+      gap = gap + (sampled ? samp * samp : T(0));
+      if (cur.g >= 0) {
+        const int64_t o = (int64_t)c * a.m + cur.g;
+        a.out_beta[o] = new_beta;
+        a.out_causal[o] = sampled ? 1 : 0;
+        a.out_postp[o] = sparse_skip ? T(0) : postp;
+        a.out_binc[o] = sparse_skip ? T(0) : C3 * postp;
+        a.out_dps[o] = dps;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      const int d = tid + k * nthr;
+      if (d < wk) {
+        const T bv = bcur[k];
+        for (int t = 0; t < nct; ++t) {
+          T* q = sdp + t * a.Ls + j + d;
+          *q = *q + sdiff[t] * bv;
+        }
+      }
+    }
+    __syncthreads();
+    if (scalar && more) cur = nxt;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) bcur[k] = bnext[k];
+  }
+
+  for (int t = 0; t < nct; ++t) {
+    T* dst = a.dp + (int64_t)(c0 + t) * a.dp_stride + dp_off;
+    for (int i = tid; i < L; i += nthr) dst[i] = sdp[t * a.Ls + i];
+  }
+  if (scalar) {
+    a.part_h2[(int64_t)c * a.nblk + b] = h2;
+    a.part_gap[(int64_t)c * a.nblk + b] = gap;
+  }
+}
+
+template <typename T>
+int launch(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
+           const int64_t* blk_gidx, const int32_t* blk_rows,
+           const int32_t* blk_W, const int32_t* blk_L, int nblk,
+           const int32_t* gidx, T* dp, int64_t dp_stride, const T* cb,
+           const T* bh, const T* C2, const T* C4, const T* s1, const T* u,
+           const T* z, int64_t m, const T* inv_odd_p, const T* p,
+           const uint8_t* sparse, double shrink, int no_jump, T* out_beta,
+           uint8_t* out_causal, T* out_postp, T* out_binc, T* out_dps,
+           T* part_h2, T* part_gap, int NC, int nct, int Ls, int threads,
+           void* stream) {
+  if (nblk <= 0 || NC <= 0) return 0;
+  if (nct < 1 || threads < nct || threads > 1024 || threads % 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L,
+                 gidx, dp, dp_stride, cb, bh, C2, C4, s1, u, z, m,
+                 inv_odd_p, p, sparse, (T)shrink, no_jump, out_beta,
+                 out_causal, out_postp, out_binc, out_dps, part_h2, part_gap,
+                 nblk, NC, nct, Ls};
+  const size_t smem = ((size_t)nct * Ls + nct) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      gibbs_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(nblk, (NC + nct - 1) / nct);
+  gibbs_sweep_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define SWEEP_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(                                                       \
+      const T* band, const int64_t* blk_band, const int64_t* blk_dp,         \
+      const int64_t* blk_gidx, const int32_t* blk_rows, const int32_t* blk_W, \
+      const int32_t* blk_L, int nblk, const int32_t* gidx, T* dp,            \
+      int64_t dp_stride, const T* cb, const T* bh, const T* C2, const T* C4, \
+      const T* s1, const T* u, const T* z, int64_t m, const T* inv_odd_p,    \
+      const T* p, const uint8_t* sparse, double shrink, int no_jump,         \
+      T* out_beta, uint8_t* out_causal, T* out_postp, T* out_binc,           \
+      T* out_dps, T* part_h2, T* part_gap, int NC, int nct, int Ls,          \
+      int threads, void* stream) {                                           \
+    return launch<T>(band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W,      \
+                     blk_L, nblk, gidx, dp, dp_stride, cb, bh, C2, C4, s1,   \
+                     u, z, m, inv_odd_p, p, sparse, shrink, no_jump,         \
+                     out_beta, out_causal, out_postp, out_binc, out_dps,     \
+                     part_h2, part_gap, NC, nct, Ls, threads, stream);       \
+  }
+
+SWEEP_ENTRY(gibbs_sweep_f32, float)
+SWEEP_ENTRY(gibbs_sweep_f64, double)
+
+// the largest dynamic shared memory a block may use on this device
+extern "C" int gibbs_sweep_max_smem(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return -1;
+  }
+  return v;
+}

@@ -1,17 +1,21 @@
 """Carry state across from the JAX package, given as numpy arrays only.
 
 Nothing here imports the JAX package: callers hand over its packed bytes,
-sample count, metadata columns, scaling and SVD factors as numpy arrays
-(or anything `np.asarray` and column access can read), and get the
-port's `GenoPack` / `BigSVD` holding the same values.
+sample count, metadata columns, scaling and SVD factors, sparse LD (CSC
+arrays) and block bands (host buckets) as numpy arrays (or anything
+`np.asarray` and column access can read), and get the port's `GenoPack`,
+`BigSVD`, `SparseLD` / `BlockBands` holding the same values.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 
 from bigsnpr_tpu_torch.core.genotypes import FAM_COLS, MAP_COLS, GenoPack
 from bigsnpr_tpu_torch.linalg.randomsvd import BigSVD
+from bigsnpr_tpu_torch.ops.corr import SparseLD
+from bigsnpr_tpu_torch.pgs.gibbs_blocked import BlockBands
 
 
 def columns(table, names=None):
@@ -40,3 +44,21 @@ def svd_from_numpy(d, u, v, center, scale, niter: int = 0) -> BigSVD:
     f64 = lambda a: np.array(a, dtype=np.float64)  # noqa: E731
     return BigSVD(d=f64(d), u=f64(u), v=f64(v), center=f64(center),
                   scale=f64(scale), niter=int(niter))
+
+
+def sparse_ld_from_numpy(data, indices, indptr, shape, pos=None) -> SparseLD:
+    """A port `SparseLD` from the CSC arrays of an upper-triangular LD
+    matrix (a JAX `SparseLD.upper`'s data, indices, indptr, shape)."""
+    upper = sp.csc_matrix((np.array(data), np.array(indices),
+                           np.array(indptr)), shape=tuple(shape))
+    return SparseLD(upper=upper,
+                    pos=None if pos is None else np.array(pos, np.float64))
+
+
+def block_bands_from_numpy(buckets, m, dropped_r2=0.0,
+                           kept_r2=0.0) -> BlockBands:
+    """A port `BlockBands` from host buckets [(bands (Bk, mbk, 2W+1),
+    gidx (Bk, mbk)), ...], as a JAX `BlockBands.buckets` holds them."""
+    return BlockBands([(np.array(b), np.array(g, dtype=np.int32))
+                       for b, g in buckets], int(m), dropped_r2=dropped_r2,
+                      kept_r2=kept_r2)

@@ -11,7 +11,8 @@ with X~[i, j] = (d_ij - center_j) * inv_j for sample i of variant j, the
 dosage d = 2 - ((g + 1) >> 1) of 2-bit code g, and NA (g == 1) -> 0.
 
 The kernels live in `csrc/geno_gemm.cu`, built with nvcc at first use
-(keyed by the source's hash) into `_build/` and loaded with ctypes. Each
+(keyed by the source's hash) into `_build/` and loaded with ctypes by
+`ops/cuda_build.py`. Each
 wrapper launches its kernel for CUDA tensors and counts the launch in
 `launches`; for CPU tensors it runs the plain twin. There is no fallback
 from a CUDA tensor to the twin.
@@ -23,29 +24,19 @@ pack: the kernels mask the ragged edges themselves.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.core.unpack import codes_to_dosage, unpack_codes
+from bigsnpr_tpu_torch.ops import cuda_build
 from bigsnpr_tpu_torch.ops.blocks import pick_block
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "geno_gemm.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = cuda_build.PKG / "csrc" / "geno_gemm.cu"
 
 # kernel launches made by the wrappers, by kernel
 launches = {"cprod": 0, "prod": 0}
-
-_lib = None
 
 
 def reset_launches() -> None:
@@ -53,50 +44,24 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return found
+def build(verbose: bool = False):
+    """Compile `csrc/geno_gemm.cu` at first use (`cuda_build.build`);
+    returns the library's path."""
+    return cuda_build.build(SOURCE, verbose=verbose)
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile `csrc/geno_gemm.cu` into `_build/` unless the library for
-    this source hash is there already; returns the library's path.
-    With verbose, prints ptxas' register and shared-memory report."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"geno_gemm_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, lib_path)
-    return lib_path
+def _bind(lib):
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.geno_plan.argtypes = [i32, i64, i64, i64, i32]
+    lib.geno_plan.restype = i32
+    for fn in (lib.geno_cprod, lib.geno_prod):
+        fn.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr,
+                       i32, ptr]
+        fn.restype = i32
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.geno_plan.argtypes = [i32, i64, i64, i64, i32]
-        lib.geno_plan.restype = i32
-        for fn in (lib.geno_cprod, lib.geno_prod):
-            fn.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr,
-                           i32, ptr]
-            fn.restype = i32
-        _lib = lib
-    return _lib
+    return cuda_build.load(SOURCE, _bind)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,136 @@
+"""Sampler pieces shared by the blocked LDpred2 samplers (port of
+`bigsnpr_tpu/pgs/gibbs.py`, the parts the blocked samplers use).
+
+The JAX package draws from threefry keys split per chain and `vmap`s the
+hyper-parameter draws; here every chain has its own torch Philox
+generator (`chain_generators`) and the draws are batched over a leading
+chain axis. The two packages agree at Monte-Carlo level, as the reference
+does with itself (its tests are statistical).
+
+The unblocked samplers (`gibbs_one`, `gibbs_auto`, `gibbs_one_sampling`)
+are not ported yet (ROADMAP queue 1, slice 3, item 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MIN_H2 = 1e-3  # reference src/ldpred2-auto.cpp:11
+
+# Poisson(1) CDF, P(K > 16) < 1e-14
+_POIS1_CDF = np.cumsum(np.exp(-1) / np.cumprod(np.r_[1.0, np.arange(1.0, 17.0)]))
+
+# elements of one (chains x grid x variants) slab of the MLE profile
+_MLE_SLAB = 1 << 24
+
+
+def chain_generators(seed: int, n: int, device, salt=()) -> list:
+    """One Philox generator per chain, seeded from (seed, *salt, chain)
+    through numpy's SeedSequence: chain c's stream does not depend on how
+    many chains run beside it."""
+    gens = []
+    for child in np.random.SeedSequence([int(seed), *salt]).spawn(n):
+        g = torch.Generator(device=device)
+        g.manual_seed(int(child.generate_state(1, dtype=np.uint64)[0]))
+        gens.append(g)
+    return gens
+
+
+def draw(gens, n_unif: int, n_norm: int, dtype, device):
+    """(U (NC, n_unif) uniform on [0, 1), Z (NC, n_norm) standard
+    normal): two launches per chain, row c from generator c."""
+    NC = len(gens)
+    U = torch.empty((NC, n_unif), dtype=dtype, device=device)
+    Z = torch.empty((NC, n_norm), dtype=dtype, device=device)
+    for c, g in enumerate(gens):
+        if n_unif:
+            torch.rand(n_unif, generator=g, dtype=dtype, device=device,
+                       out=U[c])
+        if n_norm:
+            torch.randn(n_norm, generator=g, dtype=dtype, device=device,
+                        out=Z[c])
+    return U, Z
+
+
+def poisson1_cdf(dtype, device) -> torch.Tensor:
+    """The Poisson(1) CDF table on `device`: made once per run, since a
+    copy from the host inside a sweep loop would wait for the device."""
+    return torch.as_tensor(_POIS1_CDF, dtype=dtype, device=device)
+
+
+def _poisson1(u: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
+    """Poisson(lam=1) from uniforms by the inverse CDF: k = #thresholds
+    below u (the JAX package's fixed-op-count draw)."""
+    return torch.searchsorted(cdf, u.contiguous()).to(u.dtype)
+
+
+def _gamma_wh(z, boost_u, a):
+    """Gamma(a) via Wilson-Hilferty on a+8 plus the exact shape-boost
+    recursion Gamma(a) = Gamma(a+1) * U^(1/a). z (NC,), boost_u (NC, 8),
+    a (NC,)."""
+    ab = a + 8.0
+    c = 1.0 / (9.0 * ab)
+    g = ab * (1.0 - c + z * torch.sqrt(c)) ** 3
+    g = torch.clamp(g, min=1e-30)
+    for i in range(8):
+        g = g * boost_u[:, i] ** (1.0 / (a + i))
+    return g
+
+
+def _beta_draw(z2, u1, u2, a, b):
+    """Beta(a, b) = G1 / (G1 + G2) per chain: z2 (NC, 2) normals, u1 and
+    u2 (NC, 8) uniforms, a and b (NC,)."""
+    g1 = _gamma_wh(z2[:, 0], u1, a)
+    g2 = _gamma_wh(z2[:, 1], u2, b)
+    return g1 / (g1 + g2)
+
+
+def _profile(a, sum_a, nb, wb, log_var, s_lo, s_hi):
+    """The MLE profile f(a) and its sigma2 at a (NC, G) grid of alpha+1,
+    summed over variants in slabs so the (NC, G, m) exponentials never
+    materialize whole."""
+    NC, G = a.shape
+    m = log_var.shape[0]
+    step = max(1, _MLE_SLAB // max(1, NC * G))
+    sum_c = torch.zeros((NC, G), dtype=a.dtype, device=a.device)
+    for j0 in range(0, m, step):
+        E = torch.exp(-a[:, :, None] * log_var[None, None, j0:j0 + step])
+        sum_c += torch.bmm(E, wb[:, j0:j0 + step, None])[:, :, 0]
+    s = torch.minimum(torch.maximum(sum_c / torch.clamp(nb, min=1.0)[:, None],
+                                    s_lo[:, None]), s_hi[:, None])
+    return a * sum_a[:, None] + nb[:, None] * torch.log(s) + sum_c / s, s
+
+
+def _mle_alpha_profile(par_sigma2, wts, log_var, beta2, alpha_bounds,
+                       n_grid=64, n_refine=3):
+    """Box-constrained MLE of (alpha+1, sigma2) on the weighted causal set,
+    per chain: par_sigma2 (NC,), wts and beta2 (NC, m), log_var (m,).
+
+    The reference minimizes f(a, s) = a*sum_a + nb*log(s) + sum_c(a)/s with
+    L-BFGS-B (src/optim-MLE-alpha.h:38-65); for fixed a the minimum over s
+    is closed-form (clipped to [par_sigma2/2, 2*par_sigma2]), so the 1-D
+    profile is minimized on a grid of n_grid points refined n_refine
+    times, as in the JAX package (which also takes the current alpha; the
+    profile does not start from it)."""
+    nb = wts.sum(1)
+    sum_a = wts @ log_var
+    wb = wts * beta2
+    s_lo, s_hi = par_sigma2 / 2, par_sigma2 * 2
+    NC = wts.shape[0]
+    lo = torch.full((NC,), float(alpha_bounds[0]), dtype=wts.dtype,
+                    device=wts.device)
+    hi = torch.full_like(lo, float(alpha_bounds[1]))
+    frac = torch.arange(n_grid, dtype=wts.dtype, device=wts.device) \
+        / (n_grid - 1)
+    for _ in range(n_refine):
+        grid = lo[:, None] + (hi - lo)[:, None] * frac[None, :]
+        vals, _ = _profile(grid, sum_a, nb, wb, log_var, s_lo, s_hi)
+        best = grid.gather(1, vals.argmin(1, keepdim=True))[:, 0]
+        stepw = (hi - lo) / (n_grid - 1)
+        lo, hi = torch.maximum(best - stepw, lo), torch.minimum(best + stepw,
+                                                                hi)
+    a_best = 0.5 * (lo + hi)
+    _, s_best = _profile(a_best[:, None], sum_a, nb, wb, log_var, s_lo, s_hi)
+    return a_best, s_best[:, 0]
+

@@ -1,0 +1,479 @@
+"""Block-parallel LDpred2 over ragged LD blocks (port of
+`bigsnpr_tpu/pgs/gibbs_blocked.py`).
+
+The reference's Gibbs chains are strictly sequential over all m variants
+(src/ldpred2-auto.cpp:109-159). When the LD matrix is block-diagonal
+(snp_ldsplit blocks, the reference's recommended practice), variants in
+different blocks never interact through dotprods, so the chain factorizes
+exactly: the rows of each block in order, all blocks and all chains at
+once, with the global hyper-parameter updates (p, h2, MLE) reduced across
+blocks after each sweep. Cross-block LD entries are dropped; `BlockBands`
+reports their r^2 mass.
+
+Blocks are bucketed by (padded size, padded width) exactly as in the JAX
+package, so the host buckets of both packages are identical. On the
+device (`BlockBands.device_put`) every bucket goes into one flat arena
+(`ops.gibbs_kernels.SweepBands`), and one launch of the sweep kernel
+covers every block of every bucket for every chain. The whole sweep loop,
+hyper-parameter updates included, stays on the device: nothing in it
+waits on the host.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from bigsnpr_tpu_torch.ops import gibbs_kernels
+from bigsnpr_tpu_torch.pgs.gibbs import (MIN_H2, _beta_draw,
+                                         _mle_alpha_profile, _poisson1, draw,
+                                         poisson1_cdf)
+
+
+def _round_up(x: int, candidates=(8, 16, 32, 64, 128)) -> int:
+    """Round up to a small set of bucket sizes: powers of two up to 128,
+    then multiples of 128."""
+    for c in candidates:
+        if x <= c:
+            return c
+    return -(-x // 128) * 128
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64}
+
+
+class BlockBands:
+    """Bucketed per-block banded LD.
+
+    buckets : list of (bands, gidx) with bands (Bk, mbk, 2Wk+1) —
+        band[b, j, Wk+d] = R[j, j+d] within block b — and gidx (Bk, mbk)
+        int32, the global variant index of each slot, -1 at padding.
+    m : total number of variants across blocks.
+    dropped_r2 / kept_r2 : sum of squared off-diagonal LD entries dropped
+        at block boundaries / kept inside blocks.
+    dropped_r2_frac : dropped_r2 / (dropped_r2 + kept_r2), 0.0 when there
+        is no off-diagonal mass.
+    """
+
+    def __init__(self, buckets, m, dropped_r2=0.0, kept_r2=0.0):
+        self.buckets = buckets
+        self.m = m
+        self.dropped_r2 = float(dropped_r2)
+        self.kept_r2 = float(kept_r2)
+        self._dev_cache = {}
+
+    @property
+    def dropped_r2_frac(self):
+        tot = self.dropped_r2 + self.kept_r2
+        return self.dropped_r2 / tot if tot > 0 else 0.0
+
+    @property
+    def nbytes(self):
+        return sum(b.nbytes for b, _ in self.buckets)
+
+    def device_put(self, device=None, dtype=None) -> gibbs_kernels.SweepBands:
+        """The bands on `device` as the sweep kernel's operand, in their
+        natural (rows, 2W + 1) layout; cached per (device, dtype)."""
+        from bigsnpr_tpu_torch import config
+
+        dev = config.resolve_device(device)
+        if dtype is None:
+            dtype = self.buckets[0][0].dtype if self.buckets else np.float32
+        tdt = _TORCH_DTYPES[np.dtype(dtype)]
+        key = (str(dev), tdt)
+        if key not in self._dev_cache:
+            self._dev_cache[key] = gibbs_kernels.SweepBands(
+                self.buckets, self.m, dev, tdt)
+        return self._dev_cache[key]
+
+
+def block_layout(block_sizes):
+    """(slot_of_global (m,), global_of_slot (B, mb), valid (B, mb)) of a
+    uniform layout (kept for the JAX package's surface and its tests)."""
+    sizes = np.asarray(block_sizes, dtype=np.int64)
+    B, mb = len(sizes), int(sizes.max())
+    m = int(sizes.sum())
+    slot = np.empty(m, dtype=np.int64)
+    gos = np.full((B, mb), -1, dtype=np.int64)
+    start = 0
+    for b, sz in enumerate(sizes):
+        slot[start:start + sz] = b * mb + np.arange(sz)
+        gos[b, :sz] = start + np.arange(sz)
+        start += sz
+    return slot, gos, gos >= 0
+
+
+def build_block_bands(corr, block_sizes, ind_corr=None, dtype=np.float32):
+    """Per-block banded LD bucketed by (padded size, padded width), built
+    straight from the upper COO triplets (the JAX package's "coo"
+    engine): block ids from the CSC column order, one segmented max for
+    the per-block widths, and one flat scatter into a single arena that
+    holds every bucket (cross-block entries go to a dump slot, so there
+    is no filtering pass). Returns a BlockBands."""
+    sizes = np.asarray(block_sizes, dtype=np.int64)
+    m2 = corr.shape[0]
+    u = corr.upper.tocoo()          # CSC -> COO: column-sorted, i <= j
+    lo = np.asarray(u.row)
+    hi = np.asarray(u.col)
+    x = np.asarray(u.data)
+    del u
+    if lo.size and (lo > hi).any():  # tolerate non-upper storage
+        lo, hi = np.minimum(lo, hi), np.maximum(lo, hi)
+
+    if ind_corr is not None:
+        ind_corr = np.asarray(ind_corr)
+        assert sizes.sum() == len(ind_corr)
+        if len(ind_corr) != m2 or (np.diff(ind_corr) != 1).any():
+            posmap = np.full(m2, -1, dtype=lo.dtype)
+            posmap[ind_corr] = np.arange(len(ind_corr), dtype=lo.dtype)
+            lo = posmap[lo]
+            hi = posmap[hi]
+            keepm = (lo >= 0) & (hi >= 0)
+            lo, hi, x = lo[keepm], hi[keepm], x[keepm]
+            # a reordering subset can flip an upper entry to lower
+            lo, hi = np.minimum(lo, hi), np.maximum(lo, hi)
+    else:
+        assert sizes.sum() == m2
+
+    nb = len(sizes)
+    starts = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum(sizes, out=starts[1:])
+    if lo.size and (np.diff(hi) < 0).any():  # a reordering subset: sort
+        order = np.argsort(hi, kind="stable")
+        lo, hi, x = lo[order], hi[order], x[order]
+    # hi ascending (CSC order) -> block ids by a boundary search over nb
+    # values, expanded with one repeat
+    bounds_e = np.searchsorted(hi, starts)
+    bid = np.repeat(np.arange(nb, dtype=np.int32), np.diff(bounds_e))
+    inblk = lo >= starts[bid]       # same block iff lo past hi's start
+
+    # off-diagonal r^2 bookkeeping over the SYMMETRIC matrix (off-diag
+    # mass counted twice), matching the scipy path's semantics
+    w2 = np.square(x)
+    diagm = hi == lo
+    total2 = 2.0 * float(w2.sum())
+    diag_sq = float(w2[diagm].sum())
+    kept2 = 2.0 * float(w2[inblk].sum())
+    kept_diag = float(w2[inblk & diagm].sum())   # == diag_sq normally
+    total_sq = total2 - diag_sq
+    kept_sq = kept2 - kept_diag
+    dropped_r2 = max(total_sq - kept_sq, 0.0)
+    kept_r2 = max(kept_sq - kept_diag, 0.0)
+    del w2, diagm
+
+    off = hi - lo                    # index dtype (int32/int64 per scipy)
+
+    # per-block bandwidth: segmented max over the contiguous per-block
+    # entry ranges; dropped entries contribute 0
+    Wb_arr = np.zeros(nb, dtype=np.int64)
+    if off.size:
+        offm = np.where(inblk, off, 0)
+        cnt = np.diff(bounds_e)
+        segmax = np.maximum.reduceat(
+            offm, np.minimum(bounds_e[:-1], off.size - 1))
+        Wb_arr[cnt > 0] = segmax[cnt > 0]
+        del offm
+
+    groups = {}
+    for b in range(nb):
+        key = (_round_up(int(sizes[b])), _round_up(2 * int(Wb_arr[b]) + 1))
+        groups.setdefault(key, []).append(b)
+    keys_sorted = sorted(groups.items())
+
+    # one arena for all buckets + a trailing dump slot; per-block
+    # gather tables stay cache-resident (nb entries)
+    blk_base = np.empty(nb, dtype=np.int64)   # flat index of band[b, 0, Wk]
+    blk_wk = np.empty(nb, dtype=np.int64)     # row stride (stored width)
+    arena_off = []
+    total = 0
+    for (mbk, wk_key), blks in keys_sorted:
+        Wk = (wk_key - 1) // 2
+        wk = 2 * Wk + 1             # stored width is odd (center + W each way)
+        arena_off.append(total)
+        for b_loc, b in enumerate(blks):
+            blk_base[b] = total + (b_loc * mbk) * wk + Wk
+            blk_wk[b] = wk
+        total += len(blks) * mbk * wk
+    flat = np.zeros(total + 1, dtype=dtype)
+
+    if off.size:
+        x32 = x.astype(dtype, copy=False)
+        # band[b, j, Wk + d] = R[j, j+d]: entry (lo, hi) lands at row hi
+        # offset -off and mirrored at row lo offset +off (diagonal
+        # entries write the same slot twice — harmless)
+        stride = blk_wk[bid]
+        base = blk_base[bid]
+        base += (hi - starts[bid]) * stride
+        dump = np.int64(total)
+        np.subtract(base, off, where=inblk, out=base)
+        base[~inblk] = dump
+        flat[base] = x32
+        base += np.multiply(2 * off, inblk)  # mirror; dump slot unmoved...
+        base += (lo.astype(np.int64) - hi) * stride  # row hi -> row lo
+        base[~inblk] = dump
+        flat[base] = x32
+    flat[total] = 0.0
+
+    buckets = []
+    for k, ((mbk, wk_key), blks) in enumerate(keys_sorted):
+        Wk = (wk_key - 1) // 2
+        wk = 2 * Wk + 1
+        Bk = len(blks)
+        bands = flat[arena_off[k]:arena_off[k] + Bk * mbk * wk] \
+            .reshape(Bk, mbk, wk)
+        gidx = np.full((Bk, mbk), -1, dtype=np.int32)
+        for b_loc, b in enumerate(blks):
+            sz = int(sizes[b])
+            gidx[b_loc, :sz] = starts[b] + np.arange(sz)
+        buckets.append((bands, gidx))
+    return BlockBands(buckets, int(sizes.sum()),
+                      dropped_r2=dropped_r2, kept_r2=kept_r2)
+
+
+def auto_blocks(corr, ind_corr=None, max_block: int = 4096,
+                thr_r2: float = 0.02, min_size: int = 32):
+    """LD-block sizes for the blocked samplers.
+
+    1. Exact cuts: positions where no kept LD entry crosses — free and
+       lossless.
+    2. Exact blocks longer than max_block are split with snp_ldsplit
+       (dropping the small cross-block r^2, the reference's recommended
+       practice for making LD block-diagonal before LDpred2-auto).
+    Returns an int array of block sizes summing to len(ind_corr)."""
+    from bigsnpr_tpu_torch.ops.splitld import snp_ldsplit
+
+    m2 = corr.shape[0]
+    identity = ind_corr is None or (
+        len(ind_corr) == m2
+        and np.array_equal(np.asarray(ind_corr), np.arange(m2)))
+    ind_corr = np.arange(m2) if ind_corr is None else np.asarray(ind_corr)
+    sub = corr if identity else corr.subset(ind_corr)
+    m = len(ind_corr)
+    # a cut after position t is exact when no entry (i <= t < j) exists:
+    # the smallest row of every column right of t lies past t
+    up = sub.upper.tocsc()
+    lo_row = np.arange(m)
+    nz = np.diff(up.indptr) > 0
+    if up.nnz:
+        colmin = np.minimum.reduceat(up.indices, up.indptr[:-1][nz])
+        lo_row[nz] = np.minimum(colmin, lo_row[nz])
+    suffix_min = np.minimum.accumulate(lo_row[::-1])[::-1]
+    cut = np.r_[suffix_min[1:] > np.arange(m - 1), True]
+    cuts = np.nonzero(cut)[0] + 1
+    sizes = np.diff(np.r_[0, cuts])
+
+    out = []
+    start = 0
+    for sz in sizes:
+        if sz <= max_block:
+            out.append(int(sz))
+        else:
+            blk = sub.subset(np.arange(start, start + sz))
+            res = err = None
+            try:
+                res = snp_ldsplit(
+                    blk, thr_r2=thr_r2, min_size=min(min_size, sz),
+                    max_size=max_block,
+                    max_K=max(2, -(-sz // min(min_size, sz))),
+                    max_cost=np.inf, max_r2=1.0)
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                err = e
+            if res is not None:
+                best = int(np.argmin(res["cost"]))
+                out.extend(int(s) for s in res["all_size"][best])
+            else:
+                warnings.warn(
+                    f"snp_ldsplit failed on a {sz}-variant LD block "
+                    f"({type(err).__name__ if err else 'no result'}: {err}); "
+                    f"falling back to fixed {max_block}-slabs that may cut "
+                    f"through LD. Check dropped_r2_frac on the returned "
+                    f"BlockBands.", RuntimeWarning, stacklevel=2)
+                nb = -(-sz // max_block)
+                slab = -(-sz // nb)
+                rem = sz
+                while rem > 0:
+                    out.append(int(min(slab, rem)))
+                    rem -= slab
+        start += sz
+    out = np.asarray(out, dtype=np.int64)
+    assert out.sum() == m
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the bucketed sweep and the samplers
+# ---------------------------------------------------------------------------
+
+def sweeps_bucketed_mc(sb, dp, curr_beta, consts, u, z, inv_odd_p, p,
+                       sparse_vec, shrink_corr, no_jump_sign):
+    """One full Gibbs sweep over every bucket for NC chains (the JAX
+    package's `_sweeps_bucketed_mc`): curr_beta, u, z (NC, m); consts =
+    (bh (m,), C2, C4, s1 each (NC, m)); inv_odd_p, p (NC,); sparse_vec
+    bool (NC,). dp (NC, sb.dp_len) is updated in place. Returns nb (NC, m)
+    and aux = (gap, causal, h2_inc, postp, beta_inc, dps)."""
+    bh, C2, C4, s1 = consts
+    nb, causal, postp, binc, dps, h2_inc, gap = gibbs_kernels.sweep(
+        sb, dp, curr_beta, bh, C2, C4, s1, u, z, inv_odd_p, p, sparse_vec,
+        shrink_corr, no_jump_sign)
+    return nb, (gap, causal, h2_inc, postp, binc, dps)
+
+
+def _as(sb, x, dtype=None):
+    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                           dtype=sb.dtype if dtype is None else dtype,
+                           device=sb.device)
+
+
+def gibbs_multi_blocked(sb, beta_hat, n_vec, h2_vec, p_vec, sparse_vec, gens,
+                        burn_in, num_iter):
+    """LDpred2-grid over NC cells at once (the reference's process grid,
+    R/LDpred2.R:100-114, in one chain-batched sweep): h2_vec, p_vec (NC,),
+    sparse_vec (NC,) bool, gens one generator per cell. Returns (NC, m)
+    average betas on the scaled axis, NaN rows where a cell diverged."""
+    bh, nv = _as(sb, beta_hat), _as(sb, n_vec)
+    h2, p = _as(sb, h2_vec), _as(sb, p_vec)
+    spv = _as(sb, sparse_vec, torch.bool)
+    NC, m = h2.shape[0], sb.m
+    h2_per_var = h2 / (m * p)
+    inv_odd_p = (1 - p) / p
+    C1 = h2_per_var[:, None] * nv[None, :]
+    C2 = 1.0 / (1.0 + 1.0 / C1)
+    C4 = C2 / nv[None, :]
+    s1 = torch.sqrt(1 + C1)
+    gap0 = 2.0 * torch.sum(bh**2)
+    dp = sb.dp0(NC)
+    curr = torch.zeros((NC, m), dtype=sb.dtype, device=sb.device)
+    avg = torch.zeros_like(curr)
+    diverged = torch.zeros(NC, dtype=torch.bool, device=sb.device)
+    for k in range(burn_in + num_iter):
+        u, z = draw(gens, m, m, sb.dtype, sb.device)
+        curr, aux = sweeps_bucketed_mc(sb, dp, curr, (bh, C2, C4, s1), u, z,
+                                       inv_odd_p, p, spv, 1.0, False)
+        gap, beta_inc = aux[0], aux[4]
+        if k >= burn_in:
+            avg += torch.where(~diverged[:, None], beta_inc, 0.0)
+        diverged = diverged | (gap > gap0)
+    return torch.where(diverged[:, None], torch.nan, avg / num_iter)
+
+
+def gibbs_one_blocked(sb, beta_hat, n_vec, h2, p, sparse, gen, burn_in,
+                      num_iter):
+    """One LDpred2-grid cell (ldpred2_gibbs_one, src/ldpred2.cpp:8-69) on
+    the blocked bands: `gibbs_multi_blocked` with one chain. Returns the
+    (m,) average betas, NaN on divergence."""
+    return gibbs_multi_blocked(sb, beta_hat, n_vec, [h2], [p], [sparse],
+                               [gen], burn_in, num_iter)[0]
+
+
+def gibbs_auto_blocked_multi(sb, beta_hat, n_vec, log_var, p_inits, h2_init,
+                             gens, shrink_corr, p_bounds, alpha_bounds,
+                             mean_ld, burn_in, num_iter, report_step=None,
+                             use_mle=True, no_jump_sign=False):
+    """LDpred2-auto for NC chains at once (ldpred2_gibbs_auto,
+    src/ldpred2-auto.cpp:56-202; the reference's 30-process chain grid,
+    R/LDpred2.R:233-236, in one chain-batched sweep). p_inits (NC,), gens
+    one generator per chain, alpha_bounds on the alpha+1 scale. Returns a
+    dict of (NC, ...) tensors."""
+    dt, dev = sb.dtype, sb.device
+    bh, nv, lv = _as(sb, beta_hat), _as(sb, n_vec), _as(sb, log_var)
+    p_inits = _as(sb, p_inits)
+    NC, m = p_inits.shape[0], sb.m
+    num_iter_tot = burn_in + num_iter
+    if report_step is None:
+        report_step = num_iter + 1
+    num_reports = num_iter // report_step if report_step <= num_iter else 0
+    pb0, pb1 = float(p_bounds[0]), float(p_bounds[1])
+    gap0 = 2.0 * torch.sum(bh**2)
+
+    p = torch.clamp(p_inits, pb0, pb1)
+    h2_0 = max(float(h2_init), MIN_H2)
+    cur_h2 = torch.zeros(NC, dtype=dt, device=dev)
+    par_alpha = torch.zeros(NC, dtype=dt, device=dev)
+    par_sigma2 = h2_0 / (m * p)
+    dp = sb.dp0(NC)
+    curr = torch.zeros((NC, m), dtype=dt, device=dev)
+    avg_postp, avg_beta, avg_bhat = (torch.zeros_like(curr) for _ in
+                                     range(3))
+    samples = torch.zeros((NC, max(num_reports, 1), m), dtype=dt, device=dev)
+    paths = torch.full((NC, 3, num_iter_tot), torch.nan, dtype=dt,
+                       device=dev)
+    diverged = torch.zeros(NC, dtype=torch.bool, device=dev)
+    no_sparse = torch.zeros(NC, dtype=torch.bool, device=dev)
+    n_pois = m if use_mle else 0
+    cdf = poisson1_cdf(dt, dev)
+
+    for k in range(num_iter_tot):
+        inv_odd_p = (1 - p) / p
+        C1 = par_sigma2[:, None] * nv[None, :]
+        if use_mle:
+            C1 = torch.exp(par_alpha[:, None] * lv[None, :]) * C1
+        C2 = 1.0 / (1.0 + 1.0 / C1)
+        C4 = C2 / nv[None, :]
+        s1 = torch.sqrt(1 + C1)
+        U, Z = draw(gens, m + 16 + n_pois, m + 2, dt, dev)
+        nb, aux = sweeps_bucketed_mc(sb, dp, curr, (bh, C2, C4, s1),
+                                     U[:, :m].contiguous(),
+                                     Z[:, :m].contiguous(), inv_odd_p, p,
+                                     no_sparse, shrink_corr, no_jump_sign)
+        gap, causal, h2_inc, postp_inc, beta_inc, dps = aux
+        ok = ~diverged
+        div2 = diverged | (gap > gap0)
+        if k >= burn_in:
+            pm = ok[:, None]
+            avg_postp += torch.where(pm, postp_inc, 0.0)
+            avg_beta += torch.where(pm, beta_inc, 0.0)
+            avg_bhat += torch.where(pm, dps, 0.0)
+
+        nb_causal = causal.sum(1).to(dt)
+        p2 = _beta_draw(Z[:, m:m + 2], U[:, m:m + 8], U[:, m + 8:m + 16],
+                        1 + nb_causal / mean_ld, 1 + (m - nb_causal) / mean_ld)
+        p2 = torch.where(ok, torch.clamp(p2, pb0, pb1), p)
+        h2_est2 = torch.where(ok, cur_h2 + h2_inc, cur_h2)
+        h2 = torch.clamp(h2_est2, min=MIN_H2)
+        if use_mle:
+            wts = _poisson1(U[:, m + 16:], cdf) * causal
+            pa, ps = _mle_alpha_profile(par_sigma2, wts, lv, nb * nb,
+                                        alpha_bounds)
+            pa = torch.where(ok, pa, par_alpha)
+            ps = torch.where(ok, ps, par_sigma2)
+        else:
+            pa = par_alpha
+            ps = torch.where(ok, h2 / (m * p2), par_sigma2)
+
+        vals = torch.stack([p2, h2, pa - 1.0], dim=1)
+        paths[:, :, k] = torch.where(div2[:, None], paths[:, :, k], vals)
+        if num_reports > 0 and k >= burn_in and \
+                (k - burn_in + 1) % report_step == 0:
+            rep = min(max((k - burn_in + 1) // report_step - 1, 0),
+                      num_reports - 1)
+            row = torch.where(causal & ~div2[:, None], nb, 0.0)
+            samples[:, rep] = torch.where(div2[:, None], samples[:, rep], row)
+        curr, p, cur_h2, par_alpha, par_sigma2, diverged = (nb, p2, h2_est2,
+                                                            pa, ps, div2)
+
+    nan = torch.where(diverged[:, None], torch.nan, 0.0).to(dt)
+    return {
+        "beta_est": avg_beta / num_iter + nan,
+        "postp_est": avg_postp / num_iter + nan,
+        "corr_est": avg_bhat / num_iter + nan,
+        "sample_beta": samples,
+        "path_p_est": paths[:, 0], "path_h2_est": paths[:, 1],
+        "path_alpha_est": paths[:, 2],
+    }
+
+
+def gibbs_auto_blocked(sb, beta_hat, n_vec, log_var, p_init, h2_init, gen,
+                       shrink_corr, p_bounds, alpha_bounds, mean_ld, burn_in,
+                       num_iter, report_step=None, use_mle=True,
+                       no_jump_sign=False):
+    """One LDpred2-auto chain on the blocked bands:
+    `gibbs_auto_blocked_multi` with one chain; a dict of unbatched
+    tensors."""
+    out = gibbs_auto_blocked_multi(
+        sb, beta_hat, n_vec, log_var, [p_init], h2_init, [gen], shrink_corr,
+        p_bounds, alpha_bounds, mean_ld, burn_in, num_iter,
+        report_step=report_step, use_mle=use_mle, no_jump_sign=no_jump_sign)
+    return {k: v[0] for k, v in out.items()}

@@ -1,0 +1,222 @@
+"""LDpred2: infinitesimal, grid and auto models (port of
+`bigsnpr_tpu/pgs/ldpred2.py`).
+
+Reference: R/LDpred2.R + src/ldpred2*.cpp. The scale/unscale contract:
+scale = sqrt(n_eff * beta_se^2 + beta^2); the samplers operate on
+beta_hat = beta / scale and results are multiplied back
+(reference R/LDpred2.R:34-41, 88-90, 139, 224-226, 257).
+
+The grid and auto models run on the blocked samplers (`blocks=`), every
+chain or grid cell in one chain-batched sweep through the CUDA sweep
+kernel. `blocks=None` (the unblocked samplers), `return_sampling_betas`
+and the sharding options raise until their slices (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import warnings
+
+import numpy as np
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
+
+from bigsnpr_tpu_torch import config
+from bigsnpr_tpu_torch.ops.ldscores import ld_scores_sfbm
+from bigsnpr_tpu_torch.pgs import gibbs_blocked as gb
+from bigsnpr_tpu_torch.pgs.gibbs import chain_generators
+from bigsnpr_tpu_torch.utils.assertions import check_args
+
+_NEXT_SLICE = "(ROADMAP queue 1, slice 3, item 1)"
+
+
+def _dtype(dtype):
+    dtype = np.dtype(dtype)
+    if dtype not in (np.float32, np.float64):
+        raise ValueError("dtype must be float32 or float64")
+    return dtype
+
+
+def _df_beta_arrays(df_beta):
+    beta = np.asarray(df_beta["beta"], dtype=np.float64)
+    beta_se = np.asarray(df_beta["beta_se"], dtype=np.float64)
+    n_eff = np.asarray(df_beta["n_eff"], dtype=np.float64)
+    assert np.all(beta_se > 0), "beta_se must be positive"
+    scale = np.sqrt(n_eff * beta_se**2 + beta**2)
+    return beta / scale, n_eff, scale
+
+
+@check_args()
+def snp_ldpred2_inf(corr, df_beta, h2: float) -> np.ndarray:
+    """Infinitesimal model: solve (R + m/(h2 N) I) x = beta_hat on the
+    sparse LD (reference snp_ldpred2_inf, R/LDpred2.R:27-42); an exact
+    sparse solve on the host."""
+    assert h2 > 0
+    beta_hat, N, scale = _df_beta_arrays(df_beta)
+    m = corr.shape[0]
+    assert len(beta_hat) == m, "corr and df_beta dims must match"
+    A = corr.sym().tocsc().astype(np.float64) + sp.diags(m / (h2 * N))
+    return spla.spsolve(A, beta_hat) * scale
+
+
+def _blocked_setup(corr, blocks, ind_corr, dt, device):
+    """The bucketed block bands on the device. blocks: a BlockBands (used
+    as it is), an array of block sizes, or "auto" — exact independence
+    cuts from the LD structure, oversized blocks split by snp_ldsplit."""
+    if isinstance(blocks, gb.BlockBands):
+        bb = blocks
+    else:
+        if isinstance(blocks, str):
+            assert blocks == "auto", f"unknown blocks mode {blocks!r}"
+            blocks = gb.auto_blocks(corr, ind_corr=ind_corr)
+        bb = gb.build_block_bands(corr, np.asarray(blocks, dtype=np.int64),
+                                  ind_corr=ind_corr, dtype=dt)
+    if bb.dropped_r2_frac > 0.05:
+        warnings.warn(
+            f"block-diagonal LD approximation drops "
+            f"{100 * bb.dropped_r2_frac:.1f}% of the off-diagonal r^2 mass "
+            f"at block boundaries — consider ldsplit-derived blocks "
+            f"(blocks='auto') or wider blocks.", RuntimeWarning,
+            stacklevel=3)
+    return bb, bb.device_put(device, dtype=dt)
+
+
+@check_args()
+def snp_ldpred2_grid(corr, df_beta, grid_param, burn_in: int = 50,
+                     num_iter: int = 100,
+                     return_sampling_betas: bool = False, ind_corr=None,
+                     seed: int = 1, blocks=None, dtype="float32",
+                     device=None) -> np.ndarray:
+    """Grid model (reference snp_ldpred2_grid, R/LDpred2.R:73-140) on the
+    blocked sampler. grid_param: mapping with p, h2, sparse columns.
+    Returns an (m, n_grid) matrix of effects on the allele scale (NaN
+    columns where a cell diverged)."""
+    if blocks is None or return_sampling_betas:
+        raise NotImplementedError(
+            "snp_ldpred2_grid: blocks=None and return_sampling_betas need "
+            f"the unblocked sampler, not ported yet {_NEXT_SLICE}")
+    beta_hat, N, scale = _df_beta_arrays(df_beta)
+    dt = _dtype(dtype)
+    dev = config.resolve_device(device)
+    bb, sb = _blocked_setup(corr, blocks, ind_corr, dt, dev)
+    assert bb.m == len(beta_hat)
+    p_grid = np.atleast_1d(np.asarray(grid_param["p"], dtype=np.float64))
+    h2_grid = np.atleast_1d(np.asarray(grid_param["h2"], dtype=np.float64))
+    sp_grid = np.atleast_1d(np.asarray(grid_param["sparse"], dtype=bool))
+    assert np.all(h2_grid > 0)
+    out = gb.gibbs_multi_blocked(
+        sb, beta_hat, N, h2_grid, p_grid, sp_grid,
+        chain_generators(seed, len(p_grid), dev), burn_in, num_iter)
+    return out.double().cpu().numpy().T * scale[:, None]
+
+
+def _mean_ld(corr, ind_corr_np):
+    """Mean LD score over the subset, cached on `corr` per subset (the
+    O(nnz) host pass is paid once for repeated calls)."""
+    key = hashlib.md5(np.ascontiguousarray(ind_corr_np).tobytes()).hexdigest()
+    cache = getattr(corr, "_mean_ld_cache", None)
+    if cache is None:
+        cache = {}
+        try:
+            object.__setattr__(corr, "_mean_ld_cache", cache)
+        except AttributeError:
+            pass
+    if key not in cache:
+        cache[key] = float(np.mean(ld_scores_sfbm(corr, ind_sub=ind_corr_np)))
+    return cache[key]
+
+
+@check_args()
+def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
+                     burn_in: int = 500, num_iter: int = 200,
+                     sparse: bool = False, report_step: int | None = None,
+                     allow_jump_sign: bool = True, shrink_corr: float = 1.0,
+                     use_MLE: bool = True, p_bounds=(1e-5, 1.0),
+                     alpha_bounds=(-1.5, 0.5), ind_corr=None, seed: int = 1,
+                     blocks=None, shard_blocks: bool = False,
+                     shard_chains: bool = False, dtype="float32",
+                     device=None) -> list[dict]:
+    """Auto model (reference snp_ldpred2_auto, R/LDpred2.R:203-286), all
+    chains in one chain-batched blocked sampler.
+
+    Returns a list (over vec_p_init) of dicts with beta_est, postp_est,
+    corr_est, sample_beta, path_{p,h2,alpha}_est, {h2,p,alpha}_est,
+    h2_init, p_init, dropped_r2_frac (and beta_est_sparse when
+    sparse=True)."""
+    assert h2_init > 0
+    if blocks is None:
+        raise NotImplementedError(
+            "snp_ldpred2_auto: blocks=None needs the unblocked sampler, not "
+            f"ported yet {_NEXT_SLICE}")
+    if shard_blocks or shard_chains:
+        raise NotImplementedError(
+            "snp_ldpred2_auto: shard_blocks / shard_chains are multi-GPU "
+            "(ROADMAP queue 1, slice 5)")
+    beta_hat, N, scale = _df_beta_arrays(df_beta)
+    sd = 1.0 / scale
+    log_var = 2.0 * np.log(sd)
+    dt = _dtype(dtype)
+    dev = config.resolve_device(device)
+    ind_corr_np = (np.arange(corr.shape[0]) if ind_corr is None
+                   else np.asarray(ind_corr))
+    mean_ld = _mean_ld(corr, ind_corr_np)
+    if report_step is None:
+        report_step = num_iter + 1
+    vec_p_init = np.atleast_1d(np.asarray(vec_p_init, dtype=np.float64))
+    NC = len(vec_p_init)
+
+    bb, sb = _blocked_setup(corr, blocks, ind_corr, dt, dev)
+    assert bb.m == len(beta_hat)
+    outs = gb.gibbs_auto_blocked_multi(
+        sb, beta_hat, N, log_var, vec_p_init, h2_init,
+        chain_generators(seed, NC, dev), shrink_corr, p_bounds,
+        np.asarray(alpha_bounds, dtype=np.float64) + 1, mean_ld,
+        burn_in, num_iter, report_step=report_step, use_mle=use_MLE,
+        no_jump_sign=not allow_jump_sign)
+    outs_np = {k: v.double().cpu().numpy() for k, v in outs.items()}
+    results = []
+    for c in range(NC):
+        res = {k: v[c] for k, v in outs_np.items()}
+        res["beta_est"] = res["beta_est"] / sd
+        res["h2_est"] = float(np.mean(res["path_h2_est"][-num_iter:]))
+        res["p_est"] = float(np.mean(res["path_p_est"][-num_iter:]))
+        res["alpha_est"] = float(np.mean(res["path_alpha_est"][-num_iter:]))
+        res["h2_init"] = h2_init
+        res["p_init"] = float(vec_p_init[c])
+        res["dropped_r2_frac"] = bb.dropped_r2_frac
+        results.append(res)
+    if sparse:
+        # post-hoc sparse solutions (reference R/LDpred2.R:266-279) for
+        # the chains whose h2 estimate is finite, batched
+        live = [c for c in range(NC) if np.isfinite(results[c]["h2_est"])]
+        if live:
+            gens = [chain_generators(seed, NC, dev, salt=(12345,))[c]
+                    for c in live]
+            bg = gb.gibbs_multi_blocked(
+                sb, beta_hat, N, [results[c]["h2_est"] for c in live],
+                [results[c]["p_est"] for c in live], np.ones(len(live), bool),
+                gens, 50, 100)
+            bg = bg.double().cpu().numpy()
+            for i, c in enumerate(live):
+                results[c]["beta_est_sparse"] = bg[i] / sd
+    return results
+
+
+def ldpred2_auto_chain_qc(multi_auto, quantile: float = 0.95):
+    """Vignette chain-QC rule (reference vignettes/LDpred2.Rmd:421-431):
+    keep chains whose corr_est range exceeds 0.95 * the `quantile`-th
+    quantile of ranges. Returns (keep_mask, beta_auto = mean over kept)."""
+    ranges = np.array([
+        (np.nanmax(r["corr_est"]) - np.nanmin(r["corr_est"]))
+        if np.isfinite(r["corr_est"]).any() else np.nan
+        for r in multi_auto
+    ])
+    thr = 0.95 * np.nanquantile(ranges, quantile)
+    keep = ranges > thr
+    if keep.any():
+        beta_auto = np.mean([multi_auto[i]["beta_est"]
+                             for i in np.nonzero(keep)[0]], axis=0)
+    else:
+        beta_auto = np.full_like(multi_auto[0]["beta_est"], np.nan)
+    return keep, beta_auto
+

@@ -1,29 +1,52 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed S] [--n N] [--m M]
+    python3 chip_smoke.py [--seed S] [--n N] [--m M] [--n2 N2] [--m2 M2]
+                          [--burn-in B] [--num-iter I]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-  2. build the CUDA kernels from bigsnpr_tpu_torch/csrc/ (nvcc);
-  3. hold each kernel against its plain-torch twin on the card at awkward
-     shapes (n = 1, 2, 3 mod 4, ragged m, NA, monomorphic and scale-0
-     variants, l in {1, 12, 20, 50}), then on the first 4,096 variants of
-     the full-size cohort;
-  4. the main path at full size: a 50,000 x 100,000 cohort written to
-     .bed, then snp_readBed -> bed_scaleBinom -> snp_randomSVD(k=10) ->
-     snp_simuPheno -> big_univLinReg(covar = PCs) -> gwas_pvalues ->
-     snp_PRS(50 thresholds), with the kernels' launch counts; its results
-     are checked with no JAX (PCA residuals, GWAS against a dense float64
-     regression, r(PRS, y) on the test set);
-  5. each kernel timed at every shape the main path gives it, beside its
-     plain twin, one torch.matmul on the pre-decoded f32 matrix, and its
-     bound.
+  2. build the CUDA kernels from bigsnpr_tpu_torch/csrc/ (one nvcc each,
+     started together);
+  3. hold K1/K2 (decode + GEMM) against their plain-torch twins on the card
+     at awkward shapes (n = 1, 2, 3 mod 4, ragged m, NA, monomorphic and
+     scale-0 variants, l in {1, 12, 20, 50}), then on the first 4,096
+     variants of the slice-1 cohort;
+  4. slice 1 at full size: a 50,000 x 100,000 cohort written to .bed, then
+     snp_readBed -> bed_scaleBinom -> snp_randomSVD(k=10) -> snp_simuPheno
+     -> big_univLinReg(covar = PCs) -> gwas_pvalues -> snp_PRS(50
+     thresholds), with the kernels' launch counts; its results are checked
+     with no JAX (PCA residuals, GWAS against a dense float64 regression,
+     r(PRS, y) on the test set);
+  5. K1/K2 timed at every shape slice 1 gives them, beside the plain twin,
+     one torch.matmul on the pre-decoded f32 matrix, and the bound;
+  6. slice 2 at full size: a 20,000 x 100,000 cohort made on the card with
+     latent-Gaussian AR(1) LD inside blocks of 200-3,000 variants (1% NA on
+     5% of the variants), then snp_simuPheno(h2 0.4, 1,000 causal) ->
+     big_univLinReg on 15,000 training samples -> snp_cor(ind_row =
+     training, size 500, thr_r2 0.01, finalize "device") -> snp_ldsc2 ->
+     auto_blocks + build_block_bands -> snp_ldpred2_auto(30 chains, the
+     vignette's p grid, burn-in 500, 200 kept) -> ldpred2_auto_chain_qc ->
+     snp_ldpred2_grid(3 x 3 p x h2 around the LDSC h2; burn-in 50, 100
+     kept) -> snp_PRS on the
+     5,000 test samples; the pair sums of a 1,000-variant slab against a
+     float64 product, the device finalize against the host one, and the
+     statistical checks (LDSC h2, chain h2, chain QC, r(PRS, y)); then
+     snp_cor without the r2 floor, for what that floor saves;
+  7. the Gibbs sweep kernel against its twin on the same pre-drawn u / z at
+     the K3 shape (1 chain), a K4 shape (narrow bucket) and the two shapes
+     the main path launches on the slice-2 bands (LDpred2-auto's 30 chains,
+     and the grid's 9 cells with shrink 1 and sign jumps allowed), plus a
+     float64 case, each run twice for bit-equality, timed beside the twin
+     and its bound;
+  8. torch.profiler around a 20-sweep snp_ldpred2_auto call on the slice-2
+     data: the device's busy share and the kernels that take it.
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
 `--rehearse-cpu` runs the same phases on the CPU through the twins at the
-given small size, to check the script itself; it too ends non-zero.
+given small size, to check the script itself (the statistical checks of
+slice 2 are printed but only enforced on the card); it too ends non-zero.
 """
 
 from __future__ import annotations
@@ -35,6 +58,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -45,6 +69,17 @@ TOL = 1e-4   # kernel vs twin: max |diff| <= TOL * max |twin|, f32 sums in two o
 SOURCE = "bigsnpr_tpu_torch/csrc/geno_gemm.cu"
 REPLACES = {"cprod": "bigsnpr_tpu/ops/pallas_kernels.py:583",
             "prod": "bigsnpr_tpu/ops/pallas_kernels.py:636"}
+SWEEP_SOURCE = "bigsnpr_tpu_torch/csrc/gibbs_sweep.cu"
+SWEEP_TOL = 1e-5   # sweep vs twin: max |diff| <= SWEEP_TOL * max |twin|
+# one sweep row's least latency (a floor of the kernel's design, printed
+# beside the bound): the dependent chain of a row (shared
+# load, ~15 dependent float ops, exp, a division, the AXPY's shared
+# read-modify-write, two barriers), ~300 cycles in float32 and ~600 in
+# float64, at the H100 SXM's 1.98 GHz boost clock
+STEP_CYCLES = {4: 300, 8: 600}
+CLOCK_HZ = 1.98e9
+N_CHAINS = 30     # LDpred2-auto chains: the vignette's vec_p_init length
+GRID_CELLS = 9    # LDpred2-grid: 3 p x 3 h2
 
 
 def log(*a):
@@ -395,11 +430,445 @@ def phase_slice(gk, torch, dev, packed_np, n, rng, timer, l=20, k=4096):
             f"ms, torch.matmul on decoded {timer(lib, 10):.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# slice 2: LD -> LDSC -> blocked LDpred2-auto / grid -> PRS
+# ---------------------------------------------------------------------------
+
+def block_sizes(rng, m, bmin, bmax):
+    """Block sizes drawn uniformly in [bmin, bmax] summing to m."""
+    sizes = []
+    while sum(sizes) < m:
+        sizes.append(int(rng.integers(bmin, bmax + 1)))
+    sizes[-1] -= sum(sizes) - m
+    if sizes[-1] < bmin and len(sizes) > 1:
+        sizes[-2] += sizes.pop()
+    return np.asarray(sizes)
+
+
+def make_ld_cohort(torch, dev, n, m, seed, bmin, bmax, rho=0.995,
+                   chunk=4096):
+    """(m, ceil(n/4)) packed genotypes made on the device from `seed`, with
+    LD in independent blocks: each haplotype is a latent Gaussian AR(1)
+    along the block (lag-k correlation rho^k), thresholded at the
+    variant's allele frequency ~ U(0.05, 0.5); 1% NA on 5% of the
+    variants. Returns the packed bytes on the device and the block sizes.
+    All blocks advance one position a step, longest first."""
+    from scipy.stats import norm
+
+    rng = np.random.default_rng(seed + 2)
+    sizes = block_sizes(rng, m, bmin, bmax)
+    order = np.argsort(-sizes, kind="stable")
+    starts = np.r_[0, np.cumsum(sizes)[:-1]]
+    thr = torch.as_tensor(norm.isf(rng.uniform(0.05, 0.5, m)),
+                          dtype=torch.float32, device=dev)
+    na_var = torch.as_tensor(rng.random(m) < 0.05, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    B = len(sizes)
+    start_t = torch.as_tensor(starts[order], device=dev)
+    sizes_sorted = sizes[order]
+    code_of = torch.tensor([3, 2, 0], dtype=torch.uint8, device=dev)
+    codes = torch.empty((m, n), dtype=torch.uint8, device=dev)
+    z = torch.randn((2, n, B), generator=gen, device=dev)
+    a = float(np.sqrt(1 - rho * rho))
+    for j in range(int(sizes.max())):
+        if j:
+            z = rho * z + a * torch.randn((2, n, B), generator=gen,
+                                          device=dev)
+        k = int((sizes_sorted > j).sum())
+        var = start_t[:k] + j
+        d = (z[:, :, :k] > thr[var]).sum(0)                 # (n, k)
+        miss = ((torch.rand((n, k), generator=gen, device=dev) < 0.01)
+                & na_var[var])
+        codes[var] = torch.where(miss, 1, code_of[d]).T.to(torch.uint8)
+    nb = (n + 3) // 4
+    packed = torch.empty((m, nb), dtype=torch.uint8, device=dev)
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=dev)
+    for j0 in range(0, m, chunk):
+        c = torch.nn.functional.pad(codes[j0:j0 + chunk], (0, nb * 4 - n))
+        packed[j0:j0 + chunk] = (c.view(-1, nb, 4) << shifts).sum(-1).to(
+            torch.uint8)
+    del codes, z
+    return packed, sizes
+
+
+def check_pair_sums(torch, dev, bp, pack, train, size, thr_r2, k=1000):
+    """On a slab of k variants of the training rows: the integer pair sums
+    against a float64 product of independently decoded planes, and the
+    device finalize against the host float64 one."""
+    from bigsnpr_tpu_torch.core.unpack import unpack_dosage
+    from bigsnpr_tpu_torch.ops import corr as pcorr
+
+    k = min(k, pack.m)
+    sub = pack.subset(ind_row=train, ind_col=np.arange(k))
+    P = sub.device_packed(dev)
+    n = sub.n
+    t0 = k // 2
+    sums = pcorr._pair_sums_block(P[t0:k], P[:k], n)
+    d, na = unpack_dosage(P[:k], n, dtype=torch.float64)
+    mk = (~na).double()
+    x = d * mk
+    A = torch.cat([x[t0:], (x * x)[t0:], mk[t0:]])
+    C = torch.cat([x, x * x, mk])
+    G = A @ C.T
+    B, Wb = k - t0, k
+    ref = (G[0:B, 0:Wb], G[0:B, 2 * Wb:], G[2 * B:, 0:Wb],
+           G[B:2 * B, 2 * Wb:], G[2 * B:, Wb:2 * Wb], G[2 * B:, 2 * Wb:])
+    bad = sum(int((s.double() != r).sum()) for s, r in zip(sums, ref))
+    log(f"  pair sums of a {k}-variant slab ({n} samples): {bad} of "
+        f"{6 * B * Wb} integers differ from the float64 product (limit 0)")
+    if bad:
+        fail("integer pair sums disagree with the float64 product")
+    xt, mt = pcorr._planes(P[t0:k], n, 0, P.shape[1], -(-n // 8) * 8)
+    xb, mb = pcorr._planes(P[:k], n, 0, P.shape[1], -(-n // 8) * 8)
+    A8, C8 = torch.cat([xt, xt * xt, mt]), torch.cat([xb, xb * xb, mb])
+    timer = Timer(torch, dev)
+    t_mm = timer(lambda: pcorr._exact_mm(A8, C8, True), reps=5)
+    t_all = timer(lambda: pcorr._pair_sums_block(P[t0:k], P[:k], n), reps=5)
+    t_f64 = timer(lambda: A @ C.T, reps=3)
+    log(f"  pair-sum product ({3 * B} x {n}) @ ({n} x {3 * Wb}) int8: "
+        f"{t_mm:.3f} ms (torch._int_mm); whole block (decode + product) "
+        f"{t_all:.3f} ms; the float64 product {t_f64:.3f} ms")
+    kw = dict(ind_row=train, ind_col=np.arange(k), size=size, thr_r2=thr_r2)
+    host = bp.snp_cor(pack, **kw).to_dense()
+    devf = bp.snp_cor(pack, finalize="device", **kw).to_dense()
+    err = float(np.abs(devf - host).max())
+    log(f"  device finalize vs host float64 finalize on the slab: max abs "
+        f"{err:.3e} (limit 3e-7), same kept set "
+        f"{bool(np.array_equal(devf != 0, host != 0))}")
+    if err > 3e-7 or not np.array_equal(devf != 0, host != 0):
+        fail("device finalize disagrees with the host finalize")
+
+
+def phase_slice2(bp, gsk, gk, torch, dev, args):
+    n, m = args.n2, args.m2
+    log(f"[6] slice 2 at n={n} samples x m={m} variants")
+    t0 = time.perf_counter()
+    packed, sizes = make_ld_cohort(torch, dev, n, m, args.seed, args.bmin,
+                                   args.bmax)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"  cohort made on the {dev.type} in {time.perf_counter() - t0:.1f} "
+        f"s: {len(sizes)} LD blocks of {sizes.min()}-{sizes.max()} variants")
+    pack = bp.GenoPack(packed=packed.cpu().numpy(), n=n)
+    pack._device_cache[str(dev)] = packed
+    rng = np.random.default_rng(args.seed + 3)
+    perm = rng.permutation(n)
+    n_train = n * 3 // 4
+    train, test = np.sort(perm[:n_train]), np.sort(perm[n_train:])
+    size, thr_r2 = 500, 0.01
+    times, sweeps = {}, {}
+
+    def stage(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        before = gsk.launches["sweep"]
+        t = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        sweeps[name] = gsk.launches["sweep"] - before
+        log(f"  {name:22s} {times[name]:9.3f} s   sweep launches "
+            f"{sweeps[name]}")
+        return out
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    gsk.reset_launches()
+    sim = stage("snp_simuPheno", lambda: bp.snp_simuPheno(
+        pack, h2=0.4, M=min(1000, m // 10), seed=args.seed))
+    y = sim["pheno"]
+    gwas = stage("big_univLinReg", lambda: bp.big_univLinReg(
+        pack, y[train], ind_row=train))
+    df_beta = {"beta": gwas["estim"], "beta_se": gwas["std.err"],
+               "n_eff": np.full(m, float(n_train))}
+    corr = stage("snp_cor", lambda: bp.snp_cor(
+        pack, ind_row=train, size=size, thr_r2=thr_r2, finalize="device"))
+    ldsc = stage("snp_ldsc2", lambda: bp.snp_ldsc2(corr, df_beta))
+    h2_ldsc = float(ldsc["h2"])
+    bb = stage("auto_blocks + bands", lambda: bp.build_block_bands(
+        corr, bp.auto_blocks(corr)))
+    stage("bands to the device", lambda: bb.device_put(dev))
+    p_init = np.geomspace(1e-4, 0.2, N_CHAINS)
+
+    def run_auto(burn_in, num_iter):
+        return bp.snp_ldpred2_auto(
+            corr, df_beta, h2_init=max(h2_ldsc, 1e-3), vec_p_init=p_init,
+            burn_in=burn_in, num_iter=num_iter, allow_jump_sign=False,
+            shrink_corr=0.95, blocks=bb)
+
+    auto = stage("snp_ldpred2_auto", lambda: run_auto(args.burn_in,
+                                                      args.num_iter))
+    keep, beta_auto = stage("ldpred2_auto_chain_qc",
+                            lambda: bp.ldpred2_auto_chain_qc(auto))
+    h2s = np.asarray([0.7, 1.0, 1.4]) * max(h2_ldsc, 1e-3)
+    ps = np.asarray([1e-3, 1e-2, 1e-1])
+    grid = {"p": np.repeat(ps, 3), "h2": np.tile(h2s, 3),
+            "sparse": np.zeros(GRID_CELLS, bool)}
+    beta_grid = stage("snp_ldpred2_grid", lambda: bp.snp_ldpred2_grid(
+        corr, df_beta, grid, burn_in=min(50, args.burn_in),
+        num_iter=min(100, args.num_iter), blocks=bb))
+    prs = stage("snp_PRS", lambda: bp.snp_PRS(pack, beta_auto,
+                                              ind_test=test))
+    launches = {"sweep": gsk.launches["sweep"], **gk.launches}
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else float("nan"))
+    log(f"  total {sum(times.values()):.3f} s; launches {launches}; device "
+        f"memory peak {peak:.2f} GB; LD nnz {corr.upper.nnz}, "
+        f"{len(bb.buckets)} buckets, bands {bb.nbytes / 1e9:.3f} GB")
+    if dev.type == "cuda" and launches["sweep"] <= 0:
+        fail("the sweep kernel was not launched on slice 2")
+
+    log("  checks:")
+    check_pair_sums(torch, dev, bp, pack, train, size, thr_r2)
+    enforce = dev.type == "cuda"
+    frac = bb.dropped_r2_frac
+    log(f"    dropped_r2_frac of the auto blocks {frac:.4f} (limit 0.05)")
+    if frac > 0.05:
+        fail("auto blocks drop too much LD")
+    h2_kept = float(np.mean([auto[i]["h2_est"] for i in np.nonzero(keep)[0]])
+                    ) if keep.any() else float("nan")
+    finite = sum(np.isfinite(r["h2_est"]) for r in auto)
+    log(f"    LDSC h2 {h2_ldsc:.4f}; chains finite {finite}/{len(auto)}, "
+        f"kept by chain QC {int(keep.sum())} (floor 1); mean h2_est of the "
+        f"kept {h2_kept:.4f} (both in [0.2, 0.6]; true 0.4)")
+    r_auto = float(np.corrcoef(prs[:, 0], y[test])[0, 1])
+    log(f"    r(PRS_auto, y_test) {r_auto:.4f} on {len(test)} test samples "
+        f"(floor 0.1; null sd {1 / np.sqrt(len(test)):.3f}); grid cells "
+        f"finite {int(np.isfinite(beta_grid).all(0).sum())}/9")
+    bad = [] if not enforce else [
+        what for what, ok in (
+            ("LDSC h2", 0.2 <= h2_ldsc <= 0.6),
+            ("chain QC", keep.sum() >= 1),
+            ("mean h2_est of kept chains", 0.2 <= h2_kept <= 0.6),
+            ("r(PRS_auto, y_test)", r_auto > 0.1)) if not ok]
+    if bad:
+        fail(f"slice 2 checks failed: {bad}")
+    no_floor_cost(torch, dev, bp, pack, train, size)
+    return bb, launches, run_auto
+
+
+def no_floor_cost(torch, dev, bp, pack, train, size, max_block=4096,
+                  min_size=32):
+    """What snp_cor without an r^2 floor (thr_r2 = 0) gives the blocked
+    samplers: its time and entry count, and whether auto_blocks could
+    still cut exactly. Where every adjacent pair is kept, the whole
+    chromosome is one LD component, and auto_blocks would hand all of it
+    to snp_ldsplit, whose dynamic program walks ~m x max_block cost
+    entries max_K times; that count is printed, the call is not made."""
+    m = pack.m
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    full = bp.snp_cor(pack, ind_row=train, size=size, finalize="device")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    window = m + m * size - size * (size + 1) // 2
+    adjacent = int(np.count_nonzero(full.upper.diagonal(1)))
+    max_K = max(2, -(-m // min_size))
+    entries = int(np.minimum(np.arange(1, m + 1), max_block).sum())
+    log(f"  snp_cor without the r2 floor (thr_r2 0): {secs:.3f} s, LD nnz "
+        f"{full.upper.nnz} of the {window} pairs in the window; adjacent "
+        f"pairs kept {adjacent} of {m - 1}")
+    if adjacent == m - 1:
+        log(f"    no exact cut exists: auto_blocks would pass one {m}-variant "
+            f"block to snp_ldsplit (max_K {max_K}), ~{entries:.2e} cost "
+            f"entries x {max_K} passes = {float(entries) * max_K:.2e} "
+            f"steps; not run")
+
+
+def sweep_inputs(torch, sb, NC, rng):
+    """One sweep's state and pre-drawn u / z on the bands' device."""
+    m, dt, dev = sb.m, sb.dtype, sb.device
+    f = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return dict(bh=f(rng.normal(0, 0.02, m)),
+                C2=f(rng.uniform(0.1, 0.9, (NC, m))),
+                C4=f(rng.uniform(1e-4, 1e-3, (NC, m))),
+                s1=f(rng.uniform(1.0, 2.0, (NC, m))),
+                u=f(rng.uniform(0, 1, (NC, m))),
+                z=f(rng.normal(0, 1, (NC, m))),
+                cb=f(rng.normal(0, 0.02, (NC, m)) * (rng.random((NC, m))
+                                                    < 0.3)),
+                inv_odd_p=f(rng.uniform(1, 1e3, NC)),
+                p=f(rng.uniform(1e-3, 0.5, NC)),
+                sparse=torch.as_tensor(np.arange(NC) % 2 == 1, device=dev),
+                dp=f(rng.normal(0, 0.02, (NC, sb.dp_len))))
+
+
+def narrow_bands(bp, rng, sizes, width):
+    """Block-diagonal AR(1)-like LD truncated to `width` off the diagonal
+    (a narrow bucket, the shape the JAX package sends to K4)."""
+    import scipy.sparse as sp
+
+    mats = []
+    for sz in sizes:
+        lag = np.abs(np.subtract.outer(np.arange(sz), np.arange(sz)))
+        C = np.where(lag <= width, 0.9 ** lag * rng.uniform(0.8, 1.0),
+                     0.0)
+        np.fill_diagonal(C, 1.0)
+        mats.append(sp.coo_matrix(C))      # no stored zeros past `width`
+    up = sp.triu(sp.block_diag(mats, format="csc")).tocsc()
+    return bp.build_block_bands(bp.SparseLD(upper=up), sizes)
+
+
+def sweep_bound(sb, NC, nct):
+    """Least time of one sweep at this run's bands: the larger of the bytes
+    it must move (band once, per-variant inputs and outputs, dp in and
+    out) over 3.35 TB/s and its float operations (2 (2W + 1) for the AXPY
+    plus ~30 for the step, per chain and row) over 67 TFLOP/s. Beside it,
+    two floors of this design: the band read once per chain tile, and the
+    longest block's rows x one row's least latency."""
+    sz = sb.band.element_size()
+    rows = sb.blk_rows.cpu().numpy().astype(np.int64)
+    wk = 2 * sb.blk_W.cpu().numpy().astype(np.int64) + 1
+    band = int((rows * wk).sum()) * sz
+    per_chain = (6 * sz          # read: cb, C2, C4, s1, u, z
+                 + 4 * sz        # written: beta, postp, beta_inc, dps
+                 + 1)            # written: causal (one byte)
+    io = (NC * sb.m * per_chain
+          + sb.m * sz                        # read: bh
+          + int(sb.gidx.numel()) * 4         # read: slot -> variant table
+          + 2 * NC * sb.dp_len * sz          # dp read and written
+          + 2 * NC * sb.nblk * sz)           # written: h2_inc, gap per block
+    t_bytes = (band + io) / PEAK_BYTES_PER_S * 1e3
+    t_ops = NC * float((rows * (2 * wk + 30)).sum()) / PEAK_F32_FLOP_PER_S \
+        * 1e3
+    t_tiles = (band * -(-NC // nct) + io) / PEAK_BYTES_PER_S * 1e3
+    t_lat = sb.max_rows * STEP_CYCLES[sz] / CLOCK_HZ * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, t_tiles, t_lat
+
+
+def phase_sweep_kernels(bp, gsk, torch, dev, bb, launches, timer, seed):
+    log("[7] Gibbs sweep kernel vs its twin (same pre-drawn u / z)")
+    rng = np.random.default_rng(seed + 4)
+    narrow = narrow_bands(bp, rng, rng.integers(90, 129, 24), 12)
+    sb = bb.device_put(dev)
+    # (tag, what, bands, chains, shrink_corr, no_jump_sign, replaces): the
+    # K5 and grid cases are the two launches of slice 2's main path
+    cases = (("K3", "1 chain", sb, 1, 0.95, True,
+              "bigsnpr_tpu/pgs/gibbs_pallas.py:37"),
+             ("K4", "narrow bucket, 9 chains", narrow.device_put(dev), 9,
+              1.0, False, "bigsnpr_tpu/pgs/gibbs_pallas.py:171"),
+             ("K5", f"{N_CHAINS} chains", sb, N_CHAINS, 0.95, True,
+              "bigsnpr_tpu/pgs/gibbs_pallas.py:302"),
+             ("grid", f"{GRID_CELLS} grid cells", sb, GRID_CELLS, 1.0, False,
+              "bigsnpr_tpu/pgs/gibbs_pallas.py:302"),
+             ("f64", "4 chains, float64", bb.device_put(dev, np.float64), 4,
+              0.95, True, None))
+    rows = []
+    for tag, what, sb, NC, shrink, no_jump, replaces in cases:
+        st = sweep_inputs(torch, sb, NC, rng)
+
+        def run(fn):
+            dp = st["dp"].clone()
+            out = fn(sb, dp, st["cb"], st["bh"], st["C2"], st["C4"],
+                     st["s1"], st["u"], st["z"], st["inv_odd_p"], st["p"],
+                     st["sparse"], shrink, no_jump)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            return (dp,) + tuple(out)
+
+        got, again = run(gsk.sweep), run(gsk.sweep)
+        t = time.perf_counter()
+        ref = run(gsk.sweep_plain)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        names = ("dp", "new_beta", "causal", "postp", "beta_inc", "dps",
+                 "h2_inc", "gap")
+        errs = {}
+        for name, a, b in zip(names, got, ref):
+            if name == "causal":
+                errs[name] = int((a != b).sum())
+                continue
+            errs[name] = (float((a - b).abs().max()),
+                          SWEEP_TOL * max(float(b.abs().max()), 1e-30))
+        log(f"  {tag} shape ({what}): {sb.nblk} blocks, {sb.max_rows} rows "
+            f"in the longest, width up to {sb.wkmax}, {NC} chains")
+        log("    max |kernel - twin| (limit): " + ", ".join(
+            f"{k} {v[0]:.2e} ({v[1]:.1e})" if k != "causal"
+            else f"causal {v} differ (0)" for k, v in errs.items())
+            + f"; two launches bit-equal: {repeat}")
+        if errs["causal"] or not repeat or any(
+                v[0] > v[1] for k, v in errs.items() if k != "causal"):
+            fail(f"sweep kernel {tag} disagrees with its twin or does not "
+                 f"repeat")
+        if tag == "f64":
+            continue
+        ms = timer(lambda: gsk.sweep(sb, st["dp"], st["cb"], st["bh"],
+                                     st["C2"], st["C4"], st["s1"], st["u"],
+                                     st["z"], st["inv_odd_p"], st["p"],
+                                     st["sparse"], shrink, no_jump), reps=5)
+        nct = sb.plans.get(NC, (NC, 0))[0]
+        bound, by, t_tiles, t_lat = sweep_bound(sb, NC, nct)
+        log(f"    kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms, bound "
+            f"{bound:.3f} ms ({by}); this design's floors: band once per "
+            f"chain tile {t_tiles:.3f} ms ({nct} chains a CTA), longest "
+            f"block's rows x step latency {t_lat:.3f} ms")
+        rows.append({
+            "name": f"gibbs_sweep ({tag} shape: {what})", "route": "cuda",
+            "source": SWEEP_SOURCE, "replaces": replaces,
+            "launches": launches["sweep"],
+            "max_abs_err": max(v[0] for k, v in errs.items()
+                               if k != "causal"),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None})
+    return rows
+
+
+def phase_profile(torch, dev, run_auto):
+    """torch.profiler around one snp_ldpred2_auto call of 20 sweeps (1 in
+    a CPU rehearsal, whose twin makes ~10^5 events a sweep) on the slice-2
+    data: the device's busy share of the call's wall time (one stream, so
+    the kernels' summed device time is its busy time) and the kernels that
+    take it. Only device events count: a host op's device time repeats
+    that of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sweeps = 20 if dev.type == "cuda" else 1
+    log(f"[8] profile of snp_ldpred2_auto, {sweeps} sweeps")
+    run_auto(0, 1)                                   # warm
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run_auto(sweeps // 2, sweeps - sweeps // 2)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avgs = [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA
+            and a.self_device_time_total > 0]
+    busy = sum(a.self_device_time_total for a in avgs) / 1e3
+    if not avgs:
+        log(f"  wall {wall:.1f} ms; device time not measured (no device "
+            f"events in the trace)")
+        return
+    log(f"  wall {wall:.1f} ms ({wall / sweeps:.2f} ms a sweep); device "
+        f"busy {busy:.1f} ms = {100 * busy / wall:.1f}% (idle "
+        f"{100 * (1 - busy / wall):.1f}%)")
+    for a in sorted(avgs, key=lambda a: -a.self_device_time_total)[:8]:
+        log(f"    {a.self_device_time_total / 1e3:9.3f} ms  {a.count:6d} x  "
+            f"{a.key[:70]}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--n", type=int, default=50_000)
     ap.add_argument("--m", type=int, default=100_000)
+    ap.add_argument("--n2", type=int, default=20_000)
+    ap.add_argument("--m2", type=int, default=100_000)
+    ap.add_argument("--bmin", type=int, default=200)
+    ap.add_argument("--bmax", type=int, default=3000)
+    ap.add_argument("--burn-in", type=int, default=500)
+    ap.add_argument("--num-iter", type=int, default=200)
     ap.add_argument("--rehearse-cpu", action="store_true")
     args = ap.parse_args(argv)
 
@@ -416,6 +885,7 @@ def main(argv=None):
     sys.path.insert(0, here)
     import bigsnpr_tpu_torch as bp
     from bigsnpr_tpu_torch.ops import geno_kernels as gk
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
 
     dev = torch.device("cpu" if args.rehearse_cpu else "cuda")
     bp.config.set_device(str(dev))
@@ -433,11 +903,12 @@ def main(argv=None):
     log(f"  nvidia-smi: {smi}")
 
     if dev.type == "cuda":
-        log("[2] build")
+        log("[2] build (one nvcc a source, in parallel)")
         t0 = time.perf_counter()
-        lib = gk.build(verbose=True)
-        log(f"  built {os.path.relpath(lib, here)} in "
-            f"{time.perf_counter() - t0:.1f} s")
+        with ThreadPoolExecutor(2) as pool:
+            libs = list(pool.map(lambda k: k.build(verbose=True), (gk, gsk)))
+        log(f"  built {', '.join(os.path.relpath(p, here) for p in libs)} "
+            f"in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(args.seed)
     timer = Timer(torch, dev)
@@ -450,12 +921,22 @@ def main(argv=None):
                 k=min(4096, args.m))
 
     with tempfile.TemporaryDirectory() as tmp:
+        gsk.reset_launches()
         pack, sc, launches = phase_main_path(bp, gk, torch, dev, packed_np,
                                              pop, args.n, args.m, args.seed,
                                              tmp)
+        if gsk.launches["sweep"]:
+            fail("slice 1 launched the sweep kernel")
         rows = kernel_rows(gk, torch, dev, pack, sc, launches,
                            n_test=args.n - args.n * 4 // 5)
-        del pack
+        del pack, packed_np
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    bb, launches2, run_auto = phase_slice2(bp, gsk, gk, torch, dev, args)
+    rows += phase_sweep_kernels(bp, gsk, torch, dev, bb, launches2, timer,
+                                args.seed)
+    phase_profile(torch, dev, run_auto)
     log(f"  wall time {time.perf_counter() - t_start:.1f} s")
 
     if dev.type != "cuda":

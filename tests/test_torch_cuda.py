@@ -1,4 +1,5 @@
-"""The CUDA kernels K1/K2 against their plain-torch twins on a card.
+"""The CUDA kernels (K1/K2 decode + GEMM, the Gibbs sweep) against their
+plain-torch twins on a card.
 
 Imports only torch and the port, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -70,3 +71,115 @@ def test_kernels_repeat_bit_for_bit(cuda):
                        gk.cprod(packed, 5000, V, c, inv))
     assert torch.equal(gk.prod(packed, 5000, U, c, inv),
                        gk.prod(packed, 5000, U, c, inv))
+
+
+def sweep_case(sizes, NC, seed, dtype=torch.float32, width=None):
+    """Block-diagonal AR-like LD (band width capped at `width`), bands on
+    the card, and one sweep's state and pre-drawn u / z."""
+    import scipy.sparse as sp
+
+    from bigsnpr_tpu_torch import interop
+    from bigsnpr_tpu_torch.pgs import gibbs_blocked as pgb
+
+    rng = np.random.default_rng(seed)
+    mats = []
+    for sz in sizes:
+        A = rng.normal(size=(sz, 4 * sz))
+        C = np.corrcoef(0.6 * A + 0.4 * np.roll(A, 1, axis=0))
+        if width is not None:
+            C = np.triu(np.tril(C, width), -width)
+        mats.append(sp.coo_matrix(C))          # no stored zeros
+    up = sp.triu(sp.block_diag(mats).tocsc()).tocsc()
+    corr = interop.sparse_ld_from_numpy(up.data, up.indices, up.indptr,
+                                        up.shape)
+    bb = pgb.build_block_bands(corr, sizes)
+    m = bb.m
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+    st = dict(bh=f(rng.normal(0, 0.05, m)),
+              C2=f(rng.uniform(0.1, 0.9, (NC, m))),
+              C4=f(rng.uniform(0.1, 0.9, (NC, m))),
+              s1=f(rng.uniform(1.0, 2.0, (NC, m))),
+              u=f(rng.uniform(0, 1, (NC, m))), z=f(rng.normal(0, 1, (NC, m))),
+              cb=f(rng.normal(0, 0.05, (NC, m))
+                   * (rng.random((NC, m)) < 0.5)),
+              inv_odd_p=f(rng.uniform(1, 9, NC)), p=f(rng.uniform(0.05, 0.4, NC)),
+              sparse=torch.as_tensor(np.arange(NC) % 2 == 1, device="cuda"))
+    sb = bb.device_put("cuda", dtype=np.float64 if dtype == torch.float64
+                       else np.float32)
+    st["dp"] = f(rng.normal(0, 0.05, (NC, sb.dp_len)))
+    return sb, st
+
+
+def run_sweep(fn, sb, st, shrink, no_jump):
+    dp = st["dp"].clone()
+    out = fn(sb, dp, st["cb"], st["bh"], st["C2"], st["C4"], st["s1"],
+             st["u"], st["z"], st["inv_odd_p"], st["p"], st["sparse"],
+             shrink, no_jump)
+    torch.cuda.synchronize()
+    return (dp,) + tuple(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,NC,dtype,shrink,no_jump", [
+    ([300, 41, 7], 1, torch.float32, 1.0, False),           # K3: one chain
+    ([20] * 12 + [9], 4, torch.float32, 0.95, True),        # K4: narrow
+    ([1000, 700, 130], 30, torch.float32, 1.0, False),      # K5: 30 chains
+    ([257, 60], 5, torch.float64, 0.9, True)])
+def test_sweep_matches_twin(cuda, sizes, NC, dtype, shrink, no_jump):
+    """The CUDA sweep against its twin on the card: same pre-drawn u / z,
+    ragged blocks with pad slots, sparse and no-jump-sign chains. Built
+    with --fmad=false, the kernel rounds as the twin's separate torch
+    operations do: tolerance 1e-5 of max |twin|, causal equal."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gk
+
+    sb, st = sweep_case(sizes, NC, 3, dtype, width=16 if NC == 4 else None)
+    before = gk.launches["sweep"]
+    got = run_sweep(gk.sweep, sb, st, shrink, no_jump)
+    assert gk.launches["sweep"] == before + 1
+    ref = run_sweep(gk.sweep_plain, sb, st, shrink, no_jump)
+    assert torch.equal(got[2], ref[2])                      # causal
+    for a, b in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)
+
+
+@pytest.mark.cuda
+def test_sweep_repeats_bit_for_bit(cuda):
+    """No float atomics: partial sums per (chain, block), added in order."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gk
+
+    sb, st = sweep_case([500, 300, 64], 6, 4)
+    a = run_sweep(gk.sweep, sb, st, 1.0, False)
+    b = run_sweep(gk.sweep, sb, st, 1.0, False)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_sampler_loop_never_waits_on_the_device(cuda):
+    """The LDpred2-auto sweep loop (sweep kernel, draws, hyper-parameter
+    and MLE updates) issues no synchronizing call: the count of syncs torch
+    reports is the same for 3 sweeps and for 12."""
+    import warnings
+
+    from bigsnpr_tpu_torch.pgs import gibbs_blocked as pgb
+    from bigsnpr_tpu_torch.pgs.gibbs import chain_generators
+
+    sb, st = sweep_case([300, 200, 64], 4, 5)
+    lv = torch.log(st["C4"][0])
+
+    def syncs(sweeps):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                pgb.gibbs_auto_blocked_multi(
+                    sb, st["bh"], torch.full_like(st["bh"], 1e4), lv,
+                    torch.tensor([0.01, 0.05, 0.1, 0.3], device="cuda"),
+                    0.3, chain_generators(1, 4, "cuda"), 0.95, (1e-5, 1.0),
+                    np.array([-0.5, 1.5]), 3.0, sweeps - 1, 1,
+                    no_jump_sign=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(x.message) for x in w)
+
+    assert syncs(3) == syncs(12)

@@ -1,8 +1,9 @@
 """The port's first slice end to end: .bed -> scaling -> randomSVD ->
 simuPheno -> GWAS (covariates = PCs) -> p-values -> C+T scores, through
-both packages on the same file; the port alone with jax, pandas and the
-JAX package blocked; and the device rule (no CUDA and no request for the
-CPU -> an entry point raises)."""
+both packages on the same file; both slices (the second: LD -> LDSC ->
+blocks -> LDpred2-auto / grid -> PRS) in the port alone with jax, pandas
+and the JAX package blocked; the device rule (no CUDA and no request for
+the CPU -> an entry point raises); and chip_smoke.py's CPU rehearsal."""
 
 import os
 import subprocess
@@ -119,6 +120,23 @@ SCRIPT = textwrap.dedent("""
     lr = pt.big_univLogReg(pack, (sim["pheno"] > 0).astype(int))
     assert prs.shape == (203, 3) and np.isfinite(prs).all()
     assert np.isfinite(lr["estim"]).all()
+    # slice 2: LD -> LDSC -> blocks -> LDpred2-auto / grid -> PRS
+    df = {"beta": g["estim"], "beta_se": g["std.err"],
+          "n_eff": np.full(pack.m, 203.0)}
+    corr = pt.snp_cor(pack, size=20, finalize="device")
+    h2 = pt.snp_ldsc2(corr, df)["h2"]
+    assert pt.snp_ldsplit(corr, thr_r2=0.0, min_size=10, max_size=100,
+                          max_K=60, max_cost=np.inf) is not None
+    blocks = pt.auto_blocks(corr, max_block=100)
+    auto = pt.snp_ldpred2_auto(corr, df, h2_init=0.3, vec_p_init=[0.01, 0.1],
+                               burn_in=5, num_iter=5, blocks=blocks)
+    keep, beta_auto = pt.ldpred2_auto_chain_qc(auto)
+    grid = pt.snp_ldpred2_grid(corr, df, {"p": [0.1], "h2": [0.3],
+                                          "sparse": [True]},
+                               burn_in=3, num_iter=3, blocks=blocks)
+    prs2 = pt.snp_PRS(pack, np.nan_to_num(beta_auto))
+    assert np.isfinite(h2) and grid.shape == (pack.m, 1)
+    assert prs2.shape == (203, 1) and np.isfinite(prs2).all()
     bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not bad, bad
     print("PORT-ONLY-OK")
@@ -141,6 +159,7 @@ def test_entry_points_raise_without_cuda():
         for call in (lambda: pt.snp_counts(pack),
                      lambda: pt.snp_randomSVD(pack, k=2),
                      lambda: pt.snp_prodVec(pack, np.ones(10)),
+                     lambda: pt.snp_cor(pack, size=5),
                      lambda: pack.device_packed()):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
@@ -161,10 +180,15 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
     """The chip script's phases run through the twins at a small size;
     the rehearsal ends non-zero and prints no result, by design."""
     out = subprocess.run([sys.executable, "chip_smoke.py", "--rehearse-cpu",
-                          "--n", "803", "--m", "1200"], cwd=REPO,
+                          "--n", "803", "--m", "1200", "--n2", "803",
+                          "--m2", "1200", "--bmin", "100", "--bmax", "300",
+                          "--burn-in", "4", "--num-iter", "4"], cwd=REPO,
                          capture_output=True, text=True, timeout=300, env=ENV2)
     assert out.returncode == 3, out.stdout[-2000:] + out.stderr[-2000:]
     assert "CPU rehearsal passed" in out.stderr
     assert '"ok"' not in out.stdout
-    for phase in ("[3]", "[3b]", "[4]", "[5]", "r(PRS, y)"):
+    for phase in ("[3]", "[3b]", "[4]", "[5]", "r(PRS, y)", "[6]",
+                  "snp_ldpred2_auto", "r(PRS_auto, y_test)",
+                  "without the r2 floor", "[7]", "K3 shape", "K4 shape",
+                  "K5 shape", "grid shape", "f64 shape"):
         assert phase in out.stdout
