@@ -12,6 +12,10 @@ A second package beside the JAX one, ported slice by slice.
   blocked sampler -> chain QC -> `snp_PRS`, with the Gibbs sweep as a
   hand-written CUDA kernel (`ops/gibbs_kernels.py`,
   `csrc/gibbs_sweep.cu`).
+- Slice 3, population structure: `snp_autoSVD` (clumping, the robust
+  long-range-LD outlier loop) -> `snp_pcadapt` -> `bed_projectSelfPCA`,
+  and the "int8" scheme of the genotype operator (`config.pallas_mxu`),
+  the kernel K6 on exact int8 bit planes (`csrc/geno_i8.cu`).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`config.set_device("cpu")` or `device="cpu"`). The package imports
@@ -46,6 +50,17 @@ from bigsnpr_tpu_torch.ops.matvec import (
     bed_cprodVec,
 )
 from bigsnpr_tpu_torch.linalg.randomsvd import snp_randomSVD, bed_randomSVD, BigSVD
+from bigsnpr_tpu_torch.ops.clumping import snp_clumping, bed_clumping, snp_indLRLDR
+from bigsnpr_tpu_torch.pca.autosvd import snp_autoSVD, bed_autoSVD
+from bigsnpr_tpu_torch.pca.project import (
+    bed_projectPCA,
+    bed_projectSelfPCA,
+    snp_projectSelfPCA,
+    pca_OADP_proj,
+)
+from bigsnpr_tpu_torch.assoc.pcadapt import snp_pcadapt, bed_pcadapt
+from bigsnpr_tpu_torch.assoc.mhtest import MHTest, snp_gc, mhtest_from_gwas
+from bigsnpr_tpu_torch.utils.profiling import StageTimer
 from bigsnpr_tpu_torch.assoc.simu import snp_simuPheno
 from bigsnpr_tpu_torch.assoc.gwas import big_univLinReg, big_univLogReg, gwas_pvalues
 from bigsnpr_tpu_torch.pgs.prs import snp_PRS, snp_thr_correct

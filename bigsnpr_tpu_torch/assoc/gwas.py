@@ -4,7 +4,8 @@ e.g. reference tests/testthat/test-6-PRS.R:20, R/ldsc.R examples).
 
 Linear: residualize y and every genotype column against the covariate
 block once, so all per-SNP slopes and SEs come from one operator cprod of
-[yr | Q] (kernel K1 on CUDA) plus column stats. Logistic: a batched IRLS
+[yr | Q] (kernel K1 on CUDA, or K6 under `config.pallas_mxu = "int8"`)
+plus column stats. Logistic: a batched IRLS
 in torch with a fixed iteration count, all variants of a block at once.
 
 Results are dicts of numpy columns {"estim", "std.err", "score"} (the

@@ -7,10 +7,16 @@ point raises: there is no silent fallback.
 
 Precision: float32 products are full float32 everywhere (no TF32), the
 counterpart of the JAX package's `matmul_precision="highest"`.
+
+pallas_mxu: the scheme of the genotype operator's kernels, the JAX
+package's option of the same name (env BIGSNPR_PALLAS_MXU): "highest"
+(float32 decode + GEMM, K1/K2) or "int8" (exact int8 bit planes, K6).
+"split2" (K7) is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 
 import torch
@@ -20,6 +26,8 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 device: str = "cuda"
+# read as the JAX package reads it; an operator checks it when built
+pallas_mxu: str = os.environ.get("BIGSNPR_PALLAS_MXU", "highest")
 
 
 def set_device(name: str) -> None:
@@ -41,21 +49,45 @@ def resolve_device(dev=None) -> torch.device:
     return d
 
 
+MXU_SCHEMES = ("highest", "int8")
+
+
+def resolve_mxu(mxu=None) -> str:
+    """The genotype operator's scheme: `mxu`, else `pallas_mxu`. The JAX
+    package's "split2" (kernel K7) and "int8m" (K8) are not ported yet and
+    raise NotImplementedError."""
+    mxu = pallas_mxu if mxu is None else mxu
+    if mxu in ("split2", "int8m"):
+        kernel = "K7" if mxu == "split2" else "K8"
+        raise NotImplementedError(
+            f'operator scheme "{mxu}" (kernel {kernel}) is not ported yet: '
+            f'ROADMAP queue 2')
+    if mxu not in MXU_SCHEMES:
+        raise ValueError(f"unknown operator scheme {mxu!r}; one of "
+                         f"{MXU_SCHEMES}")
+    return mxu
+
+
 def get_option(name: str):
     from bigsnpr_tpu_torch.utils import assertions
 
     if name == "device":
         return device
+    if name == "pallas_mxu":
+        return pallas_mxu
     if name == "check_args":
         return assertions.get_check_args()
     raise KeyError(name)
 
 
 def set_option(name: str, value) -> None:
+    global pallas_mxu
     from bigsnpr_tpu_torch.utils import assertions
 
     if name == "device":
         set_device(value)
+    elif name == "pallas_mxu":
+        pallas_mxu = resolve_mxu(value)
     elif name == "check_args":
         assertions.set_check_args(bool(value))
     else:

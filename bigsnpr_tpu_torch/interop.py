@@ -1,8 +1,9 @@
 """Carry state across from the JAX package, given as numpy arrays only.
 
 Nothing here imports the JAX package: callers hand over its packed bytes,
-sample count, metadata columns, scaling and SVD factors, sparse LD (CSC
-arrays) and block bands (host buckets) as numpy arrays (or anything
+sample count, metadata columns, scaling and SVD factors (and an autoSVD
+subset), sparse LD (CSC arrays) and block bands (host buckets) as numpy
+arrays (or anything
 `np.asarray` and column access can read), and get the port's `GenoPack`,
 `BigSVD`, `SparseLD` / `BlockBands` holding the same values.
 """
@@ -39,11 +40,14 @@ def pack_from_numpy(packed, n, fam=None, map=None) -> GenoPack:
                                 [c for c in MAP_COLS if c in map]))
 
 
-def svd_from_numpy(d, u, v, center, scale, niter: int = 0) -> BigSVD:
-    """A port `BigSVD` from the factors and scaling of a JAX one."""
+def svd_from_numpy(d, u, v, center, scale, niter: int = 0,
+                   subset=None) -> BigSVD:
+    """A port `BigSVD` from the factors and scaling of a JAX one (and the
+    kept variants of an autoSVD result)."""
     f64 = lambda a: np.array(a, dtype=np.float64)  # noqa: E731
     return BigSVD(d=f64(d), u=f64(u), v=f64(v), center=f64(center),
-                  scale=f64(scale), niter=int(niter))
+                  scale=f64(scale), niter=int(niter),
+                  subset=None if subset is None else np.array(subset))
 
 
 def sparse_ld_from_numpy(data, indices, indptr, shape, pos=None) -> SparseLD:

@@ -37,6 +37,9 @@ class BigSVD:
     center: np.ndarray
     scale: np.ndarray
     niter: int = 0
+    # filled by snp_autoSVD
+    subset: np.ndarray | None = None
+    lrldr: dict | None = None
 
     def scores(self) -> np.ndarray:
         """PC scores = u * d (the reference's predict.big_SVD)."""
@@ -54,11 +57,14 @@ def call_scaling(fun_scaling, pack, ind_row, device):
 
 def _cached_op(pack, ctor, c_f, s_f, ind_row, ind_col, device=None, cap=4):
     """Reuse operators across calls on the same pack, keyed by content
-    (scaling + masks + device), FIFO-capped. The packed bytes stay shared
-    through the pack's device cache.
+    (scaling + masks + device + scheme), FIFO-capped. The packed bytes stay
+    shared through the pack's device cache.
 
     Keys include id(pack.packed), so a pack whose packed array was swapped
-    does not serve operators built on stale bytes."""
+    does not serve operators built on stale bytes (nor a stale NA-free
+    flag), and the scheme `config.pallas_mxu`, so a change of it between
+    calls builds a new operator."""
+    mxu = config.resolve_mxu()
     h = hashlib.md5()
     h.update(str(id(pack.packed)).encode())
     for a in (c_f, s_f):
@@ -66,7 +72,7 @@ def _cached_op(pack, ctor, c_f, s_f, ind_row, ind_col, device=None, cap=4):
     for idx in (ind_row, ind_col):
         h.update(b"-" if idx is None else
                  np.ascontiguousarray(np.asarray(idx, np.int64)).tobytes())
-    key = (ctor.__name__, str(device), h.hexdigest())
+    key = (ctor.__name__, str(device), mxu, h.hexdigest())
     cache = pack._op_cache
     if cache is None:
         cache = pack._op_cache = {}
@@ -74,7 +80,7 @@ def _cached_op(pack, ctor, c_f, s_f, ind_row, ind_col, device=None, cap=4):
         if len(cache) >= cap:
             cache.pop(next(iter(cache)))
         cache[key] = ctor(pack, c_f, s_f, ind_row=ind_row, ind_col=ind_col,
-                          device=device)
+                          device=device, mxu=mxu)
     return cache[key]
 
 
@@ -190,8 +196,9 @@ def snp_randomSVD(
     Reference: bed_randomSVD (R/autoSVD.R:205-219): needs only
     {scaling stats, X·v, Xᵀ·v}; k=10, tol=1e-4 defaults.
 
-    engine: "auto" runs the `GenoOperator` (kernels K1/K2 on CUDA, their
-    twins on the CPU); "torch" the plain-torch `TorchOperator`.
+    engine: "auto" runs the `GenoOperator` (kernels K1/K2, or K6 under
+    `config.pallas_mxu = "int8"`, on CUDA; their twins on the CPU);
+    "torch" the plain-torch `TorchOperator`.
     op: a pre-built operator with the {device, n, m, power_dev} surface;
     pack may then be None and fun_scaling must be a {"center","scale"}
     mapping.

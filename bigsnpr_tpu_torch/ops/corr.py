@@ -352,7 +352,7 @@ def snp_cor(pack, ind_row=None, ind_col=None, size: float = 500,
         raise ValueError(f"finalize must be 'host' or 'device', not "
                          f"{finalize!r}")
     if hasattr(pack, "code256"):
-        raise NotImplementedError("snp_cor on a DosagePack: ROADMAP slice 4")
+        raise NotImplementedError("snp_cor on a DosagePack: ROADMAP slice 5")
     dev = config.resolve_device(device)
     sub = pack
     if ind_col is not None or ind_row is not None:

@@ -1,18 +1,21 @@
-"""Fused 2-bit decode + standardized GEMM: the CUDA kernels K1/K2, their
-plain-torch twins, and the operator built on them.
+"""Fused 2-bit decode + standardized GEMM: the CUDA kernels K1/K2 and K6,
+their plain-torch twins, and the operator built on them.
 
 Counterpart of `bigsnpr_tpu/ops/pallas_kernels.py` (`pallas_cprod` /
-`pallas_prod` with mxu="highest", and `PallasOperator`):
+`pallas_prod` and `PallasOperator`), in two schemes (`config.pallas_mxu`):
 
-  K1 `cprod`: X~^T V, V (n, l) -> (m, l)
-  K2 `prod` : X~ U,   U (m, l) -> (n, l)
+  "highest", K1 `cprod`: X~^T V, V (n, l) -> (m, l)
+             K2 `prod` : X~ U,   U (m, l) -> (n, l)
+  "int8",    K6 `cprod_i8` / `prod_i8`: the same products on exact int8
+             bit planes with int32 accumulation (`_pallas_cprod_i8`,
+             `_pallas_prod_i8`), NA-aware or, for NA-free packs, `_nona`
 
 with X~[i, j] = (d_ij - center_j) * inv_j for sample i of variant j, the
 dosage d = 2 - ((g + 1) >> 1) of 2-bit code g, and NA (g == 1) -> 0.
 
-The kernels live in `csrc/geno_gemm.cu`, built with nvcc at first use
-(keyed by the source's hash) into `_build/` and loaded with ctypes by
-`ops/cuda_build.py`. Each
+The kernels live in `csrc/geno_gemm.cu` (K1/K2) and `csrc/geno_i8.cu`
+(K6), built with nvcc at first use (keyed by the source's hash) into
+`_build/` and loaded with ctypes by `ops/cuda_build.py`. Each
 wrapper launches its kernel for CUDA tensors and counts the launch in
 `launches`; for CPU tensors it runs the plain twin. There is no fallback
 from a CUDA tensor to the twin.
@@ -32,11 +35,21 @@ from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.core.unpack import codes_to_dosage, unpack_codes
 from bigsnpr_tpu_torch.ops import cuda_build
 from bigsnpr_tpu_torch.ops.blocks import pick_block
+from bigsnpr_tpu_torch.ops.corr import _pack_is_nona
 
 SOURCE = cuda_build.PKG / "csrc" / "geno_gemm.cu"
+I8_SOURCE = cuda_build.PKG / "csrc" / "geno_i8.cu"
+# the int8 epilogue rounds as the twin's separate torch ops do
+I8_FLAGS = ("--fmad=false",)
+
+NPLANES = 4             # radix-128 int8 digits of the float operand
+# a raw int32 sum is at most 254 x (contraction length) in absolute value
+MAX_I8_DEPTH = 8_000_000
+_I8_BK = 128            # the kernel's depth tile: digit rows are padded to it
 
 # kernel launches made by the wrappers, by kernel
-launches = {"cprod": 0, "prod": 0}
+launches = {"cprod": 0, "prod": 0, "cprod_i8": 0, "cprod_i8_nona": 0,
+            "prod_i8": 0, "prod_i8_nona": 0}
 
 
 def reset_launches() -> None:
@@ -48,6 +61,11 @@ def build(verbose: bool = False):
     """Compile `csrc/geno_gemm.cu` at first use (`cuda_build.build`);
     returns the library's path."""
     return cuda_build.build(SOURCE, verbose=verbose)
+
+
+def build_i8(verbose: bool = False):
+    """Compile `csrc/geno_i8.cu` (K6) at first use; returns its path."""
+    return cuda_build.build(I8_SOURCE, verbose=verbose, extra=I8_FLAGS)
 
 
 def _bind(lib):
@@ -62,6 +80,22 @@ def _bind(lib):
 
 def _load():
     return cuda_build.load(SOURCE, _bind)
+
+
+def _bind_i8(lib):
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.geno_i8_plan.argtypes = [i32, i32, i64, i64, i64, i32]
+    lib.geno_i8_plan.restype = i32
+    lib.geno_i8_gemm.argtypes = [i32, i32, ptr, i64, i64, i64, ptr, ptr, i64,
+                                 i64, ptr, i32, ptr]
+    lib.geno_i8_gemm.restype = i32
+    lib.geno_i8_epilogue.argtypes = [i32, i32, ptr, i64, i64, ptr, ptr, ptr,
+                                     ptr, ptr, ptr, ptr]
+    lib.geno_i8_epilogue.restype = i32
+
+
+def _load_i8():
+    return cuda_build.load(I8_SOURCE, _bind_i8, extra=I8_FLAGS)
 
 
 # ---------------------------------------------------------------------------
@@ -170,25 +204,231 @@ def prod(packed, n, U, center, inv):
 
 
 # ---------------------------------------------------------------------------
+# K6: the "int8" scheme (exact int8 bit planes, int32 accumulation)
+# ---------------------------------------------------------------------------
+
+def int8_planes(y: torch.Tensor):
+    """y (l, k) f32 -> (NPLANES*l, k) int8 radix-128 digits and the per-row
+    scale (l,) f32, with y[r] ~ scale[r] * sum_p digits[p*l+r] / 128**p:
+    `_int8_planes` op for op (torch.round is half-to-even, as jnp.round),
+    so the digits and scales are bit-equal to the JAX package's."""
+    s = y.abs().amax(dim=1, keepdim=True)
+    s = torch.where(s > 0, s, torch.ones((), dtype=s.dtype, device=s.device))
+    # both divisions by full tensors: torch takes `scalar / t`, and on CUDA
+    # `t / scalar`, as a product with a rounded reciprocal
+    x = y * (torch.full_like(s, 127.0) / s)
+    planes = []
+    for _ in range(NPLANES):
+        q = torch.round(x)
+        planes.append(q.to(torch.int8))
+        x = (x - q) * 128.0
+    return torch.cat(planes, dim=0), s[:, 0] / torch.full_like(s[:, 0], 127.0)
+
+
+def int_planes(packed: torch.Tensor, n: int):
+    """(k, nb) packed -> (t, na) int8 planes (k, n): t = b1 + (b0 & b1) in
+    {0, 1, 2} and na = b0 & ~b1 in {0, 1} of each code's bits b0 (low) and
+    b1 (`_decode_int_planes_i8`)."""
+    g = unpack_codes(packed, n)
+    b0, b1 = g & 1, g >> 1
+    u = b0 & b1
+    return (b1 + u).to(torch.int8), (b0 - u).to(torch.int8)
+
+
+def _cprod_i8_operands(V, center, inv):
+    """Host-side parts of K6 cprod, shared by kernel and twin: the digits
+    and scale of Vᵀ, its row sums, and A = (2 - c) * inv."""
+    Qt = V.T.contiguous()
+    q8, qscale = int8_planes(Qt)
+    return q8, qscale, Qt.sum(dim=1), (2.0 - center) * inv
+
+
+def _prod_i8_operands(U, center, inv, nona):
+    """Host-side parts of K6 prod: digits and scales of zB = Uᵀ inv and
+    (with NA) zA = Uᵀ A, and the row sums of zA."""
+    Zt = U.T
+    zA = Zt * ((2.0 - center) * inv)[None, :]
+    zB = Zt * inv[None, :]
+    zb8, zbs = int8_planes(zB.contiguous())
+    za8, zas = (None, None) if nona else int8_planes(zA.contiguous())
+    return zb8, zbs, za8, zas, zA.sum(dim=1)
+
+
+def _raw_plain(packed, n, digits, nona, prod, block=None):
+    """The raw integer sums of K6 in torch ops: (planes, R, 4l) int32 with
+    planes = [T] or [T, NA] and R = m (cprod) or n (prod). The products of
+    the decoded int8 planes with the digits are taken in float64, exact
+    while |sums| < 2^53, and accumulated over variant blocks. cprod gives
+    one digit array for both planes; prod one a plane."""
+    m = packed.shape[0]
+    block = block or pick_block(n)
+    P = 1 if nona else 2
+    if prod:
+        acc = torch.zeros((P, n, digits[0].shape[0]), dtype=torch.float64,
+                          device=packed.device)
+    else:
+        acc = torch.empty((P, m, digits[0].shape[0]), dtype=torch.float64,
+                          device=packed.device)
+    for j0 in range(0, m, block):
+        j1 = min(m, j0 + block)
+        planes = int_planes(packed[j0:j1], n)
+        for p in range(P):
+            x = planes[p].double()
+            d = digits[min(p, len(digits) - 1)]
+            if prod:
+                acc[p] += x.T @ d[:, j0:j1].double().T
+            else:
+                acc[p, j0:j1] = x @ d.double().T
+    return acc.to(torch.int32)
+
+
+def _combine(raw_p, l):
+    """(R, 4l) integer digit sums -> (R, l) f32, `_combine_planes`' order:
+    ((w0 + w1/128) + w2/128^2) + w3/128^3."""
+    parts = raw_p.to(torch.float32).reshape(raw_p.shape[0], NPLANES, l)
+    out = parts[:, 0]
+    f = 1.0
+    for p in range(1, NPLANES):
+        f = f / 128.0
+        out = out + parts[:, p] * f
+    return out
+
+
+def _epilogue_plain(raw, l, sc_t, sc_na, sumv, A=None, s=None):
+    """raw (planes, R, 4l) -> (R, l) f32: cprod (A, s given)
+    (sum - pna) * A - pt * s, prod (sum - pna) - pt, with pt = comb_t *
+    sc_t and pna = comb_na * sc_na (0 for an NA-free pack)."""
+    pt = _combine(raw[0], l) * sc_t[None, :]
+    pna = 0.0 if raw.shape[0] == 1 else _combine(raw[1], l) * sc_na[None, :]
+    if A is None:
+        return (sumv[None, :] - pna) - pt
+    return (sumv[None, :] - pna) * A[:, None] - pt * s[:, None]
+
+
+def _check_i8(packed, n, W, w_rows, center, inv, depth):
+    _check(packed, n, W, w_rows, center, inv)
+    if depth > MAX_I8_DEPTH:
+        raise ValueError(
+            f"int8 scheme: contraction length {depth} > {MAX_I8_DEPTH}; the "
+            f"int32 sums (at most 254 per term) could overflow")
+
+
+def _launch_i8(prod, nona, packed, n, digits, R, l, sc_t, sc_na, sumv, A, s,
+               splits=None):
+    """Run the K6 GEMM into int32 raw sums, then the epilogue kernel;
+    returns (out (R, l) f32, raw (planes, R, 4l) int32). `splits` (depth
+    splits of the GEMM) defaults to the library's plan."""
+    lib = _load_i8()
+    m, nb = packed.shape
+    dev = packed.device
+    depth = m if prod else n
+    ldd = -(-depth // _I8_BK) * _I8_BK
+    padded = []
+    for d in digits:
+        dp = torch.zeros((d.shape[0], ldd), dtype=torch.int8, device=dev)
+        dp[:, :depth] = d
+        padded.append(dp)
+    N4 = NPLANES * l
+    P = 1 if nona else 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if splits is None:
+        splits = lib.geno_i8_plan(int(prod), int(nona), m, n, N4, sms)
+    alloc = torch.zeros if splits > 1 else torch.empty
+    raw = alloc((P, R, N4), dtype=torch.int32, device=dev)
+    out = torch.empty((R, l), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.geno_i8_gemm(int(prod), int(nona), packed.data_ptr(), m, nb, n,
+                          padded[0].data_ptr(), padded[-1].data_ptr(), ldd,
+                          N4, raw.data_ptr(), splits, stream)
+    if rc == 0:
+        rc = lib.geno_i8_epilogue(
+            int(prod), int(nona), raw.data_ptr(), R, l, sc_t.data_ptr(),
+            sc_na.data_ptr(), sumv.data_ptr(),
+            0 if A is None else A.data_ptr(),
+            0 if s is None else s.data_ptr(), out.data_ptr(), stream)
+    kind = ("prod_i8" if prod else "cprod_i8") + ("_nona" if nona else "")
+    if rc != 0:
+        raise RuntimeError(f"geno {kind} launch failed: CUDA error {rc}")
+    launches[kind] += 1
+    return out, raw
+
+
+def cprod_i8_plain(packed, n, V, center, inv, nona=False, return_raw=False):
+    """K6 cprod's function in torch ops: the same digits, exact integer
+    sums (float64 products), recombination and epilogue as the kernel."""
+    q8, qscale, qsum, A = _cprod_i8_operands(V, center, inv)
+    raw = _raw_plain(packed, n, [q8], nona, prod=False)
+    out = _epilogue_plain(raw, V.shape[1], qscale, qscale, qsum, A, inv)
+    return (out, raw) if return_raw else out
+
+
+def prod_i8_plain(packed, n, U, center, inv, nona=False, return_raw=False):
+    """K6 prod's function in torch ops (see `cprod_i8_plain`)."""
+    zb8, zbs, za8, zas, zsum = _prod_i8_operands(U, center, inv, nona)
+    raw = _raw_plain(packed, n, [zb8] if nona else [zb8, za8], nona,
+                     prod=True)
+    out = _epilogue_plain(raw, U.shape[1], zbs, zas, zsum)
+    return (out, raw) if return_raw else out
+
+
+def cprod_i8(packed, n, V, center, inv, nona=False, return_raw=False,
+             splits=None):
+    """K6 cprod: (m, nb) uint8 packed, V (n, l) f32 -> (m, l) f32 = X~^T V
+    on int8 bit planes (T, and NA unless `nona`, which the caller asserts:
+    an NA code then counts as dosage 2). CUDA tensors launch the kernel;
+    CPU tensors take `cprod_i8_plain`. `return_raw` also returns the
+    (planes, m, 4l) int32 digit sums; `splits` overrides the planned depth
+    splits of the GEMM (the sums do not depend on it)."""
+    _check_i8(packed, n, V, n, center, inv, n)
+    if packed.device.type == "cpu":
+        return cprod_i8_plain(packed, n, V, center, inv, nona, return_raw)
+    q8, qscale, qsum, A = _cprod_i8_operands(V, center, inv)
+    out, raw = _launch_i8(False, nona, packed, n, [q8], packed.shape[0],
+                          V.shape[1], qscale, qscale, qsum, A, inv, splits)
+    return (out, raw) if return_raw else out
+
+
+def prod_i8(packed, n, U, center, inv, nona=False, return_raw=False,
+            splits=None):
+    """K6 prod: U (m, l) f32 -> (n, l) f32 = X~ U on int8 bit planes (see
+    `cprod_i8`)."""
+    m = packed.shape[0]
+    _check_i8(packed, n, U, m, center, inv, m)
+    if packed.device.type == "cpu":
+        return prod_i8_plain(packed, n, U, center, inv, nona, return_raw)
+    zb8, zbs, za8, zas, zsum = _prod_i8_operands(U, center, inv, nona)
+    digits = [zb8] if nona else [zb8, za8]
+    out, raw = _launch_i8(True, nona, packed, n, digits, n, U.shape[1], zbs,
+                          zbs if nona else zas, zsum, None, None, splits)
+    return (out, raw) if return_raw else out
+
+
+# ---------------------------------------------------------------------------
 # the operator
 # ---------------------------------------------------------------------------
 
 class GenoOperator:
-    """Device-resident standardized genotype operator on K1/K2, with the
-    surface {n, m, cprod, prod, power, power_dev} of the JAX package's
-    `PallasOperator`.
+    """Device-resident standardized genotype operator on K1/K2 (scheme
+    "highest") or K6 (scheme "int8"), with the surface {n, m, cprod, prod,
+    power, power_dev} of the JAX package's `PallasOperator`.
 
-    A variant whose scale is <= 0 contributes exactly 0 (inv = 0,
-    center = 2). Optional ind_row/ind_col make the operator act as the
-    physically subsetted matrix would, while the packed bytes stay whole
-    (and cached) on the device: inputs are scattered and outputs gathered
-    on the device."""
+    mxu=None takes `config.pallas_mxu`; nona=None scans the pack once for
+    an NA code (the PLINK zero pad of a partial last byte is code 0, not
+    NA), and an NA-free pack runs the `_nona` kernels. A variant whose
+    scale is <= 0 contributes exactly 0 (inv = 0, center = 2). Optional
+    ind_row/ind_col make the operator act as the physically subsetted
+    matrix would, while the packed bytes stay whole (and cached) on the
+    device: inputs are scattered and outputs gathered on the device."""
 
     def __init__(self, pack, center, scale, ind_row=None, ind_col=None,
-                 device=None):
+                 device=None, mxu=None, nona=None):
         dev = config.resolve_device(device)
         self.device = dev
+        self.mxu = config.resolve_mxu(mxu)
         self.packed = pack.device_packed(dev)
+        # only the int8 scheme has an NA-free path; "highest" skips the scan
+        self.nona = bool(nona) if nona is not None else (
+            self.mxu == "int8" and _pack_is_nona(pack, self.packed, pack.n))
         self.n_full, self.m_full = pack.n, pack.m
         center = np.asarray(center, dtype=np.float64)
         scale = np.asarray(scale, dtype=np.float64)
@@ -211,9 +451,15 @@ class GenoOperator:
 
     # full-matrix products; TorchOperator swaps in the plain twins
     def _cprod_full(self, V):
+        if self.mxu == "int8":
+            return cprod_i8(self.packed, self.n_full, V, self.center,
+                            self.inv, nona=self.nona)
         return cprod(self.packed, self.n_full, V, self.center, self.inv)
 
     def _prod_full(self, U):
+        if self.mxu == "int8":
+            return prod_i8(self.packed, self.n_full, U, self.center,
+                           self.inv, nona=self.nona)
         return prod(self.packed, self.n_full, U, self.center, self.inv)
 
     def _as_2d(self, arr):
@@ -261,7 +507,7 @@ class GenoOperator:
         return B.cpu().numpy(), Y.cpu().numpy()
 
     def power_dev(self, V: torch.Tensor):
-        """Power step on the device, K1 then K2 on one stream with no host
-        round-trip: V (n, l) -> (B = X~^T V (m, l), Y = X~ B (n, l))."""
+        """Power step on the device, cprod then prod (K1 then K2, or K6
+        twice) on one stream with no host round-trip: V (n, l) -> (B = X~^T V (m, l), Y = X~ B (n, l))."""
         B = self.cprod_dev(V)
         return B, self.prod_dev(B)

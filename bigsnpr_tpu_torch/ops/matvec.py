@@ -23,21 +23,30 @@ from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator
 
 
 class TorchOperator(GenoOperator):
-    """`GenoOperator` on the plain-torch decode -> matmul path on any
-    device (the twin of the JAX package's `XlaOperator`): the same
-    surface, masking and scale-0 rule, with no hand-written kernel."""
+    """`GenoOperator` on the plain-torch path on any device (the twin of
+    the JAX package's `XlaOperator`): the same surface, masking, scale-0
+    rule and scheme, with no hand-written kernel. Under "int8" it runs
+    the K6 twins (`cprod_i8_plain`, `prod_i8_plain`)."""
 
     def __init__(self, pack, center, scale, ind_row=None, ind_col=None,
-                 block=None, device=None):
+                 block=None, device=None, mxu=None, nona=None):
         super().__init__(pack, center, scale, ind_row=ind_row,
-                         ind_col=ind_col, device=device)
+                         ind_col=ind_col, device=device, mxu=mxu, nona=nona)
         self.block = block
 
     def _cprod_full(self, V):
+        if self.mxu == "int8":
+            return geno_kernels.cprod_i8_plain(self.packed, self.n_full, V,
+                                               self.center, self.inv,
+                                               self.nona)
         return geno_kernels.cprod_plain(self.packed, self.n_full, V,
                                         self.center, self.inv, self.block)
 
     def _prod_full(self, U):
+        if self.mxu == "int8":
+            return geno_kernels.prod_i8_plain(self.packed, self.n_full, U,
+                                              self.center, self.inv,
+                                              self.nona)
         return geno_kernels.prod_plain(self.packed, self.n_full, U,
                                        self.center, self.inv, self.block)
 

@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch / CUDA port on one GPU.
 
     python3 chip_smoke.py [--seed S] [--n N] [--m M] [--n2 N2] [--m2 M2]
-                          [--burn-in B] [--num-iter I]
+                          [--burn-in B] [--num-iter I] [--n3 N3] [--m3 M3]
+                          [--region R]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-  2. build the CUDA kernels from bigsnpr_tpu_torch/csrc/ (one nvcc each,
-     started together);
+  2. build the CUDA kernels from bigsnpr_tpu_torch/csrc/ (one nvcc a
+     source, the three started together);
   3. hold K1/K2 (decode + GEMM) against their plain-torch twins on the card
      at awkward shapes (n = 1, 2, 3 mod 4, ragged m, NA, monomorphic and
      scale-0 variants, l in {1, 12, 20, 50}), then on the first 4,096
@@ -40,7 +41,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
      float64 case, each run twice for bit-equality, timed beside the twin
      and its bound;
   8. torch.profiler around a 20-sweep snp_ldpred2_auto call on the slice-2
-     data: the device's busy share and the kernels that take it.
+     data: the device's busy share and the kernels that take it;
+  9. K6 (the int8 bit-plane kernels, csrc/geno_i8.cu) against its twin in
+     its four instantiations at awkward shapes (n = 0..3 mod 4, ragged m,
+     l in {1, 12, 20, 21}, NA and NA-free packs, monomorphic and scale-0
+     variants): raw int32 sums equal, float32 within 1e-6 of max |twin|,
+     two launches bit-equal; and the masked int8 operator;
+ 10. slice 3 at full size, pallas_mxu "int8": a 50,000 x 100,000 cohort
+     made on the card (3 populations, Fst 0.02, over slice 2's AR(1) LD
+     blocks; 22 chromosomes; one planted 5,000-variant long-range-LD
+     region loaded by an "inversion" carrier status), 5,000 samples held
+     out; snp_autoSVD(k = 10) -> snp_pcadapt -> bed_projectSelfPCA ->
+     snp_simuPheno -> big_univLinReg(covar = PCs) -> gwas_pvalues, with
+     K1/K2 launching 0 times from autoSVD through the GWAS (simuPheno's
+     K2 aside); checks: the region found and dropped, populations on
+     PC1-2 (training and projected), pcadapt's enrichment for high-Fst
+     variants, GWAS against dense float64, and the same autoSVD on K1/K2
+     giving the same subset and lrldr;
+ 11. K6 timed at the slice's shapes and at full width, NA and NA-free,
+     beside the twin, torch._int_mm on pre-decoded planes and the bound;
+     snp_randomSVD on an NA-free copy runs the _nona kernels alone.
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -70,6 +90,15 @@ SOURCE = "bigsnpr_tpu_torch/csrc/geno_gemm.cu"
 REPLACES = {"cprod": "bigsnpr_tpu/ops/pallas_kernels.py:583",
             "prod": "bigsnpr_tpu/ops/pallas_kernels.py:636"}
 SWEEP_SOURCE = "bigsnpr_tpu_torch/csrc/gibbs_sweep.cu"
+I8_SOURCE = "bigsnpr_tpu_torch/csrc/geno_i8.cu"
+I8_REPLACES = {"cprod_i8": "bigsnpr_tpu/ops/pallas_kernels.py:255",
+               "cprod_i8_nona": "bigsnpr_tpu/ops/pallas_kernels.py:273",
+               "prod_i8": "bigsnpr_tpu/ops/pallas_kernels.py:290",
+               "prod_i8_nona": "bigsnpr_tpu/ops/pallas_kernels.py:311"}
+I8_TOL = 1e-6   # K6 vs twin: same integer sums, same f32 epilogue (--fmad=false)
+PEAK_INT8_OP_PER_S = 1979e12
+K1K2 = ("cprod", "prod")
+K6 = tuple(I8_REPLACES)
 SWEEP_TOL = 1e-5   # sweep vs twin: max |diff| <= SWEEP_TOL * max |twin|
 # one sweep row's least latency (a floor of the kernel's design, printed
 # beside the bound): the dependent chain of a row (shared
@@ -288,9 +317,11 @@ def phase_main_path(bp, gk, torch, dev, packed_np, pop, n, m, seed, tmp):
     launches = dict(gk.launches)
     log(f"  total            {sum(times.values()):9.3f} s; kernel launches "
         f"{launches}; randomSVD depths {svd.niter}")
-    for k, v in launches.items():
-        if dev.type == "cuda" and v <= 0:
+    for k in K1K2:
+        if dev.type == "cuda" and launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
+    if dev.type == "cuda" and any(launches[k] for k in K6):
+        fail("slice 1 (pallas_mxu \"highest\") launched K6")
 
     # -- results, checked with the port's own means and dense float64 ------
     log("  checks:")
@@ -445,23 +476,79 @@ def block_sizes(rng, m, bmin, bmax):
     return np.asarray(sizes)
 
 
-def make_ld_cohort(torch, dev, n, m, seed, bmin, bmax, rho=0.995,
-                   chunk=4096):
+# GRCh37 autosome lengths in Mb: slice 3's 22 chromosomes take shares of
+# the variants in these proportions
+CHROM_MB = (249, 243, 198, 191, 181, 171, 159, 146, 141, 135, 135, 133, 115,
+            107, 102, 90, 81, 78, 59, 63, 48, 51)
+# the LD cohorts' AR(1) lag-1 correlation (slices 2 and 3), the
+# populations' Fst, and the share of haplotypes that carry slice 3's
+# "inversion"
+RHO = 0.995
+FST = 0.02
+CARRIER_FREQ = 0.2
+
+
+def chromosome_bounds(sizes, m):
+    """Start of each of the 22 chromosomes (and m), in proportion to
+    CHROM_MB, each moved to the nearest LD-block boundary where the blocks
+    are many enough to keep them distinct."""
+    share = np.cumsum(CHROM_MB) / np.sum(CHROM_MB)
+    target = np.r_[0, np.round(share * m).astype(np.int64)]
+    edges = np.r_[0, np.cumsum(sizes)]
+    snapped = edges[np.abs(edges[None, :] - target[:, None]).argmin(1)]
+    return snapped if np.all(np.diff(snapped) > 0) else target
+
+
+def make_ld_cohort(torch, dev, n, m, seed, bmin, bmax, chunk=4096, pops=0,
+                   region_len=0):
     """(m, ceil(n/4)) packed genotypes made on the device from `seed`, with
     LD in independent blocks: each haplotype is a latent Gaussian AR(1)
-    along the block (lag-k correlation rho^k), thresholded at the
+    along the block (lag-k correlation RHO^k), thresholded at the
     variant's allele frequency ~ U(0.05, 0.5); 1% NA on 5% of the
-    variants. Returns the packed bytes on the device and the block sizes.
-    All blocks advance one position a step, longest first."""
+    variants. Returns the packed bytes on the device, the block sizes and
+    a dict of what else was drawn. All blocks advance one position a
+    step, longest first.
+
+    pops > 0 gives each sample one of `pops` populations whose allele
+    frequencies are Balding-Nichols draws (Fst FST) around the ancestral
+    ones. region_len > 0 lays out 22 chromosomes (`chromosome_bounds`) and
+    plants a long-range-LD region of that many contiguous variants on the
+    first: each haplotype carries an "inversion" with probability
+    CARRIER_FREQ (whatever its population), and a carrier's threshold at
+    every variant of the region moves by +-U(0.5, 1.5) latent sd. Without
+    them, the draws are those of slice 2."""
     from scipy.stats import norm
 
     rng = np.random.default_rng(seed + 2)
     sizes = block_sizes(rng, m, bmin, bmax)
     order = np.argsort(-sizes, kind="stable")
     starts = np.r_[0, np.cumsum(sizes)[:-1]]
-    thr = torch.as_tensor(norm.isf(rng.uniform(0.05, 0.5, m)),
-                          dtype=torch.float32, device=dev)
+    p_anc = rng.uniform(0.05, 0.5, m)
+    thr_np = norm.isf(p_anc)[:, None]                       # (m, pops or 1)
     na_var = torch.as_tensor(rng.random(m) < 0.05, device=dev)
+    info = {}
+    pop = np.zeros(n, np.int64)
+    if pops:
+        a, b = p_anc * (1 - FST) / FST, (1 - p_anc) * (1 - FST) / FST
+        P = np.clip(rng.beta(a[:, None], b[:, None], size=(m, pops)), 1e-3,
+                    1 - 1e-3)
+        pop = rng.integers(0, pops, n)
+        thr_np = norm.isf(P)
+        info.update(pop=pop, P=P)
+    shift = None
+    if region_len:
+        bounds = chromosome_bounds(sizes, m)
+        length = min(region_len, int(0.6 * (bounds[1] - bounds[0])))
+        j0 = bounds[0] + (bounds[1] - bounds[0] - length) // 3
+        sh = np.zeros(m)
+        sh[j0:j0 + length] = (rng.choice([-1.0, 1.0], length)
+                              * rng.uniform(0.5, 1.5, length))
+        carrier = rng.random((2, n)) < CARRIER_FREQ
+        shift = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+        carr_t = torch.as_tensor(carrier, dtype=torch.float32, device=dev)
+        info.update(bounds=bounds, region=(j0, j0 + length), carrier=carrier)
+    thr = torch.as_tensor(thr_np, dtype=torch.float32, device=dev)
+    pop_t = torch.as_tensor(pop, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 2)
     B = len(sizes)
@@ -470,14 +557,17 @@ def make_ld_cohort(torch, dev, n, m, seed, bmin, bmax, rho=0.995,
     code_of = torch.tensor([3, 2, 0], dtype=torch.uint8, device=dev)
     codes = torch.empty((m, n), dtype=torch.uint8, device=dev)
     z = torch.randn((2, n, B), generator=gen, device=dev)
-    a = float(np.sqrt(1 - rho * rho))
+    a = float(np.sqrt(1 - RHO * RHO))
     for j in range(int(sizes.max())):
         if j:
-            z = rho * z + a * torch.randn((2, n, B), generator=gen,
+            z = RHO * z + a * torch.randn((2, n, B), generator=gen,
                                           device=dev)
         k = int((sizes_sorted > j).sum())
         var = start_t[:k] + j
-        d = (z[:, :, :k] > thr[var]).sum(0)                 # (n, k)
+        th = thr[var][:, pop_t].T                           # (n, k)
+        if shift is not None:
+            th = th[None] - carr_t[:, :, None] * shift[var][None, None, :]
+        d = (z[:, :, :k] > th).sum(0)                       # (n, k)
         miss = ((torch.rand((n, k), generator=gen, device=dev) < 0.01)
                 & na_var[var])
         codes[var] = torch.where(miss, 1, code_of[d]).T.to(torch.uint8)
@@ -489,7 +579,7 @@ def make_ld_cohort(torch, dev, n, m, seed, bmin, bmax, rho=0.995,
         packed[j0:j0 + chunk] = (c.view(-1, nb, 4) << shifts).sum(-1).to(
             torch.uint8)
     del codes, z
-    return packed, sizes
+    return packed, sizes, info
 
 
 def check_pair_sums(torch, dev, bp, pack, train, size, thr_r2, k=1000):
@@ -544,8 +634,8 @@ def phase_slice2(bp, gsk, gk, torch, dev, args):
     n, m = args.n2, args.m2
     log(f"[6] slice 2 at n={n} samples x m={m} variants")
     t0 = time.perf_counter()
-    packed, sizes = make_ld_cohort(torch, dev, n, m, args.seed, args.bmin,
-                                   args.bmax)
+    packed, sizes, _ = make_ld_cohort(torch, dev, n, m, args.seed,
+                                      args.bmin, args.bmax)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     log(f"  cohort made on the {dev.type} in {time.perf_counter() - t0:.1f} "
@@ -858,6 +948,398 @@ def phase_profile(torch, dev, run_auto):
             f"{a.key[:70]}")
 
 
+# ---------------------------------------------------------------------------
+# slice 3: int8 scheme (K6) -> autoSVD -> pcadapt -> projection -> GWAS
+# ---------------------------------------------------------------------------
+
+def clear_na(packed):
+    """A copy of the packed bytes with every NA code (01) made 00."""
+    return packed & ~(packed & ~(packed >> 1) & 0x55)
+
+
+def i8_case(torch, dev, rng, n, m, l, na):
+    """A pack with NA (or none) on the card, monomorphic variants every 13
+    and scale-0 variants every 7, with center / inv and random operands."""
+    packed = small_pack(rng, n, m) if na else clear_na(small_pack(rng, n, m))
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    inv = rng.uniform(0.5, 3.0, m)
+    inv[::7] = 0.0
+    c = np.where(inv > 0, rng.uniform(0.1, 1.9, m), 2.0)
+    return (torch.as_tensor(packed, device=dev), n, f(c), f(inv),
+            f(rng.standard_normal((n, l))), f(rng.standard_normal((m, l))))
+
+
+def check_i8(gk, torch, dev, packed, n, c, inv, V, U, nona, tag):
+    """K6 cprod and prod against the twin on one input: raw int32 sums
+    equal, f32 within I8_TOL of max |twin|, two launches bit-equal."""
+    for kind, kern, plain, W in (("cprod_i8", gk.cprod_i8, gk.cprod_i8_plain,
+                                  V),
+                                 ("prod_i8", gk.prod_i8, gk.prod_i8_plain,
+                                  U)):
+        key = kind + ("_nona" if nona else "")
+        got, raw = kern(packed, n, W, c, inv, nona=nona, return_raw=True)
+        again = kern(packed, n, W, c, inv, nona=nona)
+        ref, raw_ref = plain(packed, n, W, c, inv, nona=nona,
+                             return_raw=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        raw_eq = torch.equal(raw, raw_ref)
+        err, rel = rel_err(got, ref)
+        bit = torch.equal(got, ref)
+        repeat = torch.equal(got, again)
+        log(f"  {tag} {key:13s} n={n} m={packed.shape[0]} l={W.shape[1]}: "
+            f"raw int32 sums equal {raw_eq}; max abs err {err:.3e} (rel "
+            f"{rel:.1e}, limit {I8_TOL}); bit-equal to the twin {bit}; two "
+            f"launches bit-equal {repeat}")
+        if not (raw_eq and repeat and rel <= I8_TOL
+                and torch.isfinite(got).all()):
+            fail(f"K6 {key} ({tag}) disagrees with its twin or does not "
+                 f"repeat")
+
+
+def phase_i8_small(bp, gk, torch, dev, rng):
+    log("[9] K6 (int8 bit planes) vs its twin at awkward shapes")
+    for n, m, l in ((1000, 777, 1), (1001, 1500, 12), (1002, 3001, 20),
+                    (1003, 513, 21), (20000, 2100, 20)):
+        for na in (True, False):
+            check_i8(gk, torch, dev, *i8_case(torch, dev, rng, n, m, l, na),
+                     nona=not na, tag="small")
+    # the masked operator: ind_row / ind_col scattered and gathered on the
+    # device around the kernels, against the plain-torch operator
+    n, m = 3001, 2500
+    pack = bp.GenoPack(packed=small_pack(rng, n, m), n=n)
+    sc = bp.bed_scaleBinom(pack, device=dev)
+    rows = np.sort(rng.choice(n, 2000, replace=False))
+    cols = np.sort(rng.choice(m, 1300, replace=False))
+    ops = [ctor(pack, sc["center"], sc["scale"], ind_row=rows, ind_col=cols,
+                device=dev, mxu="int8")
+           for ctor in (bp.GenoOperator, bp.TorchOperator)]
+    V = torch.as_tensor(rng.standard_normal((len(rows), 20)),
+                        dtype=torch.float32, device=dev)
+    (B, Y), (Br, Yr) = (op.power_dev(V) for op in ops)
+    errs = [rel_err(B, Br)[1], rel_err(Y, Yr)[1]]
+    log(f"  masked int8 operator ({len(rows)} of {n} rows, {len(cols)} of "
+        f"{m} variants, nona {ops[0].nona}): power step rel err {errs[0]:.1e}"
+        f" / {errs[1]:.1e} against the plain operator; bit-equal "
+        f"{torch.equal(B, Br) and torch.equal(Y, Yr)}")
+    if max(errs) > I8_TOL:
+        fail("the masked int8 operator disagrees with the plain one")
+
+
+def pop_r2(scores, pop):
+    """Share of the variance of the score columns that the population
+    labels explain: 1 - within-population / total sum of squares."""
+    tot = ((scores - scores.mean(0)) ** 2).sum()
+    within = sum(((scores[pop == p] - scores[pop == p].mean(0)) ** 2).sum()
+                 for p in np.unique(pop))
+    return 1.0 - within / tot
+
+
+def variant_fst(P, pop):
+    """Fst of each variant from the populations' allele frequencies,
+    weighted by the populations' sizes."""
+    w = np.bincount(pop, minlength=P.shape[1]) / len(pop)
+    pbar = P @ w
+    return ((P - pbar[:, None]) ** 2 @ w) / (pbar * (1 - pbar))
+
+
+def make_slice3(bp, torch, dev, args):
+    """The slice-3 cohort, its 22 chromosomes with sorted positions, and
+    the training / held-out split."""
+    n, m = args.n3, args.m3
+    t0 = time.perf_counter()
+    packed, sizes, info = make_ld_cohort(
+        torch, dev, n, m, args.seed + 10, args.bmin, args.bmax,
+        pops=3, region_len=args.region)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    bounds = info["bounds"]
+    chrs = np.repeat(np.arange(1, 23), np.diff(bounds))
+    rng = np.random.default_rng(args.seed + 11)
+    # ~3 kb between variants: a 500 kb clumping window holds ~170
+    gaps = 1 + rng.exponential(3000.0, m).astype(np.int64)
+    pos = np.empty(m, np.int64)
+    for c0, c1 in zip(bounds[:-1], bounds[1:]):
+        pos[c0:c1] = np.cumsum(gaps[c0:c1])
+    j0, j1 = info["region"]
+    log(f"  cohort made on the {dev.type} in {time.perf_counter() - t0:.1f} "
+        f"s: {len(sizes)} LD blocks of {sizes.min()}-{sizes.max()} variants "
+        f"(AR(1) rho {RHO}), 3 populations (Fst {FST}), 22 "
+        f"chromosomes of {np.diff(bounds).min()}-{np.diff(bounds).max()} "
+        f"variants; long-range-LD region: variants {j0}-{j1 - 1} "
+        f"(chromosome 1, {pos[j0]}-{pos[j1 - 1]} bp), carrier haplotype "
+        f"frequency {info['carrier'].mean():.3f}")
+    pack = bp.GenoPack(packed=packed.cpu().numpy(), n=n)
+    pack._device_cache[str(dev)] = packed
+    perm = rng.permutation(n)
+    n_held = max(1, n // 10)
+    held, train = np.sort(perm[:n_held]), np.sort(perm[n_held:])
+    return pack, chrs, pos, info, train, held
+
+
+def phase_slice3(bp, gk, torch, dev, args):
+    n, m = args.n3, args.m3
+    log(f"[10] slice 3 at n={n} samples x m={m} variants, pallas_mxu "
+        f"\"int8\"")
+    pack, chrs, pos, info, train, held = make_slice3(bp, torch, dev, args)
+    pop = info["pop"]
+    times = {}
+
+    def stage(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        log(f"  {name:22s} {times[name]:9.3f} s")
+        return out
+
+    kw = dict(infos_chr=chrs, infos_pos=pos, ind_row=train, k=10)
+    timer = bp.StageTimer()
+    gk.reset_launches()
+    with bp.config.options(pallas_mxu="int8"):
+        svd = stage("snp_autoSVD", lambda: bp.snp_autoSVD(pack, timer=timer,
+                                                          **kw))
+        # K = 2: the population PCs of 3 populations (the reference's
+        # pcadapt vignette takes K from the scree plot); K = 10 below
+        pc = stage("snp_pcadapt", lambda: bp.snp_pcadapt(
+            pack, svd.u[:, :2], ind_row=train, ind_col=svd.subset))
+        proj = stage("bed_projectSelfPCA", lambda: bp.bed_projectSelfPCA(
+            svd, pack, ind_row=held))
+        path = dict(gk.launches)
+        sim = stage("snp_simuPheno", lambda: bp.snp_simuPheno(
+            pack, h2=0.4, M=m // 100, seed=args.seed))
+        y = sim["pheno"]
+        gk.reset_launches()
+        gwas = stage("big_univLinReg", lambda: bp.big_univLinReg(
+            pack, y[train], covar=svd.u, ind_row=train))
+        lp = stage("gwas_pvalues", lambda: -bp.gwas_pvalues(gwas, log10=True))
+        for k, v in gk.launches.items():
+            path[k] += v
+    log("  autoSVD stages: " + ", ".join(f"{k} {v:.3f} s"
+                                         for k, v in timer.times.items()))
+    log(f"  autoSVD: {len(svd.subset)} variants kept of {m} after "
+        f"{svd.niter} randomSVD depths in the last call; lrldr "
+        f"{ {k: v.tolist() for k, v in svd.lrldr.items()} }")
+    log(f"  kernel launches from snp_autoSVD through big_univLinReg "
+        f"(snp_simuPheno's K2 excluded): {path}")
+    if dev.type == "cuda":
+        if path["cprod"] or path["prod"]:
+            fail("K1/K2 launched on the int8 path")
+        if not (path["cprod_i8"] and path["prod_i8"]):
+            fail("K6 (NA) was not launched on the slice-3 path")
+
+    log("  checks:")
+    enforce = dev.type == "cuda"
+    bad = []
+    # the planted long-range-LD region
+    j0, j1 = info["region"]
+    maf = bp.bed_MAF(pack, ind_row=train, device=dev)
+    ok_maf = (maf["mac"] >= 10) & (maf["maf"] >= 0.02)
+    excl = np.nonzero(~ok_maf | (chrs != 1))[0]
+    clumped = bp.snp_clumping(pack, infos_chr=chrs, ind_row=train,
+                              thr_r2=0.2, size=500, infos_pos=pos,
+                              exclude=excl, device=dev)
+    in_reg = clumped[(clumped >= j0) & (clumped < j1)]
+    lost = 1 - np.isin(in_reg, svd.subset).mean() if len(in_reg) else 0.0
+    lr = svd.lrldr
+    mids = (lr["Start"] + lr["Stop"]) / 2
+    hit = (lr["Chr"] == 1) & (mids >= pos[j0]) & (mids <= pos[j1 - 1])
+    log(f"    LRLD region {pos[j0]}-{pos[j1 - 1]} bp on chromosome 1: "
+        f"{int(hit.sum())} lrldr intervals centred in it ("
+        + ", ".join(f"{a}-{b}" for a, b in zip(lr["Start"][hit],
+                                                 lr["Stop"][hit]))
+        + f"); {len(in_reg)} of its variants clumped, {100 * lost:.1f}% of "
+        f"them dropped by the outlier loop (floor 75%)")
+    if not (hit.any() and lost >= 0.75):
+        bad.append("LRLD region")
+    # populations on PC1-2, training scores and projected held-out samples
+    r2_train = pop_r2(svd.u[:, :2] * svd.d[:2], pop[train])
+    r2_held = pop_r2(proj["OADP_proj"][:, :2], pop[held])
+    log(f"    population labels explain {r2_train:.4f} of PC1-2 score "
+        f"variance (training), {r2_held:.4f} (held-out, OADP) (floor 0.9)")
+    if not (r2_train >= 0.9 and r2_held >= 0.9):
+        bad.append("population PCs")
+    # pcadapt: enrichment of the top-Fst variants among the 100 smallest p
+    fst = variant_fst(info["P"], pop)[svd.subset]
+    top = np.argsort(-fst)[:max(1, len(fst) // 100)]
+    chance = 100 * len(top) / len(fst)
+    pc10 = bp.snp_pcadapt(pack, svd.u, ind_row=train, ind_col=svd.subset)
+    for K, res in ((2, pc), (10, pc10)):
+        hits = len(np.intersect1d(top, np.argsort(res.lpval())[:100]))
+        log(f"    pcadapt, K = {K}: {hits} of the 100 smallest p-values among "
+            f"the {len(top)} highest-Fst variants of the subset (chance "
+            f"{chance:.2f}): {hits / chance:.1f}-fold"
+            + (" (floor 5)" if K == 2 else " (not gated: PCs 3-10 are the "
+               "LD-lifted bulk, whose tails lead)"))
+        if K == 2 and not hits / chance > 5:
+            bad.append("pcadapt enrichment")
+    # GWAS against dense float64 OLS
+    rng = np.random.default_rng(args.seed + 12)
+    cols = np.sort(rng.choice(m, min(1000, m), replace=False))
+    b_ref, se_ref = dense_linreg(torch, dev, pack, y[train], svd.u, train,
+                                 cols)
+    b, se = gwas["estim"][cols], gwas["std.err"][cols]
+    e_b = np.abs(b - b_ref) / (np.abs(b_ref) + se_ref)
+    e_se = np.abs(se - se_ref) / se_ref
+    log(f"    GWAS (int8) vs dense f64 on {len(cols)} variants: estim max "
+        f"|d|/(|b|+se) {e_b.max():.2e}, std.err max rel {e_se.max():.2e} "
+        f"(limit 1e-4); finite p-values {np.isfinite(lp).mean():.4f}")
+    if e_b.max() > 1e-4 or e_se.max() > 1e-4:
+        fail("int8 GWAS disagrees with the dense float64 regression")
+    # the same autoSVD on K1/K2
+    with bp.config.options(pallas_mxu="highest"):
+        t = time.perf_counter()
+        svd_h = bp.snp_autoSVD(pack, **kw)
+        t_h = time.perf_counter() - t
+    same_lr = all(np.array_equal(svd.lrldr[k], svd_h.lrldr[k])
+                  for k in svd.lrldr)
+    same = np.array_equal(svd.subset, svd_h.subset)
+    d_rel = float(np.max(np.abs(svd.d - svd_h.d) / svd_h.d))
+    cos = np.abs(np.sum(svd.u * svd_h.u, axis=0))
+    log(f"  snp_autoSVD on K1/K2 (pallas_mxu \"highest\"): {t_h:.3f} s; same "
+        f"subset {same}, same lrldr {same_lr}; d max rel diff {d_rel:.2e} "
+        f"(limit 1e-4); min |cos(u_int8, u_highest)| {cos.min():.6f} "
+        f"(floor 0.999)")
+    if not (same and same_lr and d_rel <= 1e-4 and cos.min() >= 0.999):
+        fail("autoSVD on K6 differs from autoSVD on K1/K2")
+    if bad and enforce:
+        fail(f"slice 3 checks failed: {bad}")
+    return pack, svd, train, path
+
+
+def bound_i8(P, W_rows, l, rows_out, planes, nm):
+    """Least time of a K6 product: bytes read once and written once over
+    3.35 TB/s, or 2 (4l) n m int8 operations a plane over 1,979 TOP/s."""
+    nbytes = P.numel() + 4 * (W_rows * l + 2 * P.shape[0] + rows_out * l)
+    ops = 2.0 * 4 * l * nm * planes
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT8_OP_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, nbytes, ops
+
+
+def int_mm_yardstick(torch, T8, kind, digits, K):
+    """torch._int_mm on pre-decoded int8 planes and the same digits (the
+    decode is not timed): returns a function running one product."""
+    pad = -K % 8
+
+    def padk(x):
+        return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+    digs = [padk(d) for d in digits]
+    if kind == "cprod":
+        A = [padk(t) for t in T8]
+        return lambda: [torch._int_mm(a, d.t()) for a, d in
+                        zip(A, digs * len(A))]
+    A = [padk(t.t().contiguous()) for t in T8]
+    return lambda: [torch._int_mm(a, d.t()) for a, d in zip(A, digs)]
+
+
+def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
+    n, m = pack.n, pack.m
+    P = pack.device_packed(dev)
+    log(f"[11] K6 timed on the {n} x {m} slice-3 pack")
+    sc = bp.bed_scaleBinom(pack, ind_row=train, device=dev)
+    op = bp.GenoOperator(pack, sc["center"], sc["scale"], ind_row=train,
+                         ind_col=svd.subset, device=dev, mxu="int8")
+    c, inv = op.center, op.inv
+    rng = np.random.default_rng(args.seed + 13)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    V20 = op._scatter(f(rng.standard_normal((len(train), 20))), op.row_idx, n)
+    U20 = op._scatter(f(rng.standard_normal((len(svd.subset), 20))),
+                      op.col_idx, m)
+    V12 = op._scatter(f(rng.standard_normal((len(train), 12))), op.row_idx, n)
+    Vf, Uf = f(rng.standard_normal((n, 20))), f(rng.standard_normal((m, 20)))
+    nona_P = clear_na(P)
+    timer = Timer(torch, dev)
+    # pre-decoded planes for the library yardstick
+    planes = {False: [torch.empty((m, n), dtype=torch.int8, device=dev)
+                      for _ in range(2)],
+              True: [torch.empty((m, n), dtype=torch.int8, device=dev)]}
+    for j0 in range(0, m, 4096):
+        t8, na8 = gk.int_planes(P[j0:j0 + 4096], n)
+        planes[False][0][j0:j0 + 4096] = t8
+        planes[False][1][j0:j0 + 4096] = na8
+        planes[True][0][j0:j0 + 4096] = gk.int_planes(nona_P[j0:j0 + 4096],
+                                                      n)[0]
+    cases = (("cprod_i8", P, V20, False, "autoSVD power step, subset x "
+              "training rows"),
+             ("prod_i8", P, U20, False, "autoSVD power step"),
+             ("cprod_i8", P, V12, False, "big_univLinReg, [yr | 1 | 10 PCs]"),
+             ("cprod_i8", P, Vf, False, "full width"),
+             ("prod_i8", P, Uf, False, "full width"),
+             ("cprod_i8_nona", nona_P, Vf, True, "full width, NA-free copy"),
+             ("prod_i8_nona", nona_P, Uf, True, "full width, NA-free copy"))
+    rows, seen = [], set()
+    for key, pk_, W, nona, what in cases:
+        cprod = key.startswith("cprod")
+        kern = gk.cprod_i8 if cprod else gk.prod_i8
+        plain = gk.cprod_i8_plain if cprod else gk.prod_i8_plain
+        l = W.shape[1]
+        got, raw = kern(pk_, n, W, c, inv, nona=nona, return_raw=True)
+        ref, raw_ref = plain(pk_, n, W, c, inv, nona=nona, return_raw=True)
+        err, rel = rel_err(got, ref)
+        if not (torch.equal(raw, raw_ref) and rel <= I8_TOL):
+            fail(f"full-size {key} ({what}) disagrees with its twin")
+        bit = torch.equal(got, ref)
+        del got, ref, raw, raw_ref
+        ms = timer(lambda: kern(pk_, n, W, c, inv, nona=nona), reps=reps)
+        plain_ms = timer(lambda: plain(pk_, n, W, c, inv, nona=nona), reps=1,
+                         warmup=0)
+        if cprod:
+            digits = [gk._cprod_i8_operands(W, c, inv)[0]]
+        else:
+            zb8, _, za8, _, _ = gk._prod_i8_operands(W, c, inv, nona)
+            digits = [zb8] if nona else [zb8, za8]
+        lib = int_mm_yardstick(torch, planes[nona], "cprod" if cprod
+                               else "prod", digits, n if cprod else m)
+        library_ms = timer(lib, reps=reps)
+        n_planes = 1 if nona else 2
+        bound, by, nbytes, ops = bound_i8(pk_, n if cprod else m, l,
+                                          m if cprod else n, n_planes, n * m)
+        log(f"  {key:13s} l={l:2d}: kernel {ms:.3f} ms, twin {plain_ms:.1f} "
+            f"ms, torch._int_mm on pre-decoded planes {library_ms:.3f} ms "
+            f"(decode not timed), bound {bound:.3f} ms ({by}: 2 x {4 * l} x "
+            f"{n} x {m} x {n_planes} plane(s) = {ops / 1e12:.3f} TOP over "
+            f"1,979 TOP/s = {ops / PEAK_INT8_OP_PER_S * 1e3:.3f} ms; "
+            f"{nbytes / 1e9:.3f} GB over 3.35 TB/s = "
+            f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms); max abs err "
+            f"{err:.2e}, bit-equal {bit} [{what}]")
+        if key not in seen and l == 20:
+            seen.add(key)
+            rows.append({
+                "name": f"geno_{key} (K6)", "route": "cuda",
+                "source": I8_SOURCE, "replaces": I8_REPLACES[key],
+                "launches": path[key], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": library_ms})
+    del planes
+    # the NA-free copy through the operator: only the _nona kernels run
+    nona_pack = bp.GenoPack(packed=pack.packed, n=n)
+    nona_pack._device_cache[str(dev)] = nona_P
+    gk.reset_launches()
+    with bp.config.options(pallas_mxu="int8"):
+        t = time.perf_counter()
+        svd0 = bp.snp_randomSVD(nona_pack, k=10)
+        secs = time.perf_counter() - t
+    nona_path = dict(gk.launches)
+    log(f"  snp_randomSVD(k=10) on the NA-free copy, int8: {secs:.3f} s, "
+        f"{svd0.niter} depths, launches {nona_path}")
+    if dev.type == "cuda" and not (
+            nona_path["cprod_i8_nona"] and nona_path["prod_i8_nona"]
+            and sum(v for k, v in nona_path.items()
+                    if not k.endswith("_nona")) == 0):
+        fail("the NA-free randomSVD did not run on the _nona kernels alone")
+    for r in rows:
+        key = r["name"].split()[0][len("geno_"):]
+        if key.endswith("_nona"):
+            r["launches"] = nona_path[key]
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -869,6 +1351,9 @@ def main(argv=None):
     ap.add_argument("--bmax", type=int, default=3000)
     ap.add_argument("--burn-in", type=int, default=500)
     ap.add_argument("--num-iter", type=int, default=200)
+    ap.add_argument("--n3", type=int, default=50_000)
+    ap.add_argument("--m3", type=int, default=100_000)
+    ap.add_argument("--region", type=int, default=5_000)
     ap.add_argument("--rehearse-cpu", action="store_true")
     args = ap.parse_args(argv)
 
@@ -905,8 +1390,9 @@ def main(argv=None):
     if dev.type == "cuda":
         log("[2] build (one nvcc a source, in parallel)")
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:
-            libs = list(pool.map(lambda k: k.build(verbose=True), (gk, gsk)))
+        with ThreadPoolExecutor(3) as pool:
+            libs = list(pool.map(lambda b: b(verbose=True),
+                                 (gk.build, gk.build_i8, gsk.build)))
         log(f"  built {', '.join(os.path.relpath(p, here) for p in libs)} "
             f"in {time.perf_counter() - t0:.1f} s")
 
@@ -937,6 +1423,14 @@ def main(argv=None):
     rows += phase_sweep_kernels(bp, gsk, torch, dev, bb, launches2, timer,
                                 args.seed)
     phase_profile(torch, dev, run_auto)
+    del bb, run_auto
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    phase_i8_small(bp, gk, torch, dev, rng)
+    pack3, svd3, train3, path3 = phase_slice3(bp, gk, torch, dev, args)
+    rows += phase_i8_timed(bp, gk, torch, dev, pack3, svd3, train3, path3,
+                           args)
     log(f"  wall time {time.perf_counter() - t_start:.1f} s")
 
     if dev.type != "cuda":

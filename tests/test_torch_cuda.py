@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1/K2 decode + GEMM, the Gibbs sweep) against their
-plain-torch twins on a card.
+"""The CUDA kernels (K1/K2 decode + GEMM, K6 on int8 bit planes, the Gibbs
+sweep) against their plain-torch twins on a card.
 
 Imports only torch and the port, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -71,6 +71,95 @@ def test_kernels_repeat_bit_for_bit(cuda):
                        gk.cprod(packed, 5000, V, c, inv))
     assert torch.equal(gk.prod(packed, 5000, U, c, inv),
                        gk.prod(packed, 5000, U, c, inv))
+
+
+def i8_case(n, m, l, seed, na_prob):
+    """A pack on the card with NA (or none), monomorphic and scale-0
+    variants, and center / inv / operands for K6."""
+    pp = pt.snp_fake(n, m, seed=seed, na_prob=na_prob)
+    packed = pp.device_packed("cuda").clone()
+    packed[::13] = 0                                   # monomorphic: all 2
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+    inv = rng.uniform(0.5, 3, m)
+    inv[::7] = 0.0
+    c = np.where(inv > 0, rng.uniform(0, 2, m), 2.0)
+    return (packed, f(c), f(inv), f(rng.standard_normal((n, l))),
+            f(rng.standard_normal((m, l))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,l", [(1000, 777, 1), (1001, 1500, 12),
+                                   (1002, 3001, 20), (4099, 513, 21)])
+@pytest.mark.parametrize("nona", [False, True])
+def test_i8_kernels_match_twins(cuda, n, m, l, nona):
+    """K6 in its four instantiations against the twin: the raw int32 digit
+    sums equal, the float32 outputs within 1e-6 of max |twin| (the
+    epilogue is built with --fmad=false); two launches bit-equal."""
+    packed, c, inv, V, U = i8_case(n, m, l, l, 0.0 if nona else 0.05)
+    for kern, plain, W, key in ((gk.cprod_i8, gk.cprod_i8_plain, V,
+                                 "cprod_i8"),
+                                (gk.prod_i8, gk.prod_i8_plain, U, "prod_i8")):
+        key += "_nona" if nona else ""
+        before = gk.launches[key]
+        out, raw = kern(packed, n, W, c, inv, nona=nona, return_raw=True)
+        again = kern(packed, n, W, c, inv, nona=nona)
+        ref, raw_ref = plain(packed, n, W, c, inv, nona=nona,
+                             return_raw=True)
+        torch.cuda.synchronize()
+        assert gk.launches[key] == before + 2
+        assert torch.equal(raw, raw_ref)
+        assert torch.equal(out, again)
+        assert (out - ref).abs().max() <= 1e-6 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nona", [False, True])
+def test_i8_sums_do_not_depend_on_depth_splits(cuda, nona):
+    """Integer sums are exact: the raw sums and outputs are the same with
+    the depth unsplit, split 2, 5 or 16 ways (int32 atomics) and planned."""
+    packed, c, inv, V, U = i8_case(2049, 1537, 20, 7, 0.0 if nona else 0.05)
+    for kern, W in ((gk.cprod_i8, V), (gk.prod_i8, U)):
+        ref = kern(packed, 2049, W, c, inv, nona, True)
+        for s in (1, 2, 5, 16):
+            got = kern(packed, 2049, W, c, inv, nona, True, s)
+            assert torch.equal(got[1], ref[1])
+            assert torch.equal(got[0], ref[0])
+
+
+@pytest.mark.cuda
+def test_i8_operator_masks_and_detects_nona(cuda):
+    """The int8 operator with ind_row / ind_col on the card against the
+    float32 one, and the NA-free scan: one NA code turns nona off."""
+    pp = pt.snp_fake(533, 700, seed=5, na_prob=0.0)
+    sc = pt.bed_scaleBinom(pp, device="cpu")
+    rows, cols = np.arange(0, 533, 2), np.arange(0, 700, 3)
+    ops = [pt.GenoOperator(pp, sc["center"], sc["scale"], ind_row=rows,
+                           ind_col=cols, device=cuda, mxu=mxu)
+           for mxu in ("highest", "int8")]
+    assert ops[1].nona
+    V = np.random.default_rng(0).standard_normal((len(rows), 20))
+    (B0, Y0), (B1, Y1) = (op.power(V) for op in ops)
+    assert np.abs(B1 - B0).max() <= 2e-5 * np.abs(B0).max()
+    assert np.abs(Y1 - Y0).max() <= 2e-5 * np.abs(Y0).max()
+    packed = pp.packed.copy()
+    packed[3, 5] = (packed[3, 5] & 0b11111100) | 0b01     # one NA code
+    one = pt.GenoPack(packed=packed, n=533)
+    assert not pt.GenoOperator(one, sc["center"], sc["scale"], device=cuda,
+                               mxu="int8").nona
+
+
+@pytest.mark.cuda
+def test_i8_guard_refuses_int32_overflow(cuda):
+    """A raw sum is at most 254 x the contraction length: past 8,000,000
+    samples the wrapper raises before any launch."""
+    n = 8_000_004
+    packed = torch.zeros((1, n // 4), dtype=torch.uint8, device=cuda)
+    c, inv = torch.ones(1, device=cuda), torch.ones(1, device=cuda)
+    before = dict(gk.launches)
+    with pytest.raises(ValueError, match="overflow"):
+        gk.cprod_i8(packed, n, torch.ones((n, 1), device=cuda), c, inv)
+    assert gk.launches == before
 
 
 def sweep_case(sizes, NC, seed, dtype=torch.float32, width=None):

@@ -1,6 +1,7 @@
 """The port's first slice end to end: .bed -> scaling -> randomSVD ->
-simuPheno -> GWAS (covariates = PCs) -> p-values -> C+T scores, through
-both packages on the same file; both slices (the second: LD -> LDSC ->
+simuPheno -> GWAS (covariates = PCs) -> p-values -> C+T scores, and the
+third (autoSVD -> pcadapt -> projection, on the int8 scheme) through both
+packages on the same file; all three slices (the second: LD -> LDSC ->
 blocks -> LDpred2-auto / grid -> PRS) in the port alone with jax, pandas
 and the JAX package blocked; the device rule (no CUDA and no request for
 the CPU -> an entry point raises); and chip_smoke.py's CPU rehearsal."""
@@ -82,6 +83,24 @@ def test_chain_matches_jax(tmp_path):
                                    atol=1e-4 * np.abs(jprs).max())
         r = max(np.corrcoef(pprs[:, i], y[test])[0, 1] for i in range(10))
         assert r > 0.2, r
+        # slice 3 on the training rows, the port under the int8 scheme:
+        # autoSVD (same subset, d within 1e-4) -> pcadapt -> projection of
+        # the test rows (1e-4 of the largest value)
+        kw = dict(ind_row=train, k=k, thr_r2=0.2, roll_size=20,
+                  infos_chr=np.repeat([1, 2], m // 2))
+        ja = bt.snp_autoSVD(jp, **kw)
+        with pt.config.options(pallas_mxu="int8"):
+            pa = pt.snp_autoSVD(pp, **kw)
+        np.testing.assert_array_equal(pa.subset, ja.subset)
+        np.testing.assert_allclose(pa.d, ja.d, rtol=1e-4)
+        jpc = bt.snp_pcadapt(jp, ja.u, ind_row=train, ind_col=ja.subset)
+        ppc = pt.snp_pcadapt(pp, pa.u, ind_row=train, ind_col=pa.subset)
+        np.testing.assert_allclose(ppc.lpval(), jpc.lpval(), rtol=1e-3,
+                                   atol=1e-3 * np.abs(jpc.lpval()).max())
+        jproj = bt.bed_projectSelfPCA(ja, jp, ind_row=test)["OADP_proj"]
+        pproj = pt.bed_projectSelfPCA(pa, pp, ind_row=test)["OADP_proj"]
+        np.testing.assert_allclose(np.abs(pproj), np.abs(jproj), rtol=1e-3,
+                                   atol=1e-3 * np.abs(jproj).max())
 
 
 # Blocks the imports with a finder that raises, which has the effect of
@@ -137,6 +156,20 @@ SCRIPT = textwrap.dedent("""
     prs2 = pt.snp_PRS(pack, np.nan_to_num(beta_auto))
     assert np.isfinite(h2) and grid.shape == (pack.m, 1)
     assert prs2.shape == (203, 1) and np.isfinite(prs2).all()
+    # slice 3 on the int8 scheme: autoSVD -> pcadapt -> projection -> GWAS
+    rows = np.arange(0, 203, 4)
+    train = np.setdiff1d(np.arange(203), rows)
+    chrs = np.repeat([1, 2, 3], 100)
+    with pt.config.options(pallas_mxu="int8"):
+        asvd = pt.snp_autoSVD(pack, infos_chr=chrs, ind_row=train, k=3,
+                              roll_size=10, infos_pos=np.arange(300) * 1000)
+        pc = pt.snp_pcadapt(pack, asvd.u, ind_row=train, ind_col=asvd.subset)
+        proj = pt.bed_projectSelfPCA(asvd, pack, ind_row=rows)
+        g3 = pt.big_univLinReg(pack, sim["pheno"][train], covar=asvd.u,
+                               ind_row=train)
+    assert set(asvd.lrldr) == {"Chr", "Start", "Stop", "Iter"}
+    assert np.isfinite(pc.lpval()).all() and np.isfinite(g3["estim"]).all()
+    assert proj["OADP_proj"].shape == (len(rows), 3)
     bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not bad, bad
     print("PORT-ONLY-OK")
@@ -182,7 +215,8 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
     out = subprocess.run([sys.executable, "chip_smoke.py", "--rehearse-cpu",
                           "--n", "803", "--m", "1200", "--n2", "803",
                           "--m2", "1200", "--bmin", "100", "--bmax", "300",
-                          "--burn-in", "4", "--num-iter", "4"], cwd=REPO,
+                          "--burn-in", "4", "--num-iter", "4", "--n3", "1500",
+                          "--m3", "4000", "--region", "400"], cwd=REPO,
                          capture_output=True, text=True, timeout=300, env=ENV2)
     assert out.returncode == 3, out.stdout[-2000:] + out.stderr[-2000:]
     assert "CPU rehearsal passed" in out.stderr
@@ -190,5 +224,8 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
     for phase in ("[3]", "[3b]", "[4]", "[5]", "r(PRS, y)", "[6]",
                   "snp_ldpred2_auto", "r(PRS_auto, y_test)",
                   "without the r2 floor", "[7]", "K3 shape", "K4 shape",
-                  "K5 shape", "grid shape", "f64 shape"):
+                  "K5 shape", "grid shape", "f64 shape", "[9]",
+                  "cprod_i8_nona", "masked int8 operator", "[10]",
+                  "snp_autoSVD on K1/K2", "pcadapt, K = 2", "[11]",
+                  "torch._int_mm", "NA-free copy, int8"):
         assert phase in out.stdout
