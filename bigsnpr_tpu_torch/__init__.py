@@ -16,6 +16,13 @@ A second package beside the JAX one, ported slice by slice.
   long-range-LD outlier loop) -> `snp_pcadapt` -> `bed_projectSelfPCA`,
   and the "int8" scheme of the genotype operator (`config.pallas_mxu`),
   the kernel K6 on exact int8 bit planes (`csrc/geno_i8.cu`).
+- Slice 4, polygenic scores after the GWAS: the "split2" scheme of the
+  operator, the kernel K7 on exact bf16 bit planes with the operand split
+  into bf16 hi + lo (`csrc/geno_split.cu`), under randomSVD and the GWAS;
+  Stacked C+T (`snp_grid_clumping` on a native O(m + E) greedy,
+  `snp_grid_PRS`, `snp_grid_stacking` on the native elastic-net CD of
+  `big_spReg`); and blocked lassosum2 (`snp_lassosum2(blocks=...)`) on
+  the sweep kernel's lassosum mode.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`config.set_device("cpu")` or `device="cpu"`). The package imports
@@ -82,6 +89,19 @@ from bigsnpr_tpu_torch.pgs.ldpred2 import (
     snp_ldpred2_grid,
     snp_ldpred2_auto,
     ldpred2_auto_chain_qc,
+)
+from bigsnpr_tpu_torch.pgs.lassosum2 import snp_lassosum2, seq_log
+from bigsnpr_tpu_torch.linalg.penalized import (
+    SpRegModel,
+    big_spReg,
+    big_spLinReg,
+    big_spLogReg,
+)
+from bigsnpr_tpu_torch.pgs.sct import (
+    GridPRS,
+    snp_grid_clumping,
+    snp_grid_PRS,
+    snp_grid_stacking,
 )
 
 __version__ = "0.1.0"

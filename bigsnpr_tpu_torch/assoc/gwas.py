@@ -4,9 +4,9 @@ e.g. reference tests/testthat/test-6-PRS.R:20, R/ldsc.R examples).
 
 Linear: residualize y and every genotype column against the covariate
 block once, so all per-SNP slopes and SEs come from one operator cprod of
-[yr | Q] (kernel K1 on CUDA, or K6 under `config.pallas_mxu = "int8"`)
-plus column stats. Logistic: a batched IRLS
-in torch with a fixed iteration count, all variants of a block at once.
+[yr | Q] (kernel K1 on CUDA, K7 under `config.pallas_mxu = "split2"`,
+K6 under "int8") plus column stats. Logistic: a batched IRLS in torch
+with a fixed iteration count, all variants of a block at once.
 
 Results are dicts of numpy columns {"estim", "std.err", "score"} (the
 JAX package returns pandas DataFrames with the same columns).

@@ -10,8 +10,10 @@ counterpart of the JAX package's `matmul_precision="highest"`.
 
 pallas_mxu: the scheme of the genotype operator's kernels, the JAX
 package's option of the same name (env BIGSNPR_PALLAS_MXU): "highest"
-(float32 decode + GEMM, K1/K2) or "int8" (exact int8 bit planes, K6).
-"split2" (K7) is not ported yet and raises NotImplementedError.
+(float32 decode + GEMM, K1/K2), "split2" (exact bf16 bit planes against
+the operand split into bf16 hi + lo, K7) or "int8" (exact int8 bit
+planes, K6). "int8m" (K8) is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,19 +51,18 @@ def resolve_device(dev=None) -> torch.device:
     return d
 
 
-MXU_SCHEMES = ("highest", "int8")
+MXU_SCHEMES = ("highest", "split2", "int8")
 
 
 def resolve_mxu(mxu=None) -> str:
     """The genotype operator's scheme: `mxu`, else `pallas_mxu`. The JAX
-    package's "split2" (kernel K7) and "int8m" (K8) are not ported yet and
-    raise NotImplementedError."""
+    package's "int8m" (kernel K8) is not ported yet and raises
+    NotImplementedError."""
     mxu = pallas_mxu if mxu is None else mxu
-    if mxu in ("split2", "int8m"):
-        kernel = "K7" if mxu == "split2" else "K8"
+    if mxu == "int8m":
         raise NotImplementedError(
-            f'operator scheme "{mxu}" (kernel {kernel}) is not ported yet: '
-            f'ROADMAP queue 2')
+            'operator scheme "int8m" (kernel K8) is not ported yet: ROADMAP '
+            'queue 2 and queue 1, slice 5')
     if mxu not in MXU_SCHEMES:
         raise ValueError(f"unknown operator scheme {mxu!r}; one of "
                          f"{MXU_SCHEMES}")

@@ -53,41 +53,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "geno_decode.cuh"
+
 namespace {
+
+using geno_decode::cdiv;
 
 constexpr int THREADS = 128;
 constexpr int BM = 64;         // rows of the block tile (4 warps x 16)
 constexpr int BK = 128;        // depth of one stage (4 mma k-steps)
 constexpr int SROW = BK + 16;  // shared row stride in bytes: 36 words
-
-__host__ __device__ __forceinline__ int64_t cdiv(int64_t a, int64_t b) {
-  return (a + b - 1) / b;
-}
-
-// one packed byte -> 4 int8 lanes of t and of na (sample 4b+q in lane q)
-__device__ __forceinline__ void decode_byte(uint32_t b, uint32_t& t,
-                                            uint32_t& na) {
-  const uint32_t w = (b | (b << 6) | (b << 12) | (b << 18)) & 0x03030303u;
-  const uint32_t b0 = w & 0x01010101u;
-  const uint32_t b1 = (w >> 1) & 0x01010101u;
-  const uint32_t u = b0 & b1;
-  t = b1 + u;
-  na = b0 - u;
-}
-
-// rows of a 4 x 4 byte matrix (x0..x3) -> its columns (y0..y3)
-__device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1,
-                                           uint32_t x2, uint32_t x3,
-                                           uint32_t y[4]) {
-  const uint32_t lo01 = __byte_perm(x0, x1, 0x5140);
-  const uint32_t hi01 = __byte_perm(x0, x1, 0x7362);
-  const uint32_t lo23 = __byte_perm(x2, x3, 0x5140);
-  const uint32_t hi23 = __byte_perm(x2, x3, 0x7362);
-  y[0] = __byte_perm(lo01, lo23, 0x5410);
-  y[1] = __byte_perm(lo01, lo23, 0x7632);
-  y[2] = __byte_perm(hi01, hi23, 0x5410);
-  y[3] = __byte_perm(hi01, hi23, 0x7632);
-}
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
@@ -139,42 +114,20 @@ i8_gemm_kernel(const uint8_t* __restrict__ packed, int64_t m, int64_t nb,
     if (!PROD) {
       // A = planes of variants [r0, r0+64) x samples [k0, k0+128):
       // 64 rows x 32 bytes, one byte an item, neighbours on neighbours
-      const int64_t b0 = k0 / 4;
-      for (int e = tid; e < BM * (BK / 4); e += THREADS) {
-        const int r = e / (BK / 4), cb = e % (BK / 4);
-        const int64_t j = r0 + r, b = b0 + cb;
-        const uint32_t byte = (j < m && b < nb) ? packed[j * nb + b] : 0u;
-        uint32_t t, na;
-        decode_byte(byte, t, na);
-        *reinterpret_cast<uint32_t*>(&As[0][r * SROW + 4 * cb]) = t;
-        if (!NONA) *reinterpret_cast<uint32_t*>(&As[PLANES - 1][r * SROW + 4 * cb]) = na;
-      }
+      geno_decode::decode_variant_rows<BM, BK / 4, THREADS>(
+          packed, m, nb, r0, k0 / 4,
+          [&](int r, int cb, uint32_t t, uint32_t na) {
+            *reinterpret_cast<uint32_t*>(&As[0][r * SROW + 4 * cb]) = t;
+            if (!NONA) *reinterpret_cast<uint32_t*>(&As[PLANES - 1][r * SROW + 4 * cb]) = na;
+          });
     } else {
-      // A = planes of samples [r0, r0+64) x variants [k0, k0+128): an item
-      // is 4 variants x 1 byte (4 samples); lanes walk the variant quads
-      const int64_t b0 = r0 / 4;
-      for (int e = tid; e < (BK / 4) * (BM / 4); e += THREADS) {
-        const int vq = e % (BK / 4), cb = e / (BK / 4);
-        const int64_t b = b0 + cb;
-        uint32_t t[4], na[4];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int64_t j = k0 + 4 * vq + v;
-          const uint32_t byte = (j < m && b < nb) ? packed[j * nb + b] : 0u;
-          decode_byte(byte, t[v], na[v]);
-        }
-        uint32_t y[4];
-        transpose4(t[0], t[1], t[2], t[3], y);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          *reinterpret_cast<uint32_t*>(&As[0][(4 * cb + q) * SROW + 4 * vq]) = y[q];
-        if (!NONA) {
-          transpose4(na[0], na[1], na[2], na[3], y);
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            *reinterpret_cast<uint32_t*>(&As[PLANES - 1][(4 * cb + q) * SROW + 4 * vq]) = y[q];
-        }
-      }
+      // A = planes of samples [r0, r0+64) x variants [k0, k0+128)
+      geno_decode::decode_sample_rows<BK / 4, BM / 4, THREADS>(
+          packed, m, nb, k0, r0 / 4,
+          [&](int row, int vq, uint32_t t, uint32_t na) {
+            *reinterpret_cast<uint32_t*>(&As[0][row * SROW + 4 * vq]) = t;
+            if (!NONA) *reinterpret_cast<uint32_t*>(&As[PLANES - 1][row * SROW + 4 * vq]) = na;
+          });
     }
     // digit tiles: rows [c0, c0+BN) x depth [k0, k0+128), 16 bytes a load
     for (int e = tid; e < BN * (BK / 16); e += THREADS) {

@@ -38,6 +38,24 @@
 // Bound: each chain tile reads the block's band once (bytes), but the
 // rows of a block are a chain of dependent steps, so the longest block's
 // rows x one step's latency bounds the sweep at these sizes.
+//
+// The lassosum mode (LASSO = true; entries lassosum_sweep_f32/_f64) runs
+// one deterministic lassosum2 coordinate-descent sweep with the same
+// skeleton, for the JAX package's `lassosum_cd_blocked`
+// (bigsnpr_tpu/pgs/gibbs_blocked.py:1427, XLA there, not Pallas) under its
+// vmap over the grid: a "chain" is a grid point (lambda, delta). Per row,
+// with lam = pf lambda and dp1 = pf delta + 1:
+//   u = bh - (dp[j + W] - cb);  nm = u > 0 ? u - lam : u + lam
+//   new = (u nm > 0 ? nm / dp1 : 0) if |u| > lam, else 0
+//   shift = new - cb;  dp[j .. j + 2W] += shift * band[j, :]
+//   gap += new^2 and df += 1 where new != 0;  maxshift = max(|shift|)
+// new is written in place over cb. In float32, dp1 and the dp update are
+// fused multiply-adds (__fmaf_rn), the rounding of the JAX package's CPU
+// programs, which contract them; in float64 they round twice, as the rest
+// of the file does under --fmad=false. A grid point whose `active` flag is 0
+// (converged or stopped) is left as it is: shift 0, nothing written, its
+// partials 0. gap, df and maxshift are per (grid point, block) partials in
+// row order, reduced by the caller in block order; no atomics.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -78,6 +96,13 @@ struct SweepArgs {
   T* out_dps;                // (NC, m)
   T* part_h2;                // (NC, nblk)
   T* part_gap;               // (NC, nblk)
+  // lassosum mode
+  const T* pf;               // (m,) penalty factors
+  const T* lam;              // (NC,) lambda of each grid point
+  const T* delta;            // (NC,) delta of each grid point
+  const uint8_t* active;     // (NC,) grid points still running
+  int32_t* part_df;          // (NC, nblk)
+  T* part_ms;                // (NC, nblk)
   int nblk;
   int NC;
   int nct;                   // chains per CTA
@@ -112,12 +137,70 @@ __device__ __forceinline__ RowIn<T> load_row(const SweepArgs<T>& a,
   return r;
 }
 
+// a * b + c as the lassosum mode rounds it (ops/gibbs_kernels.py::_mul_add)
+__device__ __forceinline__ float lasso_mul_add(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double lasso_mul_add(double a, double b,
+                                                double c) {
+  return c + a * b;
+}
+
+// lassosum mode: one row's inputs; pad slots are inert (bh 0, lam 1,
+// dp1 1, cb 0), the JAX package's fill values
+template <typename T>
+struct LassoIn {
+  T bh, lam, dp1, cb;
+  int64_t g;
+};
+
+template <typename T>
+__device__ __forceinline__ LassoIn<T> load_lasso_row(const SweepArgs<T>& a,
+                                                     const int32_t* gidx,
+                                                     int j, int c, T lam_c,
+                                                     T delta_c) {
+  LassoIn<T> r;
+  r.g = gidx[j];
+  if (r.g >= 0) {
+    const T pf = a.pf[r.g];
+    r.bh = a.bh[r.g];
+    r.lam = pf * lam_c;
+    r.dp1 = lasso_mul_add(pf, delta_c, T(1));
+    r.cb = a.cb[(int64_t)c * a.m + r.g];
+  } else {
+    r.bh = T(0); r.lam = T(1); r.dp1 = T(1); r.cb = T(0);
+  }
+  return r;
+}
+
+template <typename T, bool LASSO>
+struct RowOf {
+  using type = RowIn<T>;
+};
+template <typename T>
+struct RowOf<T, true> {
+  using type = LassoIn<T>;
+};
+
+template <typename T, bool LASSO>
+__device__ __forceinline__ typename RowOf<T, LASSO>::type load_in(
+    const SweepArgs<T>& a, const int32_t* gidx, int j, int c, T lam_c,
+    T delta_c) {
+  if constexpr (LASSO) {
+    return load_lasso_row(a, gidx, j, c, lam_c, delta_c);
+  } else {
+    return load_row(a, gidx, j, c);
+  }
+}
+
+__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
-template <typename T>
+template <typename T, bool LASSO>
 __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * a.nct;
@@ -143,19 +226,26 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
 
   const bool scalar = tid < nct;
   const int c = c0 + tid;
-  T inv_odd_p = T(0), pc = T(0);
-  bool sp = false;
+  T inv_odd_p = T(0), pc = T(0), lam_c = T(0), delta_c = T(0);
+  bool sp = false, live = false;
   if (scalar) {
-    inv_odd_p = a.inv_odd_p[c];
-    pc = a.p[c];
-    sp = a.sparse[c] != 0;
+    if constexpr (LASSO) {
+      lam_c = a.lam[c];
+      delta_c = a.delta[c];
+      live = a.active[c] != 0;
+    } else {
+      inv_odd_p = a.inv_odd_p[c];
+      pc = a.p[c];
+      sp = a.sparse[c] != 0;
+    }
   }
   const T shrink = a.shrink;
   const T one_m_shrink = T(1) - shrink;
-  T h2 = T(0), gap = T(0);
+  T h2 = T(0), gap = T(0), ms = T(0);
+  int32_t df = 0;
 
-  RowIn<T> cur;
-  if (scalar && rows > 0) cur = load_row(a, gidx, 0, c);
+  typename RowOf<T, LASSO>::type cur;
+  if (scalar && rows > 0) cur = load_in<T, LASSO>(a, gidx, 0, c, lam_c, delta_c);
   T bcur[KMAX];
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
@@ -166,8 +256,8 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
 
   for (int j = 0; j < rows; ++j) {
     const bool more = j + 1 < rows;
-    RowIn<T> nxt;
-    if (scalar && more) nxt = load_row(a, gidx, j + 1, c);
+    typename RowOf<T, LASSO>::type nxt;
+    if (scalar && more) nxt = load_in<T, LASSO>(a, gidx, j + 1, c, lam_c, delta_c);
     T bnext[KMAX];
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) {
@@ -175,7 +265,27 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
       bnext[k] = (more && d < wk) ? band[(int64_t)(j + 1) * wk + d] : T(0);
     }
 
-    if (scalar) {
+    if constexpr (LASSO) {
+      if (scalar) {
+        T diff = T(0);
+        if (live) {
+          const T dotprod = sdp[tid * a.Ls + j + W];
+          const T u = cur.bh - (dotprod - cur.cb);
+          const T nm = u > T(0) ? u - cur.lam : u + cur.lam;
+          T nb = (u * nm > T(0)) ? nm / cur.dp1 : T(0);
+          nb = (abs_t(u) > cur.lam) ? nb : T(0);
+          diff = nb - cur.cb;
+          if (nb != T(0)) {
+            gap = gap + nb * nb;
+            ++df;
+          }
+          const T ad = abs_t(diff);
+          if (ad > ms || ad != ad) ms = ad;   // NaN sticks, as torch.maximum
+          if (cur.g >= 0) a.out_beta[(int64_t)c * a.m + cur.g] = nb;
+        }
+        sdiff[tid] = diff;
+      }
+    } else if (scalar) {
       const T dotprod = sdp[tid * a.Ls + j + W];
       const T res = cur.bh - shrink * (dotprod - cur.cb);
       const T C3 = cur.c2 * res;
@@ -209,7 +319,11 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
         const T bv = bcur[k];
         for (int t = 0; t < nct; ++t) {
           T* q = sdp + t * a.Ls + j + d;
-          *q = *q + sdiff[t] * bv;
+          if constexpr (LASSO) {
+            *q = lasso_mul_add(sdiff[t], bv, *q);
+          } else {
+            *q = *q + sdiff[t] * bv;
+          }
         }
       }
     }
@@ -224,9 +338,32 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
     for (int i = tid; i < L; i += nthr) dst[i] = sdp[t * a.Ls + i];
   }
   if (scalar) {
-    a.part_h2[(int64_t)c * a.nblk + b] = h2;
-    a.part_gap[(int64_t)c * a.nblk + b] = gap;
+    const int64_t o = (int64_t)c * a.nblk + b;
+    a.part_gap[o] = gap;
+    if constexpr (LASSO) {
+      a.part_df[o] = df;
+      a.part_ms[o] = ms;
+    } else {
+      a.part_h2[o] = h2;
+    }
   }
+}
+
+template <typename T, bool LASSO>
+int launch_args(const SweepArgs<T>& a, int threads, void* stream) {
+  if (a.nblk <= 0 || a.NC <= 0) return 0;
+  if (a.nct < 1 || threads < a.nct || threads > 1024 || threads % 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = ((size_t)a.nct * a.Ls + a.nct) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      gibbs_sweep_kernel<T, LASSO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.nblk, (a.NC + a.nct - 1) / a.nct);
+  gibbs_sweep_kernel<T, LASSO>
+      <<<grid, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -240,23 +377,31 @@ int launch(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
            uint8_t* out_causal, T* out_postp, T* out_binc, T* out_dps,
            T* part_h2, T* part_gap, int NC, int nct, int Ls, int threads,
            void* stream) {
-  if (nblk <= 0 || NC <= 0) return 0;
-  if (nct < 1 || threads < nct || threads > 1024 || threads % 32) {
-    return (int)cudaErrorInvalidValue;
-  }
   SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L,
                  gidx, dp, dp_stride, cb, bh, C2, C4, s1, u, z, m,
                  inv_odd_p, p, sparse, (T)shrink, no_jump, out_beta,
                  out_causal, out_postp, out_binc, out_dps, part_h2, part_gap,
+                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                  nblk, NC, nct, Ls};
-  const size_t smem = ((size_t)nct * Ls + nct) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      gibbs_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(nblk, (NC + nct - 1) / nct);
-  gibbs_sweep_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_args<T, false>(a, threads, stream);
+}
+
+template <typename T>
+int launch_lasso(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
+                 const int64_t* blk_gidx, const int32_t* blk_rows,
+                 const int32_t* blk_W, const int32_t* blk_L, int nblk,
+                 const int32_t* gidx, T* dp, int64_t dp_stride, T* beta,
+                 const T* bh, const T* pf, int64_t m, const T* lam,
+                 const T* delta, const uint8_t* active, T* part_gap,
+                 int32_t* part_df, T* part_ms, int NC, int nct, int Ls,
+                 int threads, void* stream) {
+  SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L,
+                 gidx, dp, dp_stride, beta, bh, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, m, nullptr, nullptr, nullptr, T(1), 0,
+                 beta, nullptr, nullptr, nullptr, nullptr, nullptr, part_gap,
+                 pf, lam, delta, active, part_df, part_ms,
+                 nblk, NC, nct, Ls};
+  return launch_args<T, true>(a, threads, stream);
 }
 
 }  // namespace
@@ -281,6 +426,25 @@ int launch(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
 
 SWEEP_ENTRY(gibbs_sweep_f32, float)
 SWEEP_ENTRY(gibbs_sweep_f64, double)
+
+// the lassosum mode: beta (NC, m) is read as cb and updated in place
+#define LASSO_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(                                                       \
+      const T* band, const int64_t* blk_band, const int64_t* blk_dp,         \
+      const int64_t* blk_gidx, const int32_t* blk_rows, const int32_t* blk_W, \
+      const int32_t* blk_L, int nblk, const int32_t* gidx, T* dp,            \
+      int64_t dp_stride, T* beta, const T* bh, const T* pf, int64_t m,       \
+      const T* lam, const T* delta, const uint8_t* active, T* part_gap,      \
+      int32_t* part_df, T* part_ms, int NC, int nct, int Ls, int threads,    \
+      void* stream) {                                                        \
+    return launch_lasso<T>(band, blk_band, blk_dp, blk_gidx, blk_rows,       \
+                           blk_W, blk_L, nblk, gidx, dp, dp_stride, beta, bh, \
+                           pf, m, lam, delta, active, part_gap, part_df,     \
+                           part_ms, NC, nct, Ls, threads, stream);           \
+  }
+
+LASSO_ENTRY(lassosum_sweep_f32, float)
+LASSO_ENTRY(lassosum_sweep_f64, double)
 
 // the largest dynamic shared memory a block may use on this device
 extern "C" int gibbs_sweep_max_smem(int device) {

@@ -5,7 +5,7 @@ sample count, metadata columns, scaling and SVD factors (and an autoSVD
 subset), sparse LD (CSC arrays) and block bands (host buckets) as numpy
 arrays (or anything
 `np.asarray` and column access can read), and get the port's `GenoPack`,
-`BigSVD`, `SparseLD` / `BlockBands` holding the same values.
+`BigSVD`, `SparseLD` / `BlockBands` / `GridPRS` holding the same values.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from bigsnpr_tpu_torch.core.genotypes import FAM_COLS, MAP_COLS, GenoPack
 from bigsnpr_tpu_torch.linalg.randomsvd import BigSVD
 from bigsnpr_tpu_torch.ops.corr import SparseLD
 from bigsnpr_tpu_torch.pgs.gibbs_blocked import BlockBands
+from bigsnpr_tpu_torch.pgs.sct import GridPRS, _chrom_key
 
 
 def columns(table, names=None):
@@ -66,3 +67,14 @@ def block_bands_from_numpy(buckets, m, dropped_r2=0.0,
     return BlockBands([(np.array(b), np.array(g, dtype=np.int32))
                        for b, g in buckets], int(m), dropped_r2=dropped_r2,
                       kept_r2=kept_r2)
+
+
+def grid_prs_from_numpy(scores, lpS, grid_lpS_thr, betas, all_keep) -> GridPRS:
+    """A port `GridPRS` from a JAX one's score matrix, lpS, thresholds,
+    betas and keep sets ({chromosome: [index arrays]}), in memory."""
+    f64 = lambda a: np.array(a, dtype=np.float64)  # noqa: E731
+    keep = {_chrom_key(c): [np.array(k, dtype=np.int64) for k in ks]
+            for c, ks in all_keep.items()}
+    return GridPRS(scores=np.array(scores, dtype=np.float32), lpS=f64(lpS),
+                   grid_lpS_thr=f64(grid_lpS_thr), betas=f64(betas),
+                   all_keep=keep)

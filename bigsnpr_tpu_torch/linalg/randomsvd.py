@@ -196,8 +196,9 @@ def snp_randomSVD(
     Reference: bed_randomSVD (R/autoSVD.R:205-219): needs only
     {scaling stats, X·v, Xᵀ·v}; k=10, tol=1e-4 defaults.
 
-    engine: "auto" runs the `GenoOperator` (kernels K1/K2, or K6 under
-    `config.pallas_mxu = "int8"`, on CUDA; their twins on the CPU);
+    engine: "auto" runs the `GenoOperator` (kernels K1/K2, K7 under
+    `config.pallas_mxu = "split2"` or K6 under "int8", on CUDA; their
+    twins on the CPU);
     "torch" the plain-torch `TorchOperator`.
     op: a pre-built operator with the {device, n, m, power_dev} surface;
     pack may then be None and fun_scaling must be a {"center","scale"}

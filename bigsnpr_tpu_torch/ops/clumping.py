@@ -7,9 +7,12 @@ higher-ranked neighbour within the window has r^2 > thr. The output is
 order-deterministic.
 
 As in the JAX package, the per-pair dots are the banded blocks of exact
-integer pair sums (`ops/corr.py`), and the greedy order is an explicit
-fixed point on the conflict graph (edges = window pairs with r^2 > thr),
-which gives the sequential greedy's result. r is the float64
+integer pair sums (`ops/corr.py`), and the greedy runs on the conflict
+graph (edges = window pairs with r^2 > thr). Where the JAX package finds
+its keep set by a fixed point (one pass over every edge per round), the
+port walks the variants once in rank order in `native/clump_native.cpp`
+(built with g++ at first use), in O(m + E): the same keep set, kept
+here as `_greedy_fixed_point_plain` for the tests. r is the float64
 pairwise-complete Pearson r of the JAX package's host path, computed with
 torch on the sums' device; only the conflict edges leave the device.
 Clump sets equal the JAX package's.
@@ -17,40 +20,27 @@ Clump sets equal the JAX package's.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from bigsnpr_tpu_torch import config
+from bigsnpr_tpu_torch.ops import cuda_build
 from bigsnpr_tpu_torch.ops.corr import (
     _iter_band_blocks,
     _pack_is_nona,
     _window_geometry,
+    _window_r2,
 )
 from bigsnpr_tpu_torch.ops.stats import snp_colstats, snp_counts
 from bigsnpr_tpu_torch.utils.assertions import check_args
 
 
-def _conflict_pairs(sums, t0, t1, b0, ls_dev, thr_r2):
-    """(left neighbour, target) numpy index pairs of one target block with
-    r^2 > thr_r2 inside the window; NaN r is no conflict. The float64
-    formula and operation order are `_pair_r`'s."""
-    Sxy, Sx, Sy, Sxx, Syy, Np = (s.double() for s in sums)
-    num = Sxy - Sx * Sy / Np
-    dx = Sxx - Sx * Sx / Np
-    dy = Syy - Sy * Sy / Np
-    r = num / torch.sqrt(dx * dy)
-    dev = r.device
-    jj0 = torch.arange(t0, t1, device=dev)[:, None]
-    jj = torch.arange(b0, t1, device=dev)[None, :]
-    in_window = (jj < jj0) & (jj >= ls_dev[t0:t1, None])
-    a, b = torch.nonzero(in_window & (r * r > thr_r2), as_tuple=True)
-    return (b + b0).cpu().numpy(), (a + t0).cpu().numpy()
-
-
 def _conflict_edges(sub, pos, size_scaled, thr_r2, block=512, device=None):
     """(i, j) pairs (i < j) within the window with r^2 > thr_r2."""
     if hasattr(sub, "code256"):
-        raise NotImplementedError("clumping a DosagePack: ROADMAP slice 5")
+        raise NotImplementedError("clumping a DosagePack: ROADMAP slice 6")
     dev = config.resolve_device(device)
     n, m = sub.n, sub.m
     left_start = _window_geometry(pos, size_scaled)
@@ -60,7 +50,7 @@ def _conflict_edges(sub, pos, size_scaled, thr_r2, block=512, device=None):
     ei, ej = [], []
     for t0, t1, b0, sums in _iter_band_blocks(dev_packed, n, m, left_start,
                                               block, nona):
-        i, j = _conflict_pairs(sums, t0, t1, b0, ls_dev, thr_r2)
+        i, j, _ = _window_r2(sums, t0, t1, b0, ls_dev, thr_r2)
         if len(i):
             ei.append(i)
             ej.append(j)
@@ -69,9 +59,41 @@ def _conflict_edges(sub, pos, size_scaled, thr_r2, block=512, device=None):
     return np.concatenate(ei), np.concatenate(ej)
 
 
+CLUMP_SOURCE = cuda_build.PKG / "native" / "clump_native.cpp"
+
+
+def _bind_clump(lib):
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.clump_greedy.argtypes = [i64, p, i64, p, p, p]
+    lib.clump_greedy.restype = ctypes.c_int
+
+
 def _greedy_fixed_point(m, rank, ei, ej):
-    """Decide keep/prune for all variants; equals sequential greedy in
-    rank order (rank[j] smaller = higher priority)."""
+    """Decide keep/prune for all variants: the sequential greedy in rank
+    order (rank[j] smaller = higher priority; rank a permutation of
+    0..m-1), keeping a variant iff none of its higher-priority conflict
+    neighbours was kept. One pass in `native/clump_native.cpp`; the keep
+    set is `_greedy_fixed_point_plain`'s. Returns a bool (m,) mask."""
+    lib = cuda_build.load(CLUMP_SOURCE, _bind_clump)
+    rank = np.ascontiguousarray(rank, dtype=np.int64)
+    ei = np.ascontiguousarray(ei, dtype=np.int64)
+    ej = np.ascontiguousarray(ej, dtype=np.int64)
+    if len(rank) != m or len(ei) != len(ej):
+        raise ValueError("rank must have m entries and ei, ej one length")
+    keep = np.zeros(m, dtype=np.uint8)
+    rc = lib.clump_greedy(m, rank.ctypes.data, len(ei), ei.ctypes.data,
+                          ej.ctypes.data, keep.ctypes.data)
+    if rc == 1:
+        raise RuntimeError("clumping fixed point stalled: a self-edge")
+    if rc != 0:
+        raise ValueError("clumping: an edge index or a rank is out of range")
+    return keep.astype(bool)
+
+
+def _greedy_fixed_point_plain(m, rank, ei, ej):
+    """The JAX package's fixed point in numpy (the tests' reference for
+    `_greedy_fixed_point`): decide keep/prune for all variants; equals
+    sequential greedy in rank order (rank[j] smaller = higher priority)."""
     # orient each conflict edge: hi = higher-priority endpoint
     swap = rank[ei] > rank[ej]
     hi = np.where(swap, ej, ei)
@@ -83,10 +105,12 @@ def _greedy_fixed_point(m, rank, ei, ej):
         undecided = keep == -1
         if not undecided.any():
             break
+        # OR-scatters (the JAX package's np.logical_or.at) as assignments
+        # of True, the same result at a fraction of the cost
         blocked = np.zeros(m, dtype=bool)       # has undecided higher neighbor
-        np.logical_or.at(blocked, lo, undecided[hi])
+        blocked[lo[undecided[hi]]] = True
         pruned = np.zeros(m, dtype=bool)        # has kept higher neighbor
-        np.logical_or.at(pruned, lo, keep[hi] == 1)
+        pruned[lo[keep[hi] == 1]] = True
         ready = undecided & ~blocked
         if not ready.any():  # cannot happen (DAG), safety
             raise RuntimeError("clumping fixed point stalled")

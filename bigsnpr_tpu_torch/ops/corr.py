@@ -260,6 +260,37 @@ def _iter_band_blocks(dev_packed, n, m, left_start, block, nona):
                                            dev_packed[b0:t1], n, nona=nona)
 
 
+def _pair_r_device(sums):
+    """`_pair_r` on the sums' device: the float64 pairwise-complete r, the
+    same formula and operation order (may be NaN)."""
+    Sxy, Sx, Sy, Sxx, Syy, Np = (s.double() for s in sums)
+    num = Sxy - Sx * Sy / Np
+    dx = Sxx - Sx * Sx / Np
+    dy = Syy - Sy * Sy / Np
+    return num / torch.sqrt(dx * dy)
+
+
+def _in_window(t0, t1, b0, ls_dev):
+    """(t1 - t0, t1 - b0) mask of the neighbours i in [left_start[j], j)
+    of each target j of a block, on the device of ls_dev."""
+    dev = ls_dev.device
+    jj0 = torch.arange(t0, t1, device=dev)[:, None]
+    jj = torch.arange(b0, t1, device=dev)[None, :]
+    return (jj < jj0) & (jj >= ls_dev[t0:t1, None])
+
+
+def _window_r2(sums, t0, t1, b0, ls_dev, thr_r2):
+    """The pairs of one target block inside the window with r^2 > thr_r2,
+    as numpy (i, j, r^2), computed on the sums' device so that only the
+    kept pairs reach the host; a NaN r is never kept."""
+    r = _pair_r_device(sums)
+    r2 = r * r
+    a, b = torch.nonzero(_in_window(t0, t1, b0, ls_dev) & (r2 > thr_r2),
+                         as_tuple=True)
+    return ((b + b0).cpu().numpy(), (a + t0).cpu().numpy(),
+            r2[a, b].cpu().numpy())
+
+
 def _pair_r(sums):
     """float64 pairwise-complete Pearson r from the six sums (may be NaN)."""
     Sxy, Sx, Sy, Sxx, Syy, Np = sums
@@ -315,18 +346,11 @@ def _kept_host(sums, nona, t0, t1, b0, left_start, THR, thr_floor, n):
 def _kept_device(sums, t0, t1, b0, ls_dev, THR_dev, thr_floor, n):
     """The same float64 finalize on the device; kept values rounded to
     float32. Returns numpy (j, i, r)."""
-    Sxy, Sx, Sy, Sxx, Syy, Np = (s.double() for s in sums)
-    num = Sxy - Sx * Sy / Np
-    dx = Sxx - Sx * Sx / Np
-    dy = Syy - Sy * Sy / Np
-    r = num / torch.sqrt(dx * dy)
-    dev = r.device
-    jj0 = torch.arange(t0, t1, device=dev)[:, None]
-    jj = torch.arange(b0, t1, device=dev)[None, :]
-    in_window = (jj < jj0) & (jj >= ls_dev[t0:t1, None])
-    cnt = Np.long().clamp(1, n)
+    r = _pair_r_device(sums)
+    cnt = sums[5].long().clamp(1, n)
     pair_thr = torch.clamp(THR_dev[cnt - 1], min=thr_floor)
-    keep = in_window & (torch.isnan(r) | (r.abs() > pair_thr))
+    keep = _in_window(t0, t1, b0, ls_dev) & (torch.isnan(r)
+                                            | (r.abs() > pair_thr))
     ii, kk = torch.nonzero(keep, as_tuple=True)
     vals = r[ii, kk].clamp(-1.0, 1.0).float()
     return ((ii + t0).cpu().numpy(), (kk + b0).cpu().numpy(),
@@ -352,7 +376,7 @@ def snp_cor(pack, ind_row=None, ind_col=None, size: float = 500,
         raise ValueError(f"finalize must be 'host' or 'device', not "
                          f"{finalize!r}")
     if hasattr(pack, "code256"):
-        raise NotImplementedError("snp_cor on a DosagePack: ROADMAP slice 5")
+        raise NotImplementedError("snp_cor on a DosagePack: ROADMAP slice 6")
     dev = config.resolve_device(device)
     sub = pack
     if ind_col is not None or ind_row is not None:

@@ -3,7 +3,8 @@
 Every CUDA source under `csrc/` is compiled with nvcc for sm_90a into a
 shared library with a plain C interface, and every host C++ source under
 `native/` with g++; both land in `_build/` (git-ignored), named by the
-hash of the source and the flags, and are loaded with ctypes. Nothing is
+hash of the source, the headers beside it (`*.cuh`, `*.h`) and the flags,
+and are loaded with ctypes. Nothing is
 built when a module is imported: the wrappers call `load` when they first
 launch.
 """
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
@@ -24,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
 _libs: dict = {}
+_lock = threading.Lock()   # threads that load one source build it once
 
 
 def _nvcc() -> str:
@@ -47,20 +50,25 @@ def _compiler(source: Path):
 
 def build(source, verbose: bool = False, extra=()) -> Path:
     """Compile `source` (a path under the package) with the default flags
-    plus `extra` into `_build/` unless the library for this source hash
-    and these flags is there already; returns the library's path. With
+    plus `extra` into `_build/` unless the library for this source, its
+    headers and these flags is there already; returns the library's path. With
     verbose, prints the compiler's report (for nvcc: ptxas' registers,
     shared memory and spills per kernel)."""
     source = Path(source)
     cc, flags = _compiler(source)
     flags = (*flags, *extra)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
-                            ).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted((*source.parent.glob("*.cuh"),
+                          *source.parent.glob("*.h"))):
+        h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
+    digest = h.hexdigest()[:16]
     lib_path = BUILD_DIR / f"{source.stem}_{digest}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
+    tmp = BUILD_DIR / (f".{lib_path.name}.{os.getpid()}."
+                       f"{threading.get_ident()}.tmp")
     proc = subprocess.run([cc, *flags, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -76,8 +84,9 @@ def load(source, bind, extra=()) -> ctypes.CDLL:
     """The loaded library of `source`, built at first use (with `extra`
     flags); `bind(lib)` sets its functions' argument and return types."""
     key = str(source)
-    if key not in _libs:
-        lib = ctypes.CDLL(str(build(source, extra=extra)))
-        bind(lib)
-        _libs[key] = lib
-    return _libs[key]
+    with _lock:
+        if key not in _libs:
+            lib = ctypes.CDLL(str(build(source, extra=extra)))
+            bind(lib)
+            _libs[key] = lib
+        return _libs[key]

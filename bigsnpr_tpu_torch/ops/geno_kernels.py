@@ -1,11 +1,16 @@
-"""Fused 2-bit decode + standardized GEMM: the CUDA kernels K1/K2 and K6,
-their plain-torch twins, and the operator built on them.
+"""Fused 2-bit decode + standardized GEMM: the CUDA kernels K1/K2, K7 and
+K6, their plain-torch twins, and the operator built on them.
 
 Counterpart of `bigsnpr_tpu/ops/pallas_kernels.py` (`pallas_cprod` /
-`pallas_prod` and `PallasOperator`), in two schemes (`config.pallas_mxu`):
+`pallas_prod` and `PallasOperator`), in three schemes
+(`config.pallas_mxu`):
 
   "highest", K1 `cprod`: X~^T V, V (n, l) -> (m, l)
              K2 `prod` : X~ U,   U (m, l) -> (n, l)
+  "split2",  K7 `cprod_split` / `prod_split`: the same products on exact
+             bf16 bit planes against the operand split into bf16 hi + lo,
+             with float32 accumulation (`_cprod_kernel_split`,
+             `_prod_kernel_split`)
   "int8",    K6 `cprod_i8` / `prod_i8`: the same products on exact int8
              bit planes with int32 accumulation (`_pallas_cprod_i8`,
              `_pallas_prod_i8`), NA-aware or, for NA-free packs, `_nona`
@@ -13,8 +18,8 @@ Counterpart of `bigsnpr_tpu/ops/pallas_kernels.py` (`pallas_cprod` /
 with X~[i, j] = (d_ij - center_j) * inv_j for sample i of variant j, the
 dosage d = 2 - ((g + 1) >> 1) of 2-bit code g, and NA (g == 1) -> 0.
 
-The kernels live in `csrc/geno_gemm.cu` (K1/K2) and `csrc/geno_i8.cu`
-(K6), built with nvcc at first use (keyed by the source's hash) into
+The kernels live in `csrc/geno_gemm.cu` (K1/K2), `csrc/geno_split.cu`
+(K7) and `csrc/geno_i8.cu` (K6), built with nvcc at first use (keyed by the source's hash) into
 `_build/` and loaded with ctypes by `ops/cuda_build.py`. Each
 wrapper launches its kernel for CUDA tensors and counts the launch in
 `launches`; for CPU tensors it runs the plain twin. There is no fallback
@@ -39,17 +44,20 @@ from bigsnpr_tpu_torch.ops.corr import _pack_is_nona
 
 SOURCE = cuda_build.PKG / "csrc" / "geno_gemm.cu"
 I8_SOURCE = cuda_build.PKG / "csrc" / "geno_i8.cu"
-# the int8 epilogue rounds as the twin's separate torch ops do
+SPLIT_SOURCE = cuda_build.PKG / "csrc" / "geno_split.cu"
+# the int8 and split2 epilogues round as the twins' separate torch ops do
 I8_FLAGS = ("--fmad=false",)
+SPLIT_FLAGS = ("--fmad=false",)
 
 NPLANES = 4             # radix-128 int8 digits of the float operand
 # a raw int32 sum is at most 254 x (contraction length) in absolute value
 MAX_I8_DEPTH = 8_000_000
 _I8_BK = 128            # the kernel's depth tile: digit rows are padded to it
+_SPLIT_BK = 64          # K7's depth tile in bf16 values: operand rows padded
 
 # kernel launches made by the wrappers, by kernel
-launches = {"cprod": 0, "prod": 0, "cprod_i8": 0, "cprod_i8_nona": 0,
-            "prod_i8": 0, "prod_i8_nona": 0}
+launches = {"cprod": 0, "prod": 0, "cprod_split": 0, "prod_split": 0,
+            "cprod_i8": 0, "cprod_i8_nona": 0, "prod_i8": 0, "prod_i8_nona": 0}
 
 
 def reset_launches() -> None:
@@ -66,6 +74,11 @@ def build(verbose: bool = False):
 def build_i8(verbose: bool = False):
     """Compile `csrc/geno_i8.cu` (K6) at first use; returns its path."""
     return cuda_build.build(I8_SOURCE, verbose=verbose, extra=I8_FLAGS)
+
+
+def build_split(verbose: bool = False):
+    """Compile `csrc/geno_split.cu` (K7) at first use; returns its path."""
+    return cuda_build.build(SPLIT_SOURCE, verbose=verbose, extra=SPLIT_FLAGS)
 
 
 def _bind(lib):
@@ -96,6 +109,22 @@ def _bind_i8(lib):
 
 def _load_i8():
     return cuda_build.load(I8_SOURCE, _bind_i8, extra=I8_FLAGS)
+
+
+def _bind_split(lib):
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.geno_split_plan.argtypes = [i32, i64, i64, i64, i32]
+    lib.geno_split_plan.restype = i32
+    lib.geno_split_gemm.argtypes = [i32, ptr, i64, i64, i64, ptr, ptr, i64,
+                                    i64, ptr, i32, ptr]
+    lib.geno_split_gemm.restype = i32
+    lib.geno_split_epilogue.argtypes = [i32, ptr, i32, i64, i64, ptr, ptr,
+                                        ptr, ptr, ptr]
+    lib.geno_split_epilogue.restype = i32
+
+
+def _load_split():
+    return cuda_build.load(SPLIT_SOURCE, _bind_split, extra=SPLIT_FLAGS)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +230,155 @@ def prod(packed, n, U, center, inv):
     if packed.device.type == "cpu":
         return prod_plain(packed, n, U, center, inv)
     return _launch("prod", packed, n, U, center, inv, n)
+
+
+# ---------------------------------------------------------------------------
+# K7: the "split2" scheme (exact bf16 bit planes, operand split hi + lo)
+# ---------------------------------------------------------------------------
+
+def split_bf16(x: torch.Tensor):
+    """x f32 -> (hi, lo) bf16 with x ~ hi + lo: `_split_bf16` op for op
+    (both casts round to nearest even), so the two are bit-equal to the
+    JAX package's."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def _cprod_split_operands(V, center, inv):
+    """Host-side parts of K7 cprod, shared by kernel and twin: Vᵀ split
+    into bf16 hi and lo rows stacked (2l, n), its row sums, and
+    A = (2 - c) * inv."""
+    Qt = V.T.contiguous()
+    return torch.cat(split_bf16(Qt)), Qt.sum(dim=1), (2.0 - center) * inv
+
+
+def _prod_split_operands(U, center, inv):
+    """Host-side parts of K7 prod: zB = Uᵀ inv and zA = Uᵀ A, each split
+    into stacked bf16 hi / lo rows (2l, m) after the scaling (as
+    `_prod_kernel_split` splits them), and the row sums of zA."""
+    Zt = U.T
+    zA = Zt * ((2.0 - center) * inv)[None, :]
+    zB = Zt * inv[None, :]
+    return (torch.cat(split_bf16(zB.contiguous())),
+            torch.cat(split_bf16(zA.contiguous())), zA.sum(dim=1))
+
+
+def _split_raw_plain(packed, n, ops, prod, block=None):
+    """The raw sums of K7 in torch ops: (2, R, 2l) float32 for the planes
+    [T, NA] with R = m (cprod) or n (prod). The planes' values {0, 1, 2}
+    and the bf16 operand are exact in float32, so each product is exact
+    and only the float32 accumulation rounds; prod accumulates over
+    variant blocks. cprod gives one operand for both planes, prod one a
+    plane."""
+    m = packed.shape[0]
+    block = block or pick_block(n)
+    N2 = ops[0].shape[0]
+    dev = packed.device
+    W = [o.to(torch.float32) for o in ops]
+    if prod:
+        acc = torch.zeros((2, n, N2), dtype=torch.float32, device=dev)
+    else:
+        acc = torch.empty((2, m, N2), dtype=torch.float32, device=dev)
+    for j0 in range(0, m, block):
+        j1 = min(m, j0 + block)
+        for p, x in enumerate(int_planes(packed[j0:j1], n)):
+            x = x.to(torch.float32)
+            w = W[min(p, len(W) - 1)]
+            if prod:
+                acc[p] += x.T @ w[:, j0:j1].T
+            else:
+                acc[p, j0:j1] = x @ w.T
+    return acc
+
+
+def _split_epilogue_plain(raw, l, sumv, A=None, s=None):
+    """raw (2, R, 2l) -> (R, l) f32: pt = hi + lo sums of the T plane, pna
+    of the NA plane; cprod (A, s given) (sum - pna) * A - pt * s, prod
+    (sum - pna) - pt (the JAX kernels' epilogue)."""
+    pt = raw[0][:, :l] + raw[0][:, l:]
+    pna = raw[1][:, :l] + raw[1][:, l:]
+    if A is None:
+        return (sumv[None, :] - pna) - pt
+    return (sumv[None, :] - pna) * A[:, None] - pt * s[:, None]
+
+
+def cprod_split_plain(packed, n, V, center, inv):
+    """K7 cprod's function in torch ops: the same bf16 operand, exact
+    products accumulated in float32, and the same epilogue as the
+    kernel."""
+    qs, qsum, A = _cprod_split_operands(V, center, inv)
+    raw = _split_raw_plain(packed, n, [qs], prod=False)
+    return _split_epilogue_plain(raw, V.shape[1], qsum, A, inv)
+
+
+def prod_split_plain(packed, n, U, center, inv):
+    """K7 prod's function in torch ops (see `cprod_split_plain`)."""
+    zbs, zas, zsum = _prod_split_operands(U, center, inv)
+    raw = _split_raw_plain(packed, n, [zbs, zas], prod=True)
+    return _split_epilogue_plain(raw, U.shape[1], zsum)
+
+
+def _launch_split(prod, packed, n, ops, R, l, sumv, A, s, splits=None):
+    """Run the K7 GEMM into float32 partial sums (splits, 2, R, 2l), one
+    slice per depth split, then the epilogue kernel, which adds the splits
+    in order; returns out (R, l). `splits` defaults to the library's
+    plan."""
+    lib = _load_split()
+    m, nb = packed.shape
+    dev = packed.device
+    out = torch.empty((R, l), dtype=torch.float32, device=dev)
+    if min(m, n, l) == 0:
+        return out.zero_()
+    depth = m if prod else n
+    ldo = -(-depth // _SPLIT_BK) * _SPLIT_BK
+    padded = []
+    for o in ops:
+        op = torch.zeros((o.shape[0], ldo), dtype=torch.bfloat16, device=dev)
+        op[:, :depth] = o
+        padded.append(op)
+    N2 = 2 * l
+    if splits is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = lib.geno_split_plan(int(prod), m, n, N2, sms)
+    part = torch.empty((splits, 2, R, N2), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.geno_split_gemm(int(prod), packed.data_ptr(), m, nb, n,
+                             padded[0].data_ptr(), padded[-1].data_ptr(), ldo,
+                             N2, part.data_ptr(), splits, stream)
+    if rc == 0:
+        rc = lib.geno_split_epilogue(
+            int(prod), part.data_ptr(), splits, R, l, sumv.data_ptr(),
+            0 if A is None else A.data_ptr(), 0 if s is None else s.data_ptr(),
+            out.data_ptr(), stream)
+    kind = "prod_split" if prod else "cprod_split"
+    if rc != 0:
+        raise RuntimeError(f"geno {kind} launch failed: CUDA error {rc}")
+    launches[kind] += 1
+    return out
+
+
+def cprod_split(packed, n, V, center, inv, splits=None):
+    """K7 cprod: (m, nb) uint8 packed, V (n, l) f32 -> (m, l) f32 = X~^T V
+    on bf16 bit planes (T and NA) against Vᵀ split into bf16 hi + lo.
+    CUDA tensors launch the kernel; CPU tensors take `cprod_split_plain`.
+    `splits` overrides the planned depth splits of the GEMM."""
+    _check(packed, n, V, n, center, inv)
+    if packed.device.type == "cpu":
+        return cprod_split_plain(packed, n, V, center, inv)
+    qs, qsum, A = _cprod_split_operands(V, center, inv)
+    return _launch_split(False, packed, n, [qs], packed.shape[0], V.shape[1],
+                         qsum, A, inv, splits)
+
+
+def prod_split(packed, n, U, center, inv, splits=None):
+    """K7 prod: U (m, l) f32 -> (n, l) f32 = X~ U on bf16 bit planes (see
+    `cprod_split`)."""
+    _check(packed, n, U, packed.shape[0], center, inv)
+    if packed.device.type == "cpu":
+        return prod_split_plain(packed, n, U, center, inv)
+    zbs, zas, zsum = _prod_split_operands(U, center, inv)
+    return _launch_split(True, packed, n, [zbs, zas], n, U.shape[1], zsum,
+                         None, None, splits)
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +587,7 @@ def prod_i8(packed, n, U, center, inv, nona=False, return_raw=False,
 
 class GenoOperator:
     """Device-resident standardized genotype operator on K1/K2 (scheme
-    "highest") or K6 (scheme "int8"), with the surface {n, m, cprod, prod,
+    "highest"), K7 ("split2") or K6 ("int8"), with the surface {n, m, cprod, prod,
     power, power_dev} of the JAX package's `PallasOperator`.
 
     mxu=None takes `config.pallas_mxu`; nona=None scans the pack once for
@@ -454,12 +632,18 @@ class GenoOperator:
         if self.mxu == "int8":
             return cprod_i8(self.packed, self.n_full, V, self.center,
                             self.inv, nona=self.nona)
+        if self.mxu == "split2":
+            return cprod_split(self.packed, self.n_full, V, self.center,
+                               self.inv)
         return cprod(self.packed, self.n_full, V, self.center, self.inv)
 
     def _prod_full(self, U):
         if self.mxu == "int8":
             return prod_i8(self.packed, self.n_full, U, self.center,
                            self.inv, nona=self.nona)
+        if self.mxu == "split2":
+            return prod_split(self.packed, self.n_full, U, self.center,
+                              self.inv)
         return prod(self.packed, self.n_full, U, self.center, self.inv)
 
     def _as_2d(self, arr):
@@ -507,7 +691,7 @@ class GenoOperator:
         return B.cpu().numpy(), Y.cpu().numpy()
 
     def power_dev(self, V: torch.Tensor):
-        """Power step on the device, cprod then prod (K1 then K2, or K6
+        """Power step on the device, cprod then prod (K1 then K2, K7 or K6
         twice) on one stream with no host round-trip: V (n, l) -> (B = X~^T V (m, l), Y = X~ B (n, l))."""
         B = self.cprod_dev(V)
         return B, self.prod_dev(B)

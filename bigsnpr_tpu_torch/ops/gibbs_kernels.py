@@ -10,6 +10,11 @@ built with nvcc at first use into `_build/` and loaded with ctypes
 launch in `launches["sweep"]`; for CPU tensors it runs `sweep_plain`.
 There is no fallback from a CUDA tensor to the twin.
 
+The kernel's lassosum mode (`lassosum_sweep`, twin `lassosum_sweep_plain`,
+count `launches["lassosum"]`) runs one deterministic lassosum2
+coordinate-descent sweep with the same skeleton, a grid point in place of
+a chain: the port of the JAX package's XLA `lassosum_cd_blocked` sweep.
+
 Bound: a chain tile reads each block's band once (bytes: band x chain
 tiles plus the per-row inputs and outputs), but the rows of a block are a
 chain of dependent steps, so at these sizes the longest block's rows x
@@ -41,7 +46,7 @@ KMAX = 8                 # band columns a thread holds per row (gibbs_sweep.cu)
 SMEM_TARGET = 100 << 10  # shared memory per CTA aimed at: two CTAs an SM
 
 # kernel launches made by the wrapper
-launches = {"sweep": 0}
+launches = {"sweep": 0, "lassosum": 0}
 
 
 def reset_launches() -> None:
@@ -61,6 +66,10 @@ def _bind(lib):
         fn.argtypes = ([p] * 7 + [i32, p, p, i64] + [p] * 7 + [i64]
                        + [p] * 3 + [f64, i32] + [p] * 7
                        + [i32, i32, i32, i32, p])
+        fn.restype = i32
+    for fn in (lib.lassosum_sweep_f32, lib.lassosum_sweep_f64):
+        fn.argtypes = ([p] * 7 + [i32, p, p, i64] + [p] * 3 + [i64]
+                       + [p] * 6 + [i32, i32, i32, i32, p])
         fn.restype = i32
     lib.gibbs_sweep_max_smem.argtypes = [i32]
     lib.gibbs_sweep_max_smem.restype = i32
@@ -302,6 +311,14 @@ def plan(sb: SweepBands, NC: int, max_smem: int):
     return nct, threads
 
 
+def _plan_for(sb, lib, NC):
+    if NC not in sb.plans:
+        dev_index = sb.device.index if sb.device.index is not None else \
+            torch.cuda.current_device()
+        sb.plans[NC] = plan(sb, NC, lib.gibbs_sweep_max_smem(dev_index))
+    return sb.plans[NC]
+
+
 def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
           sparse, shrink, no_jump):
     """One Gibbs sweep over every block for NC chains (see `sweep_plain`
@@ -318,11 +335,7 @@ def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
     outs = _outputs(NC, m, sb.dtype, sb.device, sb.nblk)
     if sb.nblk == 0 or NC == 0:
         return outs[:5] + (outs[5].sum(1), outs[6].sum(1))
-    if NC not in sb.plans:
-        dev_index = sb.device.index if sb.device.index is not None else \
-            torch.cuda.current_device()
-        sb.plans[NC] = plan(sb, NC, lib.gibbs_sweep_max_smem(dev_index))
-    nct, threads = sb.plans[NC]
+    nct, threads = _plan_for(sb, lib, NC)
     fn = lib.gibbs_sweep_f64 if sb.dtype == torch.float64 else \
         lib.gibbs_sweep_f32
     ptr = lambda t: t.data_ptr()  # noqa: E731
@@ -337,3 +350,142 @@ def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
         raise RuntimeError(f"gibbs_sweep launch failed: CUDA error {rc}")
     launches["sweep"] += 1
     return outs[:5] + (outs[5].sum(1), outs[6].sum(1))
+
+
+# ---------------------------------------------------------------------------
+# the lassosum mode
+# ---------------------------------------------------------------------------
+
+def _check_lasso(sb, dp, beta, bh, pf, lam, delta, active):
+    NG, m = beta.shape
+    if m != sb.m:
+        raise ValueError(f"per-variant inputs have m={m}, bands {sb.m}")
+    for name, t, shape in (("dp", dp, (NG, sb.dp_len)), ("beta", beta, None),
+                           ("bh", bh, (m,)), ("pf", pf, (m,)),
+                           ("lam", lam, (NG,)), ("delta", delta, (NG,))):
+        if (shape is not None and tuple(t.shape) != shape) or \
+                t.dtype != sb.dtype:
+            raise ValueError(f"{name} must be {sb.dtype} {shape or (NG, m)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if active.dtype != torch.bool or tuple(active.shape) != (NG,):
+        raise ValueError("active must be bool (NG,)")
+    for t in (dp, beta, bh, pf, lam, delta, active):
+        if t.device != sb.device:
+            raise ValueError("every operand must be on the bands' device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+def fma32(a, b, c):
+    """Correctly rounded float32 a * b + c, one rounding as a fused
+    multiply-add gives it, computed in float64: the product of two float32
+    values is exact there, the sum is rounded to odd (its TwoSum error
+    picks the odd neighbour when inexact; Boldo and Melquiond), and the
+    final rounding to float32 is then the fused one."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    e = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.nextafter(s, torch.where(e > 0, torch.inf, -torch.inf)
+                           .to(torch.float64))
+    return torch.where((e != 0) & even, away, s).to(torch.float32)
+
+
+def _mul_add(a, b, c):
+    """a * b + c as the lassosum mode rounds it: fused in float32 (the
+    rounding of the JAX package's CPU programs, which contract these
+    multiply-adds), two roundings in float64."""
+    if c.dtype == torch.float32:
+        return fma32(a, b, c)
+    return c + a * b
+
+
+def lassosum_sweep_plain(sb: SweepBands, dp, beta, bh, pf, lam, delta,
+                         active):
+    """The lassosum mode's function in torch ops: one coordinate-descent
+    sweep of `lassosum_cd_blocked` (the JAX package's `sweep_bucket` step)
+    for NG grid points, a loop over rows vectorised over every block and
+    grid point, the same operations in the same order as the kernel. Per
+    row j, with lam_j = pf_j lam and dp1_j = pf_j delta + 1: u = bh -
+    (dp[j + W] - cb); the soft threshold; shift = new - cb; dp[j..j + 2W]
+    += shift * band row, with dp1 and the update as fused multiply-adds in
+    float32 (`_mul_add`). Grid points not `active` are left as they are.
+    Updates dp and beta (NG, m) in place; returns gap (sum of new^2 over
+    the non-zeros), df (int32 count of non-zeros) and maxshift, each (NG,),
+    summed per block in row order and then over the blocks."""
+    NG, m = beta.shape
+    dt, dev = sb.dtype, sb.device
+    bands, g, Wm, Lm, src, dst = sb.merged()
+    nblk, R, wk = bands.shape
+    valid = g >= 0
+    one = torch.ones((), dtype=dt, device=dev)
+    bh_s = _scatter_b(bh, g)
+    pf_s = _scatter_b(pf, g)
+    lam_s = torch.where(valid, pf_s[None] * lam[:, None, None], one)
+    dp1_s = torch.where(valid, _mul_add(pf_s[None], delta[:, None, None],
+                                        one.expand(1, 1, 1)), one)
+    cb_s = _scatter_b(beta, g)
+    act = active[:, None]
+    dpm = torch.zeros((NG, nblk * Lm), dtype=dt, device=dev)
+    dpm[:, dst] = dp[:, src]
+    dpm = dpm.view(NG, nblk, Lm)
+    new_s = torch.empty_like(cb_s)
+    gap = torch.zeros((NG, nblk), dtype=dt, device=dev)
+    df = torch.zeros((NG, nblk), dtype=torch.int32, device=dev)
+    ms = torch.zeros((NG, nblk), dtype=dt, device=dev)
+    for j in range(sb.max_rows):
+        dot = dpm[:, :, j + Wm]
+        cbj = cb_s[:, :, j]
+        lamj = lam_s[:, :, j]
+        u = bh_s[:, j] - (dot - cbj)
+        nm = torch.where(u > 0, u - lamj, u + lamj)
+        nb = torch.where(u * nm > 0, nm / dp1_s[:, :, j], 0.0)
+        nb = torch.where(u.abs() > lamj, nb, 0.0)
+        nb = torch.where(act, nb, cbj)
+        shift = nb - cbj
+        dpm[:, :, j:j + wk] = _mul_add(shift[:, :, None], bands[None, :, j, :],
+                                       dpm[:, :, j:j + wk])
+        nz = (nb != 0) & act
+        gap = gap + torch.where(nz, nb * nb, 0.0)
+        df = df + nz
+        ms = torch.maximum(ms, shift.abs())
+        new_s[:, :, j] = nb
+    dp[:, src] = dpm.reshape(NG, -1)[:, dst]
+    _gather_set(beta, new_s, g)
+    return gap.sum(1), df.sum(1, dtype=torch.int32), ms.amax(1)
+
+
+def lassosum_sweep(sb: SweepBands, dp, beta, bh, pf, lam, delta, active):
+    """One lassosum2 sweep over every block for NG grid points (see
+    `lassosum_sweep_plain` for the arguments and outputs). CUDA tensors
+    launch `gibbs_sweep_kernel`'s lassosum mode; CPU tensors take
+    `lassosum_sweep_plain`."""
+    _check_lasso(sb, dp, beta, bh, pf, lam, delta, active)
+    if sb.device.type == "cpu":
+        return lassosum_sweep_plain(sb, dp, beta, bh, pf, lam, delta, active)
+    if sb.device.type != "cuda":
+        raise ValueError(f"unsupported device {sb.device}")
+    lib = _load()
+    NG, m = beta.shape
+    dev = sb.device
+    gap = torch.zeros((NG, sb.nblk), dtype=sb.dtype, device=dev)
+    df = torch.zeros((NG, sb.nblk), dtype=torch.int32, device=dev)
+    ms = torch.zeros((NG, sb.nblk), dtype=sb.dtype, device=dev)
+    if sb.nblk == 0 or NG == 0:
+        return gap.sum(1), df.sum(1, dtype=torch.int32), ms.amax(1)
+    nct, threads = _plan_for(sb, lib, NG)
+    fn = lib.lassosum_sweep_f64 if sb.dtype == torch.float64 else \
+        lib.lassosum_sweep_f32
+    ptr = lambda t: t.data_ptr()  # noqa: E731
+    rc = fn(ptr(sb.band), ptr(sb.blk_band), ptr(sb.blk_dp), ptr(sb.blk_gidx),
+            ptr(sb.blk_rows), ptr(sb.blk_W), ptr(sb.blk_L), sb.nblk,
+            ptr(sb.gidx), ptr(dp), sb.dp_len, ptr(beta), ptr(bh), ptr(pf), m,
+            ptr(lam), ptr(delta), ptr(active), ptr(gap), ptr(df), ptr(ms),
+            NG, nct, sb.Lmax, threads,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lassosum_sweep launch failed: CUDA error {rc}")
+    launches["lassosum"] += 1
+    return gap.sum(1), df.sum(1, dtype=torch.int32), ms.amax(1)

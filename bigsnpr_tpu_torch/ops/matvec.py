@@ -25,7 +25,8 @@ from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator
 class TorchOperator(GenoOperator):
     """`GenoOperator` on the plain-torch path on any device (the twin of
     the JAX package's `XlaOperator`): the same surface, masking, scale-0
-    rule and scheme, with no hand-written kernel. Under "int8" it runs
+    rule and scheme, with no hand-written kernel. Under "split2" it runs
+    the K7 twins (`cprod_split_plain`, `prod_split_plain`), under "int8"
     the K6 twins (`cprod_i8_plain`, `prod_i8_plain`)."""
 
     def __init__(self, pack, center, scale, ind_row=None, ind_col=None,
@@ -39,6 +40,9 @@ class TorchOperator(GenoOperator):
             return geno_kernels.cprod_i8_plain(self.packed, self.n_full, V,
                                                self.center, self.inv,
                                                self.nona)
+        if self.mxu == "split2":
+            return geno_kernels.cprod_split_plain(self.packed, self.n_full,
+                                                  V, self.center, self.inv)
         return geno_kernels.cprod_plain(self.packed, self.n_full, V,
                                         self.center, self.inv, self.block)
 
@@ -47,6 +51,9 @@ class TorchOperator(GenoOperator):
             return geno_kernels.prod_i8_plain(self.packed, self.n_full, U,
                                               self.center, self.inv,
                                               self.nona)
+        if self.mxu == "split2":
+            return geno_kernels.prod_split_plain(self.packed, self.n_full, U,
+                                                 self.center, self.inv)
         return geno_kernels.prod_plain(self.packed, self.n_full, U,
                                        self.center, self.inv, self.block)
 

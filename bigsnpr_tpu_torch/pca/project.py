@@ -10,7 +10,7 @@ Online Augmentation, Decomposition, and Procrustes (Zhang, Dey & Lee 2020).
 pass over blocks of the variants, each decoded and standardized once for
 both X̃ V and the row sums of X̃². `pca_OADP_proj` is a copy of the host
 numpy code. `bed_projectPCA` needs variant matching (`utils/match`,
-ROADMAP slice 5) and raises.
+ROADMAP slice 6) and raises.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ snp_projectSelfPCA = bed_projectSelfPCA
 
 def bed_projectPCA(pack_ref, pack_new, k: int = 10, **kw) -> dict:
     """Reference bed_projectPCA (R/bed-projectPCA.R:100-172): not ported
-    yet, it needs the variant matching of `utils/match` (ROADMAP slice 5)."""
+    yet, it needs the variant matching of `utils/match` (ROADMAP slice 6)."""
     raise NotImplementedError(
         "bed_projectPCA needs utils/match (snp_match), ROADMAP queue 1, "
-        "slice 5; bed_projectSelfPCA is ported")
+        "slice 6; bed_projectSelfPCA is ported")

@@ -8,7 +8,7 @@ chain axis. The two packages agree at Monte-Carlo level, as the reference
 does with itself (its tests are statistical).
 
 The unblocked samplers (`gibbs_one`, `gibbs_auto`, `gibbs_one_sampling`)
-are not ported yet (ROADMAP queue 1, slice 4, item 1).
+are not ported yet (ROADMAP queue 1, slice 5).
 """
 
 from __future__ import annotations

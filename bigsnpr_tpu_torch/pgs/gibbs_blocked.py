@@ -477,3 +477,50 @@ def gibbs_auto_blocked(sb, beta_hat, n_vec, log_var, p_init, h2_init, gen,
         p_bounds, alpha_bounds, mean_ld, burn_in, num_iter,
         report_step=report_step, use_mle=use_mle, no_jump_sign=no_jump_sign)
     return {k: v[0] for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# lassosum2 on the blocked bands
+# ---------------------------------------------------------------------------
+
+# sweeps between the host's reads of the grid points' done flags (a read
+# is a device sync); the points are frozen once done, so the sweeps run
+# after the last point is done change nothing
+LASSO_CHECK_EVERY = 8
+
+
+def lassosum_cd_blocked(sb, beta_hat, pf, lam, delta, dfmax, tol, maxiter):
+    """Block-parallel lassosum2 coordinate descent for NG grid points at
+    once: the JAX package's `lassosum_cd_blocked` under its vmap over the
+    grid (`pgs/lassosum2.py`), identical to the unblocked CD on
+    block-diagonal LD. pf (m,) penalty factors, lam / delta (NG,) the grid.
+
+    Each sweep launches the sweep kernel's lassosum mode for the grid
+    points still running. A point is done after the sweep in which its
+    largest shift is <= tol, its non-zeros exceed dfmax or its sum of
+    squares exceeds 2 sum(beta_hat^2) (diverged); from then on its betas
+    and dp stay as they are, as the vmapped while_loop freezes them. The
+    done flags live on the device; the host reads them every
+    LASSO_CHECK_EVERY sweeps to stop early, never once a sweep. Returns (beta (NG, m), NaN rows where a point
+    diverged; num_iter (NG,) int64, the sweeps each point ran)."""
+    bh, pfv = _as(sb, beta_hat), _as(sb, pf)
+    lam_t, del_t = _as(sb, lam), _as(sb, delta)
+    NG, m = lam_t.shape[0], sb.m
+    dev = sb.device
+    gap0 = 2.0 * torch.sum(bh ** 2)
+    dp = sb.dp0(NG)
+    beta = torch.zeros((NG, m), dtype=sb.dtype, device=dev)
+    active = torch.ones(NG, dtype=torch.bool, device=dev)
+    diverged = torch.zeros(NG, dtype=torch.bool, device=dev)
+    iters = torch.zeros(NG, dtype=torch.int64, device=dev)
+    for k in range(maxiter):
+        gap, df, ms = gibbs_kernels.lassosum_sweep(sb, dp, beta, bh, pfv,
+                                                   lam_t, del_t, active)
+        div = gap > gap0
+        done = (ms <= tol) | (df > dfmax) | div
+        iters += active
+        diverged = torch.where(active, div, diverged)
+        active = active & ~done
+        if (k + 1) % LASSO_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+    return torch.where(diverged[:, None], torch.nan, beta), iters

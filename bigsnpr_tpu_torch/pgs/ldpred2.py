@@ -27,7 +27,7 @@ from bigsnpr_tpu_torch.pgs import gibbs_blocked as gb
 from bigsnpr_tpu_torch.pgs.gibbs import chain_generators
 from bigsnpr_tpu_torch.utils.assertions import check_args
 
-_NEXT_SLICE = "(ROADMAP queue 1, slice 4, item 1)"
+_NEXT_SLICE = "(ROADMAP queue 1, slice 5)"
 
 
 def _dtype(dtype):
@@ -151,7 +151,7 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
     if shard_blocks or shard_chains:
         raise NotImplementedError(
             "snp_ldpred2_auto: shard_blocks / shard_chains are multi-GPU "
-            "(ROADMAP queue 1, slice 6)")
+            "(ROADMAP queue 1, slice 7)")
     beta_hat, N, scale = _df_beta_arrays(df_beta)
     sd = 1.0 / scale
     log_var = 2.0 * np.log(sd)

@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py [--seed S] [--n N] [--m M] [--n2 N2] [--m2 M2]
                           [--burn-in B] [--num-iter I] [--n3 N3] [--m3 M3]
-                          [--region R]
+                          [--region R] [--n4 N4] [--m4 M4] [--n-thr T]
+                          [--n-stack S]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. build the CUDA kernels from bigsnpr_tpu_torch/csrc/ (one nvcc a
-     source, the three started together);
+     source, the four started together);
   3. hold K1/K2 (decode + GEMM) against their plain-torch twins on the card
      at awkward shapes (n = 1, 2, 3 mod 4, ragged m, NA, monomorphic and
      scale-0 variants, l in {1, 12, 20, 50}), then on the first 4,096
@@ -60,7 +61,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
      giving the same subset and lrldr;
  11. K6 timed at the slice's shapes and at full width, NA and NA-free,
      beside the twin, torch._int_mm on pre-decoded planes and the bound;
-     snp_randomSVD on an NA-free copy runs the _nona kernels alone.
+     snp_randomSVD on an NA-free copy runs the _nona kernels alone;
+ 12. K7 (the bf16 bit-plane kernels, csrc/geno_split.cu) against its twin
+     at awkward shapes (n = 0..3 mod 4, ragged m, l in {1, 12, 20, 21}, NA
+     and NA-free packs, monomorphic and scale-0 variants): within 1e-5 of
+     max |twin|, two launches bit-equal, both within 2e-5 of max |float64
+     product|; then the masked split2 operator;
+ 13. slice 4 at full size, pallas_mxu "split2": a 20,000 x 100,000 cohort
+     made on the card (slice 3's generator and 22 chromosomes, 3
+     populations, no planted region), 15,000 training and 5,000 test
+     samples; snp_randomSVD(k = 10) -> snp_simuPheno(h2 0.4, 1,000 causal)
+     -> big_univLinReg(covar = PCs) -> gwas_pvalues -> snp_grid_clumping
+     (7 x 4 grid) -> snp_grid_PRS(50 thresholds) on the training samples
+     -> snp_grid_stacking on the scores of --n-stack (2,000) of them ->
+     prediction of the test samples; then snp_cor (size 500 kb, thr_r2
+     0.01) -> auto_blocks + bands -> snp_lassosum2(blocks, 4 x 30 grid) ->
+     snp_PRS of the grid point chosen on half the test set; with K1 and K6
+     launching 0 times from randomSVD through the GWAS, the same
+     randomSVD on K1/K2, GWAS against dense float64, the native greedy
+     against the fixed point on every cell of one chromosome, K2 against
+     its twin at the grid PRS's, lassosum2 scores' and prediction's
+     shapes, and r(SCT, y_test), r(lassosum2, y_test) on the other half;
+ 14. K7 timed at the slice's shapes and at 50,000 x 100,000 (l = 20, random
+     bytes) beside its twin, torch.matmul in bf16 on pre-decoded planes and
+     its bound; the sweep kernel's lassosum mode at the slice's bands with
+     its 120 grid points, bit-equal to its twin, beside it and its bound.
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -72,6 +97,7 @@ slice 2 are printed but only enforced on the card); it too ends non-zero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -97,6 +123,14 @@ I8_REPLACES = {"cprod_i8": "bigsnpr_tpu/ops/pallas_kernels.py:255",
                "prod_i8_nona": "bigsnpr_tpu/ops/pallas_kernels.py:311"}
 I8_TOL = 1e-6   # K6 vs twin: same integer sums, same f32 epilogue (--fmad=false)
 PEAK_INT8_OP_PER_S = 1979e12
+SPLIT_SOURCE = "bigsnpr_tpu_torch/csrc/geno_split.cu"
+SPLIT_REPLACES = {"cprod_split": "bigsnpr_tpu/ops/pallas_kernels.py:136",
+                  "prod_split": "bigsnpr_tpu/ops/pallas_kernels.py:165"}
+SPLIT_TOL = 1e-5     # K7 vs twin: f32 sums of exact products in two orders
+SPLIT_DENSE_TOL = 2e-5   # K7 and twin vs float64 (tests/test_pallas.py's bound)
+PEAK_BF16_FLOP_PER_S = 989e12
+LASSO_REPLACES = "bigsnpr_tpu/pgs/gibbs_blocked.py:1427"
+K7 = tuple(SPLIT_REPLACES)
 K1K2 = ("cprod", "prod")
 K6 = tuple(I8_REPLACES)
 SWEEP_TOL = 1e-5   # sweep vs twin: max |diff| <= SWEEP_TOL * max |twin|
@@ -472,7 +506,8 @@ def block_sizes(rng, m, bmin, bmax):
         sizes.append(int(rng.integers(bmin, bmax + 1)))
     sizes[-1] -= sum(sizes) - m
     if sizes[-1] < bmin and len(sizes) > 1:
-        sizes[-2] += sizes.pop()
+        last = sizes.pop()          # merged into the block before it
+        sizes[-1] += last
     return np.asarray(sizes)
 
 
@@ -1340,7 +1375,541 @@ def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
     return rows
 
 
-def main(argv=None):
+# ---------------------------------------------------------------------------
+# slice 4: split2 scheme (K7) -> randomSVD -> GWAS -> SCT; lassosum2
+# ---------------------------------------------------------------------------
+
+def dense64(torch, packed, n, c, inv):
+    """The float64 standardized matrix (m, n) of a pack, NA -> 0."""
+    from bigsnpr_tpu_torch.core.unpack import unpack_dosage
+
+    d, na = unpack_dosage(packed, n, dtype=torch.float64)
+    x = (d - c.double()[:, None]) * inv.double()[:, None]
+    return torch.where(na, torch.zeros((), dtype=torch.float64,
+                                       device=x.device), x)
+
+
+def check_split(gk, torch, dev, packed, n, c, inv, V, U, tag):
+    """K7 cprod and prod against the twin and a float64 product on one
+    input: twin within SPLIT_TOL of max |twin|, both within SPLIT_DENSE_TOL
+    of max |float64|, two launches bit-equal."""
+    X = dense64(torch, packed, n, c, inv)
+    for kind, kern, plain, W, ref64 in (
+            ("cprod_split", gk.cprod_split, gk.cprod_split_plain, V,
+             X @ V.double()),
+            ("prod_split", gk.prod_split, gk.prod_split_plain, U,
+             X.T @ U.double())):
+        got, again = kern(packed, n, W, c, inv), kern(packed, n, W, c, inv)
+        ref = plain(packed, n, W, c, inv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        scale = float(ref64.abs().max())
+        d_got = float((got.double() - ref64).abs().max()) / scale
+        d_ref = float((ref.double() - ref64).abs().max()) / scale
+        repeat = torch.equal(got, again)
+        log(f"  {tag} {kind:11s} n={n} m={packed.shape[0]} l={W.shape[1]}: "
+            f"max abs err {err:.3e} (rel {rel:.1e}, limit {SPLIT_TOL}); vs "
+            f"float64: kernel {d_got:.1e}, twin {d_ref:.1e} (limit "
+            f"{SPLIT_DENSE_TOL}); two launches bit-equal {repeat}")
+        if not (repeat and rel <= SPLIT_TOL and d_got <= SPLIT_DENSE_TOL
+                and d_ref <= SPLIT_DENSE_TOL and torch.isfinite(got).all()):
+            fail(f"K7 {kind} ({tag}) disagrees with its twin, float64 or "
+                 f"itself")
+
+
+def phase_split_small(bp, gk, torch, dev, rng):
+    log("[12] K7 (bf16 bit planes, operand split hi + lo) vs its twin at "
+        "awkward shapes")
+    for n, m, l in ((1000, 777, 1), (1001, 1500, 12), (1002, 3001, 20),
+                    (1003, 513, 21), (20000, 2100, 20)):
+        for na in (True, False):
+            packed, n_, c, inv, V, U = i8_case(torch, dev, rng, n, m, l, na)
+            check_split(gk, torch, dev, packed, n_, c, inv, V, U,
+                        "small" if na else "NA-free")
+    n, m = 3001, 2500
+    pack = bp.GenoPack(packed=small_pack(rng, n, m), n=n)
+    sc = bp.bed_scaleBinom(pack, device=dev)
+    rows = np.sort(rng.choice(n, 2000, replace=False))
+    cols = np.sort(rng.choice(m, 1300, replace=False))
+    ops = [ctor(pack, sc["center"], sc["scale"], ind_row=rows, ind_col=cols,
+                device=dev, mxu="split2")
+           for ctor in (bp.GenoOperator, bp.TorchOperator)]
+    V = torch.as_tensor(rng.standard_normal((len(rows), 20)),
+                        dtype=torch.float32, device=dev)
+    (B, Y), (Br, Yr) = (op.power_dev(V) for op in ops)
+    errs = [rel_err(B, Br)[1], rel_err(Y, Yr)[1]]
+    log(f"  masked split2 operator ({len(rows)} of {n} rows, {len(cols)} of "
+        f"{m} variants): power step rel err {errs[0]:.1e} / {errs[1]:.1e} "
+        f"against the plain operator (limit {SPLIT_TOL})")
+    if max(errs) > SPLIT_TOL:
+        fail("the masked split2 operator disagrees with the plain one")
+
+
+def make_slice4(bp, torch, dev, args):
+    """The slice-4 cohort (slice 3's generator, 3 populations, no planted
+    region), its 22 chromosomes with ~3 kb positions, and the split."""
+    n, m = args.n4, args.m4
+    t0 = time.perf_counter()
+    packed, sizes, info = make_ld_cohort(torch, dev, n, m, args.seed + 20,
+                                         args.bmin, args.bmax, pops=3)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    bounds = chromosome_bounds(sizes, m)
+    chrs = np.repeat(np.arange(1, 23), np.diff(bounds))
+    rng = np.random.default_rng(args.seed + 21)
+    gaps = 1 + rng.exponential(3000.0, m).astype(np.int64)
+    pos = np.empty(m, np.int64)
+    for c0, c1 in zip(bounds[:-1], bounds[1:]):
+        pos[c0:c1] = np.cumsum(gaps[c0:c1])
+    log(f"  cohort made on the {dev.type} in {time.perf_counter() - t0:.1f} "
+        f"s: {len(sizes)} LD blocks of {sizes.min()}-{sizes.max()} variants "
+        f"(AR(1) rho {RHO}), 3 populations (Fst {FST}), 22 chromosomes of "
+        f"{np.diff(bounds).min()}-{np.diff(bounds).max()} variants")
+    pack = bp.GenoPack(packed=packed.cpu().numpy(), n=n)
+    pack._device_cache[str(dev)] = packed
+    perm = rng.permutation(n)
+    n_train = n * 3 // 4
+    return (pack, chrs, pos, np.sort(perm[:n_train]), np.sort(perm[n_train:]),
+            info["pop"])
+
+
+def check_greedy_one_chromosome(bp, pack, chrs, pos, lpS, train, all_keep,
+                                dev):
+    """The native greedy against the fixed point on every cell of the
+    smallest chromosome, from the same banded r^2; both against the keep
+    sets of snp_grid_clumping."""
+    from bigsnpr_tpu_torch.ops import clumping as pcl
+    from bigsnpr_tpu_torch.pgs import sct as psct
+
+    chrom = int(np.argmin(np.bincount(chrs)[1:])) + 1
+    ind = np.nonzero(chrs == chrom)[0]
+    sub = pack.subset(ind_row=train, ind_col=ind, device=dev)
+    thrs = (0.01, 0.05, 0.1, 0.2, 0.5, 0.8, 0.95)
+    bases = (50, 100, 200, 500)
+    ei, ej, r2 = psct._banded_r2(sub, pos[ind].astype(np.float64),
+                                 1000.0 * max(bases) / min(thrs),
+                                 thr_r2_floor=min(thrs), device=dev)
+    rank = np.empty(len(ind), np.int64)
+    rank[np.argsort(-lpS[ind], kind="stable")] = np.arange(len(ind))
+    dist = np.abs(pos[ind][ej] - pos[ind][ei])
+    same, t_nat, t_plain, cell = 0, 0.0, 0.0, 0
+    for thr in thrs:
+        for base in bases:
+            sel = (dist <= 1000.0 * base / thr) & (r2 > thr)
+            t = time.perf_counter()
+            a = pcl._greedy_fixed_point(len(ind), rank, ei[sel], ej[sel])
+            t_nat += time.perf_counter() - t
+            t = time.perf_counter()
+            b = pcl._greedy_fixed_point_plain(len(ind), rank, ei[sel],
+                                              ej[sel])
+            t_plain += time.perf_counter() - t
+            same += int(np.array_equal(a, b)
+                        and np.array_equal(ind[a], all_keep[chrom][cell]))
+            cell += 1
+    log(f"    native greedy vs the fixed point on chromosome {chrom} ("
+        f"{len(ind)} variants, {len(ei)} edges with r2 > 0.01): {same} of "
+        f"{cell} cells the same keep set, also as snp_grid_clumping's; "
+        f"native {t_nat:.3f} s, fixed point {t_plain:.3f} s for the 28")
+    if same != cell:
+        fail("the native greedy disagrees with the fixed point")
+
+
+def best_column_r(bp, pack, multi, y_train, test, y_test):
+    """r on the test samples of the single C+T column that correlates best
+    with y on the training samples."""
+    from bigsnpr_tpu_torch.pgs import sct as psct
+
+    S = np.asarray(multi.scores)
+    sd = S.std(0)
+    ok = sd > 0
+    r_tr = np.zeros(S.shape[1])
+    r_tr[ok] = ((S[:, ok] - S[:, ok].mean(0)).T @ (y_train - y_train.mean())
+                / (len(y_train) * sd[ok] * y_train.std()))
+    col = int(np.argmax(r_tr))
+    n_thr = len(multi.grid_lpS_thr)
+    keep_sets = [k for c in psct._chrom_order(multi.all_keep)
+                 for k in multi.all_keep[c]]
+    keep = keep_sets[col // n_thr]
+    B = np.zeros(pack.m)
+    thr = multi.grid_lpS_thr[col % n_thr]
+    B[keep] = multi.betas[keep] * (multi.lpS[keep] > thr)
+    pred = bp.snp_prodVec(pack.subset(ind_row=test), B)
+    return float(np.corrcoef(pred, y_test)[0, 1]), float(r_tr[col])
+
+
+def stack_rows(n_train, args):
+    """Positions among the training samples of the --n-stack that the
+    stacking runs on, drawn from the seed."""
+    return np.sort(np.random.default_rng(args.seed + 25).choice(
+        n_train, min(args.n_stack, n_train), replace=False))
+
+
+def check_k2_slice4(bp, gk, torch, dev, pack, train, test, multi, final,
+                    beta_l):
+    """K2 against its twin on the operands slice 4 gives it: the training
+    samples' pack with the grid PRS's first weight matrix (13 cells x 50
+    thresholds), the test samples' pack with the lassosum2 grid's betas and
+    with the SCT prediction's beta.G."""
+    from bigsnpr_tpu_torch.ops import matvec
+    from bigsnpr_tpu_torch.pgs import sct as psct
+
+    keep_sets = [k for c in psct._chrom_order(multi.all_keep)
+                 for k in multi.all_keep[c]]
+    group = psct.grid_group_size(pack.m, len(multi.grid_lpS_thr))
+    B = psct.grid_weights(pack.m, keep_sets[:group], multi.betas, multi.lpS,
+                          multi.grid_lpS_thr)
+    sub_test = pack.subset(ind_row=test, device=dev)
+    timer = Timer(torch, dev)
+    for sub, W, what in (
+            (pack.subset(ind_row=train, device=dev), B,
+             "snp_grid_PRS, one group of cells"),
+            (sub_test, np.nan_to_num(beta_l), "lassosum2 grid scores"),
+            (sub_test, final["beta.G"], "SCT prediction")):
+        packed, W, _, c, inv = matvec._prep(sub, W, sub.m, what, None, None,
+                                            dev)
+        got = gk.prod(packed, sub.n, W, c, inv)
+        ref = gk.prod_plain(packed, sub.n, W, c, inv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        ms = timer(lambda: gk.prod(packed, sub.n, W, c, inv), reps=3)
+        log(f"    K2 vs its twin at n={sub.n} m={sub.m} l={W.shape[1]} "
+            f"[{what}]: max abs err {err:.3e} (rel {rel:.2e}, limit {TOL}); "
+            f"kernel {ms:.3f} ms")
+        if not (rel <= TOL and torch.isfinite(got).all()):
+            fail(f"K2 disagrees with its twin at slice 4's {what}")
+
+
+def phase_slice4(bp, gk, gsk, torch, dev, args):
+    n, m = args.n4, args.m4
+    log(f"[13] slice 4 at n={n} samples x m={m} variants, pallas_mxu "
+        f"\"split2\"")
+    pack, chrs, pos, train, test, pop = make_slice4(bp, torch, dev, args)
+    times = {}
+
+    def stage(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        log(f"  {name:26s} {times[name]:9.3f} s")
+        return out
+
+    gk.reset_launches()
+    gsk.reset_launches()
+    with bp.config.options(pallas_mxu="split2"):
+        svd = stage("snp_randomSVD", lambda: bp.snp_randomSVD(
+            pack, k=10, ind_row=train))
+        sim = stage("snp_simuPheno", lambda: bp.snp_simuPheno(
+            pack, h2=0.4, M=min(1000, m // 10), seed=args.seed))
+        y = sim["pheno"]
+        gwas = stage("big_univLinReg", lambda: bp.big_univLinReg(
+            pack, y[train], covar=svd.u, ind_row=train))
+    path = dict(gk.launches)
+    lpS = stage("gwas_pvalues", lambda: -bp.gwas_pvalues(gwas, log10=True))
+    all_keep, grid = stage("snp_grid_clumping", lambda: bp.snp_grid_clumping(
+        pack, chrs, pos, lpS, ind_row=train))
+    multi = stage("snp_grid_PRS", lambda: bp.snp_grid_PRS(
+        pack, all_keep, gwas["estim"], lpS, n_thr_lpS=args.n_thr,
+        ind_row=train))
+    # the stacking on the scores of args.n_stack of the training samples:
+    # its host CD costs (samples x 30,800 columns) a pass
+    stack = stack_rows(len(train), args)
+    final = stage("snp_grid_stacking", lambda: bp.snp_grid_stacking(
+        dataclasses.replace(multi, scores=multi.scores[stack]),
+        y[train[stack]]))
+    pred = stage("prediction (test samples)", lambda: bp.snp_prodVec(
+        pack.subset(ind_row=test), final["beta.G"]) + final["intercept"])
+    # lassosum2 on the same cohort: chromosomes 1e9 bp apart, so no
+    # window holds two of them
+    pos_all = chrs.astype(np.float64) * 1e9 + pos
+    corr = stage("snp_cor", lambda: bp.snp_cor(
+        pack, ind_row=train, size=500, thr_r2=0.01, infos_pos=pos_all,
+        finalize="device"))
+    bb = stage("auto_blocks + bands", lambda: bp.build_block_bands(
+        corr, bp.auto_blocks(corr)))
+    df_beta = {"beta": gwas["estim"], "beta_se": gwas["std.err"],
+               "n_eff": np.full(m, float(len(train)))}
+    sweeps0 = gsk.launches["lassosum"]
+    beta_l, gp = stage("snp_lassosum2", lambda: bp.snp_lassosum2(
+        corr, df_beta, blocks=bb, nlambda=args.nlambda,
+        maxiter=args.lasso_maxiter))
+    half = len(test) // 2
+    scores_l = stage("lassosum2 grid scores", lambda: bp.snp_prodVec(
+        pack.subset(ind_row=test), np.nan_to_num(beta_l)))
+    r_first = np.array([np.corrcoef(scores_l[:half, i], y[test][:half])[0, 1]
+                        if scores_l[:half, i].std() > 0 else -1.0
+                        for i in range(beta_l.shape[1])])
+    best = int(np.argmax(np.nan_to_num(r_first, nan=-1.0)))
+    prs_l = stage("snp_PRS (lassosum2)", lambda: bp.snp_PRS(
+        pack, beta_l[:, best], ind_test=test[half:]))
+    launches = dict(gk.launches)
+    launches["lassosum"] = gsk.launches["lassosum"] - sweeps0
+    log(f"  total {sum(times.values()):.3f} s; kernel launches {launches}")
+    log(f"  launches from snp_randomSVD through big_univLinReg (snp_simuPheno"
+        f"'s K2 included): {path}")
+    enforce = dev.type == "cuda"
+    if enforce:
+        if path["cprod"] or any(path[k] for k in K6):
+            fail("K1 or K6 launched on the split2 path")
+        if not (path["cprod_split"] and path["prod_split"]):
+            fail("K7 was not launched on the slice-4 path")
+        if launches["lassosum"] <= 0:
+            fail("the lassosum mode was not launched")
+
+    log("  checks:")
+    with bp.config.options(pallas_mxu="highest"):
+        t = time.perf_counter()
+        svd_h = bp.snp_randomSVD(pack, k=10, ind_row=train)
+        t_h = time.perf_counter() - t
+    d_rel = float(np.max(np.abs(svd.d - svd_h.d) / svd_h.d))
+    cos = np.abs(np.sum(svd.u * svd_h.u, axis=0))
+    log(f"    snp_randomSVD on K7 vs on K1/K2 ({t_h:.3f} s): d max rel diff "
+        f"{d_rel:.2e} (limit 1e-4), min |cos(u_split2, u_highest)| "
+        f"{cos.min():.6f} (floor 0.999); depths {svd.niter} / {svd_h.niter}")
+    if not (d_rel <= 1e-4 and cos.min() >= 0.999):
+        fail("randomSVD on K7 differs from randomSVD on K1/K2")
+    rng = np.random.default_rng(args.seed + 22)
+    cols = np.sort(rng.choice(m, min(1000, m), replace=False))
+    b_ref, se_ref = dense_linreg(torch, dev, pack, y[train], svd.u, train,
+                                 cols)
+    b, se = gwas["estim"][cols], gwas["std.err"][cols]
+    e_b = np.abs(b - b_ref) / (np.abs(b_ref) + se_ref)
+    e_se = np.abs(se - se_ref) / se_ref
+    log(f"    GWAS (split2) vs dense f64 on {len(cols)} variants: estim max "
+        f"|d|/(|b|+se) {e_b.max():.2e}, std.err max rel {e_se.max():.2e} "
+        f"(limit 1e-4)")
+    if e_b.max() > 1e-4 or e_se.max() > 1e-4:
+        fail("split2 GWAS disagrees with the dense float64 regression")
+    n_sets = sum(len(v) for v in all_keep.values())
+    kept = [len(k) for v in all_keep.values() for k in v]
+    log(f"    grid: {len(grid['size'])} cells x {len(all_keep)} chromosomes "
+        f"= {n_sets} keep sets of {min(kept)}-{max(kept)} variants; scores "
+        f"{multi.scores.shape[0]} x {multi.scores.shape[1]} float32 "
+        f"({multi.scores.nbytes / 1e9:.2f} GB)")
+    check_greedy_one_chromosome(bp, pack, chrs, pos, lpS, train, all_keep,
+                                dev)
+    check_k2_slice4(bp, gk, torch, dev, pack, train, test, multi, final,
+                    beta_l)
+    y_test = y[test]
+    r_sct = float(np.corrcoef(pred, y_test)[0, 1])
+    r_ct, r_ct_train = best_column_r(bp, pack, multi, y[train], test, y_test)
+    mod = final["mod"]
+    log(f"    r(SCT prediction, y_test) {r_sct:.4f} on {len(test)} test "
+        f"samples (floor 0.1; null sd {1 / np.sqrt(len(test)):.3f}); the best "
+        f"single C+T column: r {r_ct:.4f} on the test samples ({r_ct_train:.4f}"
+        f" on the {len(train)} training ones); stacking on {len(stack)} of "
+        f"them: alpha {mod.alpha}, "
+        f"{int((mod.beta != 0).sum())} of {len(mod.beta)} columns non-zero")
+    r_l = float(np.corrcoef(prs_l[:, 0], y_test[half:])[0, 1])
+    n_div = int(np.isnan(beta_l).any(0).sum())
+    it = gp["num_iter"]
+    log(f"    lassosum2: grid point {best} (lambda {gp['lambda'][best]:.4g}, "
+        f"delta {gp['delta'][best]}) chosen on {half} test samples; r on the "
+        f"other {len(test) - half}: {r_l:.4f} (floor 0.1); {n_div} of "
+        f"{len(it)} grid points diverged; sweeps a point {it.min()}-"
+        f"{it.max()}, {launches['lassosum']} launches; LD nnz "
+        f"{corr.upper.nnz}, {len(bb.buckets)} buckets, dropped_r2_frac "
+        f"{bb.dropped_r2_frac:.4f}")
+    bad = [] if not enforce else [
+        what for what, ok in (("r(SCT, y_test)", r_sct > 0.1),
+                              ("r(lassosum2, y_test)", r_l > 0.1)) if not ok]
+    if bad:
+        fail(f"slice 4 checks failed: {bad}")
+    return dict(pack=pack, train=train, svd=svd, corr=corr, bb=bb,
+                df_beta=df_beta, path=path, launches=launches)
+
+
+def bound_split(P, W_rows, l, rows_out, nm):
+    """Least time of a K7 product: bytes read once and written once over
+    3.35 TB/s, or 2 planes x 2 (2l) n m bf16 operations over 989 TFLOP/s."""
+    nbytes = P.numel() + 4 * (W_rows * l + 2 * P.shape[0] + rows_out * l)
+    ops = 2.0 * 2 * (2 * l) * nm
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_BF16_FLOP_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, nbytes, ops
+
+
+def bf16_planes(gk, torch, P, n):
+    """Pre-decoded bf16 T and NA planes (m, n) of a pack, for the library
+    yardstick (the decode is not timed)."""
+    m = P.shape[0]
+    T = torch.empty((m, n), dtype=torch.bfloat16, device=P.device)
+    NA = torch.empty_like(T)
+    for j0 in range(0, m, 2048):
+        t8, na8 = gk.int_planes(P[j0:j0 + 2048], n)
+        T[j0:j0 + 2048] = t8
+        NA[j0:j0 + 2048] = na8
+    return T, NA
+
+
+def phase_split_timed(bp, gk, torch, dev, s4, args, reps=5):
+    """K7 at the shapes of the slice and at 50,000 x 100,000 on random
+    bytes, beside its twin, bf16 torch.matmul on pre-decoded planes and
+    its bound."""
+    pack, train, svd = s4["pack"], s4["train"], s4["svd"]
+    n, m = pack.n, pack.m
+    log(f"[14] K7 timed on the {n} x {m} slice-4 pack and at "
+        f"{args.n} x {args.m} on random bytes; the lassosum mode")
+    timer = Timer(torch, dev)
+    rng = np.random.default_rng(args.seed + 23)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    op = bp.GenoOperator(pack, svd.center, svd.scale, ind_row=train,
+                         device=dev, mxu="split2")
+    P, c, inv = op.packed, op.center, op.inv
+    big_n, big_m = args.n, args.m
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 24)
+    Pb = torch.randint(0, 256, (big_m, (big_n + 3) // 4), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    cb = f(rng.uniform(0.1, 1.9, big_m))
+    ib = f(rng.uniform(0.5, 3.0, big_m))
+    cases = (("cprod_split", P, n, c, inv,
+              op._scatter(f(rng.standard_normal((len(train), 20))),
+                          op.row_idx, n), "randomSVD power step, training rows"),
+             ("prod_split", P, n, c, inv, f(rng.standard_normal((m, 20))),
+              "randomSVD power step"),
+             ("cprod_split", P, n, c, inv,
+              op._scatter(f(rng.standard_normal((len(train), 12))),
+                          op.row_idx, n), "big_univLinReg, [yr | 1 | 10 PCs]"),
+             ("cprod_split", Pb, big_n, cb, ib,
+              f(rng.standard_normal((big_n, 20))), "full width, random bytes"),
+             ("prod_split", Pb, big_n, cb, ib,
+              f(rng.standard_normal((big_m, 20))), "full width, random bytes"))
+    rows = {}
+    planes = {}
+    for key, P_, n_, c_, i_, W, what in cases:
+        cprod = key == "cprod_split"
+        kern = gk.cprod_split if cprod else gk.prod_split
+        plain = gk.cprod_split_plain if cprod else gk.prod_split_plain
+        l = W.shape[1]
+        got, ref = kern(P_, n_, W, c_, i_), plain(P_, n_, W, c_, i_)
+        err, rel = rel_err(got, ref)
+        if rel > SPLIT_TOL:
+            fail(f"full-size {key} ({what}) disagrees with its twin")
+        del got, ref
+        ms = timer(lambda: kern(P_, n_, W, c_, i_), reps=reps)
+        plain_ms = timer(lambda: plain(P_, n_, W, c_, i_), reps=1, warmup=0)
+        if id(P_) not in planes:
+            planes.clear()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            planes[id(P_)] = bf16_planes(gk, torch, P_, n_)
+        T, NA = planes[id(P_)]
+        if cprod:
+            qs = gk._cprod_split_operands(W, c_, i_)[0].T.contiguous()
+            lib = lambda: (T @ qs, NA @ qs)  # noqa: E731
+        else:
+            zbs, zas, _ = gk._prod_split_operands(W, c_, i_)
+            lib = lambda: (zbs @ T, zas @ NA)  # noqa: E731
+        library_ms = timer(lib, reps=reps)
+        bound, by, nbytes, ops = bound_split(P_, n_ if cprod else P_.shape[0],
+                                             l, P_.shape[0] if cprod else n_,
+                                             n_ * P_.shape[0])
+        log(f"  {key:11s} l={l:2d} n={n_} m={P_.shape[0]}: kernel {ms:.3f} "
+            f"ms, twin {plain_ms:.1f} ms, bf16 torch.matmul on pre-decoded "
+            f"planes {library_ms:.3f} ms (decode not timed), bound "
+            f"{bound:.3f} ms ({by}: {ops / 1e12:.3f} TFLOP over 989 TFLOP/s ="
+            f" {ops / PEAK_BF16_FLOP_PER_S * 1e3:.3f} ms; {nbytes / 1e9:.3f} "
+            f"GB over 3.35 TB/s = {nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms); "
+            f"max abs err {err:.2e} (rel {rel:.1e}) [{what}]")
+        if what.startswith("full width"):
+            rows[key] = {
+                "name": f"geno_{key} (K7)", "route": "cuda",
+                "source": SPLIT_SOURCE, "replaces": SPLIT_REPLACES[key],
+                "launches": s4["path"][key], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": library_ms}
+    del planes, Pb
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return [rows[k] for k in K7] + [phase_lasso_timed(bp, torch, dev, s4,
+                                                      args)]
+
+
+def lasso_bound(sb, NG):
+    """Least time of one lassosum sweep at this run's bands: bytes (band
+    once, per-variant bh and pf, each point's betas read and written and
+    its dp in and out, the partials) over 3.35 TB/s, or its float
+    operations (2 (2W + 1) for the AXPY plus ~15 for the step, per point
+    and row) over 67 TFLOP/s."""
+    sz = sb.band.element_size()
+    rows = sb.blk_rows.cpu().numpy().astype(np.int64)
+    wk = 2 * sb.blk_W.cpu().numpy().astype(np.int64) + 1
+    band = int((rows * wk).sum()) * sz
+    io = (2 * sb.m * sz + int(sb.gidx.numel()) * 4
+          + NG * (2 * sb.m * sz + 2 * sb.dp_len * sz + 3 * sb.nblk * 4))
+    t_bytes = (band + io) / PEAK_BYTES_PER_S * 1e3
+    t_ops = NG * float((rows * (2 * wk + 15)).sum()) / PEAK_F32_FLOP_PER_S \
+        * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by
+
+
+def phase_lasso_timed(bp, torch, dev, s4, args):
+    """The lassosum mode at the slice's bands and grid (4 deltas x 30
+    lambdas), from the state after 5 sweeps: kernel and twin bit-equal."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+    from bigsnpr_tpu_torch.pgs import ldpred2 as pld
+
+    sb = s4["bb"].device_put(dev)
+    bh, N, _ = pld._df_beta_arrays(s4["df_beta"])
+    pf = np.sqrt(np.max(N) / N)
+    lam0 = np.max(np.abs(bh / pf))
+    lam = np.tile(bp.seq_log(lam0, 0.01 * lam0, 31)[1:], 4)
+    delta = np.repeat([0.001, 0.01, 0.1, 1.0], 30)
+    NG = len(lam)
+    f = lambda a: torch.as_tensor(a, dtype=sb.dtype, device=dev)  # noqa: E731
+    bh_t, pf_t, lam_t, del_t = f(bh), f(pf), f(lam), f(delta)
+    active = torch.ones(NG, dtype=torch.bool, device=dev)
+    active[::7] = False
+    dp, beta = sb.dp0(NG), torch.zeros((NG, sb.m), dtype=sb.dtype, device=dev)
+    for _ in range(5):
+        gsk.lassosum_sweep(sb, dp, beta, bh_t, pf_t, lam_t, del_t,
+                           torch.ones(NG, dtype=torch.bool, device=dev))
+
+    def run(fn):
+        d, b = dp.clone(), beta.clone()
+        out = fn(sb, d, b, bh_t, pf_t, lam_t, del_t, active)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (d, b) + tuple(out)
+
+    got, again = run(gsk.lassosum_sweep), run(gsk.lassosum_sweep)
+    t = time.perf_counter()
+    ref = run(gsk.lassosum_sweep_plain)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    bit = all(torch.equal(a, r) for a, r in zip(got, ref))
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    err = max(float((a.double() - r.double()).abs().max())
+              for a, r in zip(got, ref))
+    timer = Timer(torch, dev)
+    ms = timer(lambda: gsk.lassosum_sweep(sb, dp.clone(), beta.clone(), bh_t,
+                                          pf_t, lam_t, del_t, active), reps=5)
+    bound, by = lasso_bound(sb, NG)
+    nct = sb.plans.get(NG, (NG, 0))[0]
+    log(f"  lassosum mode ({NG} grid points, {int(active.sum())} active; "
+        f"{sb.nblk} blocks, {sb.max_rows} rows in the longest, width up to "
+        f"{sb.wkmax}; {nct} points a CTA): kernel {ms:.3f} ms a sweep, twin "
+        f"{plain_ms:.1f} ms, bound {bound:.3f} ms ({by}); bit-equal to the "
+        f"twin {bit} (max abs diff {err:.1e}); two launches bit-equal "
+        f"{repeat}")
+    if not (bit and repeat):
+        fail("the lassosum mode disagrees with its twin or does not repeat")
+    return {"name": "gibbs_sweep lassosum mode (lassosum2, 120 grid points)",
+            "route": "cuda", "source": SWEEP_SOURCE,
+            "replaces": LASSO_REPLACES,
+            "launches": s4["launches"]["lassosum"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+def arg_parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--n", type=int, default=50_000)
@@ -1354,8 +1923,21 @@ def main(argv=None):
     ap.add_argument("--n3", type=int, default=50_000)
     ap.add_argument("--m3", type=int, default=100_000)
     ap.add_argument("--region", type=int, default=5_000)
+    ap.add_argument("--n4", type=int, default=20_000)
+    ap.add_argument("--m4", type=int, default=100_000)
+    ap.add_argument("--n-stack", type=int, default=2_000,
+                    help="training samples that the stacking of slice 4 "
+                    "runs on")
+    # cut only by a CPU rehearsal, whose twins are slow
+    ap.add_argument("--n-thr", type=int, default=50)
+    ap.add_argument("--nlambda", type=int, default=30)
+    ap.add_argument("--lasso-maxiter", type=int, default=1000)
     ap.add_argument("--rehearse-cpu", action="store_true")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = arg_parser().parse_args(argv)
 
     import torch
 
@@ -1390,9 +1972,10 @@ def main(argv=None):
     if dev.type == "cuda":
         log("[2] build (one nvcc a source, in parallel)")
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(4) as pool:
             libs = list(pool.map(lambda b: b(verbose=True),
-                                 (gk.build, gk.build_i8, gsk.build)))
+                                 (gk.build, gk.build_i8, gk.build_split,
+                                  gsk.build)))
         log(f"  built {', '.join(os.path.relpath(p, here) for p in libs)} "
             f"in {time.perf_counter() - t0:.1f} s")
 
@@ -1431,6 +2014,13 @@ def main(argv=None):
     pack3, svd3, train3, path3 = phase_slice3(bp, gk, torch, dev, args)
     rows += phase_i8_timed(bp, gk, torch, dev, pack3, svd3, train3, path3,
                            args)
+    del pack3, svd3
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    phase_split_small(bp, gk, torch, dev, rng)
+    s4 = phase_slice4(bp, gk, gsk, torch, dev, args)
+    rows += phase_split_timed(bp, gk, torch, dev, s4, args)
     log(f"  wall time {time.perf_counter() - t_start:.1f} s")
 
     if dev.type != "cuda":

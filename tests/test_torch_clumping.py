@@ -102,3 +102,74 @@ def test_indLRLDR_equal_jax():
     np.testing.assert_array_equal(pt.snp_indLRLDR(chrs, pos, regions),
                                   jclump.snp_indLRLDR(chrs, pos, regions))
     np.testing.assert_array_equal(pclump.LD_WIKI34, jclump.LD_WIKI34)
+
+
+def random_conflicts(rng, m, K):
+    """Conflict edges to up to K right neighbours each, about 70% kept,
+    in random order and orientation, with some duplicates."""
+    ei, ej = [], []
+    for k in range(1, min(K, m - 1) + 1):
+        a = np.nonzero(rng.random(m - k) < 0.7)[0]
+        ei.append(a)
+        ej.append(a + k)
+    ei, ej = np.concatenate(ei), np.concatenate(ej)
+    flip = rng.random(len(ei)) < 0.5
+    ei, ej = np.where(flip, ej, ei), np.where(flip, ei, ej)
+    dup = rng.choice(len(ei), len(ei) // 20)
+    ei, ej = np.r_[ei, ei[dup]], np.r_[ej, ej[dup]]
+    order = rng.permutation(len(ei))
+    return ei[order], ej[order]
+
+
+@pytest.mark.parametrize("m,K", [(1, 0), (50, 3), (900, 40), (700, 500)])
+def test_native_greedy_equals_jax_fixed_point(m, K):
+    """The native O(m + E) greedy, bit-equal to the JAX package's fixed
+    point and to its numpy copy, on random conflict graphs."""
+    rng = np.random.default_rng(m + K)
+    ei, ej = (random_conflicts(rng, m, K) if K else
+              (np.array([], np.int64), np.array([], np.int64)))
+    rank = rng.permutation(m)
+    got = pclump._greedy_fixed_point(m, rank, ei, ej)
+    np.testing.assert_array_equal(got, jclump._greedy_fixed_point(
+        m, rank, ei, ej))
+    np.testing.assert_array_equal(got, pclump._greedy_fixed_point_plain(
+        m, rank, ei, ej))
+    assert got.dtype == bool and got[np.argmin(rank)]
+
+
+def test_native_greedy_refuses_bad_graphs():
+    with pytest.raises(RuntimeError, match="self-edge"):
+        pclump._greedy_fixed_point(3, np.arange(3), [1], [1])
+    with pytest.raises(ValueError, match="out of range"):
+        pclump._greedy_fixed_point(3, np.arange(3), [0], [3])
+    with pytest.raises(ValueError, match="out of range"):
+        pclump._greedy_fixed_point(3, np.array([0, 0, 1]), [0], [1])
+
+
+def test_native_library_builds_once_under_many_threads(tmp_path, monkeypatch):
+    """Threads that first load one native source together build it once
+    and share one library (the stacking CD loads from 10 fold threads)."""
+    import sys
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bigsnpr_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        start = threading.Barrier(16, timeout=60)
+
+        def load(_):
+            start.wait()
+            return cuda_build.load(pclump.CLUMP_SOURCE, pclump._bind_clump)
+
+        with ThreadPoolExecutor(16) as pool:
+            libs = list(pool.map(load, range(16), timeout=120))
+    finally:
+        sys.setswitchinterval(interval)
+    assert all(lib is libs[0] for lib in libs)
+    assert len(list(tmp_path.glob("*.so"))) == 1
+    assert not list(tmp_path.glob(".*.tmp"))

@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1/K2 decode + GEMM, K6 on int8 bit planes, the Gibbs
-sweep) against their plain-torch twins on a card.
+"""The CUDA kernels (K1/K2 decode + GEMM, K7 on bf16 bit planes, K6 on
+int8 bit planes, the Gibbs sweep and its lassosum mode) against their
+plain-torch twins on a card.
 
 Imports only torch and the port, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -272,3 +273,130 @@ def test_sampler_loop_never_waits_on_the_device(cuda):
         return sum("synchroniz" in str(x.message) for x in w)
 
     assert syncs(3) == syncs(12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,l", [(1000, 777, 1), (1001, 1500, 12),
+                                   (1002, 3001, 20), (4099, 513, 21)])
+@pytest.mark.parametrize("na_prob", [0.05, 0.0])
+def test_split_kernels_match_twins(cuda, n, m, l, na_prob):
+    """K7 against its twin: within 1e-5 of max |twin| (float32 sums in
+    another order), both within 2e-5 of max |float64 product|, two
+    launches bit-equal, one count a launch; monomorphic and scale-0
+    variants, n = 0..3 (mod 4)."""
+    from bigsnpr_tpu_torch.core.unpack import unpack_dosage
+
+    packed, c, inv, V, U = i8_case(n, m, l, l, na_prob)
+    d, na = unpack_dosage(packed, n, dtype=torch.float64)
+    X = torch.where(na, 0.0, (d - c.double()[:, None]) * inv.double()[:, None])
+    for kern, plain, W, ref64, key in (
+            (gk.cprod_split, gk.cprod_split_plain, V, X @ V.double(),
+             "cprod_split"),
+            (gk.prod_split, gk.prod_split_plain, U, X.T @ U.double(),
+             "prod_split")):
+        before = gk.launches[key]
+        out, again = kern(packed, n, W, c, inv), kern(packed, n, W, c, inv)
+        ref = plain(packed, n, W, c, inv)
+        torch.cuda.synchronize()
+        assert gk.launches[key] == before + 2
+        assert torch.equal(out, again)
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+        for y in (out, ref):
+            assert (y.double() - ref64).abs().max() <= 2e-5 * ref64.abs().max()
+
+
+@pytest.mark.cuda
+def test_split_depth_splits_repeat(cuda):
+    """Any depth split gives the twin's result within 1e-5 of its max, and
+    each split count repeats bit for bit (no float atomics)."""
+    packed, c, inv, V, U = i8_case(3001, 2049, 20, 9, 0.05)
+    for kern, plain, W in ((gk.cprod_split, gk.cprod_split_plain, V),
+                           (gk.prod_split, gk.prod_split_plain, U)):
+        ref = plain(packed, 3001, W, c, inv)
+        for sp_ in (1, 2, 5, 16):
+            a = kern(packed, 3001, W, c, inv, splits=sp_)
+            b = kern(packed, 3001, W, c, inv, splits=sp_)
+            assert torch.equal(a, b)
+            assert (a - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_split_operator_masks_like_the_plain_one(cuda):
+    pp = pt.snp_fake(533, 700, seed=5, na_prob=0.05)
+    sc = pt.bed_scaleBinom(pp, device="cpu")
+    rows, cols = np.arange(0, 533, 2), np.arange(0, 700, 3)
+    ops = [ctor(pp, sc["center"], sc["scale"], ind_row=rows, ind_col=cols,
+                device=cuda, mxu="split2")
+           for ctor in (pt.GenoOperator, pt.TorchOperator)]
+    V = np.random.default_rng(0).standard_normal((len(rows), 20))
+    (B0, Y0), (B1, Y1) = (op.power(V) for op in ops)
+    assert np.abs(B1 - B0).max() <= 1e-5 * np.abs(B1).max()
+    assert np.abs(Y1 - Y0).max() <= 1e-5 * np.abs(Y1).max()
+
+
+def lasso_case(sizes, NG, seed, dtype):
+    sb, st = sweep_case(sizes, NG, seed, dtype)
+    rng = np.random.default_rng(seed + 1)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+    m = sb.m
+    return sb, dict(dp=st["dp"], beta=f(rng.normal(0, 0.05, (NG, m))
+                                         * (rng.random((NG, m)) < 0.5)),
+                    bh=st["bh"], pf=f(rng.uniform(0.8, 1.5, m)),
+                    lam=f(rng.uniform(0.001, 0.05, NG)),
+                    delta=f(rng.uniform(0.001, 1.0, NG)),
+                    active=torch.as_tensor(np.arange(NG) % 5 != 3,
+                                           device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,NG,dtype", [
+    ([300, 41, 7], 3, torch.float32), ([1000, 700, 130], 120, torch.float32),
+    ([257, 60], 7, torch.float64)])
+def test_lassosum_mode_matches_twin_bit_for_bit(cuda, sizes, NG, dtype):
+    """The lassosum mode against its twin on the card, inactive grid
+    points included: dp, betas, gap, df and maxshift bit-equal (float32
+    multiply-adds fused in both, float64 ones rounded twice in both)."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+
+    sb, st = lasso_case(sizes, NG, 6, dtype)
+
+    def run(fn):
+        dp, beta = st["dp"].clone(), st["beta"].clone()
+        out = fn(sb, dp, beta, st["bh"], st["pf"], st["lam"], st["delta"],
+                 st["active"])
+        torch.cuda.synchronize()
+        return (dp, beta) + tuple(out)
+
+    before = gsk.launches["lassosum"]
+    got, again = run(gsk.lassosum_sweep), run(gsk.lassosum_sweep)
+    ref = run(gsk.lassosum_sweep_plain)
+    assert gsk.launches["lassosum"] == before + 2
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b) and torch.equal(a, r)
+    frozen = ~st["active"]
+    assert torch.equal(got[1][frozen], st["beta"][frozen])
+
+
+@pytest.mark.cuda
+def test_lassosum_loop_reads_done_flags_every_few_sweeps(cuda):
+    """lassosum_cd_blocked syncs with the host once every 8 sweeps, not
+    once a sweep: 64 sweeps cost at most 7 syncs more than 8."""
+    import warnings
+
+    from bigsnpr_tpu_torch.pgs import gibbs_blocked as pgb
+
+    sb, st = lasso_case([300, 200, 64], 6, 8, torch.float32)
+
+    def syncs(maxiter):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                pgb.lassosum_cd_blocked(sb, st["bh"], st["pf"], st["lam"],
+                                        st["delta"], 1e9, 0.0, maxiter)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(x.message) for x in w)
+
+    assert syncs(64) - syncs(8) <= 7

@@ -196,10 +196,11 @@ def test_cached_op_follows_pallas_mxu():
 
 
 def test_schemes_not_ported_raise():
+    """"split2" (K7) is accepted since slice 4; "int8m" (K8) still raises."""
     assert jconfig.get_option("pallas_mxu") == pt.config.get_option(
         "pallas_mxu") == "highest"
-    with pytest.raises(NotImplementedError, match="K7"):
-        pt.config.set_option("pallas_mxu", "split2")
+    with pt.config.options(pallas_mxu="split2"):
+        assert pt.config.resolve_mxu() == "split2"
     with pytest.raises(NotImplementedError, match="K8"):
         pt.config.set_option("pallas_mxu", "int8m")
     with pytest.raises(ValueError):
@@ -207,6 +208,8 @@ def test_schemes_not_ported_raise():
     pp = pt.snp_fake(20, 10, seed=1)
     with pytest.raises(NotImplementedError, match="K8"):
         pt.GenoOperator(pp, np.ones(10), np.ones(10), mxu="int8m")
+    assert pt.GenoOperator(pp, np.ones(10), np.ones(10),
+                           mxu="split2").mxu == "split2"
     assert pt.config.get_option("pallas_mxu") == "highest"
 
 

@@ -166,7 +166,7 @@ def test_unported_options_raise(pipe):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.snp_ldpred2_grid(pipe["pc"], pipe["df"], grid,
                             blocks=pipe["blocks"], return_sampling_betas=True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 7"):
         pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], h2_init=0.3,
                             blocks=pipe["blocks"], shard_chains=True)
 

@@ -1,10 +1,13 @@
 """The port's first slice end to end: .bed -> scaling -> randomSVD ->
 simuPheno -> GWAS (covariates = PCs) -> p-values -> C+T scores, and the
 third (autoSVD -> pcadapt -> projection, on the int8 scheme) through both
-packages on the same file; all three slices (the second: LD -> LDSC ->
-blocks -> LDpred2-auto / grid -> PRS) in the port alone with jax, pandas
-and the JAX package blocked; the device rule (no CUDA and no request for
-the CPU -> an entry point raises); and chip_smoke.py's CPU rehearsal."""
+packages on the same file; the fourth (randomSVD and GWAS on the split2
+scheme -> grid clumping -> grid PRS -> stacking; LD -> blocked lassosum2)
+through both packages on the same pack; all four slices (the second: LD
+-> LDSC -> blocks -> LDpred2-auto / grid -> PRS) in the port alone with
+jax, pandas and the JAX package blocked; the device rule (no CUDA and no
+request for the CPU -> an entry point raises); and chip_smoke.py's CPU
+rehearsal."""
 
 import os
 import subprocess
@@ -103,6 +106,85 @@ def test_chain_matches_jax(tmp_path):
                                    atol=1e-3 * np.abs(jproj).max())
 
 
+def test_slice4_chain_matches_jax():
+    """randomSVD and GWAS under split2 -> grid clumping -> grid PRS ->
+    stacking, and snp_cor -> auto blocks -> lassosum2, in both packages.
+    The clumping and the stacking take the JAX package's p-values and
+    scores where exactness is the point (keep sets equal, stacking 1e-12);
+    the port's own scores agree within 1e-5 and predict as well."""
+    from bigsnpr_tpu import config as jconfig
+    from bigsnpr_tpu.pgs import sct as jsct
+    from bigsnpr_tpu.pgs.lassosum2 import snp_lassosum2 as j_lassosum2
+    from bigsnpr_tpu_torch import interop
+
+    n, m = 601, 1600
+    packed = structured_cohort(n, m, 4)
+    jp = JaxGenoPack(packed=packed, n=n)
+    pp = interop.pack_from_numpy(packed, n)
+    test = np.arange(0, n, 4)
+    train = np.setdiff1d(np.arange(n), test)
+    chrs = np.repeat([1, 2], m // 2)
+    pos = np.tile(np.arange(1, m // 2 + 1) * 2000.0, 2)
+    with pt.config.options(device="cpu", pallas_mxu="split2"):
+        with jconfig.options(pallas_mxu="split2"):
+            jsvd = bt.snp_randomSVD(jp, k=3, ind_row=train, tol=1e-7,
+                                    engine="pallas")
+        psvd = pt.snp_randomSVD(pp, k=3, ind_row=train, tol=1e-7)
+        np.testing.assert_allclose(psvd.d, jsvd.d, rtol=1e-4)
+        y = bt.snp_simuPheno(jp, h2=0.6, M=60, seed=5)["pheno"]
+        jg = bt.big_univLinReg(jp, y[train], covar=jsvd.u, ind_row=train)
+        pg = pt.big_univLinReg(pp, y[train], covar=jsvd.u, ind_row=train)
+    for key in ("estim", "std.err"):
+        ref = jg[key].to_numpy()
+        np.testing.assert_allclose(pg[key], ref, rtol=1e-4,
+                                   atol=1e-4 * np.abs(ref).max())
+    from bigsnpr_tpu.assoc.gwas import gwas_pvalues as j_pvalues
+
+    lpS = -j_pvalues(jg, log10=True)
+    betas = jg["estim"].to_numpy()
+    kw = dict(grid_thr_r2=(0.05, 0.2, 0.8), grid_base_size=(50, 200))
+    jk, _ = jsct.snp_grid_clumping(jp, chrs, pos, lpS, ind_row=train, **kw)
+    with pt.config.options(device="cpu"):
+        pk, _ = pt.snp_grid_clumping(pp, chrs, pos, lpS, ind_row=train, **kw)
+        for c in jk:
+            for a, b in zip(pk[c], jk[c]):
+                np.testing.assert_array_equal(a, b)
+        jm = jsct.snp_grid_PRS(jp, jk, betas, lpS, n_thr_lpS=6,
+                               ind_row=train)
+        pm = pt.snp_grid_PRS(pp, pk, betas, lpS, n_thr_lpS=6, ind_row=train)
+        assert np.abs(pm.scores - jm.scores).max() <= \
+            1e-5 * np.abs(jm.scores).max()
+        skw = dict(alphas=(0.01, 0.0001), K=4, nlambda=40)
+        jres = jsct.snp_grid_stacking(jm, y[train], **skw)
+        same = pt.snp_grid_stacking(interop.grid_prs_from_numpy(
+            jm.scores, jm.lpS, jm.grid_lpS_thr, jm.betas, jm.all_keep),
+            y[train], **skw)
+        np.testing.assert_allclose(same["beta.G"], jres["beta.G"],
+                                   rtol=1e-12,
+                                   atol=1e-12 * np.abs(jres["beta.G"]).max())
+        own = pt.snp_grid_stacking(pm, y[train], **skw)
+        sub = pp.subset(ind_row=test)
+        r_j = np.corrcoef(pt.snp_prodVec(sub, jres["beta.G"]), y[test])[0, 1]
+        r_p = np.corrcoef(pt.snp_prodVec(sub, own["beta.G"]), y[test])[0, 1]
+        assert r_p > 0.2 and abs(r_p - r_j) < 0.02, (r_p, r_j)
+        # LD -> blocks -> lassosum2 (float32, bit-equal sweeps)
+        jcorr = bt.snp_cor(jp, ind_row=train, size=20)
+        pcorr = pt.snp_cor(pp, ind_row=train, size=20)
+        assert (pcorr.upper != jcorr.upper).nnz == 0
+        df = {"beta": betas, "beta_se": jg["std.err"].to_numpy(),
+              "n_eff": np.full(m, float(len(train)))}
+        blocks = pt.auto_blocks(pcorr, max_block=400)
+        jb, jgp = j_lassosum2(jcorr, df, nlambda=4, maxiter=100,
+                              blocks=blocks)
+        pb, pgp = pt.snp_lassosum2(pcorr, df, nlambda=4, maxiter=100,
+                                   blocks=blocks)
+        np.testing.assert_array_equal(pgp["num_iter"],
+                                      jgp["num_iter"].to_numpy())
+        ok = np.isfinite(jb)
+        np.testing.assert_array_equal(np.isfinite(pb), ok)
+        assert np.abs(pb[ok] - jb[ok]).max() <= 1e-6 * np.abs(jb[ok]).max()
+
+
 # Blocks the imports with a finder that raises, which has the effect of
 # sys.modules[name] = None; None entries themselves trip scipy's array-API
 # helpers, which look up sys.modules["jax"].Array.
@@ -170,6 +252,23 @@ SCRIPT = textwrap.dedent("""
     assert set(asvd.lrldr) == {"Chr", "Start", "Stop", "Iter"}
     assert np.isfinite(pc.lpval()).all() and np.isfinite(g3["estim"]).all()
     assert proj["OADP_proj"].shape == (len(rows), 3)
+    # slice 4 on the split2 scheme: randomSVD -> GWAS -> SCT; lassosum2
+    with pt.config.options(pallas_mxu="split2"):
+        s4 = pt.snp_randomSVD(pack, k=3, ind_row=train)
+        g4 = pt.big_univLinReg(pack, sim["pheno"][train], covar=s4.u,
+                               ind_row=train)
+    lp4 = -pt.gwas_pvalues(g4, log10=True)
+    keep, grid4 = pt.snp_grid_clumping(pack, chrs, np.arange(300) * 1000,
+                                       lp4, ind_row=train,
+                                       grid_thr_r2=(0.2,),
+                                       grid_base_size=(50, 100))
+    multi = pt.snp_grid_PRS(pack, keep, g4["estim"], lp4, n_thr_lpS=3,
+                            ind_row=train)
+    final = pt.snp_grid_stacking(multi, sim["pheno"][train], K=3, nlambda=20)
+    bl, gp = pt.snp_lassosum2(corr, df, nlambda=3, maxiter=30, blocks=blocks)
+    assert multi.scores.shape == (len(train), 3 * 2 * 3)
+    assert np.isfinite(final["beta.G"]).all() and len(gp["num_iter"]) == 12
+    assert bl.shape == (pack.m, 12)
     bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not bad, bad
     print("PORT-ONLY-OK")
@@ -216,7 +315,10 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                           "--n", "803", "--m", "1200", "--n2", "803",
                           "--m2", "1200", "--bmin", "100", "--bmax", "300",
                           "--burn-in", "4", "--num-iter", "4", "--n3", "1500",
-                          "--m3", "4000", "--region", "400"], cwd=REPO,
+                          "--m3", "4000", "--region", "400", "--n4", "1500",
+                          "--m4", "4000", "--n-thr", "2", "--nlambda", "3",
+                          "--lasso-maxiter", "20", "--n-stack", "600"],
+                         cwd=REPO,
                          capture_output=True, text=True, timeout=300, env=ENV2)
     assert out.returncode == 3, out.stdout[-2000:] + out.stderr[-2000:]
     assert "CPU rehearsal passed" in out.stderr
@@ -227,5 +329,9 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "K5 shape", "grid shape", "f64 shape", "[9]",
                   "cprod_i8_nona", "masked int8 operator", "[10]",
                   "snp_autoSVD on K1/K2", "pcadapt, K = 2", "[11]",
-                  "torch._int_mm", "NA-free copy, int8"):
+                  "torch._int_mm", "NA-free copy, int8", "[12]",
+                  "masked split2 operator", "[13]", "snp_grid_stacking",
+                  "r(SCT prediction", "native greedy vs the fixed point",
+                  "lassosum2: grid point", "[14]", "bf16 torch.matmul",
+                  "lassosum mode"):
         assert phase in out.stdout
