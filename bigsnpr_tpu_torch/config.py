@@ -12,8 +12,9 @@ pallas_mxu: the scheme of the genotype operator's kernels, the JAX
 package's option of the same name (env BIGSNPR_PALLAS_MXU): "highest"
 (float32 decode + GEMM, K1/K2), "split2" (exact bf16 bit planes against
 the operand split into bf16 hi + lo, K7) or "int8" (exact int8 bit
-planes, K6). "int8m" (K8) is not ported yet and raises
-NotImplementedError.
+planes, K6). As in the JAX package, the option refuses "int8m" (K8, the
+int8 planes materialized once): that scheme is reached only through an
+operator built with it, `GenoOperator(..., mxu="int8m")`.
 """
 
 from __future__ import annotations
@@ -52,20 +53,16 @@ def resolve_device(dev=None) -> torch.device:
 
 
 MXU_SCHEMES = ("highest", "split2", "int8")
+# schemes an operator takes; "int8m" only by its constructor's argument
+OPERATOR_SCHEMES = MXU_SCHEMES + ("int8m",)
 
 
 def resolve_mxu(mxu=None) -> str:
-    """The genotype operator's scheme: `mxu`, else `pallas_mxu`. The JAX
-    package's "int8m" (kernel K8) is not ported yet and raises
-    NotImplementedError."""
+    """The genotype operator's scheme: `mxu`, else `pallas_mxu`."""
     mxu = pallas_mxu if mxu is None else mxu
-    if mxu == "int8m":
-        raise NotImplementedError(
-            'operator scheme "int8m" (kernel K8) is not ported yet: ROADMAP '
-            'queue 2 and queue 1, slice 5')
-    if mxu not in MXU_SCHEMES:
+    if mxu not in OPERATOR_SCHEMES:
         raise ValueError(f"unknown operator scheme {mxu!r}; one of "
-                         f"{MXU_SCHEMES}")
+                         f"{OPERATOR_SCHEMES}")
     return mxu
 
 
@@ -88,7 +85,13 @@ def set_option(name: str, value) -> None:
     if name == "device":
         set_device(value)
     elif name == "pallas_mxu":
-        pallas_mxu = resolve_mxu(value)
+        if value not in MXU_SCHEMES:
+            raise ValueError(
+                f"pallas_mxu must be one of {MXU_SCHEMES}, not {value!r}"
+                + ('; the "int8m" scheme (kernel K8) is reached through '
+                   'GenoOperator(..., mxu="int8m")' if value == "int8m"
+                   else ""))
+        pallas_mxu = value
     elif name == "check_args":
         assertions.set_check_args(bool(value))
     else:

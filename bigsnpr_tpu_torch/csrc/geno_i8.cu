@@ -47,6 +47,25 @@
 // int32 atomicAdds and the result still repeats bit for bit. A raw sum is
 // at most 254 K in absolute value: the wrapper refuses K > 8,000,000.
 //
+// K8 (MAT = true) replaces the JAX package's Pallas TPU kernels of the
+// mxu="int8m" scheme
+//   bigsnpr_tpu/ops/pallas_kernels.py  _cprod_kernel_i8m, _cprod_kernel_i8m_na
+//       (entry _pallas_cprod_i8m), _prod_kernel_i8m, _prod_kernel_i8m_na
+//       (entry _pallas_prod_i8m)
+// the same GEMMs on T (and NA) planes materialized once as int8 arrays
+// (m, ldn), true sample order, ldn = n rounded up to 16 and the pad columns
+// zero (ops/geno_kernels.py::int8m_planes). Only the A tile's source
+// differs from K6: cprod copies its 64 variant rows of 128 samples in
+// 16-byte loads; prod reads 4 variants x 4 samples a word each (16 threads
+// on one variant's 64 consecutive samples) and transposes them with K6's
+// 4 x 4 byte transpose, since mma.sync wants both operands K-contiguous and
+// the planes are variant-major. Digits, mma, depth splits and epilogue are
+// K6's, so the raw int32 sums equal K6's bit for bit. What bounds it: the
+// planes' bytes, n m (x 2 with NA), read once: 5.0 (10.0) GB at 50,000 x
+// 100,000, 1.49 (2.99) ms at 3.35 TB/s, above the 0.40 (0.81) ms of int8
+// operations at l = 20. This first version loads with plain 16- and 4-byte
+// loads, one stage in flight.
+//
 // C interface for ctypes: every function returns cudaGetLastError() after
 // its launches, as an int. Launches go to the stream passed in.
 
@@ -73,12 +92,75 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The A operand: K6 decodes the 2-bit pack (packed, nb); K8 copies the
+// materialized planes (T, NA: (m, ldn) int8; NA unread when NONA).
+struct ASource {
+  const uint8_t* packed;
+  int64_t nb;
+  const int8_t* T;
+  const int8_t* NA;
+  int64_t ldn;
+};
+
+// K8's A tile from the planes into As[plane][row * SROW + k], zero past m
+// and past ldn (the planes are zero on [n, ldn)).
+template <bool PROD, bool NONA>
+__device__ __forceinline__ void copy_plane_tile(uint8_t (*As)[BM * SROW],
+                                                const ASource& src, int64_t m,
+                                                int64_t r0, int64_t k0) {
+  const int8_t* __restrict__ pT = src.T;
+  const int8_t* __restrict__ pNA = src.NA;
+  const int64_t ldn = src.ldn;
+  if (!PROD) {
+    // variants [r0, r0+64) x samples [k0, k0+128), 16 bytes a load
+    for (int e = threadIdx.x; e < BM * (BK / 16); e += THREADS) {
+      const int r = e / (BK / 16), c16 = e % (BK / 16);
+      const int64_t j = r0 + r, s = k0 + 16 * c16;
+      uint4 t = make_uint4(0u, 0u, 0u, 0u), na = t;
+      if (j < m && s < ldn) {
+        t = *reinterpret_cast<const uint4*>(pT + j * ldn + s);
+        if (!NONA) na = *reinterpret_cast<const uint4*>(pNA + j * ldn + s);
+      }
+      *reinterpret_cast<uint4*>(&As[0][r * SROW + 16 * c16]) = t;
+      if (!NONA) *reinterpret_cast<uint4*>(&As[1][r * SROW + 16 * c16]) = na;
+    }
+  } else {
+    // samples [r0, r0+64) x variants [k0, k0+128): an item is samples
+    // 4sq..4sq+3 of variants 4vq..4vq+3, neighbouring threads on
+    // neighbouring sample quads of one variant
+    for (int e = threadIdx.x; e < (BM / 4) * (BK / 4); e += THREADS) {
+      const int sq = e % (BM / 4), vq = e / (BM / 4);
+      const int64_t s = r0 + 4 * sq;
+      uint32_t t[4], na[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int64_t j = k0 + 4 * vq + v;
+        const bool in = j < m && s < ldn;
+        t[v] = in ? *reinterpret_cast<const uint32_t*>(pT + j * ldn + s) : 0u;
+        na[v] = (!NONA && in)
+                    ? *reinterpret_cast<const uint32_t*>(pNA + j * ldn + s)
+                    : 0u;
+      }
+      uint32_t yt[4], yn[4];
+      geno_decode::transpose4(t[0], t[1], t[2], t[3], yt);
+      if (!NONA) geno_decode::transpose4(na[0], na[1], na[2], na[3], yn);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        *reinterpret_cast<uint32_t*>(&As[0][(4 * sq + q) * SROW + 4 * vq]) = yt[q];
+        if (!NONA)
+          *reinterpret_cast<uint32_t*>(&As[1][(4 * sq + q) * SROW + 4 * vq]) = yn[q];
+      }
+    }
+  }
+}
+
 // PROD = false: cprod (M = variants, K = samples); true: prod (M = samples,
-// K = variants). NONA drops the NA plane. NT = 8-column tiles per block.
-template <bool PROD, bool NONA, int NT>
+// K = variants). NONA drops the NA plane. MAT: K8 (A from the materialized
+// planes), else K6 (A decoded from the pack). NT = 8-column tiles per block.
+template <bool PROD, bool NONA, bool MAT, int NT>
 __global__ void __launch_bounds__(THREADS)
-i8_gemm_kernel(const uint8_t* __restrict__ packed, int64_t m, int64_t nb,
-               int64_t n, const int8_t* __restrict__ dT,
+i8_gemm_kernel(ASource src, int64_t m, int64_t n,
+               const int8_t* __restrict__ dT,
                const int8_t* __restrict__ dNA, int64_t ldd, int64_t N4,
                int32_t* __restrict__ raw, int64_t ktiles_per_split) {
   constexpr int BN = 8 * NT;
@@ -111,7 +193,11 @@ i8_gemm_kernel(const uint8_t* __restrict__ packed, int64_t m, int64_t nb,
   for (int64_t kt = kt0; kt < kt1; ++kt) {
     const int64_t k0 = kt * BK;
     __syncthreads();
-    if (!PROD) {
+    const uint8_t* __restrict__ packed = src.packed;
+    const int64_t nb = src.nb;
+    if (MAT) {
+      copy_plane_tile<PROD, NONA>(As, src, m, r0, k0);
+    } else if (!PROD) {
       // A = planes of variants [r0, r0+64) x samples [k0, k0+128):
       // 64 rows x 32 bytes, one byte an item, neighbours on neighbours
       geno_decode::decode_variant_rows<BM, BK / 4, THREADS>(
@@ -225,16 +311,16 @@ __global__ void i8_epilogue_kernel(const int32_t* __restrict__ raw, int64_t R,
   }
 }
 
-template <bool PROD, bool NONA, int NT>
-void launch_gemm(const uint8_t* packed, int64_t m, int64_t nb, int64_t n,
-                 const int8_t* dT, const int8_t* dNA, int64_t ldd, int64_t N4,
-                 int32_t* raw, int splits, cudaStream_t st) {
+template <bool PROD, bool NONA, bool MAT, int NT>
+void launch_gemm(const ASource& src, int64_t m, int64_t n, const int8_t* dT,
+                 const int8_t* dNA, int64_t ldd, int64_t N4, int32_t* raw,
+                 int splits, cudaStream_t st) {
   const int64_t M = PROD ? n : m, K = PROD ? m : n;
   const int64_t kps = cdiv(cdiv(K, BK), splits);
   const dim3 grid(static_cast<unsigned>(cdiv(M, BM)), splits,
                   static_cast<unsigned>(cdiv(N4, 8 * NT)));
-  i8_gemm_kernel<PROD, NONA, NT><<<grid, THREADS, 0, st>>>(
-      packed, m, nb, n, dT, dNA, ldd, N4, raw, kps);
+  i8_gemm_kernel<PROD, NONA, MAT, NT><<<grid, THREADS, 0, st>>>(
+      src, m, n, dT, dNA, ldd, N4, raw, kps);
 }
 
 // 8-column tiles per block: the fewest z-tiles of at most 12, each rounded
@@ -251,18 +337,31 @@ int pick_nt(int64_t N4) {
   return 12;
 }
 
-template <bool PROD, bool NONA>
-void dispatch_gemm(const uint8_t* packed, int64_t m, int64_t nb, int64_t n,
-                   const int8_t* dT, const int8_t* dNA, int64_t ldd,
-                   int64_t N4, int32_t* raw, int splits, cudaStream_t st) {
+template <bool PROD, bool NONA, bool MAT>
+void dispatch_gemm(const ASource& a, int64_t m, int64_t n, const int8_t* dT,
+                   const int8_t* dNA, int64_t ldd, int64_t N4, int32_t* raw,
+                   int splits, cudaStream_t st) {
   switch (pick_nt(N4)) {
-    case 1: launch_gemm<PROD, NONA, 1>(packed, m, nb, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 2: launch_gemm<PROD, NONA, 2>(packed, m, nb, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 4: launch_gemm<PROD, NONA, 4>(packed, m, nb, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 6: launch_gemm<PROD, NONA, 6>(packed, m, nb, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 8: launch_gemm<PROD, NONA, 8>(packed, m, nb, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 10: launch_gemm<PROD, NONA, 10>(packed, m, nb, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    default: launch_gemm<PROD, NONA, 12>(packed, m, nb, n, dT, dNA, ldd, N4, raw, splits, st); break;
+    case 1: launch_gemm<PROD, NONA, MAT, 1>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
+    case 2: launch_gemm<PROD, NONA, MAT, 2>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
+    case 4: launch_gemm<PROD, NONA, MAT, 4>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
+    case 6: launch_gemm<PROD, NONA, MAT, 6>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
+    case 8: launch_gemm<PROD, NONA, MAT, 8>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
+    case 10: launch_gemm<PROD, NONA, MAT, 10>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
+    default: launch_gemm<PROD, NONA, MAT, 12>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
+  }
+}
+
+template <bool MAT>
+void dispatch_all(int prod, int nona, const ASource& a, int64_t m, int64_t n,
+                  const int8_t* dT, const int8_t* dNA, int64_t ldd,
+                  int64_t N4, int32_t* raw, int splits, cudaStream_t st) {
+  if (prod) {
+    if (nona) dispatch_gemm<true, true, MAT>(a, m, n, dT, dNA, ldd, N4, raw, splits, st);
+    else dispatch_gemm<true, false, MAT>(a, m, n, dT, dNA, ldd, N4, raw, splits, st);
+  } else {
+    if (nona) dispatch_gemm<false, true, MAT>(a, m, n, dT, dNA, ldd, N4, raw, splits, st);
+    else dispatch_gemm<false, false, MAT>(a, m, n, dT, dNA, ldd, N4, raw, splits, st);
   }
 }
 
@@ -308,18 +407,27 @@ int geno_i8_gemm(int prod, int nona, const void* packed, int64_t m,
                  int64_t nb, int64_t n, const void* dT, const void* dNA,
                  int64_t ldd, int64_t N4, void* raw, int splits,
                  void* stream) {
-  const auto* pk = static_cast<const uint8_t*>(packed);
-  const auto* t = static_cast<const int8_t*>(dT);
-  const auto* a = static_cast<const int8_t*>(dNA);
-  auto* r = static_cast<int32_t*>(raw);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (prod) {
-    if (nona) dispatch_gemm<true, true>(pk, m, nb, n, t, a, ldd, N4, r, splits, st);
-    else dispatch_gemm<true, false>(pk, m, nb, n, t, a, ldd, N4, r, splits, st);
-  } else {
-    if (nona) dispatch_gemm<false, true>(pk, m, nb, n, t, a, ldd, N4, r, splits, st);
-    else dispatch_gemm<false, false>(pk, m, nb, n, t, a, ldd, N4, r, splits, st);
-  }
+  const ASource a{static_cast<const uint8_t*>(packed), nb, nullptr, nullptr,
+                  0};
+  dispatch_all<false>(prod, nona, a, m, n, static_cast<const int8_t*>(dT),
+                      static_cast<const int8_t*>(dNA), ldd, N4,
+                      static_cast<int32_t*>(raw), splits,
+                      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: raw as geno_i8_gemm, from the materialized planes T and NA (m, ldn)
+// int8 (NA unread when nona); ldn a multiple of 16, both 16-byte aligned.
+int geno_i8m_gemm(int prod, int nona, const void* T, const void* NA,
+                  int64_t m, int64_t n, int64_t ldn, const void* dT,
+                  const void* dNA, int64_t ldd, int64_t N4, void* raw,
+                  int splits, void* stream) {
+  const ASource a{nullptr, 0, static_cast<const int8_t*>(T),
+                  static_cast<const int8_t*>(NA), ldn};
+  dispatch_all<true>(prod, nona, a, m, n, static_cast<const int8_t*>(dT),
+                     static_cast<const int8_t*>(dNA), ldd, N4,
+                     static_cast<int32_t*>(raw), splits,
+                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

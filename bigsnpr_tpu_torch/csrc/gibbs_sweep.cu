@@ -49,13 +49,28 @@
 //   new = (u nm > 0 ? nm / dp1 : 0) if |u| > lam, else 0
 //   shift = new - cb;  dp[j .. j + 2W] += shift * band[j, :]
 //   gap += new^2 and df += 1 where new != 0;  maxshift = max(|shift|)
-// new is written in place over cb. In float32, dp1 and the dp update are
-// fused multiply-adds (__fmaf_rn), the rounding of the JAX package's CPU
-// programs, which contract them; in float64 they round twice, as the rest
-// of the file does under --fmad=false. A grid point whose `active` flag is 0
+// new is written in place over cb. In float32 the dp update is a fused
+// multiply-add (__fmaf_rn), the rounding of the JAX package's CPU
+// programs, which contract it inside their scans; in float64 it rounds
+// twice, as the rest of the file does under --fmad=false. dp1 rounds twice
+// in both (the JAX package computes it outside the scan, uncontracted). A
+// grid point whose `active` flag is 0
 // (converged or stopped) is left as it is: shift 0, nothing written, its
 // partials 0. gap, df and maxshift are per (grid point, block) partials in
 // row order, reduced by the caller in block order; no atomics.
+//
+// The global-dp mode (GDP = true; the entries' `gdp` argument) is the same
+// sweep for a block whose dp (rows + 2W values a chain) does not fit in
+// shared memory: the unblocked samplers, whose one block holds every
+// variant (the JAX package's `_sweep_gibbs` and `lassosum_cd`'s
+// `sweep_step`, bigsnpr_tpu/pgs/gibbs.py:28-72, 373-389, XLA lax.scans
+// there, not Pallas). Each chain's dp stays in its global arena and is
+// updated there in place; the __syncthreads() around the AXPY order the
+// CTA's global accesses as they order its shared ones. The caller spreads
+// the chains over CTAs (one a CTA), since one block now holds every row.
+// At 100,000 variants and W = 500, 30 chains' dp is 12 MB and stays in the
+// 50 MB L2; a row's dependent chain now waits on L2 instead of shared
+// memory, so the rows x one step's latency bound a sweep, as above.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -165,7 +180,7 @@ __device__ __forceinline__ LassoIn<T> load_lasso_row(const SweepArgs<T>& a,
     const T pf = a.pf[r.g];
     r.bh = a.bh[r.g];
     r.lam = pf * lam_c;
-    r.dp1 = lasso_mul_add(pf, delta_c, T(1));
+    r.dp1 = pf * delta_c + T(1);
     r.cb = a.cb[(int64_t)c * a.m + r.g];
   } else {
     r.bh = T(0); r.lam = T(1); r.dp1 = T(1); r.cb = T(0);
@@ -200,7 +215,7 @@ __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
-template <typename T, bool LASSO>
+template <typename T, bool LASSO, bool GDP>
 __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * a.nct;
@@ -215,13 +230,20 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
   const int32_t* gidx = a.gidx + a.blk_gidx[b];
   const int64_t dp_off = a.blk_dp[b];
 
+  // each chain's dp for the block: in shared memory (nct x Ls), or in
+  // place in the global arena in the global-dp mode
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sdp = reinterpret_cast<T*>(smem_raw);  // nct x Ls
-  T* sdiff = sdp + (int64_t)a.nct * a.Ls;    // nct
+  T* const dp_g = a.dp + (int64_t)c0 * a.dp_stride + dp_off;
+  T* const sdp = reinterpret_cast<T*>(smem_raw);
+  T* const dpv = GDP ? dp_g : sdp;
+  const int64_t ld = GDP ? a.dp_stride : (int64_t)a.Ls;
+  T* const sdiff = GDP ? sdp : sdp + (int64_t)a.nct * a.Ls;  // nct
 
-  for (int t = 0; t < nct; ++t) {
-    const T* src = a.dp + (int64_t)(c0 + t) * a.dp_stride + dp_off;
-    for (int i = tid; i < L; i += nthr) sdp[t * a.Ls + i] = src[i];
+  if (!GDP) {
+    for (int t = 0; t < nct; ++t) {
+      const T* src = dp_g + (int64_t)t * a.dp_stride;
+      for (int i = tid; i < L; i += nthr) sdp[t * a.Ls + i] = src[i];
+    }
   }
 
   const bool scalar = tid < nct;
@@ -269,7 +291,7 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
       if (scalar) {
         T diff = T(0);
         if (live) {
-          const T dotprod = sdp[tid * a.Ls + j + W];
+          const T dotprod = dpv[tid * ld + j + W];
           const T u = cur.bh - (dotprod - cur.cb);
           const T nm = u > T(0) ? u - cur.lam : u + cur.lam;
           T nb = (u * nm > T(0)) ? nm / cur.dp1 : T(0);
@@ -286,7 +308,7 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
         sdiff[tid] = diff;
       }
     } else if (scalar) {
-      const T dotprod = sdp[tid * a.Ls + j + W];
+      const T dotprod = dpv[tid * ld + j + W];
       const T res = cur.bh - shrink * (dotprod - cur.cb);
       const T C3 = cur.c2 * res;
       const T postp =
@@ -318,7 +340,7 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
       if (d < wk) {
         const T bv = bcur[k];
         for (int t = 0; t < nct; ++t) {
-          T* q = sdp + t * a.Ls + j + d;
+          T* q = dpv + t * ld + j + d;
           if constexpr (LASSO) {
             *q = lasso_mul_add(sdiff[t], bv, *q);
           } else {
@@ -333,9 +355,11 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
     for (int k = 0; k < KMAX; ++k) bcur[k] = bnext[k];
   }
 
-  for (int t = 0; t < nct; ++t) {
-    T* dst = a.dp + (int64_t)(c0 + t) * a.dp_stride + dp_off;
-    for (int i = tid; i < L; i += nthr) dst[i] = sdp[t * a.Ls + i];
+  if (!GDP) {
+    for (int t = 0; t < nct; ++t) {
+      T* dst = dp_g + (int64_t)t * a.dp_stride;
+      for (int i = tid; i < L; i += nthr) dst[i] = sdp[t * a.Ls + i];
+    }
   }
   if (scalar) {
     const int64_t o = (int64_t)c * a.nblk + b;
@@ -349,21 +373,28 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
   }
 }
 
+template <typename T, bool LASSO, bool GDP>
+int launch_mode(const SweepArgs<T>& a, int threads, void* stream) {
+  const size_t smem =
+      ((GDP ? 0 : (size_t)a.nct * a.Ls) + (size_t)a.nct) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      gibbs_sweep_kernel<T, LASSO, GDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.nblk, (a.NC + a.nct - 1) / a.nct);
+  gibbs_sweep_kernel<T, LASSO, GDP>
+      <<<grid, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool LASSO>
-int launch_args(const SweepArgs<T>& a, int threads, void* stream) {
+int launch_args(const SweepArgs<T>& a, int threads, int gdp, void* stream) {
   if (a.nblk <= 0 || a.NC <= 0) return 0;
   if (a.nct < 1 || threads < a.nct || threads > 1024 || threads % 32) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = ((size_t)a.nct * a.Ls + a.nct) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      gibbs_sweep_kernel<T, LASSO>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.nblk, (a.NC + a.nct - 1) / a.nct);
-  gibbs_sweep_kernel<T, LASSO>
-      <<<grid, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return gdp ? launch_mode<T, LASSO, true>(a, threads, stream)
+             : launch_mode<T, LASSO, false>(a, threads, stream);
 }
 
 template <typename T>
@@ -376,14 +407,14 @@ int launch(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
            const uint8_t* sparse, double shrink, int no_jump, T* out_beta,
            uint8_t* out_causal, T* out_postp, T* out_binc, T* out_dps,
            T* part_h2, T* part_gap, int NC, int nct, int Ls, int threads,
-           void* stream) {
+           int gdp, void* stream) {
   SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L,
                  gidx, dp, dp_stride, cb, bh, C2, C4, s1, u, z, m,
                  inv_odd_p, p, sparse, (T)shrink, no_jump, out_beta,
                  out_causal, out_postp, out_binc, out_dps, part_h2, part_gap,
                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                  nblk, NC, nct, Ls};
-  return launch_args<T, false>(a, threads, stream);
+  return launch_args<T, false>(a, threads, gdp, stream);
 }
 
 template <typename T>
@@ -394,14 +425,14 @@ int launch_lasso(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
                  const T* bh, const T* pf, int64_t m, const T* lam,
                  const T* delta, const uint8_t* active, T* part_gap,
                  int32_t* part_df, T* part_ms, int NC, int nct, int Ls,
-                 int threads, void* stream) {
+                 int threads, int gdp, void* stream) {
   SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L,
                  gidx, dp, dp_stride, beta, bh, nullptr, nullptr, nullptr,
                  nullptr, nullptr, m, nullptr, nullptr, nullptr, T(1), 0,
                  beta, nullptr, nullptr, nullptr, nullptr, nullptr, part_gap,
                  pf, lam, delta, active, part_df, part_ms,
                  nblk, NC, nct, Ls};
-  return launch_args<T, true>(a, threads, stream);
+  return launch_args<T, true>(a, threads, gdp, stream);
 }
 
 }  // namespace
@@ -416,12 +447,12 @@ int launch_lasso(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
       const T* p, const uint8_t* sparse, double shrink, int no_jump,         \
       T* out_beta, uint8_t* out_causal, T* out_postp, T* out_binc,           \
       T* out_dps, T* part_h2, T* part_gap, int NC, int nct, int Ls,          \
-      int threads, void* stream) {                                           \
+      int threads, int gdp, void* stream) {                                  \
     return launch<T>(band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W,      \
                      blk_L, nblk, gidx, dp, dp_stride, cb, bh, C2, C4, s1,   \
                      u, z, m, inv_odd_p, p, sparse, shrink, no_jump,         \
                      out_beta, out_causal, out_postp, out_binc, out_dps,     \
-                     part_h2, part_gap, NC, nct, Ls, threads, stream);       \
+                     part_h2, part_gap, NC, nct, Ls, threads, gdp, stream);  \
   }
 
 SWEEP_ENTRY(gibbs_sweep_f32, float)
@@ -436,11 +467,11 @@ SWEEP_ENTRY(gibbs_sweep_f64, double)
       int64_t dp_stride, T* beta, const T* bh, const T* pf, int64_t m,       \
       const T* lam, const T* delta, const uint8_t* active, T* part_gap,      \
       int32_t* part_df, T* part_ms, int NC, int nct, int Ls, int threads,    \
-      void* stream) {                                                        \
+      int gdp, void* stream) {                                               \
     return launch_lasso<T>(band, blk_band, blk_dp, blk_gidx, blk_rows,       \
                            blk_W, blk_L, nblk, gidx, dp, dp_stride, beta, bh, \
                            pf, m, lam, delta, active, part_gap, part_df,     \
-                           part_ms, NC, nct, Ls, threads, stream);           \
+                           part_ms, NC, nct, Ls, threads, gdp, stream);      \
   }
 
 LASSO_ENTRY(lassosum_sweep_f32, float)

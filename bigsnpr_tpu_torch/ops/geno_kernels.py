@@ -14,13 +14,18 @@ Counterpart of `bigsnpr_tpu/ops/pallas_kernels.py` (`pallas_cprod` /
   "int8",    K6 `cprod_i8` / `prod_i8`: the same products on exact int8
              bit planes with int32 accumulation (`_pallas_cprod_i8`,
              `_pallas_prod_i8`), NA-aware or, for NA-free packs, `_nona`
+  "int8m",   K8 `cprod_i8m` / `prod_i8m`: K6's products on int8 planes
+             materialized once (`int8m_planes`; `_pallas_cprod_i8m`,
+             `_pallas_prod_i8m`), reached only by an operator built with
+             mxu="int8m", as in the JAX package
 
 with X~[i, j] = (d_ij - center_j) * inv_j for sample i of variant j, the
 dosage d = 2 - ((g + 1) >> 1) of 2-bit code g, and NA (g == 1) -> 0.
 
 The kernels live in `csrc/geno_gemm.cu` (K1/K2), `csrc/geno_split.cu`
-(K7) and `csrc/geno_i8.cu` (K6), built with nvcc at first use (keyed by the source's hash) into
-`_build/` and loaded with ctypes by `ops/cuda_build.py`. Each
+(K7) and `csrc/geno_i8.cu` (K6 and K8), built with nvcc at first use
+(keyed by the source's hash) into `_build/` and loaded with ctypes by
+`ops/cuda_build.py`. Each
 wrapper launches its kernel for CUDA tensors and counts the launch in
 `launches`; for CPU tensors it runs the plain twin. There is no fallback
 from a CUDA tensor to the twin.
@@ -57,7 +62,9 @@ _SPLIT_BK = 64          # K7's depth tile in bf16 values: operand rows padded
 
 # kernel launches made by the wrappers, by kernel
 launches = {"cprod": 0, "prod": 0, "cprod_split": 0, "prod_split": 0,
-            "cprod_i8": 0, "cprod_i8_nona": 0, "prod_i8": 0, "prod_i8_nona": 0}
+            "cprod_i8": 0, "cprod_i8_nona": 0, "prod_i8": 0, "prod_i8_nona": 0,
+            "cprod_i8m": 0, "cprod_i8m_nona": 0, "prod_i8m": 0,
+            "prod_i8m_nona": 0}
 
 
 def reset_launches() -> None:
@@ -72,7 +79,7 @@ def build(verbose: bool = False):
 
 
 def build_i8(verbose: bool = False):
-    """Compile `csrc/geno_i8.cu` (K6) at first use; returns its path."""
+    """Compile `csrc/geno_i8.cu` (K6, K8) at first use; returns its path."""
     return cuda_build.build(I8_SOURCE, verbose=verbose, extra=I8_FLAGS)
 
 
@@ -102,6 +109,9 @@ def _bind_i8(lib):
     lib.geno_i8_gemm.argtypes = [i32, i32, ptr, i64, i64, i64, ptr, ptr, i64,
                                  i64, ptr, i32, ptr]
     lib.geno_i8_gemm.restype = i32
+    lib.geno_i8m_gemm.argtypes = [i32, i32, ptr, ptr, i64, i64, i64, ptr, ptr,
+                                  i64, i64, ptr, i32, ptr]
+    lib.geno_i8m_gemm.restype = i32
     lib.geno_i8_epilogue.argtypes = [i32, i32, ptr, i64, i64, ptr, ptr, ptr,
                                      ptr, ptr, ptr, ptr]
     lib.geno_i8_epilogue.restype = i32
@@ -169,26 +179,33 @@ def prod_plain(packed, n, U, center, inv, block=None):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(packed, n, W, w_rows, center, inv):
-    if packed.dtype != torch.uint8 or packed.dim() != 2:
-        raise TypeError("packed must be a 2-D uint8 tensor")
-    m, nb = packed.shape
-    if nb != (n + 3) // 4:
-        raise ValueError(f"packed has {nb} bytes per variant, n={n} needs "
-                         f"{(n + 3) // 4}")
+def _check_operands(src, W, w_rows, center, inv, more=()):
+    """The float operand (w_rows, l), center and inv (m,) of a product on
+    `src` (m rows): types, shapes, one device, contiguous."""
+    m = src.shape[0]
     if W.dtype != torch.float32 or W.dim() != 2 or W.shape[0] != w_rows:
         raise ValueError(f"operand must be float32 ({w_rows}, l), got "
                          f"{W.dtype} {tuple(W.shape)}")
     for name, t in (("center", center), ("inv", inv)):
         if t.dtype != torch.float32 or tuple(t.shape) != (m,):
             raise ValueError(f"{name} must be float32 ({m},)")
-    for t in (packed, W, center, inv):
-        if t.device != packed.device:
+    for t in (src, W, center, inv, *more):
+        if t.device != src.device:
             raise ValueError("all operands must be on one device")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
-    if packed.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {packed.device}")
+    if src.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {src.device}")
+
+
+def _check(packed, n, W, w_rows, center, inv):
+    if packed.dtype != torch.uint8 or packed.dim() != 2:
+        raise TypeError("packed must be a 2-D uint8 tensor")
+    nb = packed.shape[1]
+    if nb != (n + 3) // 4:
+        raise ValueError(f"packed has {nb} bytes per variant, n={n} needs "
+                         f"{(n + 3) // 4}")
+    _check_operands(packed, W, w_rows, center, inv)
 
 
 def _launch(kind, packed, n, W, center, inv, rows_out):
@@ -432,24 +449,18 @@ def _prod_i8_operands(U, center, inv, nona):
     return zb8, zbs, za8, zas, zA.sum(dim=1)
 
 
-def _raw_plain(packed, n, digits, nona, prod, block=None):
-    """The raw integer sums of K6 in torch ops: (planes, R, 4l) int32 with
-    planes = [T] or [T, NA] and R = m (cprod) or n (prod). The products of
-    the decoded int8 planes with the digits are taken in float64, exact
-    while |sums| < 2^53, and accumulated over variant blocks. cprod gives
-    one digit array for both planes; prod one a plane."""
-    m = packed.shape[0]
-    block = block or pick_block(n)
-    P = 1 if nona else 2
-    if prod:
-        acc = torch.zeros((P, n, digits[0].shape[0]), dtype=torch.float64,
-                          device=packed.device)
-    else:
-        acc = torch.empty((P, m, digits[0].shape[0]), dtype=torch.float64,
-                          device=packed.device)
+def _raw_sums(planes_of, m, n, digits, P, prod, device, block):
+    """The raw integer sums of K6 and K8 in torch ops: (P, R, 4l) int32
+    over the planes [T] or [T, NA] that `planes_of(j0, j1)` gives for
+    variants j0..j1, R = m (cprod) or n (prod). The products with the
+    digits are taken in float64, exact while |sums| < 2^53, and
+    accumulated over variant blocks. cprod gives one digit array for both
+    planes; prod one a plane."""
+    shape = (P, n if prod else m, digits[0].shape[0])
+    acc = torch.zeros(shape, dtype=torch.float64, device=device)
     for j0 in range(0, m, block):
         j1 = min(m, j0 + block)
-        planes = int_planes(packed[j0:j1], n)
+        planes = planes_of(j0, j1)
         for p in range(P):
             x = planes[p].double()
             d = digits[min(p, len(digits) - 1)]
@@ -458,6 +469,13 @@ def _raw_plain(packed, n, digits, nona, prod, block=None):
             else:
                 acc[p, j0:j1] = x @ d.double().T
     return acc.to(torch.int32)
+
+
+def _raw_plain(packed, n, digits, nona, prod, block=None):
+    """K6's raw sums: the planes decoded from the pack (`int_planes`)."""
+    return _raw_sums(lambda j0, j1: int_planes(packed[j0:j1], n),
+                     packed.shape[0], n, digits, 1 if nona else 2, prod,
+                     packed.device, block or pick_block(n))
 
 
 def _combine(raw_p, l):
@@ -491,14 +509,16 @@ def _check_i8(packed, n, W, w_rows, center, inv, depth):
             f"int32 sums (at most 254 per term) could overflow")
 
 
-def _launch_i8(prod, nona, packed, n, digits, R, l, sc_t, sc_na, sumv, A, s,
+def _launch_i8(prod, nona, src, n, digits, R, l, sc_t, sc_na, sumv, A, s,
                splits=None):
-    """Run the K6 GEMM into int32 raw sums, then the epilogue kernel;
-    returns (out (R, l) f32, raw (planes, R, 4l) int32). `splits` (depth
-    splits of the GEMM) defaults to the library's plan."""
+    """Run the K6 GEMM (`src` the packed bytes) or the K8 GEMM (`src` the
+    planes (T, NA)) into int32 raw sums, then the epilogue kernel; returns
+    (out (R, l) f32, raw (planes, R, 4l) int32). `splits` (depth splits of
+    the GEMM) defaults to the library's plan."""
     lib = _load_i8()
-    m, nb = packed.shape
-    dev = packed.device
+    mat = isinstance(src, tuple)
+    m = src[0].shape[0] if mat else src.shape[0]
+    dev = src[0].device if mat else src.device
     depth = m if prod else n
     ldd = -(-depth // _I8_BK) * _I8_BK
     padded = []
@@ -515,16 +535,26 @@ def _launch_i8(prod, nona, packed, n, digits, R, l, sc_t, sc_na, sumv, A, s,
     raw = alloc((P, R, N4), dtype=torch.int32, device=dev)
     out = torch.empty((R, l), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.geno_i8_gemm(int(prod), int(nona), packed.data_ptr(), m, nb, n,
-                          padded[0].data_ptr(), padded[-1].data_ptr(), ldd,
-                          N4, raw.data_ptr(), splits, stream)
+    if mat:
+        T, NA = src
+        rc = lib.geno_i8m_gemm(int(prod), int(nona), T.data_ptr(),
+                               (T if NA is None else NA).data_ptr(), m, n,
+                               T.shape[1], padded[0].data_ptr(),
+                               padded[-1].data_ptr(), ldd, N4,
+                               raw.data_ptr(), splits, stream)
+    else:
+        rc = lib.geno_i8_gemm(int(prod), int(nona), src.data_ptr(), m,
+                              src.shape[1], n, padded[0].data_ptr(),
+                              padded[-1].data_ptr(), ldd, N4, raw.data_ptr(),
+                              splits, stream)
     if rc == 0:
         rc = lib.geno_i8_epilogue(
             int(prod), int(nona), raw.data_ptr(), R, l, sc_t.data_ptr(),
             sc_na.data_ptr(), sumv.data_ptr(),
             0 if A is None else A.data_ptr(),
             0 if s is None else s.data_ptr(), out.data_ptr(), stream)
-    kind = ("prod_i8" if prod else "cprod_i8") + ("_nona" if nona else "")
+    kind = (("prod_i8" if prod else "cprod_i8") + ("m" if mat else "")
+            + ("_nona" if nona else ""))
     if rc != 0:
         raise RuntimeError(f"geno {kind} launch failed: CUDA error {rc}")
     launches[kind] += 1
@@ -582,17 +612,120 @@ def prod_i8(packed, n, U, center, inv, nona=False, return_raw=False,
 
 
 # ---------------------------------------------------------------------------
+# K8: the "int8m" scheme (K6's GEMMs on int8 planes materialized once)
+# ---------------------------------------------------------------------------
+
+def int8m_planes(packed, n, nona=False, chunk=4096):
+    """(m, nb) packed -> (T, NA) int8 planes (m, ldn) in true sample order,
+    ldn = n rounded up to 16 bytes, the pad columns zero; NA is None when
+    `nona` (an NA code then counts as dosage 2, as in K6's _nona kernels).
+    The counterpart of `materialize_int8_planes_chunked`: built `chunk`
+    variants at a time into the preallocated planes, so that the peak is
+    the planes plus one chunk's decode."""
+    m = packed.shape[0]
+    ldn = -(-n // 16) * 16
+    T = torch.zeros((m, ldn), dtype=torch.int8, device=packed.device)
+    NA = None if nona else torch.zeros_like(T)
+    for j0 in range(0, m, chunk):
+        t, na = int_planes(packed[j0:j0 + chunk], n)
+        T[j0:j0 + chunk, :n] = t
+        if NA is not None:
+            NA[j0:j0 + chunk, :n] = na
+    return T, NA
+
+
+def _raw_i8m_plain(planes, n, digits, prod, block=None):
+    """K8's raw sums: the first n columns of the materialized planes."""
+    live = [p for p in planes if p is not None]
+    return _raw_sums(lambda j0, j1: [p[j0:j1, :n] for p in live],
+                     live[0].shape[0], n, digits, len(live), prod,
+                     live[0].device, block or pick_block(n))
+
+
+def _check_i8m(planes, n, W, w_rows, center, inv):
+    T, NA = planes
+    if T.dtype != torch.int8 or T.dim() != 2:
+        raise TypeError("the planes must be 2-D int8 tensors")
+    ldn = -(-n // 16) * 16
+    if T.shape[1] != ldn:
+        raise ValueError(f"planes have {T.shape[1]} columns, n={n} needs "
+                         f"{ldn}")
+    if NA is not None and (NA.dtype != torch.int8 or NA.shape != T.shape):
+        raise ValueError("the NA plane must match the T plane")
+    _check_operands(T, W, w_rows, center, inv,
+                    () if NA is None else (NA,))
+    if T.device.type == "cuda" and any(
+            p is not None and p.data_ptr() % 16 for p in planes):
+        raise ValueError("the planes must be 16-byte aligned")
+    if w_rows > MAX_I8_DEPTH:
+        raise ValueError(
+            f"int8m scheme: contraction length {w_rows} > {MAX_I8_DEPTH}; "
+            f"the int32 sums (at most 254 per term) could overflow")
+
+
+def cprod_i8m_plain(planes, n, V, center, inv, return_raw=False):
+    """K8 cprod's function in torch ops: K6's digits, recombination and
+    epilogue (`cprod_i8_plain`) on the materialized planes."""
+    q8, qscale, qsum, A = _cprod_i8_operands(V, center, inv)
+    raw = _raw_i8m_plain(planes, n, [q8], prod=False)
+    out = _epilogue_plain(raw, V.shape[1], qscale, qscale, qsum, A, inv)
+    return (out, raw) if return_raw else out
+
+
+def prod_i8m_plain(planes, n, U, center, inv, return_raw=False):
+    """K8 prod's function in torch ops (see `cprod_i8m_plain`)."""
+    nona = planes[1] is None
+    zb8, zbs, za8, zas, zsum = _prod_i8_operands(U, center, inv, nona)
+    raw = _raw_i8m_plain(planes, n, [zb8] if nona else [zb8, za8],
+                         prod=True)
+    out = _epilogue_plain(raw, U.shape[1], zbs, zas, zsum)
+    return (out, raw) if return_raw else out
+
+
+def cprod_i8m(planes, n, V, center, inv, return_raw=False, splits=None):
+    """K8 cprod: planes (T, NA or None) from `int8m_planes`, V (n, l) f32
+    -> (m, l) f32 = X~^T V. CUDA tensors launch the kernel; CPU tensors
+    take `cprod_i8m_plain`. `return_raw` and `splits` as for `cprod_i8`;
+    the raw sums are K6's on the same pack."""
+    _check_i8m(planes, n, V, n, center, inv)
+    if planes[0].device.type == "cpu":
+        return cprod_i8m_plain(planes, n, V, center, inv, return_raw)
+    q8, qscale, qsum, A = _cprod_i8_operands(V, center, inv)
+    out, raw = _launch_i8(False, planes[1] is None, tuple(planes), n, [q8],
+                          planes[0].shape[0], V.shape[1], qscale, qscale,
+                          qsum, A, inv, splits)
+    return (out, raw) if return_raw else out
+
+
+def prod_i8m(planes, n, U, center, inv, return_raw=False, splits=None):
+    """K8 prod: U (m, l) f32 -> (n, l) f32 = X~ U on the materialized
+    planes (see `cprod_i8m`)."""
+    _check_i8m(planes, n, U, planes[0].shape[0], center, inv)
+    if planes[0].device.type == "cpu":
+        return prod_i8m_plain(planes, n, U, center, inv, return_raw)
+    nona = planes[1] is None
+    zb8, zbs, za8, zas, zsum = _prod_i8_operands(U, center, inv, nona)
+    out, raw = _launch_i8(True, nona, tuple(planes), n,
+                          [zb8] if nona else [zb8, za8], n, U.shape[1], zbs,
+                          zbs if nona else zas, zsum, None, None, splits)
+    return (out, raw) if return_raw else out
+
+
+# ---------------------------------------------------------------------------
 # the operator
 # ---------------------------------------------------------------------------
 
 class GenoOperator:
     """Device-resident standardized genotype operator on K1/K2 (scheme
-    "highest"), K7 ("split2") or K6 ("int8"), with the surface {n, m, cprod, prod,
-    power, power_dev} of the JAX package's `PallasOperator`.
+    "highest"), K7 ("split2"), K6 ("int8") or K8 ("int8m"), with the
+    surface {n, m, cprod, prod, power, power_dev} of the JAX package's
+    `PallasOperator`.
 
-    mxu=None takes `config.pallas_mxu`; nona=None scans the pack once for
-    an NA code (the PLINK zero pad of a partial last byte is code 0, not
-    NA), and an NA-free pack runs the `_nona` kernels. A variant whose
+    mxu=None takes `config.pallas_mxu`; "int8m" builds the int8 planes once
+    here (`int8m_planes`: n m bytes, twice that with NA, on the device
+    beside the pack). Under "int8" and "int8m", nona=None scans the pack
+    once for an NA code (the PLINK zero pad of a partial last byte is code
+    0, not NA), and an NA-free pack runs the `_nona` kernels. A variant whose
     scale is <= 0 contributes exactly 0 (inv = 0, center = 2). Optional
     ind_row/ind_col make the operator act as the physically subsetted
     matrix would, while the packed bytes stay whole (and cached) on the
@@ -604,9 +737,12 @@ class GenoOperator:
         self.device = dev
         self.mxu = config.resolve_mxu(mxu)
         self.packed = pack.device_packed(dev)
-        # only the int8 scheme has an NA-free path; "highest" skips the scan
+        # only the int8 schemes have an NA-free path; the others skip the scan
         self.nona = bool(nona) if nona is not None else (
-            self.mxu == "int8" and _pack_is_nona(pack, self.packed, pack.n))
+            self.mxu in ("int8", "int8m")
+            and _pack_is_nona(pack, self.packed, pack.n))
+        self.planes = (int8m_planes(self.packed, pack.n, self.nona)
+                       if self.mxu == "int8m" else None)
         self.n_full, self.m_full = pack.n, pack.m
         center = np.asarray(center, dtype=np.float64)
         scale = np.asarray(scale, dtype=np.float64)
@@ -629,6 +765,9 @@ class GenoOperator:
 
     # full-matrix products; TorchOperator swaps in the plain twins
     def _cprod_full(self, V):
+        if self.mxu == "int8m":
+            return cprod_i8m(self.planes, self.n_full, V, self.center,
+                             self.inv)
         if self.mxu == "int8":
             return cprod_i8(self.packed, self.n_full, V, self.center,
                             self.inv, nona=self.nona)
@@ -638,6 +777,9 @@ class GenoOperator:
         return cprod(self.packed, self.n_full, V, self.center, self.inv)
 
     def _prod_full(self, U):
+        if self.mxu == "int8m":
+            return prod_i8m(self.planes, self.n_full, U, self.center,
+                            self.inv)
         if self.mxu == "int8":
             return prod_i8(self.packed, self.n_full, U, self.center,
                            self.inv, nona=self.nona)
@@ -691,7 +833,8 @@ class GenoOperator:
         return B.cpu().numpy(), Y.cpu().numpy()
 
     def power_dev(self, V: torch.Tensor):
-        """Power step on the device, cprod then prod (K1 then K2, K7 or K6
-        twice) on one stream with no host round-trip: V (n, l) -> (B = X~^T V (m, l), Y = X~ B (n, l))."""
+        """Power step on the device, cprod then prod (K1 then K2, K7, K6 or
+        K8 twice) on one stream with no host round-trip: V (n, l) ->
+        (B = X~^T V (m, l), Y = X~ B (n, l))."""
         B = self.cprod_dev(V)
         return B, self.prod_dev(B)

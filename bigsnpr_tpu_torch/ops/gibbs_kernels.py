@@ -10,6 +10,13 @@ built with nvcc at first use into `_build/` and loaded with ctypes
 launch in `launches["sweep"]`; for CPU tensors it runs `sweep_plain`.
 There is no fallback from a CUDA tensor to the twin.
 
+When one chain's dp does not fit in shared memory (a block of about
+28,000 rows or more in float64, twice that in float32: the unblocked
+samplers' one block over every variant), `plan` picks the kernel's
+global-dp mode, which keeps dp in place in device memory, one chain a
+CTA; its launches count in `launches["sweep_global"]` (and
+`"lassosum_global"`).
+
 The kernel's lassosum mode (`lassosum_sweep`, twin `lassosum_sweep_plain`,
 count `launches["lassosum"]`) runs one deterministic lassosum2
 coordinate-descent sweep with the same skeleton, a grid point in place of
@@ -46,7 +53,8 @@ KMAX = 8                 # band columns a thread holds per row (gibbs_sweep.cu)
 SMEM_TARGET = 100 << 10  # shared memory per CTA aimed at: two CTAs an SM
 
 # kernel launches made by the wrapper
-launches = {"sweep": 0, "lassosum": 0}
+launches = {"sweep": 0, "lassosum": 0, "sweep_global": 0,
+            "lassosum_global": 0}
 
 
 def reset_launches() -> None:
@@ -65,11 +73,11 @@ def _bind(lib):
     for fn in (lib.gibbs_sweep_f32, lib.gibbs_sweep_f64):
         fn.argtypes = ([p] * 7 + [i32, p, p, i64] + [p] * 7 + [i64]
                        + [p] * 3 + [f64, i32] + [p] * 7
-                       + [i32, i32, i32, i32, p])
+                       + [i32, i32, i32, i32, i32, p])
         fn.restype = i32
     for fn in (lib.lassosum_sweep_f32, lib.lassosum_sweep_f64):
         fn.argtypes = ([p] * 7 + [i32, p, p, i64] + [p] * 3 + [i64]
-                       + [p] * 6 + [i32, i32, i32, i32, p])
+                       + [p] * 6 + [i32, i32, i32, i32, i32, p])
         fn.restype = i32
     lib.gibbs_sweep_max_smem.argtypes = [i32]
     lib.gibbs_sweep_max_smem.restype = i32
@@ -137,7 +145,7 @@ class SweepBands:
         self.Lmax = max(blk_L, default=1)
         self.wkmax = max((2 * w + 1 for w in blk_W), default=1)
         self.max_rows = max(blk_rows, default=0)
-        self.plans = {}  # NC -> (chains per CTA, threads) of a launch
+        self.plans = {}  # NC -> (chains per CTA, threads, global dp)
         self._host = buckets
         self._merged = None
 
@@ -292,23 +300,22 @@ def sweep_plain(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
 # ---------------------------------------------------------------------------
 
 def plan(sb: SweepBands, NC: int, max_smem: int):
-    """(chains per CTA, threads per CTA) for a launch: as many chains as
-    fit SMEM_TARGET bytes of dp (at least one, within the device's
-    limit), and enough threads for one per chain and KMAX band columns
-    each."""
+    """(chains per CTA, threads per CTA, global dp) for a launch: as many
+    chains as fit SMEM_TARGET bytes of dp (at least one, within the
+    device's limit), and enough threads for one per chain and KMAX band
+    columns each. A chain whose dp does not fit in `max_smem` bytes takes
+    the global-dp mode, one chain a CTA."""
     sz = torch.empty((), dtype=sb.dtype).element_size()
     per_chain = (sb.Lmax + 1) * sz
-    if per_chain > max_smem:
-        raise ValueError(f"an LD block needs {per_chain} bytes of shared "
-                         f"memory per chain; the device offers {max_smem}")
-    nct = max(1, min(NC, max(SMEM_TARGET, per_chain) // per_chain,
-                     max_smem // per_chain, 1024))
+    gdp = per_chain > max_smem
+    nct = 1 if gdp else max(1, min(NC, max(SMEM_TARGET, per_chain)
+                                   // per_chain, max_smem // per_chain, 1024))
     need = -(-sb.wkmax // KMAX)
     threads = max(-(-nct // 32) * 32, -(-need // 32) * 32, 32)
     if threads > 1024:
         raise ValueError(f"band width {sb.wkmax} exceeds the kernel's "
                          f"{1024 * KMAX} columns")
-    return nct, threads
+    return nct, threads, gdp
 
 
 def _plan_for(sb, lib, NC):
@@ -335,7 +342,7 @@ def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
     outs = _outputs(NC, m, sb.dtype, sb.device, sb.nblk)
     if sb.nblk == 0 or NC == 0:
         return outs[:5] + (outs[5].sum(1), outs[6].sum(1))
-    nct, threads = _plan_for(sb, lib, NC)
+    nct, threads, gdp = _plan_for(sb, lib, NC)
     fn = lib.gibbs_sweep_f64 if sb.dtype == torch.float64 else \
         lib.gibbs_sweep_f32
     ptr = lambda t: t.data_ptr()  # noqa: E731
@@ -344,11 +351,11 @@ def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
             ptr(sb.gidx), ptr(dp), sb.dp_len, ptr(cb), ptr(bh), ptr(C2),
             ptr(C4), ptr(s1), ptr(u), ptr(z), m, ptr(inv_odd_p), ptr(p),
             ptr(sparse), float(shrink), int(bool(no_jump)),
-            *(ptr(t) for t in outs), NC, nct, sb.Lmax, threads,
+            *(ptr(t) for t in outs), NC, nct, sb.Lmax, threads, int(gdp),
             torch.cuda.current_stream(sb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gibbs_sweep launch failed: CUDA error {rc}")
-    launches["sweep"] += 1
+    launches["sweep_global" if gdp else "sweep"] += 1
     return outs[:5] + (outs[5].sum(1), outs[6].sum(1))
 
 
@@ -408,13 +415,14 @@ def lassosum_sweep_plain(sb: SweepBands, dp, beta, bh, pf, lam, delta,
     sweep of `lassosum_cd_blocked` (the JAX package's `sweep_bucket` step)
     for NG grid points, a loop over rows vectorised over every block and
     grid point, the same operations in the same order as the kernel. Per
-    row j, with lam_j = pf_j lam and dp1_j = pf_j delta + 1: u = bh -
+    row j, with lam_j = pf_j lam and dp1_j = pf_j delta + 1 (two
+    roundings, as the JAX package computes it outside its scan): u = bh -
     (dp[j + W] - cb); the soft threshold; shift = new - cb; dp[j..j + 2W]
-    += shift * band row, with dp1 and the update as fused multiply-adds in
-    float32 (`_mul_add`). Grid points not `active` are left as they are.
-    Updates dp and beta (NG, m) in place; returns gap (sum of new^2 over
-    the non-zeros), df (int32 count of non-zeros) and maxshift, each (NG,),
-    summed per block in row order and then over the blocks."""
+    += shift * band row, a fused multiply-add in float32 (`_mul_add`).
+    Grid points not `active` are left as they are. Updates dp and beta
+    (NG, m) in place; returns gap (sum of new^2 over the non-zeros), df
+    (int32 count of non-zeros) and maxshift, each (NG,), summed per block
+    in row order and then over the blocks."""
     NG, m = beta.shape
     dt, dev = sb.dtype, sb.device
     bands, g, Wm, Lm, src, dst = sb.merged()
@@ -424,8 +432,7 @@ def lassosum_sweep_plain(sb: SweepBands, dp, beta, bh, pf, lam, delta,
     bh_s = _scatter_b(bh, g)
     pf_s = _scatter_b(pf, g)
     lam_s = torch.where(valid, pf_s[None] * lam[:, None, None], one)
-    dp1_s = torch.where(valid, _mul_add(pf_s[None], delta[:, None, None],
-                                        one.expand(1, 1, 1)), one)
+    dp1_s = torch.where(valid, pf_s[None] * delta[:, None, None] + one, one)
     cb_s = _scatter_b(beta, g)
     act = active[:, None]
     dpm = torch.zeros((NG, nblk * Lm), dtype=dt, device=dev)
@@ -475,7 +482,7 @@ def lassosum_sweep(sb: SweepBands, dp, beta, bh, pf, lam, delta, active):
     ms = torch.zeros((NG, sb.nblk), dtype=sb.dtype, device=dev)
     if sb.nblk == 0 or NG == 0:
         return gap.sum(1), df.sum(1, dtype=torch.int32), ms.amax(1)
-    nct, threads = _plan_for(sb, lib, NG)
+    nct, threads, gdp = _plan_for(sb, lib, NG)
     fn = lib.lassosum_sweep_f64 if sb.dtype == torch.float64 else \
         lib.lassosum_sweep_f32
     ptr = lambda t: t.data_ptr()  # noqa: E731
@@ -483,9 +490,9 @@ def lassosum_sweep(sb: SweepBands, dp, beta, bh, pf, lam, delta, active):
             ptr(sb.blk_rows), ptr(sb.blk_W), ptr(sb.blk_L), sb.nblk,
             ptr(sb.gidx), ptr(dp), sb.dp_len, ptr(beta), ptr(bh), ptr(pf), m,
             ptr(lam), ptr(delta), ptr(active), ptr(gap), ptr(df), ptr(ms),
-            NG, nct, sb.Lmax, threads,
+            NG, nct, sb.Lmax, threads, int(gdp),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lassosum_sweep launch failed: CUDA error {rc}")
-    launches["lassosum"] += 1
+    launches["lassosum_global" if gdp else "lassosum"] += 1
     return gap.sum(1), df.sum(1, dtype=torch.int32), ms.amax(1)

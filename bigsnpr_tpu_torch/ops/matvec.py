@@ -27,7 +27,9 @@ class TorchOperator(GenoOperator):
     the JAX package's `XlaOperator`): the same surface, masking, scale-0
     rule and scheme, with no hand-written kernel. Under "split2" it runs
     the K7 twins (`cprod_split_plain`, `prod_split_plain`), under "int8"
-    the K6 twins (`cprod_i8_plain`, `prod_i8_plain`)."""
+    the K6 twins (`cprod_i8_plain`, `prod_i8_plain`), under "int8m" the K8
+    twins on the operator's materialized planes (`cprod_i8m_plain`,
+    `prod_i8m_plain`)."""
 
     def __init__(self, pack, center, scale, ind_row=None, ind_col=None,
                  block=None, device=None, mxu=None, nona=None):
@@ -36,6 +38,9 @@ class TorchOperator(GenoOperator):
         self.block = block
 
     def _cprod_full(self, V):
+        if self.mxu == "int8m":
+            return geno_kernels.cprod_i8m_plain(self.planes, self.n_full, V,
+                                                self.center, self.inv)
         if self.mxu == "int8":
             return geno_kernels.cprod_i8_plain(self.packed, self.n_full, V,
                                                self.center, self.inv,
@@ -47,6 +52,9 @@ class TorchOperator(GenoOperator):
                                         self.center, self.inv, self.block)
 
     def _prod_full(self, U):
+        if self.mxu == "int8m":
+            return geno_kernels.prod_i8m_plain(self.planes, self.n_full, U,
+                                               self.center, self.inv)
         if self.mxu == "int8":
             return geno_kernels.prod_i8_plain(self.packed, self.n_full, U,
                                               self.center, self.inv,

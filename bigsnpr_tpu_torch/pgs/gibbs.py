@@ -1,5 +1,6 @@
-"""Sampler pieces shared by the blocked LDpred2 samplers (port of
-`bigsnpr_tpu/pgs/gibbs.py`, the parts the blocked samplers use).
+"""The LDpred2 and lassosum2 samplers over all variants, and the sampler
+pieces they share with the blocked ones (port of `bigsnpr_tpu/pgs/
+gibbs.py`).
 
 The JAX package draws from threefry keys split per chain and `vmap`s the
 hyper-parameter draws; here every chain has its own torch Philox
@@ -7,8 +8,13 @@ generator (`chain_generators`) and the draws are batched over a leading
 chain axis. The two packages agree at Monte-Carlo level, as the reference
 does with itself (its tests are statistical).
 
-The unblocked samplers (`gibbs_one`, `gibbs_auto`, `gibbs_one_sampling`)
-are not ported yet (ROADMAP queue 1, slice 5).
+The unblocked samplers (`gibbs_one`, `gibbs_one_sampling`, `gibbs_auto`,
+`lassosum_cd`, the JAX package's names) walk one band over every variant
+(`band.one_block_bands`): they are the drivers of `gibbs_blocked.py` on
+that one block, every chain or grid point of a call in one launch a
+sweep, where the JAX package `vmap`s its `lax.scan`s. On a card the block
+is too long for shared memory and the sweep kernel runs in its global-dp
+mode (`ops/gibbs_kernels.py`).
 """
 
 from __future__ import annotations
@@ -134,3 +140,52 @@ def _mle_alpha_profile(par_sigma2, wts, log_var, beta2, alpha_bounds,
     _, s_best = _profile(a_best[:, None], sum_a, nb, wb, log_var, s_lo, s_hi)
     return a_best, s_best[:, 0]
 
+
+# ---------------------------------------------------------------------------
+# the unblocked samplers: the blocked drivers on one block of every variant
+# (gibbs_blocked imports this module, hence the imports in the functions)
+# ---------------------------------------------------------------------------
+
+def gibbs_one(sb, beta_hat, n_vec, h2, p, sparse, gens, burn_in, num_iter):
+    """LDpred2-grid cells (ldpred2_gibbs_one, src/ldpred2.cpp:8-69; the JAX
+    package's `gibbs_one` under its vmap over the grid) on the one-block
+    bands `sb`: h2, p, sparse (NC,), one generator a cell. Returns the
+    (NC, m) average betas, NaN rows where a cell diverged."""
+    from bigsnpr_tpu_torch.pgs.gibbs_blocked import gibbs_multi_blocked
+
+    return gibbs_multi_blocked(sb, beta_hat, n_vec, h2, p, sparse, gens,
+                               burn_in, num_iter)
+
+
+def gibbs_one_sampling(sb, beta_hat, n_vec, h2, p, sparse, gen, burn_in,
+                       num_iter):
+    """The sampling betas of one cell (ldpred2_gibbs_one_sampling,
+    src/ldpred2-sampling.cpp:9-59): (num_iter, m), all NaN if the chain
+    diverged."""
+    from bigsnpr_tpu_torch.pgs.gibbs_blocked import gibbs_sampling_blocked
+
+    return gibbs_sampling_blocked(sb, beta_hat, n_vec, h2, p, sparse, gen,
+                                  burn_in, num_iter)
+
+
+def gibbs_auto(sb, beta_hat, n_vec, log_var, p_inits, h2_init, gens, *args,
+               **kw):
+    """LDpred2-auto chains (ldpred2_gibbs_auto, src/ldpred2-auto.cpp:56-202;
+    the JAX package's `gibbs_auto` under its vmap over the chains) on the
+    one-block bands; the arguments and result of
+    `gibbs_blocked.gibbs_auto_blocked_multi`."""
+    from bigsnpr_tpu_torch.pgs.gibbs_blocked import gibbs_auto_blocked_multi
+
+    return gibbs_auto_blocked_multi(sb, beta_hat, n_vec, log_var, p_inits,
+                                    h2_init, gens, *args, **kw)
+
+
+def lassosum_cd(sb, beta_hat, pf, lam, delta, dfmax, tol, maxiter):
+    """lassosum2 coordinate descent (src/lassosum2.cpp:21-70; the JAX
+    package's `lassosum_cd` under its vmap over the grid) for NG grid
+    points on the one-block bands, with its stopping rules; returns (beta
+    (NG, m), NaN rows where a point diverged; num_iter (NG,))."""
+    from bigsnpr_tpu_torch.pgs.gibbs_blocked import lassosum_cd_blocked
+
+    return lassosum_cd_blocked(sb, beta_hat, pf, lam, delta, dfmax, tol,
+                               maxiter)

@@ -327,36 +327,67 @@ def _as(sb, x, dtype=None):
                            device=sb.device)
 
 
+def _grid_consts(sb, beta_hat, n_vec, h2_vec, p_vec):
+    """The fixed per-sweep inputs of NC LDpred2-grid cells: (bh, C2, C4,
+    s1) with C1 = h2 / (m p) n_vec, inv_odd_p, p and the divergence
+    threshold gap0 = 2 sum(bh^2)."""
+    bh, nv = _as(sb, beta_hat), _as(sb, n_vec)
+    h2, p = _as(sb, h2_vec), _as(sb, p_vec)
+    h2_per_var = h2 / (sb.m * p)
+    C1 = h2_per_var[:, None] * nv[None, :]
+    C2 = 1.0 / (1.0 + 1.0 / C1)
+    C4 = C2 / nv[None, :]
+    return (bh, C2, C4, torch.sqrt(1 + C1)), (1 - p) / p, p, \
+        2.0 * torch.sum(bh**2)
+
+
 def gibbs_multi_blocked(sb, beta_hat, n_vec, h2_vec, p_vec, sparse_vec, gens,
                         burn_in, num_iter):
     """LDpred2-grid over NC cells at once (the reference's process grid,
     R/LDpred2.R:100-114, in one chain-batched sweep): h2_vec, p_vec (NC,),
     sparse_vec (NC,) bool, gens one generator per cell. Returns (NC, m)
     average betas on the scaled axis, NaN rows where a cell diverged."""
-    bh, nv = _as(sb, beta_hat), _as(sb, n_vec)
-    h2, p = _as(sb, h2_vec), _as(sb, p_vec)
+    consts, inv_odd_p, p, gap0 = _grid_consts(sb, beta_hat, n_vec, h2_vec,
+                                              p_vec)
     spv = _as(sb, sparse_vec, torch.bool)
-    NC, m = h2.shape[0], sb.m
-    h2_per_var = h2 / (m * p)
-    inv_odd_p = (1 - p) / p
-    C1 = h2_per_var[:, None] * nv[None, :]
-    C2 = 1.0 / (1.0 + 1.0 / C1)
-    C4 = C2 / nv[None, :]
-    s1 = torch.sqrt(1 + C1)
-    gap0 = 2.0 * torch.sum(bh**2)
+    NC, m = p.shape[0], sb.m
     dp = sb.dp0(NC)
     curr = torch.zeros((NC, m), dtype=sb.dtype, device=sb.device)
     avg = torch.zeros_like(curr)
     diverged = torch.zeros(NC, dtype=torch.bool, device=sb.device)
     for k in range(burn_in + num_iter):
         u, z = draw(gens, m, m, sb.dtype, sb.device)
-        curr, aux = sweeps_bucketed_mc(sb, dp, curr, (bh, C2, C4, s1), u, z,
+        curr, aux = sweeps_bucketed_mc(sb, dp, curr, consts, u, z,
                                        inv_odd_p, p, spv, 1.0, False)
         gap, beta_inc = aux[0], aux[4]
         if k >= burn_in:
             avg += torch.where(~diverged[:, None], beta_inc, 0.0)
         diverged = diverged | (gap > gap0)
     return torch.where(diverged[:, None], torch.nan, avg / num_iter)
+
+
+def gibbs_sampling_blocked(sb, beta_hat, n_vec, h2, p, sparse, gen, burn_in,
+                           num_iter):
+    """One LDpred2-grid cell that keeps its samples
+    (ldpred2_gibbs_one_sampling, src/ldpred2-sampling.cpp:9-59): the new
+    betas of each of the num_iter sweeps after the burn-in, (num_iter, m)
+    on the scaled axis, all NaN if the chain diverged."""
+    consts, inv_odd_p, pv, gap0 = _grid_consts(sb, beta_hat, n_vec, [h2],
+                                               [p])
+    spv = _as(sb, [sparse], torch.bool)
+    m = sb.m
+    dp = sb.dp0(1)
+    curr = torch.zeros((1, m), dtype=sb.dtype, device=sb.device)
+    samples = torch.empty((num_iter, m), dtype=sb.dtype, device=sb.device)
+    diverged = torch.zeros(1, dtype=torch.bool, device=sb.device)
+    for k in range(burn_in + num_iter):
+        u, z = draw([gen], m, m, sb.dtype, sb.device)
+        curr, aux = sweeps_bucketed_mc(sb, dp, curr, consts, u, z,
+                                       inv_odd_p, pv, spv, 1.0, False)
+        if k >= burn_in:
+            samples[k - burn_in] = curr[0]
+        diverged = diverged | (aux[0] > gap0)
+    return torch.where(diverged, torch.nan, samples)
 
 
 def gibbs_one_blocked(sb, beta_hat, n_vec, h2, p, sparse, gen, burn_in,

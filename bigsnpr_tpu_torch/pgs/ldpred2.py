@@ -6,10 +6,13 @@ scale = sqrt(n_eff * beta_se^2 + beta^2); the samplers operate on
 beta_hat = beta / scale and results are multiplied back
 (reference R/LDpred2.R:34-41, 88-90, 139, 224-226, 257).
 
-The grid and auto models run on the blocked samplers (`blocks=`), every
-chain or grid cell in one chain-batched sweep through the CUDA sweep
-kernel. `blocks=None` (the unblocked samplers), `return_sampling_betas`
-and the sharding options raise until their slices (ROADMAP queue 1).
+The grid and auto models run on the blocked samplers (`blocks=`) or, by
+default, on the unblocked ones (`blocks=None`: one band over every
+variant, the reference's own sampler); either way every chain or grid
+cell runs in one chain-batched sweep through the CUDA sweep kernel.
+`return_sampling_betas` always takes the unblocked sampler, as in the JAX
+package. The sharding options raise until their slice (ROADMAP queue 1,
+slice 7).
 """
 
 from __future__ import annotations
@@ -23,11 +26,11 @@ import scipy.sparse.linalg as spla
 
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.ops.ldscores import ld_scores_sfbm
+from bigsnpr_tpu_torch.pgs import gibbs
 from bigsnpr_tpu_torch.pgs import gibbs_blocked as gb
+from bigsnpr_tpu_torch.pgs.band import one_block_bands
 from bigsnpr_tpu_torch.pgs.gibbs import chain_generators
 from bigsnpr_tpu_torch.utils.assertions import check_args
-
-_NEXT_SLICE = "(ROADMAP queue 1, slice 5)"
 
 
 def _dtype(dtype):
@@ -81,32 +84,50 @@ def _blocked_setup(corr, blocks, ind_corr, dt, device):
     return bb, bb.device_put(device, dtype=dt)
 
 
+def _unblocked_setup(corr, ind_corr, dt, device, n_beta):
+    """The unblocked samplers' one band over every variant of the subset,
+    on the device."""
+    sb = one_block_bands(corr, ind_corr, dt).device_put(device, dtype=dt)
+    assert sb.m == n_beta, "corr (or ind_corr) and df_beta dims must match"
+    return sb
+
+
 @check_args()
 def snp_ldpred2_grid(corr, df_beta, grid_param, burn_in: int = 50,
                      num_iter: int = 100,
                      return_sampling_betas: bool = False, ind_corr=None,
                      seed: int = 1, blocks=None, dtype="float32",
                      device=None) -> np.ndarray:
-    """Grid model (reference snp_ldpred2_grid, R/LDpred2.R:73-140) on the
-    blocked sampler. grid_param: mapping with p, h2, sparse columns.
-    Returns an (m, n_grid) matrix of effects on the allele scale (NaN
-    columns where a cell diverged)."""
-    if blocks is None or return_sampling_betas:
-        raise NotImplementedError(
-            "snp_ldpred2_grid: blocks=None and return_sampling_betas need "
-            f"the unblocked sampler, not ported yet {_NEXT_SLICE}")
+    """Grid model (reference snp_ldpred2_grid, R/LDpred2.R:73-140).
+    grid_param: mapping with p, h2, sparse columns. Returns an (m, n_grid)
+    matrix of effects on the allele scale (NaN columns where a cell
+    diverged), or with return_sampling_betas (one grid point) the (m,
+    num_iter) sampling betas of the unblocked sampler, whatever `blocks`.
+    blocks: None (the unblocked sampler), a BlockBands, block sizes or
+    "auto"."""
     beta_hat, N, scale = _df_beta_arrays(df_beta)
     dt = _dtype(dtype)
     dev = config.resolve_device(device)
-    bb, sb = _blocked_setup(corr, blocks, ind_corr, dt, dev)
-    assert bb.m == len(beta_hat)
     p_grid = np.atleast_1d(np.asarray(grid_param["p"], dtype=np.float64))
     h2_grid = np.atleast_1d(np.asarray(grid_param["h2"], dtype=np.float64))
     sp_grid = np.atleast_1d(np.asarray(grid_param["sparse"], dtype=bool))
     assert np.all(h2_grid > 0)
-    out = gb.gibbs_multi_blocked(
-        sb, beta_hat, N, h2_grid, p_grid, sp_grid,
-        chain_generators(seed, len(p_grid), dev), burn_in, num_iter)
+    gens = chain_generators(seed, len(p_grid), dev)
+    if return_sampling_betas:
+        assert len(p_grid) == 1, "only one set of parameters allowed"
+        sb = _unblocked_setup(corr, ind_corr, dt, dev, len(beta_hat))
+        out = gibbs.gibbs_one_sampling(sb, beta_hat, N, h2_grid[0],
+                                       p_grid[0], bool(sp_grid[0]), gens[0],
+                                       burn_in, num_iter)
+    elif blocks is None:
+        sb = _unblocked_setup(corr, ind_corr, dt, dev, len(beta_hat))
+        out = gibbs.gibbs_one(sb, beta_hat, N, h2_grid, p_grid, sp_grid,
+                              gens, burn_in, num_iter)
+    else:
+        bb, sb = _blocked_setup(corr, blocks, ind_corr, dt, dev)
+        assert bb.m == len(beta_hat)
+        out = gb.gibbs_multi_blocked(sb, beta_hat, N, h2_grid, p_grid,
+                                     sp_grid, gens, burn_in, num_iter)
     return out.double().cpu().numpy().T * scale[:, None]
 
 
@@ -137,17 +158,14 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
                      shard_chains: bool = False, dtype="float32",
                      device=None) -> list[dict]:
     """Auto model (reference snp_ldpred2_auto, R/LDpred2.R:203-286), all
-    chains in one chain-batched blocked sampler.
+    chains in one chain-batched sampler: unblocked (`blocks=None`, one
+    band over every variant) or blocked.
 
     Returns a list (over vec_p_init) of dicts with beta_est, postp_est,
     corr_est, sample_beta, path_{p,h2,alpha}_est, {h2,p,alpha}_est,
-    h2_init, p_init, dropped_r2_frac (and beta_est_sparse when
-    sparse=True)."""
+    h2_init, p_init (and beta_est_sparse when sparse=True); the blocked
+    sampler adds dropped_r2_frac."""
     assert h2_init > 0
-    if blocks is None:
-        raise NotImplementedError(
-            "snp_ldpred2_auto: blocks=None needs the unblocked sampler, not "
-            f"ported yet {_NEXT_SLICE}")
     if shard_blocks or shard_chains:
         raise NotImplementedError(
             "snp_ldpred2_auto: shard_blocks / shard_chains are multi-GPU "
@@ -165,9 +183,15 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
     vec_p_init = np.atleast_1d(np.asarray(vec_p_init, dtype=np.float64))
     NC = len(vec_p_init)
 
-    bb, sb = _blocked_setup(corr, blocks, ind_corr, dt, dev)
-    assert bb.m == len(beta_hat)
-    outs = gb.gibbs_auto_blocked_multi(
+    if blocks is None:
+        bb, run_auto, run_grid = None, gibbs.gibbs_auto, gibbs.gibbs_one
+        sb = _unblocked_setup(corr, ind_corr, dt, dev, len(beta_hat))
+    else:
+        run_auto = gb.gibbs_auto_blocked_multi
+        run_grid = gb.gibbs_multi_blocked
+        bb, sb = _blocked_setup(corr, blocks, ind_corr, dt, dev)
+        assert bb.m == len(beta_hat)
+    outs = run_auto(
         sb, beta_hat, N, log_var, vec_p_init, h2_init,
         chain_generators(seed, NC, dev), shrink_corr, p_bounds,
         np.asarray(alpha_bounds, dtype=np.float64) + 1, mean_ld,
@@ -183,16 +207,17 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
         res["alpha_est"] = float(np.mean(res["path_alpha_est"][-num_iter:]))
         res["h2_init"] = h2_init
         res["p_init"] = float(vec_p_init[c])
-        res["dropped_r2_frac"] = bb.dropped_r2_frac
+        if bb is not None:
+            res["dropped_r2_frac"] = bb.dropped_r2_frac
         results.append(res)
     if sparse:
         # post-hoc sparse solutions (reference R/LDpred2.R:266-279) for
         # the chains whose h2 estimate is finite, batched
         live = [c for c in range(NC) if np.isfinite(results[c]["h2_est"])]
         if live:
-            gens = [chain_generators(seed, NC, dev, salt=(12345,))[c]
-                    for c in live]
-            bg = gb.gibbs_multi_blocked(
+            salted = chain_generators(seed, NC, dev, salt=(12345,))
+            gens = [salted[c] for c in live]
+            bg = run_grid(
                 sb, beta_hat, N, [results[c]["h2_est"] for c in live],
                 [results[c]["p_est"] for c in live], np.ones(len(live), bool),
                 gens, 50, 100)

@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed S] [--n N] [--m M] [--n2 N2] [--m2 M2]
                           [--burn-in B] [--num-iter I] [--n3 N3] [--m3 M3]
                           [--region R] [--n4 N4] [--m4 M4] [--n-thr T]
-                          [--n-stack S]
+                          [--n-stack S] [--n5 N5] [--m5 M5] [--burn-in5 B]
+                          [--num-iter5 I] [--gdp-rows R]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -85,7 +86,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
  14. K7 timed at the slice's shapes and at 50,000 x 100,000 (l = 20, random
      bytes) beside its twin, torch.matmul in bf16 on pre-decoded planes and
      its bound; the sweep kernel's lassosum mode at the slice's bands with
-     its 120 grid points, bit-equal to its twin, beside it and its bound.
+     its 120 grid points, bit-equal to its twin, beside it and its bound;
+ 15. K8 (csrc/geno_i8.cu on int8 planes materialized once, int8m_planes)
+     against its twin and K6 in its four instantiations at [9]'s shapes:
+     raw int32 sums equal to both, outputs bit-equal to K6's; the masked
+     int8m operator bit-equal to the int8 one; the sweep kernel's
+     global-dp mode (dp in device memory) and its lassosum mode in it
+     against their twins on a float64 band too long for shared memory
+     (--gdp-rows 29,100) and, forced, on a short float32 one at 30 chains
+     and 120 grid points;
+ 16. slice 5 at 20,000 x 100,000 (slice 2's one-chromosome generator,
+     15,000 training / 5,000 test): bed_scaleBinom ->
+     GenoOperator(mxu="int8m") -> snp_randomSVD(op=) (K8 only, d / u / v
+     bit-equal to the same SVD on K6; K8 against its twin at the slice's
+     operands) -> snp_simuPheno -> big_univLinReg (no covariates, as in
+     slice 2) -> snp_cor -> snp_ldsc2 -> snp_ldpred2_auto(blocks=None, 30
+     chains, --burn-in5 300 + --num-iter5 200 sweeps, 5 timed first; the
+     JAX default burn-in is 500) -> chain QC
+     -> snp_ldpred2_grid(blocks=None, 3 x 3) and return_sampling_betas ->
+     snp_lassosum2(blocks=None, 4 x 30) -> snp_PRS, every sweep in the
+     global-dp mode;
+ 17. (a, inside [11]) K8 timed on slice 3's 50,000 x 100,000 planes, l =
+     12 and 20, NA and NA-free, beside its twin, torch._int_mm on the same
+     planes and its bound, and the NA-free randomSVD on an int8m operator;
+     (b) the global-dp mode at slice 5's band, LDpred2-auto's 30 chains
+     and lassosum2's 120 grid points: held against its twin and timed
+     beside its bound and row floor.
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -122,6 +148,10 @@ I8_REPLACES = {"cprod_i8": "bigsnpr_tpu/ops/pallas_kernels.py:255",
                "prod_i8": "bigsnpr_tpu/ops/pallas_kernels.py:290",
                "prod_i8_nona": "bigsnpr_tpu/ops/pallas_kernels.py:311"}
 I8_TOL = 1e-6   # K6 vs twin: same integer sums, same f32 epilogue (--fmad=false)
+I8M_REPLACES = {"cprod_i8m": "bigsnpr_tpu/ops/pallas_kernels.py:463",
+                "cprod_i8m_nona": "bigsnpr_tpu/ops/pallas_kernels.py:450",
+                "prod_i8m": "bigsnpr_tpu/ops/pallas_kernels.py:493",
+                "prod_i8m_nona": "bigsnpr_tpu/ops/pallas_kernels.py:478"}
 PEAK_INT8_OP_PER_S = 1979e12
 SPLIT_SOURCE = "bigsnpr_tpu_torch/csrc/geno_split.cu"
 SPLIT_REPLACES = {"cprod_split": "bigsnpr_tpu/ops/pallas_kernels.py:136",
@@ -130,6 +160,9 @@ SPLIT_TOL = 1e-5     # K7 vs twin: f32 sums of exact products in two orders
 SPLIT_DENSE_TOL = 2e-5   # K7 and twin vs float64 (tests/test_pallas.py's bound)
 PEAK_BF16_FLOP_PER_S = 989e12
 LASSO_REPLACES = "bigsnpr_tpu/pgs/gibbs_blocked.py:1427"
+# the unblocked samplers' lax.scans, which the global-dp mode replaces
+GDP_REPLACES = {"sweep": "bigsnpr_tpu/pgs/gibbs.py:28",
+                "lassosum": "bigsnpr_tpu/pgs/gibbs.py:373"}
 K7 = tuple(SPLIT_REPLACES)
 K1K2 = ("cprod", "prod")
 K6 = tuple(I8_REPLACES)
@@ -1256,21 +1289,35 @@ def bound_i8(P, W_rows, l, rows_out, planes, nm):
     return max(t_bytes, t_ops), by, nbytes, ops
 
 
-def int_mm_yardstick(torch, T8, kind, digits, K):
-    """torch._int_mm on pre-decoded int8 planes and the same digits (the
-    decode is not timed): returns a function running one product."""
-    pad = -K % 8
-
-    def padk(x):
-        return torch.nn.functional.pad(x, (0, pad)) if pad else x
-
-    digs = [padk(d) for d in digits]
+def int_mm_yardstick(torch, T8, kind, digits):
+    """torch._int_mm on pre-decoded int8 planes (m, ldn) (K8's, from
+    `int8m_planes`) and the same digits (the decode is not timed): returns
+    a function running one product. cprod contracts over the planes' ldn
+    columns, the digits zero-padded to them; prod over the m variants."""
+    F = torch.nn.functional
     if kind == "cprod":
-        A = [padk(t) for t in T8]
+        ldn = T8[0].shape[1]
+        digs = [F.pad(d, (0, ldn - d.shape[1])) for d in digits]
         return lambda: [torch._int_mm(a, d.t()) for a, d in
-                        zip(A, digs * len(A))]
-    A = [padk(t.t().contiguous()) for t in T8]
+                        zip(T8, digs * len(T8))]
+    pad = -T8[0].shape[0] % 8
+    A = [F.pad(t.t(), (0, pad)).contiguous() for t in T8]
+    digs = [F.pad(d, (0, pad)) for d in digits]
     return lambda: [torch._int_mm(a, d.t()) for a, d in zip(A, digs)]
+
+
+def bound_i8m(planes, W_rows, l, rows_out, n, m):
+    """Least time of a K8 product: the planes' bytes read once (m x ldn
+    each), the operand, center and inv read and the output written, over
+    3.35 TB/s; or 2 (4l) n m int8 operations a plane over 1,979 TOP/s."""
+    P = [p for p in planes if p is not None]
+    nbytes = sum(p.numel() for p in P) + 4 * (W_rows * l + 2 * m
+                                              + rows_out * l)
+    ops = 2.0 * 4 * l * n * m * len(P)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT8_OP_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, nbytes, ops
 
 
 def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
@@ -1290,16 +1337,20 @@ def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
     Vf, Uf = f(rng.standard_normal((n, 20))), f(rng.standard_normal((m, 20)))
     nona_P = clear_na(P)
     timer = Timer(torch, dev)
-    # pre-decoded planes for the library yardstick
-    planes = {False: [torch.empty((m, n), dtype=torch.int8, device=dev)
-                      for _ in range(2)],
-              True: [torch.empty((m, n), dtype=torch.int8, device=dev)]}
-    for j0 in range(0, m, 4096):
-        t8, na8 = gk.int_planes(P[j0:j0 + 4096], n)
-        planes[False][0][j0:j0 + 4096] = t8
-        planes[False][1][j0:j0 + 4096] = na8
-        planes[True][0][j0:j0 + 4096] = gk.int_planes(nona_P[j0:j0 + 4096],
-                                                      n)[0]
+    # K8's materialized planes, which are also the pre-decoded planes of
+    # the library yardstick; clear_na leaves the T plane as it is (NA and
+    # the cleared code 00 both have t = 0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    T8, NA8 = gk.int8m_planes(P, n)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    if not torch.equal(gk.int8m_planes(nona_P[:4096], n, nona=True)[0],
+                       T8[:4096]):
+        fail("the NA-free copy's T plane differs from the pack's")
+    planes = {False: [T8, NA8], True: [T8]}
     cases = (("cprod_i8", P, V20, False, "autoSVD power step, subset x "
               "training rows"),
              ("prod_i8", P, U20, False, "autoSVD power step"),
@@ -1330,8 +1381,9 @@ def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
             zb8, _, za8, _, _ = gk._prod_i8_operands(W, c, inv, nona)
             digits = [zb8] if nona else [zb8, za8]
         lib = int_mm_yardstick(torch, planes[nona], "cprod" if cprod
-                               else "prod", digits, n if cprod else m)
+                               else "prod", digits)
         library_ms = timer(lib, reps=reps)
+        del lib
         n_planes = 1 if nona else 2
         bound, by, nbytes, ops = bound_i8(pk_, n if cprod else m, l,
                                           m if cprod else n, n_planes, n * m)
@@ -1351,7 +1403,9 @@ def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
                 "launches": path[key], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": library_ms})
-    del planes
+    rows += k8_timed(gk, torch, dev, P, nona_P, n, planes, build_s, args,
+                     reps)
+    del planes, T8, NA8
     # the NA-free copy through the operator: only the _nona kernels run
     nona_pack = bp.GenoPack(packed=pack.packed, n=n)
     nona_pack._device_cache[str(dev)] = nona_P
@@ -1363,15 +1417,105 @@ def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
     nona_path = dict(gk.launches)
     log(f"  snp_randomSVD(k=10) on the NA-free copy, int8: {secs:.3f} s, "
         f"{svd0.niter} depths, launches {nona_path}")
+    # ... and the same on an int8m operator (the K8 _nona kernels)
+    sc0 = bp.bed_scaleBinom(nona_pack, device=dev)
+    op0 = bp.GenoOperator(nona_pack, sc0["center"], sc0["scale"], device=dev,
+                          mxu="int8m")
+    gk.reset_launches()
+    t = time.perf_counter()
+    svd0m = bp.snp_randomSVD(None, {"center": sc0["center"],
+                                    "scale": sc0["scale"]}, op=op0, k=10)
+    secs = time.perf_counter() - t
+    del op0
+    nona_path.update({k: v for k, v in gk.launches.items() if "i8m" in k})
+    same = all(np.array_equal(getattr(svd0m, a), getattr(svd0, a))
+               for a in ("d", "u", "v"))
+    log(f"  snp_randomSVD(k=10) on the NA-free copy, int8m operator: "
+        f"{secs:.3f} s, {svd0m.niter} depths, launches {dict(gk.launches)}; "
+        f"d, u, v bit-equal to the int8 run {same}")
     if dev.type == "cuda" and not (
             nona_path["cprod_i8_nona"] and nona_path["prod_i8_nona"]
+            and nona_path["cprod_i8m_nona"] and nona_path["prod_i8m_nona"]
             and sum(v for k, v in nona_path.items()
                     if not k.endswith("_nona")) == 0):
-        fail("the NA-free randomSVD did not run on the _nona kernels alone")
+        fail("the NA-free randomSVDs did not run on the _nona kernels alone")
     for r in rows:
         key = r["name"].split()[0][len("geno_"):]
         if key.endswith("_nona"):
             r["launches"] = nona_path[key]
+    return rows
+
+
+def k8_timed(gk, torch, dev, P, nona_P, n, planes, build_s, args, reps):
+    """[17a] K8 on the slice-3 pack's planes, l = 12 and 20, with NA and
+    NA-free: raw sums equal to its twin's and to K6's on the same operands,
+    ms a launch beside its twin, torch._int_mm on the same planes and its
+    bound. The JSON rows are the l = 20 ones; their launches are set by
+    the slice-5 path (NA) and the NA-free int8m randomSVD."""
+    m = P.shape[0]
+    T8, NA8 = planes[False]
+    log(f"[17a] K8 timed on the {n} x {m} slice-3 pack: planes built in "
+        f"{build_s:.3f} s, {(T8.numel() + NA8.numel()) / 1e9:.3f} GB "
+        f"(T + NA, {T8.shape[1]} bytes a variant); {T8.numel() / 1e9:.3f} "
+        f"GB NA-free")
+    rng = np.random.default_rng(args.seed + 14)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    c, inv = f(rng.uniform(0.1, 1.9, m)), f(rng.uniform(0.5, 3.0, m))
+    timer = Timer(torch, dev)
+    rows = []
+    for l in (20, 12):
+        V, U = f(rng.standard_normal((n, l))), f(rng.standard_normal((m, l)))
+        for nona in (False, True):
+            pl = (T8, None) if nona else (T8, NA8)
+            pk_ = nona_P if nona else P
+            for cprod in (True, False):
+                key = ("cprod_i8m" if cprod else "prod_i8m") + (
+                    "_nona" if nona else "")
+                kern = gk.cprod_i8m if cprod else gk.prod_i8m
+                plain = gk.cprod_i8m_plain if cprod else gk.prod_i8m_plain
+                k6 = gk.cprod_i8 if cprod else gk.prod_i8
+                W = V if cprod else U
+                got, raw = kern(pl, n, W, c, inv, return_raw=True)
+                ref, raw_ref = plain(pl, n, W, c, inv, return_raw=True)
+                out6, raw6 = k6(pk_, n, W, c, inv, nona=nona,
+                                return_raw=True)
+                err, rel = rel_err(got, ref)
+                ok = (torch.equal(raw, raw_ref) and torch.equal(raw, raw6)
+                      and torch.equal(got, out6) and rel <= I8_TOL)
+                del got, ref, raw, raw_ref, out6, raw6
+                if not ok:
+                    fail(f"full-size {key} l={l} disagrees with its twin or "
+                         f"with K6")
+                ms = timer(lambda: kern(pl, n, W, c, inv), reps=reps)
+                plain_ms = timer(lambda: plain(pl, n, W, c, inv), reps=1,
+                                 warmup=0)
+                if cprod:
+                    digits = [gk._cprod_i8_operands(W, c, inv)[0]]
+                else:
+                    zb8, _, za8, _, _ = gk._prod_i8_operands(W, c, inv, nona)
+                    digits = [zb8] if nona else [zb8, za8]
+                lib = int_mm_yardstick(torch, planes[nona], "cprod" if cprod
+                                       else "prod", digits)
+                library_ms = timer(lib, reps=reps)
+                del lib
+                bound, by, nbytes, ops = bound_i8m(
+                    pl, n if cprod else m, l, m if cprod else n, n, m)
+                log(f"  {key:14s} l={l:2d}: kernel {ms:.3f} ms, twin "
+                    f"{plain_ms:.1f} ms, torch._int_mm on the same planes "
+                    f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by}: "
+                    f"{nbytes / 1e9:.3f} GB over 3.35 TB/s = "
+                    f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms; "
+                    f"{ops / 1e12:.3f} TOP over 1,979 TOP/s = "
+                    f"{ops / PEAK_INT8_OP_PER_S * 1e3:.3f} ms); raw int32 "
+                    f"sums equal to the twin's and K6's, output bit-equal to "
+                    f"K6's; max abs err to the twin {err:.2e}")
+                if l == 20:
+                    rows.append({
+                        "name": f"geno_{key} (K8)", "route": "cuda",
+                        "source": I8_SOURCE, "replaces": I8M_REPLACES[key],
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "library_ms": library_ms})
     return rows
 
 
@@ -1909,6 +2053,455 @@ def phase_lasso_timed(bp, torch, dev, s4, args):
             "bound_by": by, "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# slice 5: K8 (int8m) under randomSVD -> GWAS -> the unblocked LDpred2 and
+# lassosum2 on the sweep kernel's global-dp mode
+# ---------------------------------------------------------------------------
+
+def check_i8m(gk, torch, dev, packed, n, c, inv, V, U, nona, tag):
+    """K8 cprod and prod on the pack's planes against the twin and K6: raw
+    int32 sums equal to both, the output bit-equal to K6's and within
+    I8_TOL of the twin's, two launches bit-equal."""
+    planes = gk.int8m_planes(packed, n, nona)
+    for kind, kern, plain, k6, W in (
+            ("cprod_i8m", gk.cprod_i8m, gk.cprod_i8m_plain, gk.cprod_i8, V),
+            ("prod_i8m", gk.prod_i8m, gk.prod_i8m_plain, gk.prod_i8, U)):
+        key = kind + ("_nona" if nona else "")
+        got, raw = kern(planes, n, W, c, inv, return_raw=True)
+        again = kern(planes, n, W, c, inv)
+        ref, raw_ref = plain(planes, n, W, c, inv, return_raw=True)
+        out6, raw6 = k6(packed, n, W, c, inv, nona=nona, return_raw=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        eq = (torch.equal(raw, raw_ref), torch.equal(raw, raw6),
+              torch.equal(got, out6), torch.equal(got, again))
+        err, rel = rel_err(got, ref)
+        log(f"  {tag} {key:14s} n={n} m={packed.shape[0]} l={W.shape[1]}: "
+            f"raw int32 sums equal to the twin's {eq[0]}, to K6's {eq[1]}; "
+            f"output bit-equal to K6's {eq[2]}; max abs err to the twin "
+            f"{err:.3e} (rel {rel:.1e}, limit {I8_TOL}); two launches "
+            f"bit-equal {eq[3]}")
+        if not (all(eq) and rel <= I8_TOL and torch.isfinite(got).all()):
+            fail(f"K8 {key} ({tag}) disagrees with its twin or K6, or does "
+                 f"not repeat")
+
+
+def band_ld(bp, rows, width, seed):
+    """Banded AR-like LD over `rows` variants (lag-d correlation ~0.95^d
+    up to `width`), one LD component: the one block of the unblocked
+    samplers."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    diags = [np.ones(rows)] + [0.95 ** d * rng.uniform(0.8, 1.0, rows - d)
+                               for d in range(1, width + 1)]
+    up = sp.diags(diags, list(range(width + 1)), format="csc").tocsc()
+    return bp.SparseLD(upper=up)
+
+
+def phase_i8m_small(bp, gk, torch, dev, rng):
+    log("[15] K8 (materialized int8 planes) vs its twin and K6 at awkward "
+        "shapes; the sweep kernel's global-dp mode vs its twin")
+    for n, m, l in ((1000, 777, 1), (1001, 1500, 12), (1002, 3001, 20),
+                    (1003, 513, 21), (20000, 2100, 20)):
+        for na in (True, False):
+            packed, n_, c, inv, V, U = i8_case(torch, dev, rng, n, m, l, na)
+            check_i8m(gk, torch, dev, packed, n_, c, inv, V, U,
+                      nona=not na, tag="small" if na else "NA-free")
+    # the masked int8m operator against the int8 one and the plain one
+    n, m = 3001, 2500
+    pack = bp.GenoPack(packed=small_pack(rng, n, m), n=n)
+    sc = bp.bed_scaleBinom(pack, device=dev)
+    rows = np.sort(rng.choice(n, 2000, replace=False))
+    cols = np.sort(rng.choice(m, 1300, replace=False))
+    ops = [ctor(pack, sc["center"], sc["scale"], ind_row=rows, ind_col=cols,
+                device=dev, mxu=mxu)
+           for ctor, mxu in ((bp.GenoOperator, "int8m"),
+                             (bp.GenoOperator, "int8"),
+                             (bp.TorchOperator, "int8m"))]
+    V = torch.as_tensor(rng.standard_normal((len(rows), 20)),
+                        dtype=torch.float32, device=dev)
+    (B, Y), (B8, Y8), (Br, Yr) = (op.power_dev(V) for op in ops)
+    same8 = torch.equal(B, B8) and torch.equal(Y, Y8)
+    errs = [rel_err(B, Br)[1], rel_err(Y, Yr)[1]]
+    log(f"  masked int8m operator ({len(rows)} of {n} rows, {len(cols)} of "
+        f"{m} variants): power step bit-equal to the int8 operator's "
+        f"{same8}; rel err {errs[0]:.1e} / {errs[1]:.1e} against the plain "
+        f"operator (limit {I8_TOL})")
+    if not same8 or max(errs) > I8_TOL:
+        fail("the masked int8m operator disagrees with the int8 or the plain "
+             "one")
+
+
+def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer):
+    """The global-dp sweep on one band against its twin on the card (same
+    pre-drawn u / z): SWEEP_TOL, causal equal, two launches bit-equal;
+    returns (max abs err, kernel ms, twin ms)."""
+    st = sweep_inputs(torch, sb, NC, rng)
+
+    def run(fn):
+        dp = st["dp"].clone()
+        out = fn(sb, dp, st["cb"], st["bh"], st["C2"], st["C4"], st["s1"],
+                 st["u"], st["z"], st["inv_odd_p"], st["p"], st["sparse"],
+                 0.95, True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (dp,) + tuple(out)
+
+    before = gsk.launches["sweep_global"]
+    got, again = run(gsk.sweep), run(gsk.sweep)
+    t = time.perf_counter()
+    ref = run(gsk.sweep_plain)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    causal_diff = int((got[2] != ref[2]).sum())
+    errs = [(float((a - b).abs().max()),
+             SWEEP_TOL * max(float(b.abs().max()), 1e-30))
+            for i, (a, b) in enumerate(zip(got, ref)) if i != 2]
+    ms = timer(lambda: gsk.sweep(sb, st["dp"].clone(), st["cb"], st["bh"],
+                                 st["C2"], st["C4"], st["s1"], st["u"],
+                                 st["z"], st["inv_odd_p"], st["p"],
+                                 st["sparse"], 0.95, True), reps=3)
+    gdp = sb.plans.get(NC, (0, 0, False))[2]
+    log(f"  global-dp sweep, {tag}: {sb.max_rows} rows, width {sb.wkmax}, "
+        f"{NC} chains, global-dp mode {gdp}: max |kernel - twin| "
+        f"{max(e[0] for e in errs):.2e} (limit {SWEEP_TOL} x max |twin|), "
+        f"causal {causal_diff} differ (0); two launches bit-equal {repeat}; "
+        f"kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms")
+    if dev.type == "cuda" and not (
+            gdp and gsk.launches["sweep_global"] > before):
+        fail(f"the global-dp sweep ({tag}) did not run in the global-dp mode")
+    if causal_diff or not repeat or any(e[0] > e[1] for e in errs):
+        fail(f"the global-dp sweep ({tag}) disagrees with its twin or does "
+             f"not repeat")
+    return max(e[0] for e in errs), ms, plain_ms
+
+
+def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer):
+    """The lassosum mode in global dp on one band against its twin on the
+    card, from the state after 3 sweeps, one point in five frozen:
+    bit-equal, two launches bit-equal; returns (max abs err, kernel ms,
+    twin ms)."""
+    f = lambda a: torch.as_tensor(a, dtype=sb.dtype, device=dev)  # noqa: E731
+    m = sb.m
+    bh, pf = f(rng.normal(0, 0.02, m)), f(rng.uniform(0.8, 1.5, m))
+    lam = f(np.geomspace(0.05, 5e-4, NG))
+    delta = f(np.repeat([0.001, 0.01, 0.1, 1.0], -(-NG // 4))[:NG])
+    dp, beta = sb.dp0(NG), torch.zeros((NG, m), dtype=sb.dtype, device=dev)
+    for _ in range(3):
+        gsk.lassosum_sweep(sb, dp, beta, bh, pf, lam, delta,
+                           torch.ones(NG, dtype=torch.bool, device=dev))
+    active = torch.as_tensor(np.arange(NG) % 5 != 3, device=dev)
+
+    def run(fn):
+        d, b = dp.clone(), beta.clone()
+        out = fn(sb, d, b, bh, pf, lam, delta, active)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (d, b) + tuple(out)
+
+    before = gsk.launches["lassosum_global"]
+    got, again = run(gsk.lassosum_sweep), run(gsk.lassosum_sweep)
+    t = time.perf_counter()
+    ref = run(gsk.lassosum_sweep_plain)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    bit = all(torch.equal(a, r) for a, r in zip(got, ref))
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    err = max(float((a.double() - r.double()).abs().max())
+              for a, r in zip(got, ref))
+    ms = timer(lambda: gsk.lassosum_sweep(sb, dp.clone(), beta.clone(), bh,
+                                          pf, lam, delta, active), reps=3)
+    gdp = sb.plans.get(NG, (0, 0, False))[2]
+    log(f"  global-dp lassosum mode, {tag}: {sb.max_rows} rows, width "
+        f"{sb.wkmax}, {NG} grid points ({int(active.sum())} active), "
+        f"global-dp mode {gdp}: bit-equal to the twin {bit} (max abs diff "
+        f"{err:.1e}); two launches bit-equal {repeat}; kernel {ms:.3f} ms a "
+        f"sweep, twin {plain_ms:.1f} ms")
+    if dev.type == "cuda" and not (
+            gdp and gsk.launches["lassosum_global"] > before):
+        fail(f"the lassosum mode ({tag}) did not run in the global-dp mode")
+    if not (bit and repeat):
+        fail(f"the global-dp lassosum mode ({tag}) disagrees with its twin "
+             f"or does not repeat")
+    return err, ms, plain_ms
+
+
+def phase_gdp_small(bp, gsk, torch, dev, args):
+    """The global-dp mode against its twin: in float64 on a band of
+    --gdp-rows variants, one chain's dp past the 227 KB of shared memory a
+    block may use (so the plan takes the mode by itself), and in float32
+    on a short band with the mode forced (the plan computed against no
+    shared memory) at slice 5's 30 chains and 120 grid points. [17b] holds
+    the float32 mode where the plan takes it by itself, at slice 5's band."""
+    from bigsnpr_tpu_torch.pgs.band import one_block_bands
+
+    rng = np.random.default_rng(args.seed + 32)
+    timer = Timer(torch, dev)
+    for dt, n_rows, NC, NG, forced in (
+            (np.float64, args.gdp_rows, 4, 6, False),
+            (np.float32, 3001, N_CHAINS, 120, True)):
+        corr = band_ld(bp, n_rows, 64, args.seed + 33)
+        sb = one_block_bands(corr, dtype=dt).device_put(dev, dtype=dt)
+        tag = f"{np.dtype(dt).name}" + (", forced" if forced else "")
+        if forced and dev.type == "cuda":
+            for k in (NC, NG):
+                sb.plans[k] = gsk.plan(sb, k, 0)
+        gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer)
+        bound, by, t_tiles, t_lat = sweep_bound(sb, NC, 1)
+        log(f"    bound {bound:.3f} ms ({by}); longest block's rows x step "
+            f"latency {t_lat:.3f} ms")
+        gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer)
+        bound, by = lasso_bound(sb, NG)
+        log(f"    bound {bound:.3f} ms ({by})")
+        del sb
+
+
+def check_i8m_at(gk, torch, dev, op, rng):
+    """K8 against its twin at the slice's operands: the operator's planes
+    (every sample) and l = 20, randomSVD's power-step width."""
+    n, m = op.n_full, op.m_full
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    for key, kern, plain, W in (
+            ("cprod_i8m", gk.cprod_i8m, gk.cprod_i8m_plain,
+             f(rng.standard_normal((n, 20)))),
+            ("prod_i8m", gk.prod_i8m, gk.prod_i8m_plain,
+             f(rng.standard_normal((m, 20))))):
+        got, raw = kern(op.planes, n, W, op.center, op.inv, return_raw=True)
+        ref, raw_ref = plain(op.planes, n, W, op.center, op.inv,
+                             return_raw=True)
+        same = torch.equal(raw, raw_ref)
+        err, rel = rel_err(got, ref)
+        log(f"    K8 {key} vs its twin at n={n} m={m} l=20 [randomSVD power "
+            f"step]: raw int32 sums equal {same}; max abs err {err:.2e} "
+            f"(rel {rel:.1e}, limit {I8_TOL})")
+        if not same or rel > I8_TOL:
+            fail(f"K8 {key} disagrees with its twin at the slice's shape")
+
+
+def phase_slice5(bp, gk, gsk, torch, dev, args):
+    n, m = args.n5, args.m5
+    log(f"[16] slice 5 at n={n} samples x m={m} variants: int8m randomSVD -> "
+        f"GWAS -> the unblocked LDpred2-auto / grid / sampling and lassosum2")
+    t0 = time.perf_counter()
+    # slice 2's generator: one population. On one chromosome of AR(1)
+    # blocks the top PCs are LD blocks, not populations, so neither a
+    # structured cohort nor PC covariates leave sumstats that LDpred2 can
+    # fit with this LD; the PCs are the PCA stage's own result.
+    packed, sizes, _ = make_ld_cohort(torch, dev, n, m, args.seed + 30,
+                                      args.bmin, args.bmax)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"  cohort made on the {dev.type} in {time.perf_counter() - t0:.1f} "
+        f"s: {len(sizes)} LD blocks of {sizes.min()}-{sizes.max()} variants "
+        f"(AR(1) rho {RHO}), one population, one chromosome")
+    pack = bp.GenoPack(packed=packed.cpu().numpy(), n=n)
+    pack._device_cache[str(dev)] = packed
+    rng = np.random.default_rng(args.seed + 31)
+    perm = rng.permutation(n)
+    n_train = n * 3 // 4
+    train, test = np.sort(perm[:n_train]), np.sort(perm[n_train:])
+    times, counts = {}, {}
+    modes = ("sweep", "sweep_global", "lassosum", "lassosum_global")
+
+    def stage(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        before = dict(gsk.launches)
+        t = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        counts[name] = {k: gsk.launches[k] - before[k] for k in modes
+                        if gsk.launches[k] > before[k]}
+        log(f"  {name:34s} {times[name]:9.3f} s   sweep launches "
+            f"{counts[name] or 0}")
+        return out
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    gsk.reset_launches()
+    sc = stage("bed_scaleBinom", lambda: bp.bed_scaleBinom(
+        pack, ind_row=train, device=dev))
+    scd = {"center": sc["center"], "scale": sc["scale"]}
+    op = stage("GenoOperator(mxu=\"int8m\"): planes", lambda: bp.GenoOperator(
+        pack, sc["center"], sc["scale"], ind_row=train, device=dev,
+        mxu="int8m"))
+    gk.reset_launches()
+    svd = stage("snp_randomSVD (int8m operator)", lambda: bp.snp_randomSVD(
+        None, scd, op=op, k=10))
+    svd_path = dict(gk.launches)
+    plane_gb = sum(p.numel() for p in op.planes if p is not None) / 1e9
+    before = dict(gk.launches)      # the comparison's launches do not count
+    check_i8m_at(gk, torch, dev, op, rng)
+    gk.launches.update(before)
+    del op
+    op8 = bp.GenoOperator(pack, sc["center"], sc["scale"], ind_row=train,
+                          device=dev, mxu="int8")
+    svd8 = stage("snp_randomSVD (int8 operator)", lambda: bp.snp_randomSVD(
+        None, scd, op=op8, k=10))
+    del op8
+    sim = stage("snp_simuPheno", lambda: bp.snp_simuPheno(
+        pack, h2=0.4, M=min(1000, m // 10), seed=args.seed))
+    y = sim["pheno"]
+    gwas = stage("big_univLinReg", lambda: bp.big_univLinReg(
+        pack, y[train], ind_row=train))
+    df_beta = {"beta": gwas["estim"], "beta_se": gwas["std.err"],
+               "n_eff": np.full(m, float(n_train))}
+    corr = stage("snp_cor", lambda: bp.snp_cor(
+        pack, ind_row=train, size=500, thr_r2=0.01, finalize="device"))
+    ldsc = stage("snp_ldsc2", lambda: bp.snp_ldsc2(corr, df_beta))
+    h2_ldsc = float(ldsc["h2"])
+    h2i = max(h2_ldsc, 1e-3)
+    p_init = np.geomspace(1e-4, 0.2, N_CHAINS)
+
+    def run_auto(burn_in, num_iter):
+        return bp.snp_ldpred2_auto(
+            corr, df_beta, h2_init=h2i, vec_p_init=p_init, burn_in=burn_in,
+            num_iter=num_iter, allow_jump_sign=False, shrink_corr=0.95)
+
+    # the sweeps are the depth that may be cut: five first, timed
+    stage("snp_ldpred2_auto, 5 sweeps", lambda: run_auto(2, 3))
+    n_auto = args.burn_in5 + args.num_iter5
+    log(f"    {times['snp_ldpred2_auto, 5 sweeps'] / 5 * 1e3:.1f} ms a sweep "
+        f"of {N_CHAINS} chains with the band build; {n_auto} sweeps follow")
+    auto = stage("snp_ldpred2_auto (unblocked)", lambda: run_auto(
+        args.burn_in5, args.num_iter5))
+    keep, beta_auto = stage("ldpred2_auto_chain_qc",
+                            lambda: bp.ldpred2_auto_chain_qc(auto))
+    h2s = np.asarray([0.7, 1.0, 1.4]) * h2i
+    ps = np.asarray([1e-3, 1e-2, 1e-1])
+    grid = {"p": np.repeat(ps, 3), "h2": np.tile(h2s, 3),
+            "sparse": np.zeros(GRID_CELLS, bool)}
+    gb_in, gn_it = min(50, args.burn_in5), min(100, args.num_iter5)
+    beta_grid = stage("snp_ldpred2_grid (unblocked)",
+                      lambda: bp.snp_ldpred2_grid(corr, df_beta, grid,
+                                                  burn_in=gb_in,
+                                                  num_iter=gn_it))
+    one = {"p": [ps[1]], "h2": [h2i], "sparse": [False]}
+    samples = stage("snp_ldpred2_grid, sampling betas",
+                    lambda: bp.snp_ldpred2_grid(
+                        corr, df_beta, one, burn_in=gb_in, num_iter=gn_it,
+                        return_sampling_betas=True))
+    beta_l, gp = stage("snp_lassosum2 (unblocked)", lambda: bp.snp_lassosum2(
+        corr, df_beta, nlambda=args.nlambda, maxiter=args.lasso_maxiter))
+    prs = stage("snp_PRS", lambda: bp.snp_PRS(pack, beta_auto,
+                                              ind_test=test))
+    half = len(test) // 2
+    scores_l = stage("lassosum2 grid scores", lambda: bp.snp_prodVec(
+        pack.subset(ind_row=test), np.nan_to_num(beta_l)))
+    launches = {**gk.launches, **gsk.launches}
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else float("nan"))
+    sweeps_auto = counts["snp_ldpred2_auto (unblocked)"].get("sweep_global", 0)
+    log(f"  total {sum(times.values()):.3f} s; launches {launches}; device "
+        f"memory peak {peak:.2f} GB; int8m planes {plane_gb:.2f} GB; LD nnz "
+        f"{corr.upper.nnz}")
+    if sweeps_auto:
+        log(f"  LDpred2-auto: {times['snp_ldpred2_auto (unblocked)'] / sweeps_auto * 1e3:.1f}"
+            f" ms a sweep of {N_CHAINS} chains ({sweeps_auto} sweeps)")
+    log(f"  launches inside the int8m snp_randomSVD: {svd_path}")
+    enforce = dev.type == "cuda"
+    if enforce:
+        if any(svd_path[k] for k in K1K2 + K6 + K7) or svd_path[
+                "cprod_i8m_nona"] or svd_path["prod_i8m_nona"]:
+            fail("the int8m randomSVD launched K1, K6, K7 or a _nona K8")
+        if not (svd_path["cprod_i8m"] and svd_path["prod_i8m"]):
+            fail("K8 was not launched by the int8m randomSVD")
+        if not (launches["sweep_global"] and launches["lassosum_global"]):
+            fail("the global-dp mode was not launched on slice 5")
+        if launches["sweep"] or launches["lassosum"]:
+            fail("slice 5's unblocked samplers took the shared-memory mode")
+
+    log("  checks:")
+    same = (svd.niter == svd8.niter and all(
+        np.array_equal(getattr(svd, a), getattr(svd8, a))
+        for a in ("d", "u", "v")))
+    d_rel = float(np.max(np.abs(svd.d - svd8.d) / svd8.d))
+    log(f"    snp_randomSVD on K8 vs on K6: d, u, v bit-equal {same} (depths "
+        f"{svd.niter} / {svd8.niter}; d max rel diff {d_rel:.1e})")
+    if not same:
+        fail("randomSVD on K8 is not bit-equal to randomSVD on K6")
+    h2_kept = float(np.mean([auto[i]["h2_est"] for i in np.nonzero(keep)[0]])
+                    ) if keep.any() else float("nan")
+    finite = sum(np.isfinite(r["h2_est"]) for r in auto)
+    log(f"    LDSC h2 {h2_ldsc:.4f}; chains finite {finite}/{len(auto)}, "
+        f"kept by chain QC {int(keep.sum())}; mean h2_est of the kept "
+        f"{h2_kept:.4f} (both in [0.2, 0.6]; true 0.4)")
+    r_auto = float(np.corrcoef(prs[:, 0], y[test])[0, 1])
+    r_first = np.array([np.corrcoef(scores_l[:half, i], y[test][:half])[0, 1]
+                        if scores_l[:half, i].std() > 0 else -1.0
+                        for i in range(beta_l.shape[1])])
+    best = int(np.argmax(np.nan_to_num(r_first, nan=-1.0)))
+    r_l = float(np.corrcoef(scores_l[half:, best], y[test][half:])[0, 1])
+    it = gp["num_iter"]
+    cell = int(np.nonzero((grid["p"] == ps[1]) & (grid["h2"] == h2i))[0][0])
+    r_samp = (float(np.corrcoef(samples.mean(1), beta_grid[:, cell])[0, 1])
+              if np.isfinite(samples).all() and np.isfinite(
+                  beta_grid[:, cell]).all() else float("nan"))
+    log(f"    r(PRS_auto, y_test) {r_auto:.4f} on {len(test)} test samples "
+        f"(floor 0.1; null sd {1 / np.sqrt(len(test)):.3f}); grid cells "
+        f"finite {int(np.isfinite(beta_grid).all(0).sum())}/{GRID_CELLS}; "
+        f"sampling betas {samples.shape}, finite "
+        f"{bool(np.isfinite(samples).all())}, r(their mean, the grid cell's "
+        f"beta) {r_samp:.4f}")
+    log(f"    lassosum2: grid point {best} (lambda {gp['lambda'][best]:.4g}, "
+        f"delta {gp['delta'][best]}) chosen on {half} test samples; r on the "
+        f"other {len(test) - half}: {r_l:.4f} (floor 0.1); "
+        f"{int(np.isnan(beta_l).any(0).sum())} of {len(it)} grid points "
+        f"diverged; sweeps a point {it.min()}-{it.max()}")
+    bad = [] if not enforce else [
+        what for what, ok in (
+            ("LDSC h2", 0.2 <= h2_ldsc <= 0.6),
+            ("chain QC", keep.sum() >= 1),
+            ("mean h2_est of kept chains", 0.2 <= h2_kept <= 0.6),
+            ("r(PRS_auto, y_test)", r_auto > 0.1),
+            ("r(lassosum2, y_test)", r_l > 0.1)) if not ok]
+    if bad:
+        fail(f"slice 5 checks failed: {bad}")
+    return dict(corr=corr, svd_path=svd_path, launches=launches)
+
+
+def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
+    """[17b] the global-dp mode at slice 5's band and at the main path's
+    launch shapes (LDpred2-auto's 30 chains, lassosum2's grid), held against
+    its twin and timed beside its bound and row floor; the kernel table's
+    rows, with the launches of the slice-5 path."""
+    from bigsnpr_tpu_torch.pgs.band import one_block_bands
+
+    log("[17b] the global-dp mode at the slice-5 band, against its twin and "
+        "timed")
+    sb = one_block_bands(s5["corr"]).device_put(dev)
+    rng = np.random.default_rng(args.seed + 34)
+    timer = Timer(torch, dev)
+    err, ms, plain_ms = gdp_sweep_case(bp, gsk, torch, dev, sb, N_CHAINS, rng,
+                                       "slice-5 band", timer)
+    bound, by, t_tiles, t_lat = sweep_bound(sb, N_CHAINS, 1)
+    log(f"    bound {bound:.3f} ms ({by}); rows x step latency {t_lat:.3f} "
+        f"ms; {ms / max(t_lat, 1e-9):.1f}x that floor")
+    rows = [{"name": f"gibbs_sweep global-dp mode (LDpred2, {sb.max_rows} "
+                     f"rows, {N_CHAINS} chains)", "route": "cuda",
+             "source": SWEEP_SOURCE, "replaces": GDP_REPLACES["sweep"],
+             "launches": s5["launches"]["sweep_global"], "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by, "library_ms": None}]
+    NG = 4 * args.nlambda
+    err, ms, plain_ms = gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng,
+                                       "slice-5 band", timer)
+    bound, by = lasso_bound(sb, NG)
+    log(f"    bound {bound:.3f} ms ({by}); rows x step latency {t_lat:.3f} "
+        f"ms; {ms / max(t_lat, 1e-9):.1f}x that floor")
+    rows.append({"name": f"gibbs_sweep lassosum mode, global dp (lassosum2, "
+                         f"{sb.max_rows} rows, {NG} grid points)",
+                 "route": "cuda", "source": SWEEP_SOURCE,
+                 "replaces": GDP_REPLACES["lassosum"],
+                 "launches": s5["launches"]["lassosum_global"],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound, "bound_by": by, "library_ms": None})
+    return rows
+
+
 def arg_parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1925,9 +2518,18 @@ def arg_parser():
     ap.add_argument("--region", type=int, default=5_000)
     ap.add_argument("--n4", type=int, default=20_000)
     ap.add_argument("--m4", type=int, default=100_000)
-    ap.add_argument("--n-stack", type=int, default=2_000,
+    ap.add_argument("--n-stack", type=int, default=1_000,
                     help="training samples that the stacking of slice 4 "
                     "runs on")
+    ap.add_argument("--n5", type=int, default=20_000)
+    ap.add_argument("--m5", type=int, default=100_000)
+    ap.add_argument("--burn-in5", type=int, default=300,
+                    help="burn-in sweeps of slice 5's LDpred2-auto")
+    ap.add_argument("--num-iter5", type=int, default=200,
+                    help="kept sweeps of slice 5's LDpred2-auto")
+    ap.add_argument("--gdp-rows", type=int, default=29_100,
+                    help="rows of [15]'s float64 band, past the shared "
+                    "memory of one block")
     # cut only by a CPU rehearsal, whose twins are slow
     ap.add_argument("--n-thr", type=int, default=50)
     ap.add_argument("--nlambda", type=int, default=30)
@@ -1972,7 +2574,7 @@ def main(argv=None):
     if dev.type == "cuda":
         log("[2] build (one nvcc a source, in parallel)")
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(4) as pool:
+        with ThreadPoolExecutor(4) as pool:  # K6 and K8 share geno_i8.cu
             libs = list(pool.map(lambda b: b(verbose=True),
                                  (gk.build, gk.build_i8, gk.build_split,
                                   gsk.build)))
@@ -2021,6 +2623,18 @@ def main(argv=None):
     phase_split_small(bp, gk, torch, dev, rng)
     s4 = phase_slice4(bp, gk, gsk, torch, dev, args)
     rows += phase_split_timed(bp, gk, torch, dev, s4, args)
+    del s4
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    phase_i8m_small(bp, gk, torch, dev, rng)
+    phase_gdp_small(bp, gsk, torch, dev, args)
+    s5 = phase_slice5(bp, gk, gsk, torch, dev, args)
+    for r in rows:        # K8 with NA: launches on the slice-5 path
+        key = r["name"].split()[0][len("geno_"):]
+        if key in ("cprod_i8m", "prod_i8m"):
+            r["launches"] = s5["svd_path"][key]
+    rows += phase_gdp_timed(bp, gsk, torch, dev, s5, args)
     log(f"  wall time {time.perf_counter() - t_start:.1f} s")
 
     if dev.type != "cuda":

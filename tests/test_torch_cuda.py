@@ -1,6 +1,7 @@
 """The CUDA kernels (K1/K2 decode + GEMM, K7 on bf16 bit planes, K6 on
-int8 bit planes, the Gibbs sweep and its lassosum mode) against their
-plain-torch twins on a card.
+int8 bit planes, K8 on materialized int8 planes, the Gibbs sweep and its
+lassosum mode, each with dp in shared memory or in the global-dp mode)
+against their plain-torch twins on a card.
 
 Imports only torch and the port, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -400,3 +401,175 @@ def test_lassosum_loop_reads_done_flags_every_few_sweeps(cuda):
         return sum("synchroniz" in str(x.message) for x in w)
 
     assert syncs(64) - syncs(8) <= 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,l", [(1000, 777, 1), (1001, 1500, 12),
+                                   (1002, 3001, 20), (4099, 513, 21)])
+@pytest.mark.parametrize("nona", [False, True])
+def test_i8m_kernels_match_twins_and_k6(cuda, n, m, l, nona):
+    """K8 in its four instantiations: the planes built on the card equal to
+    the CPU's; the raw int32 digit sums equal to the twin's and to K6's on
+    the same pack, the outputs bit-equal to K6's and within 1e-6 of max
+    |twin|; two launches bit-equal, one count a launch."""
+    packed, c, inv, V, U = i8_case(n, m, l, l, 0.0 if nona else 0.05)
+    planes = gk.int8m_planes(packed, n, nona)
+    cpu = gk.int8m_planes(packed.cpu(), n, nona)
+    for a, b in zip(planes, cpu):
+        assert (a is None and b is None) or torch.equal(a.cpu(), b)
+    for kern, plain, k6, W, key in (
+            (gk.cprod_i8m, gk.cprod_i8m_plain, gk.cprod_i8, V, "cprod_i8m"),
+            (gk.prod_i8m, gk.prod_i8m_plain, gk.prod_i8, U, "prod_i8m")):
+        key += "_nona" if nona else ""
+        before = gk.launches[key]
+        out, raw = kern(planes, n, W, c, inv, return_raw=True)
+        again = kern(planes, n, W, c, inv)
+        ref, raw_ref = plain(planes, n, W, c, inv, return_raw=True)
+        out6, raw6 = k6(packed, n, W, c, inv, nona=nona, return_raw=True)
+        torch.cuda.synchronize()
+        assert gk.launches[key] == before + 2
+        assert torch.equal(raw, raw_ref) and torch.equal(raw, raw6)
+        assert torch.equal(out, again) and torch.equal(out, out6)
+        assert (out - ref).abs().max() <= 1e-6 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nona", [False, True])
+def test_i8m_sums_do_not_depend_on_depth_splits(cuda, nona):
+    packed, c, inv, V, U = i8_case(2049, 1537, 20, 7, 0.0 if nona else 0.05)
+    planes = gk.int8m_planes(packed, 2049, nona)
+    for kern, W in ((gk.cprod_i8m, V), (gk.prod_i8m, U)):
+        ref = kern(planes, 2049, W, c, inv, True)
+        for s in (1, 2, 5, 16):
+            got = kern(planes, 2049, W, c, inv, True, s)
+            assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+@pytest.mark.cuda
+def test_i8m_operator_equals_the_int8_one(cuda):
+    """The masked int8m operator on the card: its power step bit-equal to
+    the int8 operator's (same integer sums) and within 1e-6 of the plain
+    operator's; only K8 launches."""
+    pp = pt.snp_fake(533, 700, seed=9, na_prob=0.05)
+    sc = pt.bed_scaleBinom(pp, device="cpu")
+    rows, cols = np.arange(0, 533, 2), np.arange(0, 700, 3)
+    ops = [ctor(pp, sc["center"], sc["scale"], ind_row=rows, ind_col=cols,
+                device=cuda, mxu=mxu)
+           for ctor, mxu in ((pt.GenoOperator, "int8m"),
+                             (pt.GenoOperator, "int8"),
+                             (pt.TorchOperator, "int8m"))]
+    V = np.random.default_rng(0).standard_normal((len(rows), 20))
+    gk.reset_launches()
+    B, Y = ops[0].power(V)
+    assert gk.launches["cprod_i8m"] == gk.launches["prod_i8m"] == 1
+    assert sum(gk.launches.values()) == 2
+    (B8, Y8), (Br, Yr) = ops[1].power(V), ops[2].power(V)
+    np.testing.assert_array_equal(B, B8)
+    np.testing.assert_array_equal(Y, Y8)
+    assert np.abs(B - Br).max() <= 1e-6 * np.abs(Br).max()
+    assert np.abs(Y - Yr).max() <= 1e-6 * np.abs(Yr).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,NC,dtype,shrink,no_jump", [
+    ([300, 41, 7], 1, torch.float32, 1.0, False),
+    ([1000, 700, 130], 30, torch.float32, 0.95, True),
+    ([257, 60], 5, torch.float64, 0.9, True)])
+def test_global_dp_sweep_matches_twin_and_shared_mode(cuda, sizes, NC, dtype,
+                                                      shrink, no_jump):
+    """The global-dp mode, forced on small blocks by planning against no
+    shared memory: against the twin as the shared-memory mode is (1e-5 of
+    max |twin|, causal equal), bit-equal to the shared-memory mode (the
+    same operations in the same order; only where dp lives differs), two
+    launches bit-equal, counted as global-dp launches."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+
+    sb, st = sweep_case(sizes, NC, 3, dtype)
+    shared = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
+    assert not sb.plans[NC][2]
+    sb.plans[NC] = gsk.plan(sb, NC, 0)
+    before = gsk.launches["sweep_global"]
+    got = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
+    again = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
+    assert gsk.launches["sweep_global"] == before + 2
+    ref = run_sweep(gsk.sweep_plain, sb, st, shrink, no_jump)
+    assert torch.equal(got[2], ref[2])
+    for a, b in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)
+    assert all(torch.equal(a, b) and torch.equal(a, s)
+               for a, b, s in zip(got, again, shared))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,NG,dtype", [
+    ([300, 41, 7], 3, torch.float32), ([1000, 700, 130], 120, torch.float32),
+    ([257, 60], 7, torch.float64)])
+def test_global_dp_lassosum_mode_matches_twin_bit_for_bit(cuda, sizes, NG,
+                                                          dtype):
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+
+    sb, st = lasso_case(sizes, NG, 6, dtype)
+    sb.plans[NG] = gsk.plan(sb, NG, 0)
+
+    def run(fn):
+        dp, beta = st["dp"].clone(), st["beta"].clone()
+        out = fn(sb, dp, beta, st["bh"], st["pf"], st["lam"], st["delta"],
+                 st["active"])
+        torch.cuda.synchronize()
+        return (dp, beta) + tuple(out)
+
+    before = gsk.launches["lassosum_global"]
+    got, again = run(gsk.lassosum_sweep), run(gsk.lassosum_sweep)
+    ref = run(gsk.lassosum_sweep_plain)
+    assert gsk.launches["lassosum_global"] == before + 2
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b) and torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_unblocked_band_takes_the_global_dp_mode(cuda):
+    """A one-block band of 30,000 variants in float64 (dp past the 227 KB
+    of shared memory) picks the global-dp mode by itself; the sweep and
+    the lassosum mode match their twins (1e-5; bit for bit)."""
+    import scipy.sparse as sp
+
+    from bigsnpr_tpu_torch import interop
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+    from bigsnpr_tpu_torch.pgs.band import one_block_bands
+
+    m, w = 30_000, 8
+    rng = np.random.default_rng(11)
+    up = sp.diags([np.ones(m)] + [0.9 ** d * rng.uniform(0.8, 1, m - d)
+                                  for d in range(1, w + 1)],
+                  list(range(w + 1)), format="csc").tocsc()
+    corr = interop.sparse_ld_from_numpy(up.data, up.indices, up.indptr,
+                                        up.shape)
+    sb = one_block_bands(corr, dtype=np.float64).device_put(
+        "cuda", dtype=np.float64)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")  # noqa: E731
+    NC = 2
+    st = dict(bh=f(rng.normal(0, 0.05, m)),
+              C2=f(rng.uniform(0.1, 0.9, (NC, m))),
+              C4=f(rng.uniform(0.1, 0.9, (NC, m))),
+              s1=f(rng.uniform(1.0, 2.0, (NC, m))),
+              u=f(rng.uniform(0, 1, (NC, m))), z=f(rng.normal(0, 1, (NC, m))),
+              cb=f(rng.normal(0, 0.05, (NC, m))), inv_odd_p=f([2.0, 5.0]),
+              p=f([0.3, 0.1]),
+              sparse=torch.tensor([False, True], device="cuda"),
+              dp=f(rng.normal(0, 0.05, (NC, sb.dp_len))))
+    got = run_sweep(gsk.sweep, sb, st, 0.95, False)
+    assert sb.plans[NC][2]
+    ref = run_sweep(gsk.sweep_plain, sb, st, 0.95, False)
+    assert torch.equal(got[2], ref[2])
+    for a, b in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)
+    pf, lam, delta = f(np.ones(m)), f([0.01, 0.001]), f([0.1, 1.0])
+    active = torch.ones(NC, dtype=torch.bool, device="cuda")
+    res = []
+    for fn in (gsk.lassosum_sweep, gsk.lassosum_sweep_plain):
+        dp, beta = sb.dp0(NC), torch.zeros((NC, m), dtype=torch.float64,
+                                           device="cuda")
+        out = fn(sb, dp, beta, st["bh"], pf, lam, delta, active)
+        torch.cuda.synchronize()
+        res.append((dp, beta) + tuple(out))
+    assert all(torch.equal(a, b) for a, b in zip(*res))

@@ -196,21 +196,29 @@ def test_cached_op_follows_pallas_mxu():
 
 
 def test_schemes_not_ported_raise():
-    """"split2" (K7) is accepted since slice 4; "int8m" (K8) still raises."""
+    """"split2" (K7) is accepted since slice 4. "int8m" (K8, slice 5) is
+    refused by the option in both packages and reached through the
+    operator's constructor, which accepts it."""
     assert jconfig.get_option("pallas_mxu") == pt.config.get_option(
         "pallas_mxu") == "highest"
     with pt.config.options(pallas_mxu="split2"):
         assert pt.config.resolve_mxu() == "split2"
-    with pytest.raises(NotImplementedError, match="K8"):
+    with pytest.raises(AssertionError):
+        jconfig.set_option("pallas_mxu", "int8m")
+    with pytest.raises(ValueError, match=r'GenoOperator\(.*mxu="int8m"\)'):
         pt.config.set_option("pallas_mxu", "int8m")
     with pytest.raises(ValueError):
         pt.config.set_option("pallas_mxu", "bf16")
     pp = pt.snp_fake(20, 10, seed=1)
-    with pytest.raises(NotImplementedError, match="K8"):
-        pt.GenoOperator(pp, np.ones(10), np.ones(10), mxu="int8m")
+    for ctor in (pt.GenoOperator, pt.TorchOperator):
+        op = ctor(pp, np.ones(10), np.ones(10), mxu="int8m")
+        assert op.mxu == "int8m" and op.planes[0].shape == (10, 32)
+    with pytest.raises(ValueError):
+        pt.GenoOperator(pp, np.ones(10), np.ones(10), mxu="bf16")
     assert pt.GenoOperator(pp, np.ones(10), np.ones(10),
                            mxu="split2").mxu == "split2"
     assert pt.config.get_option("pallas_mxu") == "highest"
+    assert jconfig.get_option("pallas_mxu") == "highest"
 
 
 def test_overflow_guard_raises():

@@ -339,6 +339,9 @@ def test_sweep_checks_operands(case):
         gk.sweep(sb, t["dp"].clone(), t["cb"], t["bh"], t["C2"][:, :5],
                  t["C4"], t["s1"], t["u"], t["z"], t["inv_odd_p"], t["p"],
                  t["sparse"], 1.0, False)
-    nct, threads = gk.plan(sb, 30, 227 << 10)
-    assert 1 <= nct <= 30 and threads % 32 == 0
+    nct, threads, gdp = gk.plan(sb, 30, 227 << 10)
+    assert 1 <= nct <= 30 and threads % 32 == 0 and not gdp
     assert threads * gk.KMAX >= sb.wkmax and threads >= nct
+    # a chain's dp past the shared memory: the global-dp mode, one a CTA
+    nct, threads, gdp = gk.plan(sb, 30, 4 * sb.Lmax)
+    assert gdp and nct == 1 and threads * gk.KMAX >= sb.wkmax

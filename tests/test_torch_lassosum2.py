@@ -6,11 +6,11 @@ against the JAX package's `snp_lassosum2(blocks=...)` (its XLA
 `lassosum_cd_blocked` under vmap) on the same block-diagonal LD
 (tests/test_blocked.py's fixture): betas within 1e-6 of max |beta| in
 float32 and 1e-12 in float64 (the CD is deterministic and both packages
-run its operations in one order; in float32 the twin fuses the
-multiply-adds that the JAX package's CPU programs contract, and agrees
-bit for bit), the same num_iter for every grid point, the same grid and
-sparsity, and the same stopping rules (converged, dfmax, diverged ->
-NaN). In float64 the JAX package's blocked CD fails to trace (its scan
+run its operations in one order; in float32 the twin fuses the dp
+update's multiply-add, which the JAX package's CPU programs contract, and
+rounds dp1 = pf delta + 1 twice, as they do, and agrees bit for bit),
+the same num_iter for every grid point, the same grid and sparsity, and
+the same stopping rules (converged, dfmax, diverged -> NaN). In float64 the JAX package's blocked CD fails to trace (its scan
 mixes int32 and int64 indices under x64; ROADMAP queue 3), so the port is
 held against its unblocked CD, the same function on block-diagonal LD."""
 
@@ -123,9 +123,15 @@ def test_check_interval_does_not_change_the_result(monkeypatch):
 
 
 def test_unblocked_raises():
-    _, pc, df_beta, _ = blockdiag()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pt.snp_lassosum2(pc, df_beta)
+    """blocks=None (slice 5) runs the unblocked CD, one band over every
+    variant: on block-diagonal LD it is the blocked CD, the same rows in
+    the same order (num_iter equal, betas within 1e-6)."""
+    _, pc, df_beta, sizes = blockdiag()
+    un = pt.snp_lassosum2(pc, df_beta, nlambda=6, maxiter=200)
+    bl = pt.snp_lassosum2(pc, df_beta, nlambda=6, maxiter=200, blocks=sizes)
+    np.testing.assert_array_equal(un[1]["num_iter"], bl[1]["num_iter"])
+    np.testing.assert_allclose(un[0], bl[0], rtol=1e-6, atol=1e-12,
+                               equal_nan=True)
 
 
 def test_seq_log_matches_jax():

@@ -158,17 +158,21 @@ def test_ldpred2_inf_matches_jax(pipe):
 
 
 def test_unported_options_raise(pipe):
+    """The multi-GPU options raise until slice 7, with blocks or without;
+    blocks=None and return_sampling_betas run since slice 5
+    (tests/test_torch_unblocked.py holds them against the JAX package)."""
+    for kw in (dict(blocks=pipe["blocks"], shard_chains=True),
+               dict(blocks=pipe["blocks"], shard_blocks=True),
+               dict(shard_chains=True)):
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], h2_init=0.3, **kw)
     grid = {"p": [0.1], "h2": [0.3], "sparse": [False]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], h2_init=0.3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.snp_ldpred2_grid(pipe["pc"], pipe["df"], grid)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.snp_ldpred2_grid(pipe["pc"], pipe["df"], grid,
-                            blocks=pipe["blocks"], return_sampling_betas=True)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], h2_init=0.3,
-                            blocks=pipe["blocks"], shard_chains=True)
+    beta = pt.snp_ldpred2_grid(pipe["pc"], pipe["df"], grid, burn_in=5,
+                               num_iter=5)
+    samples = pt.snp_ldpred2_grid(pipe["pc"], pipe["df"], grid, burn_in=5,
+                                  num_iter=7, blocks=pipe["blocks"],
+                                  return_sampling_betas=True)
+    assert beta.shape == (pipe["m"], 1) and samples.shape == (pipe["m"], 7)
 
 
 def test_chain_streams_do_not_depend_on_other_chains(pipe):

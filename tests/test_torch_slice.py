@@ -3,11 +3,12 @@ simuPheno -> GWAS (covariates = PCs) -> p-values -> C+T scores, and the
 third (autoSVD -> pcadapt -> projection, on the int8 scheme) through both
 packages on the same file; the fourth (randomSVD and GWAS on the split2
 scheme -> grid clumping -> grid PRS -> stacking; LD -> blocked lassosum2)
-through both packages on the same pack; all four slices (the second: LD
--> LDSC -> blocks -> LDpred2-auto / grid -> PRS) in the port alone with
-jax, pandas and the JAX package blocked; the device rule (no CUDA and no
-request for the CPU -> an entry point raises); and chip_smoke.py's CPU
-rehearsal."""
+and the fifth (randomSVD on an int8m operator -> GWAS -> LD -> the
+unblocked lassosum2 and LDpred2) through both packages on the same pack;
+all five slices (the second: LD -> LDSC -> blocks -> LDpred2-auto / grid
+-> PRS) in the port alone with jax, pandas and the JAX package blocked;
+the device rule (no CUDA and no request for the CPU -> an entry point
+raises); and chip_smoke.py's CPU rehearsal."""
 
 import os
 import subprocess
@@ -185,6 +186,68 @@ def test_slice4_chain_matches_jax():
         assert np.abs(pb[ok] - jb[ok]).max() <= 1e-6 * np.abs(jb[ok]).max()
 
 
+def test_slice5_chain_matches_jax():
+    """randomSVD on an int8m operator (the JAX package's Pallas operator in
+    interpret mode) -> GWAS -> snp_cor -> LDSC -> the unblocked samplers
+    (blocks=None) in both packages. The SVD within 1e-4 and bit-equal to
+    the port's int8 one; lassosum2 is deterministic (num_iter equal, 1e-6);
+    LDpred2-grid and -auto draw from other generators, so their betas agree
+    at Monte-Carlo level (r > 0.9) and their scores predict alike."""
+    from bigsnpr_tpu.ops import pallas_kernels as jpk
+    from bigsnpr_tpu.pgs.lassosum2 import snp_lassosum2 as j_lassosum2
+    from bigsnpr_tpu_torch import interop
+
+    n, m = 601, 1200
+    packed = structured_cohort(n, m, 6)
+    jp = JaxGenoPack(packed=packed, n=n)
+    pp = interop.pack_from_numpy(packed, n)
+    test = np.arange(0, n, 4)
+    train = np.setdiff1d(np.arange(n), test)
+    sc = bt.bed_scaleBinom(jp, ind_row=train)
+    scd = {"center": sc["center"], "scale": sc["scale"]}
+    jop = jpk.PallasOperator(jp, sc["center"], sc["scale"], ind_row=train,
+                             interpret=True, mxu="int8m")
+    jsvd = bt.snp_randomSVD(None, scd, op=jop, k=3, engine="device",
+                            tol=1e-7)
+    with pt.config.options(device="cpu"):
+        svds = [pt.snp_randomSVD(None, scd, k=3, tol=1e-7, op=pt.GenoOperator(
+            pp, sc["center"], sc["scale"], ind_row=train, mxu=mxu))
+            for mxu in ("int8m", "int8")]
+        psvd = svds[0]
+        np.testing.assert_allclose(psvd.d, jsvd.d, rtol=1e-4)
+        np.testing.assert_array_equal(psvd.u, svds[1].u)
+        y = bt.snp_simuPheno(jp, h2=0.7, M=40, seed=7)["pheno"]
+        jg = bt.big_univLinReg(jp, y[train], covar=jsvd.u, ind_row=train)
+        pg = pt.big_univLinReg(pp, y[train], covar=jsvd.u, ind_row=train)
+        for key in ("estim", "std.err"):
+            ref = jg[key].to_numpy()
+            np.testing.assert_allclose(pg[key], ref, rtol=1e-4,
+                                       atol=1e-4 * np.abs(ref).max())
+        jcorr = bt.snp_cor(jp, ind_row=train, size=20)
+        pcorr = pt.snp_cor(pp, ind_row=train, size=20)
+        assert (pcorr.upper != jcorr.upper).nnz == 0
+        df = {"beta": jg["estim"].to_numpy(),
+              "beta_se": jg["std.err"].to_numpy(),
+              "n_eff": np.full(m, float(len(train)))}
+        h2 = float(pt.snp_ldsc2(pcorr, df)["h2"])
+        jb, jgp = j_lassosum2(jcorr, df, nlambda=4, maxiter=100)
+        pb, pgp = pt.snp_lassosum2(pcorr, df, nlambda=4, maxiter=100)
+        np.testing.assert_array_equal(pgp["num_iter"],
+                                      jgp["num_iter"].to_numpy())
+        ok = np.isfinite(jb)
+        np.testing.assert_array_equal(np.isfinite(pb), ok)
+        assert np.abs(pb[ok] - jb[ok]).max() <= 1e-6 * np.abs(jb[ok]).max()
+        grid = {"p": [0.1], "h2": [max(h2, 0.1)], "sparse": [False]}
+        kw = dict(burn_in=50, num_iter=200)
+        pgrid = pt.snp_ldpred2_grid(pcorr, df, grid, **kw)
+        jgrid = bt.snp_ldpred2_grid(jcorr, df, grid, **kw)
+        assert np.corrcoef(pgrid[:, 0], jgrid[:, 0])[0, 1] > 0.9
+        sub = pp.subset(ind_row=test)
+        r = [np.corrcoef(pt.snp_prodVec(sub, b), y[test])[0, 1]
+             for b in (pgrid[:, 0], jgrid[:, 0])]
+        assert r[0] > 0.2 and abs(r[0] - r[1]) < 0.05, r
+
+
 # Blocks the imports with a finder that raises, which has the effect of
 # sys.modules[name] = None; None entries themselves trip scipy's array-API
 # helpers, which look up sys.modules["jax"].Array.
@@ -269,6 +332,25 @@ SCRIPT = textwrap.dedent("""
     assert multi.scores.shape == (len(train), 3 * 2 * 3)
     assert np.isfinite(final["beta.G"]).all() and len(gp["num_iter"]) == 12
     assert bl.shape == (pack.m, 12)
+    # slice 5: randomSVD on the int8m operator -> GWAS; the unblocked
+    # LDpred2-auto / grid / sampling and lassosum2 (blocks=None)
+    sc5 = pt.bed_scaleBinom(pack, ind_row=train)
+    op5 = pt.GenoOperator(pack, sc5["center"], sc5["scale"], ind_row=train,
+                          mxu="int8m")
+    s5 = pt.snp_randomSVD(None, {"center": sc5["center"],
+                                 "scale": sc5["scale"]}, op=op5, k=3)
+    g5 = pt.big_univLinReg(pack, sim["pheno"][train], covar=s5.u,
+                           ind_row=train)
+    auto5 = pt.snp_ldpred2_auto(corr, df, 0.3, burn_in=3, num_iter=3,
+                                sparse=True)
+    one = {"p": [0.1], "h2": [0.3], "sparse": [False]}
+    grid5 = pt.snp_ldpred2_grid(corr, df, one, burn_in=3, num_iter=3)
+    samp5 = pt.snp_ldpred2_grid(corr, df, one, burn_in=3, num_iter=4,
+                                return_sampling_betas=True)
+    bl5, gp5 = pt.snp_lassosum2(corr, df, nlambda=3, maxiter=30)
+    assert np.isfinite(g5["estim"]).all() and s5.u.shape == (len(train), 3)
+    assert "dropped_r2_frac" not in auto5[0] and grid5.shape == (pack.m, 1)
+    assert samp5.shape == (pack.m, 4) and bl5.shape == (pack.m, 12)
     bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not bad, bad
     print("PORT-ONLY-OK")
@@ -317,7 +399,9 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                           "--burn-in", "4", "--num-iter", "4", "--n3", "1500",
                           "--m3", "4000", "--region", "400", "--n4", "1500",
                           "--m4", "4000", "--n-thr", "2", "--nlambda", "3",
-                          "--lasso-maxiter", "20", "--n-stack", "600"],
+                          "--lasso-maxiter", "20", "--n-stack", "600",
+                          "--n5", "803", "--m5", "1200", "--burn-in5", "4",
+                          "--num-iter5", "4", "--gdp-rows", "600"],
                          cwd=REPO,
                          capture_output=True, text=True, timeout=300, env=ENV2)
     assert out.returncode == 3, out.stdout[-2000:] + out.stderr[-2000:]
@@ -333,5 +417,10 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "masked split2 operator", "[13]", "snp_grid_stacking",
                   "r(SCT prediction", "native greedy vs the fixed point",
                   "lassosum2: grid point", "[14]", "bf16 torch.matmul",
-                  "lassosum mode"):
+                  "lassosum mode", "[15]", "cprod_i8m_nona",
+                  "masked int8m operator", "global-dp sweep, float64",
+                  "global-dp lassosum mode, float32", "[16]",
+                  "snp_randomSVD on K8 vs on K6", "snp_ldpred2_auto "
+                  "(unblocked)", "sampling betas", "[17a]",
+                  "NA-free copy, int8m", "[17b]"):
         assert phase in out.stdout
