@@ -23,6 +23,15 @@ A second package beside the JAX one, ported slice by slice.
   `snp_grid_PRS`, `snp_grid_stacking` on the native elastic-net CD of
   `big_spReg`); and blocked lassosum2 (`snp_lassosum2(blocks=...)`) on
   the sweep kernel's lassosum mode.
+- Slice 5, the unblocked samplers: the "int8m" scheme (`mxu="int8m"`,
+  K8 on int8 planes materialized once, in `csrc/geno_i8.cu` beside K6)
+  under `snp_randomSVD(op=)` -> GWAS -> `snp_cor` -> `snp_ldsc2` -> the
+  unblocked LDpred2-auto, -grid, sampling betas and lassosum2 on the
+  sweep kernel's global-dp mode.
+- Slices 6a-6c (matching, the store, `.rds`; the remaining statistics;
+  byte-coded dosages, BGEN, imputation) and 7 (several cards) are still
+  to come (ROADMAP): the entry points that would take a `DosagePack`
+  raise `NotImplementedError`.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`config.set_device("cpu")` or `device="cpu"`). The package imports

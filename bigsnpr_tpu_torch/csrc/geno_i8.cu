@@ -1,12 +1,18 @@
-// K6: the genotype operator on exact int8 bit planes, with int32 tensor-core
-// accumulation, for Hopper (sm_90a).
+// K6 and K8: the genotype operator on exact int8 bit planes, with int32
+// tensor-core accumulation, for Hopper (sm_90a).
 //
-// Replaces the JAX package's Pallas TPU kernels of the mxu="int8" scheme
+// K6 replaces the JAX package's Pallas TPU kernels of the mxu="int8" scheme
 //   bigsnpr_tpu/ops/pallas_kernels.py  _cprod_kernel_i8, _cprod_kernel_i8_nona
 //       (entry _pallas_cprod_i8):  raw(m, [T|NA] x 4l) = planes . Q digits
 //   bigsnpr_tpu/ops/pallas_kernels.py  _prod_kernel_i8, _prod_kernel_i8_nona
 //       (entry _pallas_prod_i8):   raw(n, [T|NA] x 4l) = planes^T . Z digits
-// and the recombination and epilogue that follow them there.
+// and K8 (MAT = true) those of the mxu="int8m" scheme
+//   _cprod_kernel_i8m, _cprod_kernel_i8m_na (entry _pallas_cprod_i8m),
+//   _prod_kernel_i8m, _prod_kernel_i8m_na (entry _pallas_prod_i8m),
+// the same GEMMs on T (and NA) planes materialized once as int8 arrays
+// (m, ldn), true sample order, ldn = n rounded up to 16 and the pad columns
+// zero (ops/geno_kernels.py::int8m_planes); and the recombination and
+// epilogue that follow them there.
 //
 // The algebra (ops/geno_kernels.py has it in torch): the standardized value
 // of 2-bit code g with bits b0 (low), b1 is x~ = A - s t - A na, with
@@ -19,266 +25,557 @@
 // (sum - comb_na sc_na) - comb_t sc_t for prod, per element in that order.
 // Built with --fmad=false, so it rounds as the twin's separate torch ops do.
 //
-// Layout: packed is (m, nb) uint8 in true sample order (sample 4b+k in bits
-// 2k..2k+1 of byte b), unpadded. The digits are (4l, ldd) int8 rows, zero
-// past the contraction length and ldd a multiple of BK. Variants >= m and
-// bytes >= nb decode as 0; the PLINK pad samples of a partial last byte are
-// code 0 (t = na = 0) and meet zero digits anyway.
-//
 // GEMM shape: rows M (cprod: variants, prod: samples), columns N = 4l digit
-// rows, depth K (cprod: samples, prod: variants). A block of 4 warps owns a
-// 64-row x 8*NT-column tile; each warp runs mma.sync m16n8k32 s8 x s8 ->
-// s32 on 16 rows. Per BK = 128 deep stage, the block decodes its A tile of
-// T (and NA) int8 from the packed bytes straight into shared memory (cprod:
-// a byte gives 4 consecutive samples of one variant; prod: 4 variants' bytes
-// give, after a 4 x 4 byte transpose, 4 variants of each of 4 samples) and
-// copies the digit tile in 16-byte loads. Row strides of 144 bytes (36
-// words) make the fragment loads conflict-free.
+// rows, depth K (cprod: samples, prod: variants). The digits are (4l, ldd)
+// int8 rows, zero past the contraction length, ldd a multiple of 128.
 //
-// What bounds it on an H100: at n = 50,000, m = 100,000, l = 20 each plane
+// What bounds it on an H100, at n = 50,000, m = 100,000, l = 20: each plane
 // is 2 * 80 * n * m = 8.0e11 int8 operations, 0.40 ms at the 1,979 TOP/s
-// dense int8 peak (two planes with NA: 0.81 ms), against 1.25 GB of packed
-// bytes, 0.37 ms at 3.35 TB/s. This first kernel is simple: mma.sync (not
-// wgmma), plain loads (no TMA / cp.async pipeline), one stage in flight;
-// the decode and the shared-memory traffic, not the tensor cores, will set
-// its time.
+// dense peak (two planes with NA: 0.81 ms). K6 reads 1.25 GB of packed
+// bytes (0.37 ms at 3.35 TB/s): its bound is the operations. K8 reads the
+// planes, 5.0 GB a plane (1.49 ms, 2.99 ms with NA): its bound is the bytes.
 //
-// Integer sums are exact, so the depth may be split over gridDim.y into
-// int32 atomicAdds and the result still repeats bit for bit. A raw sum is
-// at most 254 K in absolute value: the wrapper refuses K > 8,000,000.
-//
-// K8 (MAT = true) replaces the JAX package's Pallas TPU kernels of the
-// mxu="int8m" scheme
-//   bigsnpr_tpu/ops/pallas_kernels.py  _cprod_kernel_i8m, _cprod_kernel_i8m_na
-//       (entry _pallas_cprod_i8m), _prod_kernel_i8m, _prod_kernel_i8m_na
-//       (entry _pallas_prod_i8m)
-// the same GEMMs on T (and NA) planes materialized once as int8 arrays
-// (m, ldn), true sample order, ldn = n rounded up to 16 and the pad columns
-// zero (ops/geno_kernels.py::int8m_planes). Only the A tile's source
-// differs from K6: cprod copies its 64 variant rows of 128 samples in
-// 16-byte loads; prod reads 4 variants x 4 samples a word each (16 threads
-// on one variant's 64 consecutive samples) and transposes them with K6's
-// 4 x 4 byte transpose, since mma.sync wants both operands K-contiguous and
-// the planes are variant-major. Digits, mma, depth splits and epilogue are
-// K6's, so the raw int32 sums equal K6's bit for bit. What bounds it: the
-// planes' bytes, n m (x 2 with NA), read once: 5.0 (10.0) GB at 50,000 x
-// 100,000, 1.49 (2.99) ms at 3.35 TB/s, above the 0.40 (0.81) ms of int8
-// operations at l = 20. This first version loads with plain 16- and 4-byte
-// loads, one stage in flight.
+// Design (one template, i8_wgmma_kernel<PROD, NONA, MAT, BN>):
+// - A persistent grid, one CTA an SM, walks work items (M tile x BN-column
+//   tile x depth split). A CTA is two consumer warpgroups and a producer:
+//   one warp for K8 (288 threads, up to 224 registers a thread), a
+//   warpgroup for K6 (384 threads, up to 168), so no setmaxnreg is needed
+//   for two accumulators of BN/2 registers at BN <= 128. A warpgroup holds
+//   one 64-row wgmma tile (M tile 128), or two in an NA-free prod (M tile
+//   256: a stage then reads 256 contiguous bytes of each plane row, where
+//   K8 prod's 128 left it well below the HBM rate K8 cprod reaches on the
+//   same bytes; see i8_variants_probe.py).
+// - The producer keeps a ring of `stages` 128-deep stages in flight, with
+//   a full and an empty mbarrier a stage. The digit tile (BN rows x 128,
+//   K-major, 128-byte swizzle) comes by TMA (a 2-D tensor map on the
+//   digits). K8's planes come by TMA too (128 x 128 boxes of the (m, ldn)
+//   planes). K6's pack has row stride nb = ceil(n / 4), which TMA's 16-byte
+//   stride rule refuses: a producer warpgroup copies each of the 128
+//   packed rows' 32 bytes as the three aligned 16-byte chunks that cover
+//   them, by cp.async (one thread a row; cp.async.mbarrier.arrive signals
+//   the stage), and the reader recomputes a row's offset in its first
+//   chunk. (One producer warp of 4-byte cp.asyncs, or one bulk copy a
+//   row, set K6's time on an H100, not the tensor cores.)
+// - Tensor cores: wgmma.mma_async m64nBNk32 .s32.s8.s8 (wgmma_s8.cuh),
+//   B from shared memory. int8 wgmma takes only K-major operands:
+//     K8 cprod: the plane tile is K-major already (A from shared memory);
+//     K6 cprod: a packed byte is 4 consecutive samples of one variant, one
+//       32-bit register of the A fragment, so the consumers decode their
+//       fragments straight into registers (A from registers);
+//     prod (K6 and K8): the tile is variants x samples, MN-major; each
+//       consumer warpgroup turns its samples K-major with 4 x 4 byte
+//       transposes (geno_decode::transpose4), 16 variants x 4 samples a
+//       thread, one 16-byte store a sample, into a 128-byte-swizzled tile:
+//       K6 into two staging tiles used in turn, K8 over the stage's own
+//       plane tile once both warpgroups have read it (which keeps K8's
+//       ring deep). A stage's transposes overlap the previous stage's
+//       wgmma. No sample-major copy of the planes is kept.
+// - The accumulators stay in registers for the item's whole depth and are
+//   stored once: plain int32 stores into an uninitialized raw buffer, or,
+//   when the plan splits the depth (short M), int32 atomicAdds into a
+//   zeroed one. Integer sums are exact, so every plan gives the same bits,
+//   and K8's raw sums equal K6's. A raw sum is at most 254 K in absolute
+//   value: the wrapper refuses K > 8,000,000.
+// - The launch plan (tile width, stages, grid, splits) is made in Python
+//   (ops/geno_kernels.py::i8_plan); geno_i8_gemm checks it and refuses
+//   what it cannot run.
 //
 // C interface for ctypes: every function returns cudaGetLastError() after
-// its launches, as an int. Launches go to the stream passed in.
+// its launches, as an int, or a negative code for a refused plan (-1) or a
+// tensor map the CUDA driver would not encode (-2). Launches go to the stream
+// passed in.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "geno_decode.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
 using geno_decode::cdiv;
 
-constexpr int THREADS = 128;
-constexpr int BM = 64;         // rows of the block tile (4 warps x 16)
-constexpr int BK = 128;        // depth of one stage (4 mma k-steps)
-constexpr int SROW = BK + 16;  // shared row stride in bytes: 36 words
+constexpr int BK = 128;           // depth of one stage, in bytes
+constexpr int TILE = 128 * 128;   // bytes of a 128 x 128 int8 tile
+constexpr int CONSUMERS = 256;    // two consumer warpgroups
+constexpr int MAX_STAGES = 8;
+constexpr int HEAD = 2048;        // barriers and the alignment slack
+constexpr int MAX_SMEM = 232448;  // 227 KB a block on sm_90
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// and the producer: one warp for K8's TMA, a warpgroup for K6's cp.async
+__host__ __device__ constexpr int threads(bool mat) {
+  return CONSUMERS + (mat ? 32 : 128);
 }
 
-// The A operand: K6 decodes the 2-bit pack (packed, nb); K8 copies the
-// materialized planes (T, NA: (m, ldn) int8; NA unread when NONA).
-struct ASource {
-  const uint8_t* packed;
-  int64_t nb;
-  const int8_t* T;
-  const int8_t* NA;
-  int64_t ldn;
-};
+// 64-row wgmma tiles a consumer warpgroup holds: two for an NA-free prod
+// (a 256-sample item reads 256 contiguous bytes of each plane row, twice
+// what a 128-sample item does; the accumulators of two planes would not
+// fit), else one
+__host__ __device__ constexpr int msub(bool prod, bool nona) {
+  return prod && nona ? 2 : 1;
+}
 
-// K8's A tile from the planes into As[plane][row * SROW + k], zero past m
-// and past ldn (the planes are zero on [n, ldn)).
-template <bool PROD, bool NONA>
-__device__ __forceinline__ void copy_plane_tile(uint8_t (*As)[BM * SROW],
-                                                const ASource& src, int64_t m,
-                                                int64_t r0, int64_t k0) {
-  const int8_t* __restrict__ pT = src.T;
-  const int8_t* __restrict__ pNA = src.NA;
-  const int64_t ldn = src.ldn;
-  if (!PROD) {
-    // variants [r0, r0+64) x samples [k0, k0+128), 16 bytes a load
-    for (int e = threadIdx.x; e < BM * (BK / 16); e += THREADS) {
-      const int r = e / (BK / 16), c16 = e % (BK / 16);
-      const int64_t j = r0 + r, s = k0 + 16 * c16;
-      uint4 t = make_uint4(0u, 0u, 0u, 0u), na = t;
-      if (j < m && s < ldn) {
-        t = *reinterpret_cast<const uint4*>(pT + j * ldn + s);
-        if (!NONA) na = *reinterpret_cast<const uint4*>(pNA + j * ldn + s);
-      }
-      *reinterpret_cast<uint4*>(&As[0][r * SROW + 16 * c16]) = t;
-      if (!NONA) *reinterpret_cast<uint4*>(&As[1][r * SROW + 16 * c16]) = na;
-    }
-  } else {
-    // samples [r0, r0+64) x variants [k0, k0+128): an item is samples
-    // 4sq..4sq+3 of variants 4vq..4vq+3, neighbouring threads on
-    // neighbouring sample quads of one variant
-    for (int e = threadIdx.x; e < (BM / 4) * (BK / 4); e += THREADS) {
-      const int sq = e % (BM / 4), vq = e / (BM / 4);
-      const int64_t s = r0 + 4 * sq;
-      uint32_t t[4], na[4];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int64_t j = k0 + 4 * vq + v;
-        const bool in = j < m && s < ldn;
-        t[v] = in ? *reinterpret_cast<const uint32_t*>(pT + j * ldn + s) : 0u;
-        na[v] = (!NONA && in)
-                    ? *reinterpret_cast<const uint32_t*>(pNA + j * ldn + s)
-                    : 0u;
-      }
-      uint32_t yt[4], yn[4];
-      geno_decode::transpose4(t[0], t[1], t[2], t[3], yt);
-      if (!NONA) geno_decode::transpose4(na[0], na[1], na[2], na[3], yn);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        *reinterpret_cast<uint32_t*>(&As[0][(4 * sq + q) * SROW + 4 * vq]) = yt[q];
-        if (!NONA)
-          *reinterpret_cast<uint32_t*>(&As[1][(4 * sq + q) * SROW + 4 * vq]) = yn[q];
-      }
-    }
+// K6: bytes a packed row gives a stage (32 = 128 samples in cprod, BM / 4
+// in prod) plus one 16-byte chunk for its misalignment
+__host__ __device__ constexpr int raw_row(bool prod, bool nona) {
+  return 16 * ((prod ? 32 * msub(prod, nona) : 32) / 16 + 1);
+}
+
+__host__ __device__ constexpr int stage_bytes(bool prod, bool nona, bool mat,
+                                              int bn) {
+  return ((prod && !nona) ? 2 : 1) * bn * BK +
+         (mat ? (nona ? 1 : 2) * msub(prod, nona) * TILE
+              : 128 * raw_row(prod, nona));
+}
+
+// K6 prod transposes into two staging tiles a plane; K8 prod in place
+__host__ __device__ constexpr int smem_bytes(bool prod, bool nona, bool mat,
+                                             int bn, int stages) {
+  return HEAD + stages * stage_bytes(prod, nona, mat, bn) +
+         (prod && !mat ? 2 * (nona ? 1 : 2) * msub(prod, nona) * TILE : 0);
+}
+
+// ---- Hopper primitives (PTX) ----------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that lasts
+// past ~2^34 cycles (several seconds) traps: a fault in the ring ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
   }
 }
 
+// 2-D TMA load of one box into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 16-byte cp.async (both addresses 16-byte aligned); src_size 0 fills the
+// chunk with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t src_size) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_size)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.asyncs have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier of one consumer warpgroup (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// barrier of both consumer warpgroups (id 3)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 3, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Matrix descriptor of a K-major tile with 128-byte rows and the 128-byte
+// swizzle, 1024-byte aligned: stride 1024 bytes between 8-row groups. A
+// 32-byte step in depth adds 2 to it.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_u32(tile) >> 4) & 0x3FFF) |
+         (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// byte offset of (row, col) in a 128-byte-row tile under the 128-byte
+// swizzle, as TMA writes it and wgmma reads it
+__device__ __forceinline__ int sw128(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+
+// ---- the GEMM --------------------------------------------------------------
+
+struct Params {
+  const uint8_t* packed;  // K6: (m, nb) pack
+  int64_t nb;
+  int64_t m, n, N4;
+  int32_t* raw;           // (planes, M, N4)
+  int64_t items;          // m_tiles * n_tiles * splits
+  int m_tiles, n_tiles;
+  int ktiles, kps;        // depth tiles, and a split's share of them
+  int stages;
+  int atomic;             // the depth is split: atomicAdd into zeroed raw
+};
+
 // PROD = false: cprod (M = variants, K = samples); true: prod (M = samples,
 // K = variants). NONA drops the NA plane. MAT: K8 (A from the materialized
-// planes), else K6 (A decoded from the pack). NT = 8-column tiles per block.
-template <bool PROD, bool NONA, bool MAT, int NT>
-__global__ void __launch_bounds__(THREADS)
-i8_gemm_kernel(ASource src, int64_t m, int64_t n,
-               const int8_t* __restrict__ dT,
-               const int8_t* __restrict__ dNA, int64_t ldd, int64_t N4,
-               int32_t* __restrict__ raw, int64_t ktiles_per_split) {
-  constexpr int BN = 8 * NT;
-  constexpr int PLANES = NONA ? 1 : 2;
-  // B tiles: cprod shares one digit tile between the planes
-  constexpr int BPLANES = (PROD && !NONA) ? 2 : 1;
-  __shared__ __align__(16) uint8_t As[PLANES][BM * SROW];
-  __shared__ __align__(16) uint8_t Bs[BPLANES][BN * SROW];
+// planes), else K6 (A decoded from the pack). BN: the column tile.
+template <bool PROD, bool NONA, bool MAT, int BN>
+__global__ void __launch_bounds__(threads(MAT), 1)
+i8_wgmma_kernel(const __grid_constant__ CUtensorMap mapT,
+                const __grid_constant__ CUtensorMap mapNA,
+                const __grid_constant__ CUtensorMap mapDT,
+                const __grid_constant__ CUtensorMap mapDNA, const Params p) {
+  constexpr int P = NONA ? 1 : 2;                  // planes
+  constexpr int BP = (PROD && !NONA) ? 2 : 1;      // digit tiles a stage
+  constexpr int MS = msub(PROD, NONA);             // 64-row tiles a warpgroup
+  constexpr int BM = 128 * MS;                     // rows of a work item
+  constexpr int WROWS = 64 * MS;                   // rows of a warpgroup
+  constexpr int B_BYTES = BN * BK;
+  constexpr int STAGE = stage_bytes(PROD, NONA, MAT, BN);
+  constexpr int RAW = raw_row(PROD, NONA);         // K6: a packed row's bytes
+  constexpr int CHUNKS = RAW / 16;
+  constexpr bool RS = !PROD && !MAT;               // K6 cprod: A in registers
+  constexpr int NACC = BN / 2;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int64_t M = PROD ? n : m;
-  const int64_t K = PROD ? m : n;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * BM;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.z) * BN;
-  const int64_t kt0 = static_cast<int64_t>(blockIdx.y) * ktiles_per_split;
-  int64_t kt1 = kt0 + ktiles_per_split;
-  const int64_t ktiles = cdiv(K, BK);
-  if (kt1 > ktiles) kt1 = ktiles;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty = full + MAX_STAGES;
+  uint8_t* tiles = base + 1024;
+  uint8_t* staging = tiles + p.stages * STAGE;     // K6 prod: 2 x P x MS tiles
 
-  int acc[PLANES][NT][4];
-#pragma unroll
-  for (int p = 0; p < PLANES; ++p)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[p][j][e] = 0;
+  const int S = p.stages;
+  const int64_t M = PROD ? p.n : p.m;
+  const int64_t per_split = static_cast<int64_t>(p.m_tiles) * p.n_tiles;
+  const uint32_t pk_lo =
+      static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p.packed)) & 15u;
 
-  for (int64_t kt = kt0; kt < kt1; ++kt) {
-    const int64_t k0 = kt * BK;
-    __syncthreads();
-    const uint8_t* __restrict__ packed = src.packed;
-    const int64_t nb = src.nb;
-    if (MAT) {
-      copy_plane_tile<PROD, NONA>(As, src, m, r0, k0);
-    } else if (!PROD) {
-      // A = planes of variants [r0, r0+64) x samples [k0, k0+128):
-      // 64 rows x 32 bytes, one byte an item, neighbours on neighbours
-      geno_decode::decode_variant_rows<BM, BK / 4, THREADS>(
-          packed, m, nb, r0, k0 / 4,
-          [&](int r, int cb, uint32_t t, uint32_t na) {
-            *reinterpret_cast<uint32_t*>(&As[0][r * SROW + 4 * cb]) = t;
-            if (!NONA) *reinterpret_cast<uint32_t*>(&As[PLANES - 1][r * SROW + 4 * cb]) = na;
-          });
-    } else {
-      // A = planes of samples [r0, r0+64) x variants [k0, k0+128)
-      geno_decode::decode_sample_rows<BK / 4, BM / 4, THREADS>(
-          packed, m, nb, k0, r0 / 4,
-          [&](int row, int vq, uint32_t t, uint32_t na) {
-            *reinterpret_cast<uint32_t*>(&As[0][row * SROW + 4 * vq]) = t;
-            if (!NONA) *reinterpret_cast<uint32_t*>(&As[PLANES - 1][row * SROW + 4 * vq]) = na;
-          });
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, MAT ? 1 : 1 + 128);  // K6: + cp.async arrivals
+      mbar_init(empty + s, CONSUMERS / 32);
     }
-    // digit tiles: rows [c0, c0+BN) x depth [k0, k0+128), 16 bytes a load
-    for (int e = tid; e < BN * (BK / 16); e += THREADS) {
-      const int r = e / (BK / 16), c16 = e % (BK / 16);
-      const int64_t row = c0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u), w = v;
-      if (row < N4) {
-        v = *reinterpret_cast<const uint4*>(dT + row * ldd + k0 + 16 * c16);
-        if (BPLANES == 2)
-          w = *reinterpret_cast<const uint4*>(dNA + row * ldd + k0 + 16 * c16);
-      }
-      *reinterpret_cast<uint4*>(&Bs[0][r * SROW + 16 * c16]) = v;
-      if (BPLANES == 2) *reinterpret_cast<uint4*>(&Bs[BPLANES - 1][r * SROW + 16 * c16]) = w;
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer ----
+    uint32_t it = 0;
+    const uintptr_t end16 =
+        (reinterpret_cast<uintptr_t>(p.packed + p.m * p.nb) + 15) &
+        ~static_cast<uintptr_t>(15);
+    for (int64_t item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const int64_t sp = item / per_split, rem = item % per_split;
+      const int nt = static_cast<int>(rem / p.m_tiles);
+      const int mt = static_cast<int>(rem % p.m_tiles);
+      const int r0 = mt * BM, c0 = nt * BN;
+      const int kt0 = static_cast<int>(sp) * p.kps;
+      const int kt1 = min(p.ktiles, kt0 + p.kps);
+      for (int kt = kt0; kt < kt1; ++kt, ++it) {
+        const int s = static_cast<int>(it % S);
+        mbar_wait(empty + s, ((it / S) & 1) ^ 1);
+        uint8_t* st = tiles + s * STAGE;
+        uint8_t* At = st + BP * B_BYTES;
+        const int k0 = kt * BK;
+        if (!MAT) {
+          // row j0 + r of the pack (r: this thread), the bytes of this
+          // stage's samples (cprod) or of the item's (prod): the aligned
+          // 16-byte chunks that cover them; chunks past the pack or of rows
+          // past m fill zeros
+          const int r = threadIdx.x - CONSUMERS;
+          const int64_t j = (PROD ? k0 : r0) + r, b0 = PROD ? r0 / 4 : k0 / 4;
+          const uintptr_t a =
+              j < p.m ? reinterpret_cast<uintptr_t>(p.packed + j * p.nb + b0) &
+                            ~static_cast<uintptr_t>(15)
+                      : end16;
 #pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      const int kc = ks * 32 + 4 * tg;
-      uint32_t a[PLANES][4];
+          for (int w = 0; w < CHUNKS; ++w) {
+            const bool in = a + 16 * w < end16;
+            cp_async16(At + r * RAW + 16 * w,
+                       in ? reinterpret_cast<const void*>(a + 16 * w)
+                          : static_cast<const void*>(p.packed),
+                       in ? 16u : 0u);
+          }
+          cp_async_arrive(full + s);
+        }
+        if (threadIdx.x == CONSUMERS) {
+          mbar_expect_tx(full + s, MAT ? STAGE : BP * B_BYTES);
+          tma_load(st, &mapDT, k0, c0, full + s);
+          if (BP == 2) tma_load(st + B_BYTES, &mapDNA, k0, c0, full + s);
+          if (MAT) {
+            // cprod: variants r0.. x samples k0..; prod: MS boxes of
+            // variants k0.. x samples r0 + 128 i..
 #pragma unroll
-      for (int p = 0; p < PLANES; ++p) {
-        const uint8_t* base = &As[p][(16 * warp + g) * SROW + kc];
-        a[p][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[p][1] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW);
-        a[p][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        a[p][3] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const uint8_t* bb = &Bs[0][(8 * j + g) * SROW + kc];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bb);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bb + 16);
-        mma_s8(acc[0][j], a[0], b0, b1);
-        if (!NONA) {
-          if (BPLANES == 2) {
-            const uint8_t* bn = &Bs[BPLANES - 1][(8 * j + g) * SROW + kc];
-            mma_s8(acc[PLANES - 1][j], a[PLANES - 1],
-                   *reinterpret_cast<const uint32_t*>(bn),
-                   *reinterpret_cast<const uint32_t*>(bn + 16));
-          } else {
-            mma_s8(acc[PLANES - 1][j], a[PLANES - 1], b0, b1);
+            for (int i = 0; i < MS; ++i) {
+              const int x = PROD ? r0 + 128 * i : k0, y = PROD ? k0 : r0;
+              tma_load(At + i * TILE, &mapT, x, y, full + s);
+              if (!NONA) tma_load(At + (MS + i) * TILE, &mapNA, x, y, full + s);
+            }
           }
         }
       }
     }
+    return;
   }
 
-  // C fragment: c0, c1 at row g, columns 2tg, 2tg+1; c2, c3 at row g + 8
-  const bool split = gridDim.y > 1;
+  // ---- consumer warpgroups ----
+  const int wg = warp >> 2, w = warp & 3;
+  const int g = lane >> 2, tg = lane & 3;
+  // prod's transpose items: variant rows 16u.. x sample quads sw + 16 i of
+  // the warpgroup's WROWS samples; the staging offsets of their samples'
+  // 16-byte chunks (rows of the MS contiguous 128-row tiles)
+  const int u = 2 * w + (lane >> 4), sw = lane & 15;
+  int soff[MS][4];
 #pragma unroll
-  for (int p = 0; p < PLANES; ++p) {
+  for (int i = 0; i < MS; ++i)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int x = 0; x < 4; ++x) {
+      const int row = WROWS * wg + 4 * (sw + 16 * i) + x;
+      soff[i][x] = (row >> 7) * TILE + sw128(row & 127, 16 * u);
+    }
+  int acc[P][MS][NACC];
+  uint32_t it = 0;
+  for (int64_t item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const int64_t sp = item / per_split, rem = item % per_split;
+    const int nt = static_cast<int>(rem / p.m_tiles);
+    const int mt = static_cast<int>(rem % p.m_tiles);
+    const int64_t r0 = static_cast<int64_t>(mt) * BM;
+    const int64_t c0 = static_cast<int64_t>(nt) * BN;
+    const int kt0 = static_cast<int>(sp) * p.kps;
+    const int kt1 = min(p.ktiles, kt0 + p.kps);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t row = r0 + 16 * warp + g + (e >= 2 ? 8 : 0);
-        const int64_t col = c0 + 8 * j + 2 * tg + (e & 1);
-        if (row < M && col < N4) {
-          int32_t* dst = raw + (p * M + row) * N4 + col;
-          if (split) atomicAdd(dst, acc[p][j][e]);
-          else *dst = acc[p][j][e];
+    for (int q = 0; q < P; ++q)
+#pragma unroll
+      for (int i = 0; i < MS; ++i)
+#pragma unroll
+        for (int e = 0; e < NACC; ++e) acc[q][i][e] = 0;
+    // K6 cprod: this thread's two variant rows, whether they exist, and
+    // their byte offsets in the copied chunks (before the stage's b0)
+    bool rowok[2];
+    uint32_t orow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t j = r0 + 64 * wg + 16 * w + g + 8 * h;
+      rowok[h] = j < p.m;
+      orow[h] = (pk_lo + static_cast<uint32_t>(j) *
+                             static_cast<uint32_t>(p.nb)) & 15u;
+    }
+    int pending = -1;  // the stage whose wgmma may still be in flight
+    for (int kt = kt0; kt < kt1; ++kt, ++it) {
+      const int s = static_cast<int>(it % S);
+      mbar_wait(full + s, (it / S) & 1);
+      uint8_t* st = tiles + s * STAGE;
+      const uint8_t* At = st + BP * B_BYTES;
+      const int64_t k0 = static_cast<int64_t>(kt) * BK;
+      const uint64_t dB0 = sw128_desc(st);
+      const uint64_t dB1 = sw128_desc(st + (BP - 1) * B_BYTES);
+      if (RS) {
+        // A fragments: byte 8ks + tg (a0, a1) and 8ks + 4 + tg (a2, a3) of
+        // rows g and g + 8, each 4 consecutive samples of one variant
+        const int64_t b0 = k0 / 4;
+        const int lim =
+            static_cast<int>(min(p.nb - b0, static_cast<int64_t>(32)));
+        uint32_t o[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          o[h] = (orow[h] + static_cast<uint32_t>(b0)) & 15u;
+        uint32_t a[P][4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int idx = 8 * ks + 4 * hh + tg;
+              const int rl = 64 * wg + 16 * w + g + 8 * h;
+              const uint32_t x = At[rl * RAW + o[h] + idx];
+              const uint32_t byte = (rowok[h] && idx < lim) ? x : 0u;
+              uint32_t t, na;
+              geno_decode::decode_byte(byte, t, na);
+              a[0][ks][2 * hh + h] = t;
+              if (!NONA) a[P - 1][ks][2 * hh + h] = na;
+            }
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int q = 0; q < P; ++q)
+            wgmma_s8::Op<BN>::rs(acc[q][0], a[q][ks], dB0 + 2 * ks);
+        wgmma_commit();
+      } else {
+        const uint8_t* A = At;
+        if (PROD) {
+          // turn this warpgroup's samples K-major: an item is variants
+          // 16u..16u+15 x 4 samples, 16 words in, 4 x 4 byte transposes,
+          // one 16-byte store a sample. K6 writes a staging tile set
+          // (double-buffered); K8 writes over the stage's own plane tiles
+          // once every thread that reads them has.
+          uint8_t* Ab = MAT ? st + BP * B_BYTES
+                            : staging + (it & 1) * P * MS * TILE;
+          uint32_t t[MS][16], na[MS][16];
+#pragma unroll
+          for (int i = 0; i < MS; ++i) {
+            const int smp = WROWS * wg + 4 * (sw + 16 * i);  // item sample
+            if (MAT) {
+              const uint8_t* box = At + (smp >> 7) * TILE;
+#pragma unroll
+              for (int v = 0; v < 16; ++v) {
+                const int off = sw128(16 * u + v, smp & 127);
+                t[i][v] = *reinterpret_cast<const uint32_t*>(box + off);
+                if (!NONA)
+                  na[i][v] =
+                      *reinterpret_cast<const uint32_t*>(box + MS * TILE + off);
+              }
+            } else {
+              // K6: byte smp / 4 of the item's samples in variant rows
+              // k0 + 16u + v, at its row's offset in the copied chunks
+              const int64_t j = k0 + 16 * u;
+              const int vmax =
+                  static_cast<int>(min(p.m - j, static_cast<int64_t>(16)));
+              const bool bok = r0 / 4 + smp / 4 < p.nb;
+              const uint32_t nb16 = static_cast<uint32_t>(p.nb) & 15u;
+              const uint32_t o0 = (pk_lo + static_cast<uint32_t>(j) * nb16 +
+                                   static_cast<uint32_t>(r0 / 4)) & 15u;
+              const uint8_t* row = At + 16 * u * RAW + smp / 4;
+#pragma unroll
+              for (int v = 0; v < 16; ++v) {
+                const uint32_t x = row[v * RAW +
+                                       ((o0 + static_cast<uint32_t>(v) * nb16) &
+                                        15u)];
+                const uint32_t byte = (bok && v < vmax) ? x : 0u;
+                geno_decode::decode_byte(byte, t[i][v], na[i][v]);
+              }
+            }
+          }
+          if (MAT) {
+            // the plane tiles are read by both warpgroups when MS = 1
+            if (MS == 1) consumers_sync();
+            else warpgroup_sync(1 + wg);
+          }
+#pragma unroll
+          for (int i = 0; i < MS; ++i)
+#pragma unroll
+            for (int q = 0; q < P; ++q) {
+              uint32_t y[4][4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const uint32_t* x = (q == 0 ? t[i] : na[i]) + 4 * k;
+                geno_decode::transpose4(x[0], x[1], x[2], x[3], y[k]);
+              }
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                *reinterpret_cast<uint4*>(Ab + q * MS * TILE + soff[i][x]) =
+                    make_uint4(y[0][x], y[1][x], y[2][x], y[3][x]);
+            }
+          fence_proxy_async();
+          warpgroup_sync(1 + wg);
+          A = Ab;
         }
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int q = 0; q < P; ++q)
+#pragma unroll
+            for (int i = 0; i < MS; ++i)
+              wgmma_s8::Op<BN>::ss(
+                  acc[q][i],
+                  sw128_desc(A + q * MS * TILE + (WROWS * wg + 64 * i) * 128) +
+                      2 * ks,
+                  (q == 0 ? dB0 : dB1) + 2 * ks);
+        wgmma_commit();
+      }
+      if (RS) {
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + s);
+      } else {
+        wgmma_wait<1>();
+        if (pending >= 0 && lane == 0) mbar_arrive(empty + pending);
+        pending = s;
       }
     }
+    if (!RS) {
+      wgmma_wait<0>();
+      if (pending >= 0 && lane == 0) mbar_arrive(empty + pending);
+    }
+    // accumulator d[4j + 2h + e]: row g + 8h, column 8j + 2tg + e of this
+    // warp's 16 rows of 64-row tile i
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+#pragma unroll
+      for (int i = 0; i < MS; ++i)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int64_t row = r0 + WROWS * wg + 64 * i + 16 * w + g + 8 * h;
+            const int64_t col = c0 + 8 * j + 2 * tg;
+            if (row < M && col < p.N4) {
+              int32_t* dst = p.raw + (q * M + row) * p.N4 + col;
+              const int v0 = acc[q][i][4 * j + 2 * h];
+              const int v1 = acc[q][i][4 * j + 2 * h + 1];
+              if (p.atomic) {
+                atomicAdd(dst, v0);
+                atomicAdd(dst + 1, v1);
+              } else {
+                *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+              }
+            }
+          }
   }
 }
 
@@ -311,60 +608,6 @@ __global__ void i8_epilogue_kernel(const int32_t* __restrict__ raw, int64_t R,
   }
 }
 
-template <bool PROD, bool NONA, bool MAT, int NT>
-void launch_gemm(const ASource& src, int64_t m, int64_t n, const int8_t* dT,
-                 const int8_t* dNA, int64_t ldd, int64_t N4, int32_t* raw,
-                 int splits, cudaStream_t st) {
-  const int64_t M = PROD ? n : m, K = PROD ? m : n;
-  const int64_t kps = cdiv(cdiv(K, BK), splits);
-  const dim3 grid(static_cast<unsigned>(cdiv(M, BM)), splits,
-                  static_cast<unsigned>(cdiv(N4, 8 * NT)));
-  i8_gemm_kernel<PROD, NONA, MAT, NT><<<grid, THREADS, 0, st>>>(
-      src, m, n, dT, dNA, ldd, N4, raw, kps);
-}
-
-// 8-column tiles per block: the fewest z-tiles of at most 12, each rounded
-// up to a compiled width
-int pick_nt(int64_t N4) {
-  const int64_t n8 = cdiv(N4, 8);
-  const int64_t per = cdiv(n8, cdiv(n8, 12));
-  if (per <= 1) return 1;
-  if (per <= 2) return 2;
-  if (per <= 4) return 4;
-  if (per <= 6) return 6;
-  if (per <= 8) return 8;
-  if (per <= 10) return 10;
-  return 12;
-}
-
-template <bool PROD, bool NONA, bool MAT>
-void dispatch_gemm(const ASource& a, int64_t m, int64_t n, const int8_t* dT,
-                   const int8_t* dNA, int64_t ldd, int64_t N4, int32_t* raw,
-                   int splits, cudaStream_t st) {
-  switch (pick_nt(N4)) {
-    case 1: launch_gemm<PROD, NONA, MAT, 1>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 2: launch_gemm<PROD, NONA, MAT, 2>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 4: launch_gemm<PROD, NONA, MAT, 4>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 6: launch_gemm<PROD, NONA, MAT, 6>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 8: launch_gemm<PROD, NONA, MAT, 8>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    case 10: launch_gemm<PROD, NONA, MAT, 10>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
-    default: launch_gemm<PROD, NONA, MAT, 12>(a, m, n, dT, dNA, ldd, N4, raw, splits, st); break;
-  }
-}
-
-template <bool MAT>
-void dispatch_all(int prod, int nona, const ASource& a, int64_t m, int64_t n,
-                  const int8_t* dT, const int8_t* dNA, int64_t ldd,
-                  int64_t N4, int32_t* raw, int splits, cudaStream_t st) {
-  if (prod) {
-    if (nona) dispatch_gemm<true, true, MAT>(a, m, n, dT, dNA, ldd, N4, raw, splits, st);
-    else dispatch_gemm<true, false, MAT>(a, m, n, dT, dNA, ldd, N4, raw, splits, st);
-  } else {
-    if (nona) dispatch_gemm<false, true, MAT>(a, m, n, dT, dNA, ldd, N4, raw, splits, st);
-    else dispatch_gemm<false, false, MAT>(a, m, n, dT, dNA, ldd, N4, raw, splits, st);
-  }
-}
-
 template <bool PROD, bool NONA>
 void launch_epilogue(const int32_t* raw, int64_t R, int64_t l,
                      const float* sc_t, const float* sc_na, const float* sumv,
@@ -376,59 +619,161 @@ void launch_epilogue(const int32_t* raw, int64_t R, int64_t l,
           raw, R, l, sc_t, sc_na, sumv, A, s, out);
 }
 
+// ---- tensor maps, from the CUDA driver without linking libcuda -------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
+#endif
+    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 2-D int8 map on rows x inner bytes (row stride `stride`, a multiple of
+// 16), boxes of box_rows x 128 bytes under the 128-byte swizzle; reads past
+// the edges fill zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int64_t inner, int64_t rows,
+              int64_t stride, int box_rows) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {128u, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Launch {
+  Params p;
+  CUtensorMap mT, mNA, mDT, mDNA;
+  int grid;
+};
+
+template <bool PROD, bool NONA, bool MAT, int BN>
+int launch_gemm(const Launch& L, cudaStream_t st) {
+  auto kern = i8_wgmma_kernel<PROD, NONA, MAT, BN>;
+  static bool opted_in = false;  // > 48 KB of shared memory, once
+  if (!opted_in) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    opted_in = true;
+  }
+  const int smem = smem_bytes(PROD, NONA, MAT, BN, L.p.stages);
+  kern<<<L.grid, threads(MAT), smem, st>>>(L.mT, L.mNA, L.mDT, L.mDNA, L.p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PROD, bool NONA, bool MAT>
+int dispatch_width(int bn, const Launch& L, cudaStream_t st) {
+  switch (bn) {
+    case 16: return launch_gemm<PROD, NONA, MAT, 16>(L, st);
+    case 32: return launch_gemm<PROD, NONA, MAT, 32>(L, st);
+    case 48: return launch_gemm<PROD, NONA, MAT, 48>(L, st);
+    case 64: return launch_gemm<PROD, NONA, MAT, 64>(L, st);
+    case 80: return launch_gemm<PROD, NONA, MAT, 80>(L, st);
+    case 96: return launch_gemm<PROD, NONA, MAT, 96>(L, st);
+    case 128: return launch_gemm<PROD, NONA, MAT, 128>(L, st);
+    default: return -1;
+  }
+}
+
+template <bool MAT>
+int dispatch(int prod, int nona, int bn, const Launch& L, cudaStream_t st) {
+  if (prod)
+    return nona ? dispatch_width<true, true, MAT>(bn, L, st)
+                : dispatch_width<true, false, MAT>(bn, L, st);
+  return nona ? dispatch_width<false, true, MAT>(bn, L, st)
+              : dispatch_width<false, false, MAT>(bn, L, st);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Depth splits (gridDim.y) for about 48 blocks per SM, within the number
-// of depth tiles; > 1 means the raw buffer must be zeroed before the
-// launch. Many short blocks, not one wave of long ones: at 50,000 x
-// 100,000, l = 20 on an H100, splitting the depth 4-16 ways cut three of
-// the four instantiations by 7-20% against no split, the tail of the last
-// wave being the loss. cprod with NA gained nothing from a split and lost
-// 2-4%, so it runs unsplit.
-int geno_i8_plan(int prod, int nona, int64_t m, int64_t n, int64_t N4,
-                 int sms) {
-  if (!prod && !nona) return 1;
+// raw (planes, M, N4) int32 = planes x digits, on the plan of
+// ops/geno_kernels.py::i8_plan: column tile bn (a compiled width) x
+// n_tiles >= N4, `stages` ring stages, `grid` persistent CTAs, the depth in
+// `splits` runs of kps 128-deep tiles (splits > 1: raw zeroed, atomicAdd).
+// K6 (mat = 0) reads the pack (m, nb); K8 (mat = 1) the planes T, NA (m,
+// ldn) int8, 16-byte aligned, ldn a multiple of 16 (NA unread when nona).
+// dT: the T plane's digits (4l, ldd); dNA: the NA plane's (prod with NA;
+// cprod reuses dT); ldd a multiple of 128, both 16-byte aligned.
+int geno_i8_gemm(int prod, int nona, int mat, const void* packed, int64_t nb,
+                 const void* T, const void* NA, int64_t ldn, int64_t m,
+                 int64_t n, const void* dT, const void* dNA, int64_t ldd,
+                 int64_t N4, void* raw, int bn, int n_tiles, int stages,
+                 int grid, int kps, int splits, void* stream) {
   const int64_t M = prod ? n : m, K = prod ? m : n;
-  const int nt = pick_nt(N4);
-  const int64_t blocks = cdiv(M, BM) * cdiv(N4, 8 * nt);
-  int64_t s = cdiv(48 * static_cast<int64_t>(sms), blocks);
   const int64_t ktiles = cdiv(K, BK);
-  if (s > ktiles) s = ktiles;
-  if (s < 1) s = 1;
-  if (s > 65535) s = 65535;
-  return static_cast<int>(s);
-}
-
-// raw (planes, M, N4) int32 = planes x digits. dT: the T plane's digits
-// (4l, ldd); dNA: the NA plane's (prod with NA only; cprod reuses dT).
-int geno_i8_gemm(int prod, int nona, const void* packed, int64_t m,
-                 int64_t nb, int64_t n, const void* dT, const void* dNA,
-                 int64_t ldd, int64_t N4, void* raw, int splits,
-                 void* stream) {
-  const ASource a{static_cast<const uint8_t*>(packed), nb, nullptr, nullptr,
-                  0};
-  dispatch_all<false>(prod, nona, a, m, n, static_cast<const int8_t*>(dT),
-                      static_cast<const int8_t*>(dNA), ldd, N4,
-                      static_cast<int32_t*>(raw), splits,
-                      static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K8: raw as geno_i8_gemm, from the materialized planes T and NA (m, ldn)
-// int8 (NA unread when nona); ldn a multiple of 16, both 16-byte aligned.
-int geno_i8m_gemm(int prod, int nona, const void* T, const void* NA,
-                  int64_t m, int64_t n, int64_t ldn, const void* dT,
-                  const void* dNA, int64_t ldd, int64_t N4, void* raw,
-                  int splits, void* stream) {
-  const ASource a{nullptr, 0, static_cast<const int8_t*>(T),
-                  static_cast<const int8_t*>(NA), ldn};
-  dispatch_all<true>(prod, nona, a, m, n, static_cast<const int8_t*>(dT),
-                     static_cast<const int8_t*>(dNA), ldd, N4,
-                     static_cast<int32_t*>(raw), splits,
-                     static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  const int64_t m_tiles = cdiv(M, 128 * msub(prod, nona));
+  const bool pn = prod && !nona;
+  if (m < 1 || n < 1 || N4 < 1 || bn > 128 || bn % 16 != 0 ||
+      static_cast<int64_t>(n_tiles) * bn < N4 ||
+      static_cast<int64_t>(n_tiles - 1) * bn >= N4 || stages < 2 ||
+      stages > MAX_STAGES || kps < 1 || splits < 1 ||
+      cdiv(ktiles, kps) != splits || grid < 1 || ktiles > (1 << 30) ||
+      m_tiles > (1 << 30) || ldd % BK != 0 || ldd < K ||
+      smem_bytes(prod, nona, mat, bn, stages) > MAX_SMEM)
+    return -1;
+  if (mat && (ldn % 16 != 0 || ldn < n ||
+              reinterpret_cast<uintptr_t>(T) % 16 != 0 ||
+              (!nona && reinterpret_cast<uintptr_t>(NA) % 16 != 0)))
+    return -1;
+  if (!mat && nb != cdiv(n, 4)) return -1;
+  if (reinterpret_cast<uintptr_t>(dT) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dNA) % 16 != 0)
+    return -1;
+  Launch L{};
+  L.p.packed = static_cast<const uint8_t*>(packed);
+  L.p.nb = nb;
+  L.p.m = m;
+  L.p.n = n;
+  L.p.N4 = N4;
+  L.p.raw = static_cast<int32_t*>(raw);
+  L.p.m_tiles = static_cast<int>(m_tiles);
+  L.p.n_tiles = n_tiles;
+  L.p.items = m_tiles * n_tiles * splits;
+  L.p.ktiles = static_cast<int>(ktiles);
+  L.p.kps = kps;
+  L.p.stages = stages;
+  L.p.atomic = splits > 1;
+  L.grid = static_cast<int>(L.p.items < grid ? L.p.items : grid);
+  if (!make_map(&L.mDT, dT, ldd, N4, ldd, bn) ||
+      !make_map(&L.mDNA, pn ? dNA : dT, ldd, N4, ldd, bn))
+    return -2;
+  if (mat) {
+    if (!make_map(&L.mT, T, ldn, m, ldn, 128) ||
+        !make_map(&L.mNA, nona ? T : NA, ldn, m, ldn, 128))
+      return -2;
+  } else {
+    L.mT = L.mDT;
+    L.mNA = L.mDT;
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  return mat ? dispatch<true>(prod, nona, bn, L, st)
+             : dispatch<false>(prod, nona, bn, L, st);
 }
 
 // out (R, l) f32 from raw (planes, R, 4l): digit recombination and the

@@ -76,8 +76,15 @@ def build(source, verbose: bool = False, extra=()) -> Path:
                            f"({proc.returncode}):\n{proc.stderr}")
     if verbose:
         print(proc.stderr.strip(), flush=True)
+    report(lib_path).write_text(proc.stderr)
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def report(lib_path) -> Path:
+    """Where `build` keeps the compiler's report of a library (for nvcc,
+    ptxas' registers, shared memory and spills per kernel)."""
+    return Path(lib_path).with_suffix(".log")
 
 
 def load(source, bind, extra=()) -> ctypes.CDLL:

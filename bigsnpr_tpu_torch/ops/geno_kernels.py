@@ -104,14 +104,10 @@ def _load():
 
 def _bind_i8(lib):
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.geno_i8_plan.argtypes = [i32, i32, i64, i64, i64, i32]
-    lib.geno_i8_plan.restype = i32
-    lib.geno_i8_gemm.argtypes = [i32, i32, ptr, i64, i64, i64, ptr, ptr, i64,
-                                 i64, ptr, i32, ptr]
+    lib.geno_i8_gemm.argtypes = [i32, i32, i32, ptr, i64, ptr, ptr, i64, i64,
+                                 i64, ptr, ptr, i64, i64, ptr, i32, i32, i32,
+                                 i32, i32, i32, ptr]
     lib.geno_i8_gemm.restype = i32
-    lib.geno_i8m_gemm.argtypes = [i32, i32, ptr, ptr, i64, i64, i64, ptr, ptr,
-                                  i64, i64, ptr, i32, ptr]
-    lib.geno_i8m_gemm.restype = i32
     lib.geno_i8_epilogue.argtypes = [i32, i32, ptr, i64, i64, ptr, ptr, ptr,
                                      ptr, ptr, ptr, ptr]
     lib.geno_i8_epilogue.restype = i32
@@ -179,6 +175,20 @@ def prod_plain(packed, n, U, center, inv, block=None):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+_SM_COUNT: dict = {}
+
+
+def _sm_count(dev) -> int:
+    """The device's SM count, queried once a device."""
+    key = torch.device(dev).index
+    if key is None:
+        key = torch.cuda.current_device()
+    if key not in _SM_COUNT:
+        _SM_COUNT[key] = torch.cuda.get_device_properties(
+            key).multi_processor_count
+    return _SM_COUNT[key]
+
+
 def _check_operands(src, W, w_rows, center, inv, more=()):
     """The float operand (w_rows, l), center and inv (m,) of a product on
     `src` (m rows): types, shapes, one device, contiguous."""
@@ -216,7 +226,7 @@ def _launch(kind, packed, n, W, center, inv, rows_out):
     out = torch.empty((rows_out, l), dtype=torch.float32, device=dev)
     if min(m, n, l) == 0:
         return out.zero_()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _sm_count(dev)
     splits = lib.geno_plan(0 if kind == "cprod" else 1, m, nb, l, sms)
     part = (torch.empty((splits, rows_out, l), dtype=torch.float32,
                         device=dev) if splits > 1 else out)
@@ -355,7 +365,7 @@ def _launch_split(prod, packed, n, ops, R, l, sumv, A, s, splits=None):
         padded.append(op)
     N2 = 2 * l
     if splits is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sms = _sm_count(dev)
         splits = lib.geno_split_plan(int(prod), m, n, N2, sms)
     part = torch.empty((splits, 2, R, N2), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -509,44 +519,101 @@ def _check_i8(packed, n, W, w_rows, center, inv, depth):
             f"int32 sums (at most 254 per term) could overflow")
 
 
+# The launch plan of the K6 / K8 GEMM (`csrc/geno_i8.cu` checks it):
+# the compiled column tiles (N widths of .s8 wgmma)
+I8_WIDTHS = (16, 32, 48, 64, 80, 96, 128)
+I8_MAX_STAGES = 8       # ring stages in flight (the kernel's most)
+I8_SMEM = 232_448       # shared memory a block may have on sm_90
+_I8_TILE = 128 * 128    # bytes of a 128 x 128 int8 tile
+_I8_HEAD = 2048         # barriers and alignment slack
+_I8_MAX_SPLITS = 16
+
+
+def i8_plan(prod, nona, mat, m, n, l, sms, splits=None):
+    """The launch plan of the int8 GEMM for rows M (cprod m, prod n), depth
+    K (cprod n, prod m) and N = 4l digit columns: column tiles of `bn`
+    (the least compiled width that holds ceil(N / n_tiles), n_tiles =
+    ceil(N / 128)); M tiles of `bm` rows (two consumer warpgroups of one
+    64-row wgmma tile each, or of two for an NA-free prod, whose items then
+    read 256 contiguous bytes of each plane row); as many ring stages as
+    shared memory holds (at most I8_MAX_STAGES); a persistent grid of at
+    most one CTA an SM; and the depth in `splits` runs of `kps` 128-deep
+    tiles. Unless `splits` is given, the depth is split only when the
+    tiles fill the last wave of CTAs to less than 90%; a split run adds
+    into a zeroed raw buffer (`zero_raw`)."""
+    N4 = NPLANES * l
+    n_tiles = -(-N4 // 128)
+    per = -(-N4 // n_tiles)
+    bn = min(w for w in I8_WIDTHS if w >= per)
+    msub = 2 if prod and nona else 1
+    bm = 128 * msub
+    M, K = (n, m) if prod else (m, n)
+    m_tiles = -(-M // bm)
+    ktiles = -(-K // _I8_BK)
+    tiles = m_tiles * n_tiles
+    P = 1 if nona else 2
+    # K6 stages a packed row's bytes (32 a stage in cprod, bm / 4 in prod)
+    # as aligned 16-byte chunks, one more for the row's misalignment
+    raw = 16 * ((bm // 4 if prod else 32) // 16 + 1)
+    stage = (2 if prod and not nona else 1) * bn * _I8_BK + (
+        P * msub * _I8_TILE if mat else 128 * raw)
+    # K6 prod transposes into two staging tile sets, K8 prod in place
+    fixed = _I8_HEAD + (2 * P * msub * _I8_TILE if prod and not mat else 0)
+    stages = min(I8_MAX_STAGES, (I8_SMEM - fixed) // stage)
+    if splits is None:
+        cap = min(ktiles, _I8_MAX_SPLITS)
+        splits = 1
+        while splits < cap:
+            items = tiles * splits
+            if items >= 0.9 * -(-items // sms) * sms:
+                break
+            splits += 1
+    kps = -(-ktiles // max(1, min(splits, ktiles)))
+    splits = -(-ktiles // kps)
+    return {"bn": bn, "n_tiles": n_tiles, "n_pad": bn * n_tiles,
+            "bm": bm, "m_tiles": m_tiles, "stages": stages,
+            "grid": min(tiles * splits, sms), "splits": splits, "kps": kps,
+            "ktiles": ktiles, "zero_raw": splits > 1,
+            "smem": fixed + stages * stage}
+
+
 def _launch_i8(prod, nona, src, n, digits, R, l, sc_t, sc_na, sumv, A, s,
                splits=None):
     """Run the K6 GEMM (`src` the packed bytes) or the K8 GEMM (`src` the
     planes (T, NA)) into int32 raw sums, then the epilogue kernel; returns
     (out (R, l) f32, raw (planes, R, 4l) int32). `splits` (depth splits of
-    the GEMM) defaults to the library's plan."""
+    the GEMM) defaults to `i8_plan`'s."""
     lib = _load_i8()
     mat = isinstance(src, tuple)
     m = src[0].shape[0] if mat else src.shape[0]
     dev = src[0].device if mat else src.device
     depth = m if prod else n
     ldd = -(-depth // _I8_BK) * _I8_BK
-    padded = []
-    for d in digits:
-        dp = torch.zeros((d.shape[0], ldd), dtype=torch.int8, device=dev)
-        dp[:, :depth] = d
-        padded.append(dp)
+    # the digit arrays, zero-padded to ldd, in one allocation
+    dig = torch.zeros((len(digits), digits[0].shape[0], ldd),
+                      dtype=torch.int8, device=dev)
+    for i, d in enumerate(digits):
+        dig[i, :, :depth] = d
     N4 = NPLANES * l
     P = 1 if nona else 2
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if splits is None:
-        splits = lib.geno_i8_plan(int(prod), int(nona), m, n, N4, sms)
-    alloc = torch.zeros if splits > 1 else torch.empty
+    plan = i8_plan(prod, nona, mat, m, n, l, _sm_count(dev), splits)
+    alloc = torch.zeros if plan["zero_raw"] else torch.empty
     raw = alloc((P, R, N4), dtype=torch.int32, device=dev)
     out = torch.empty((R, l), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if mat:
         T, NA = src
-        rc = lib.geno_i8m_gemm(int(prod), int(nona), T.data_ptr(),
-                               (T if NA is None else NA).data_ptr(), m, n,
-                               T.shape[1], padded[0].data_ptr(),
-                               padded[-1].data_ptr(), ldd, N4,
-                               raw.data_ptr(), splits, stream)
+        planes = (T.data_ptr(), (T if NA is None else NA).data_ptr(),
+                  T.shape[1])
+        packed, nb = 0, 0
     else:
-        rc = lib.geno_i8_gemm(int(prod), int(nona), src.data_ptr(), m,
-                              src.shape[1], n, padded[0].data_ptr(),
-                              padded[-1].data_ptr(), ldd, N4, raw.data_ptr(),
-                              splits, stream)
+        planes = (0, 0, 0)
+        packed, nb = src.data_ptr(), src.shape[1]
+    rc = lib.geno_i8_gemm(int(prod), int(nona), int(mat), packed, nb,
+                          *planes, m, n, dig[0].data_ptr(),
+                          dig[-1].data_ptr(), ldd, N4, raw.data_ptr(),
+                          plan["bn"], plan["n_tiles"], plan["stages"],
+                          plan["grid"], plan["kps"], plan["splits"], stream)
     if rc == 0:
         rc = lib.geno_i8_epilogue(
             int(prod), int(nona), raw.data_ptr(), R, l, sc_t.data_ptr(),
@@ -556,7 +623,10 @@ def _launch_i8(prod, nona, src, n, digits, R, l, sc_t, sc_na, sumv, A, s,
     kind = (("prod_i8" if prod else "cprod_i8") + ("m" if mat else "")
             + ("_nona" if nona else ""))
     if rc != 0:
-        raise RuntimeError(f"geno {kind} launch failed: CUDA error {rc}")
+        why = {-1: "the library refused the plan",
+               -2: "the CUDA driver would not encode a TMA tensor map"}.get(
+                   rc, f"CUDA error {rc}")
+        raise RuntimeError(f"geno {kind} launch failed: {why} ({plan})")
     launches[kind] += 1
     return out, raw
 

@@ -21,6 +21,9 @@ def snp_ld_scores(pack, ind_row=None, ind_col=None, size: float = 500,
                   infos_pos=None, block: int = 512,
                   device=None) -> np.ndarray:
     """Reference snp_ld_scores / bed_ld_scores (R/ld-scores.R:41-72)."""
+    if hasattr(pack, "code256"):
+        raise NotImplementedError(
+            "snp_ld_scores on a DosagePack: ROADMAP slice 6c")
     dev = config.resolve_device(device)
     sub = pack
     if ind_col is not None or ind_row is not None:

@@ -91,6 +91,9 @@ def snp_cprodVec(pack, v, center=None, scale=None, block=None, device=None):
     R/bed-mult-vec.R:50-75 / src/bed-prod-vec.cpp:59-97). Returns numpy
     float32 (m,) or (m, l). `block` is accepted for the JAX package's
     signature; the kernels tile for themselves."""
+    if hasattr(pack, "code256"):
+        raise NotImplementedError(
+            "snp_cprodVec on a DosagePack: ROADMAP slice 6c")
     packed, V, squeeze, c, inv = _prep(pack, v, pack.n, "cprodVec (n_samples)",
                                        center, scale, device)
     out = geno_kernels.cprod(packed, pack.n, V, c, inv).cpu().numpy()
@@ -102,6 +105,9 @@ def snp_prodVec(pack, u, center=None, scale=None, block=None, device=None):
     R/bed-mult-vec.R:20-49 / src/bed-prod-vec.cpp:15-51). Returns numpy
     float32 (n,) or (n, l). `block` is accepted for the JAX package's
     signature; the kernels tile for themselves."""
+    if hasattr(pack, "code256"):
+        raise NotImplementedError(
+            "snp_prodVec on a DosagePack: ROADMAP slice 6c")
     packed, U, squeeze, c, inv = _prep(pack, u, pack.m, "prodVec (m_variants)",
                                        center, scale, device)
     out = geno_kernels.prod(packed, pack.n, U, c, inv).cpu().numpy()

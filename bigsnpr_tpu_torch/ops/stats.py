@@ -23,6 +23,9 @@ def snp_counts(pack, ind_row=None, block=None, device=None) -> np.ndarray:
     """(4, m) int32 counts of dosage 0/1/2/NA per variant.
 
     Reference: bed_counts / bed_col_counts_cpp (src/bed-fun.cpp:51-98)."""
+    if hasattr(pack, "code256"):
+        raise NotImplementedError(
+            "snp_counts on a DosagePack: ROADMAP slice 6c")
     dev = config.resolve_device(device)
     n, m = pack.n, pack.m
     block = block or 4 * pick_block(n)   # uint8 codes: 4x the f32 block
@@ -50,6 +53,9 @@ def snp_colstats(pack, ind_row=None, dtype=np.float64, device=None):
     Reference: snp_colstats (src/colstats.cpp:8-35, no-NA assumption) and
     bed_colstats (src/bed-fun.cpp:9-46, NA-aware). Always NA-aware; on
     complete data the two coincide."""
+    if hasattr(pack, "code256"):
+        raise NotImplementedError(
+            "snp_colstats on a DosagePack: ROADMAP slice 6c")
     counts = snp_counts(pack, ind_row=ind_row, device=device).astype(dtype)
     c0, c1, c2, cna = counts
     nona = c0 + c1 + c2
@@ -70,6 +76,9 @@ def snp_MAF(pack, ind_row=None, nploidy: int = 2, device=None) -> np.ndarray:
 def bed_MAF(pack, ind_row=None, device=None) -> dict:
     """Reference bed_MAF (R/binom-scaling.R:203-222): {ac, mac, af, maf, N}
     as a dict of numpy columns."""
+    if hasattr(pack, "code256"):
+        raise NotImplementedError(
+            "bed_MAF on a DosagePack: ROADMAP slice 6c")
     counts = snp_counts(pack, ind_row=ind_row, device=device)
     ac = counts[1] + 2 * counts[2]
     nb_nona = counts[:3].sum(0)

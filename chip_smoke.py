@@ -1278,6 +1278,47 @@ def phase_slice3(bp, gk, torch, dev, args):
     return pack, svd, train, path
 
 
+def i8_ptxas_summary(lib_path):
+    """One line an instantiation of the K6 / K8 GEMM from ptxas' report
+    (`-Xptxas -v`, kept beside the library): registers, static shared
+    memory, stack and spills. The ring's shared memory is dynamic: the
+    plan's (`i8_plan`) is printed where the kernel is timed."""
+    import re
+    from bigsnpr_tpu_torch.ops import cuda_build
+    text = cuda_build.report(lib_path).read_text()
+    pat = r"i8_wgmma_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d+)E"
+
+    def kind(t):
+        return ((("K8 " if t[3] == "1" else "K6 ")
+                 + ("prod" if t[1] == "1" else "cprod")
+                 + (" nona" if t[2] == "1" else "")).ljust(15)
+                + f" BN {t[4]:>3s}")
+
+    lines = []
+    for part in re.split(r"Compiling entry function '", text)[1:]:
+        t = re.search(pat, part.split("'", 1)[0])
+        if t is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        smem = re.search(r"(\d+) bytes smem", part)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", part)
+        lines.append(f"    {kind(t)}: "
+                     f"{regs[1] if regs else '?'} registers, "
+                     f"{smem[1] if smem else 0} B static smem, stack / spill "
+                     f"stores / loads "
+                     f"{'/'.join(spill.groups()) if spill else '?'} B")
+    log(f"  ptxas, i8_wgmma_kernel<PROD, NONA, MAT, BN>: {len(lines)} "
+        f"instantiations")
+    for line in lines:
+        log(line)
+    for m in re.finditer(r"Performance Loss: (wgmma[^']*?) (?:in|for) the "
+                         r"function '([^']*)'", text):
+        t = re.search(pat, m[2])
+        if t is not None:
+            log(f"    {kind(t)}: {m[1]}")
+
+
 def bound_i8(P, W_rows, l, rows_out, planes, nm):
     """Least time of a K6 product: bytes read once and written once over
     3.35 TB/s, or 2 (4l) n m int8 operations a plane over 1,979 TOP/s."""
@@ -1304,6 +1345,42 @@ def int_mm_yardstick(torch, T8, kind, digits):
     A = [F.pad(t.t(), (0, pad)).contiguous() for t in T8]
     digs = [F.pad(d, (0, pad)) for d in digits]
     return lambda: [torch._int_mm(a, d.t()) for a, d in zip(A, digs)]
+
+
+def i8_launch_only(gk, prod, nona, src, n, W, c, inv):
+    """One GEMM + epilogue launch (`_launch_i8`) on operands prepared once
+    (digits, scales, sums): what the torch._int_mm yardstick also leaves
+    out. Returns the function and the plan it runs on."""
+    mat = isinstance(src, tuple)
+    m = src[0].shape[0] if mat else src.shape[0]
+    l = W.shape[1]
+    plan = gk.i8_plan(prod, nona, mat, m, n, l,
+                      gk._sm_count(W.device) if W.is_cuda else 132)
+    if not W.is_cuda:     # CPU rehearsal: the wrapper runs its twin
+        kern = {(False, False): gk.cprod_i8, (True, False): gk.prod_i8,
+                (False, True): gk.cprod_i8m, (True, True): gk.prod_i8m}
+        extra = {} if mat else {"nona": nona}
+        return (lambda: kern[prod, mat](src, n, W, c, inv, **extra)), plan
+    if prod:
+        zb8, zbs, za8, zas, zsum = gk._prod_i8_operands(W, c, inv, nona)
+        digits = [zb8] if nona else [zb8, za8]
+
+        def run():
+            return gk._launch_i8(True, nona, src, n, digits, n, l, zbs,
+                                 zbs if nona else zas, zsum, None, None)
+    else:
+        q8, qscale, qsum, A = gk._cprod_i8_operands(W, c, inv)
+
+        def run():
+            return gk._launch_i8(False, nona, src, n, [q8], m, l, qscale,
+                                 qscale, qsum, A, inv)
+    return run, plan
+
+
+def plan_text(plan):
+    return (f"plan: BN {plan['bn']} x {plan['n_tiles']}, {plan['stages']} "
+            f"stages, {plan['smem']} B smem, grid {plan['grid']}, "
+            f"splits {plan['splits']}")
 
 
 def bound_i8m(planes, W_rows, l, rows_out, n, m):
@@ -1372,7 +1449,11 @@ def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
             fail(f"full-size {key} ({what}) disagrees with its twin")
         bit = torch.equal(got, ref)
         del got, ref, raw, raw_ref
-        ms = timer(lambda: kern(pk_, n, W, c, inv, nona=nona), reps=reps)
+        run, plan = i8_launch_only(gk, not cprod, nona, pk_, n, W, c, inv)
+        ms = timer(run, reps=reps)
+        wrapper_ms = timer(lambda: kern(pk_, n, W, c, inv, nona=nona),
+                           reps=reps)
+        del run
         plain_ms = timer(lambda: plain(pk_, n, W, c, inv, nona=nona), reps=1,
                          warmup=0)
         if cprod:
@@ -1387,9 +1468,12 @@ def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
         n_planes = 1 if nona else 2
         bound, by, nbytes, ops = bound_i8(pk_, n if cprod else m, l,
                                           m if cprod else n, n_planes, n * m)
-        log(f"  {key:13s} l={l:2d}: kernel {ms:.3f} ms, twin {plain_ms:.1f} "
-            f"ms, torch._int_mm on pre-decoded planes {library_ms:.3f} ms "
-            f"(decode not timed), bound {bound:.3f} ms ({by}: 2 x {4 * l} x "
+        log(f"  {key:13s} l={l:2d}: kernel {ms:.3f} ms (GEMM + epilogue on "
+            f"prepared operands; the whole wrapper {wrapper_ms:.3f} ms; "
+            f"{ops / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e9:.3f} TB/s), twin "
+            f"{plain_ms:.1f} ms, torch._int_mm on pre-decoded planes "
+            f"{library_ms:.3f} ms (decode not timed), {plan_text(plan)}; "
+            f"bound {bound:.3f} ms ({by}: 2 x {4 * l} x "
             f"{n} x {m} x {n_planes} plane(s) = {ops / 1e12:.3f} TOP over "
             f"1,979 TOP/s = {ops / PEAK_INT8_OP_PER_S * 1e3:.3f} ms; "
             f"{nbytes / 1e9:.3f} GB over 3.35 TB/s = "
@@ -1486,7 +1570,11 @@ def k8_timed(gk, torch, dev, P, nona_P, n, planes, build_s, args, reps):
                 if not ok:
                     fail(f"full-size {key} l={l} disagrees with its twin or "
                          f"with K6")
-                ms = timer(lambda: kern(pl, n, W, c, inv), reps=reps)
+                run, plan = i8_launch_only(gk, not cprod, nona, pl, n, W, c,
+                                           inv)
+                ms = timer(run, reps=reps)
+                wrapper_ms = timer(lambda: kern(pl, n, W, c, inv), reps=reps)
+                del run
                 plain_ms = timer(lambda: plain(pl, n, W, c, inv), reps=1,
                                  warmup=0)
                 if cprod:
@@ -1500,9 +1588,12 @@ def k8_timed(gk, torch, dev, P, nona_P, n, planes, build_s, args, reps):
                 del lib
                 bound, by, nbytes, ops = bound_i8m(
                     pl, n if cprod else m, l, m if cprod else n, n, m)
-                log(f"  {key:14s} l={l:2d}: kernel {ms:.3f} ms, twin "
-                    f"{plain_ms:.1f} ms, torch._int_mm on the same planes "
-                    f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by}: "
+                log(f"  {key:14s} l={l:2d}: kernel {ms:.3f} ms (GEMM + "
+                    f"epilogue on prepared operands; the whole wrapper "
+                    f"{wrapper_ms:.3f} ms; {nbytes / ms / 1e9:.3f} TB/s, "
+                    f"{ops / ms / 1e9:.1f} TOP/s), twin {plain_ms:.1f} ms, "
+                    f"torch._int_mm on the same planes {library_ms:.3f} ms, "
+                    f"{plan_text(plan)}; bound {bound:.3f} ms ({by}: "
                     f"{nbytes / 1e9:.3f} GB over 3.35 TB/s = "
                     f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms; "
                     f"{ops / 1e12:.3f} TOP over 1,979 TOP/s = "
@@ -2580,6 +2671,7 @@ def main(argv=None):
                                   gsk.build)))
         log(f"  built {', '.join(os.path.relpath(p, here) for p in libs)} "
             f"in {time.perf_counter() - t0:.1f} s")
+        i8_ptxas_summary(libs[1])
 
     rng = np.random.default_rng(args.seed)
     timer = Timer(torch, dev)

@@ -7,8 +7,8 @@ depth split on one GPU.
 On random packed bytes (n samples x m variants) and random operands, for
 each l and each of the four instantiations (cprod_i8, prod_i8 and their
 _nona twins), the wrapper is timed with CUDA events over 5 launches after
-a warm-up at depth splits 1, 2, 4, 8, 16 and at the split the library
-plans; the raw int32 sums must be equal at every split. Prints the card's
+a warm-up at depth splits 1, 2, 4, 8, 16 and at the split `i8_plan`
+chooses; the raw int32 sums must be equal at every split. Prints the card's
 name and power limit first. Needs a CUDA device.
 """
 
@@ -48,7 +48,6 @@ def main(argv=None):
     c = 2 * torch.rand(m, device="cuda", generator=gen)
     inv = torch.rand(m, device="cuda", generator=gen) + 0.5
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = gk._load_i8().geno_i8_plan
 
     def ms(fn, reps=5):
         fn()
@@ -70,7 +69,8 @@ def main(argv=None):
               flush=True)
         for prod, kern, W in ((0, gk.cprod_i8, V), (1, gk.prod_i8, U)):
             for nona in (False, True):
-                planned = plan(prod, int(nona), m, n, gk.NPLANES * l, sms)
+                planned = gk.i8_plan(prod, nona, False, m, n, l,
+                                     sms)["splits"]
                 ref = kern(P, n, W, c, inv, nona, True, 1)[1]
                 times = []
                 for s in SPLITS + (planned,):

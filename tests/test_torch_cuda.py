@@ -75,6 +75,16 @@ def test_kernels_repeat_bit_for_bit(cuda):
                        gk.prod(packed, 5000, U, c, inv))
 
 
+# K6 / K8 shapes: l = 1, 12, 20, 21 and 65 (N = 260: three column tiles);
+# n = 1001 (nb = 251 bytes, rows not 4-byte aligned) and 1009 (not a
+# multiple of 16); M from fewer 128-row tiles than SMs to more than the
+# persistent grid holds (20,000 variants: 157 cprod tiles; 20,011
+# samples: 157 prod tiles)
+I8_SHAPES = [(1000, 777, 1), (1001, 1500, 12), (1002, 3001, 20),
+             (4099, 513, 21), (1001, 700, 65), (1009, 1500, 20),
+             (20_011, 20_000, 12)]
+
+
 def i8_case(n, m, l, seed, na_prob):
     """A pack on the card with NA (or none), monomorphic and scale-0
     variants, and center / inv / operands for K6."""
@@ -91,8 +101,7 @@ def i8_case(n, m, l, seed, na_prob):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,l", [(1000, 777, 1), (1001, 1500, 12),
-                                   (1002, 3001, 20), (4099, 513, 21)])
+@pytest.mark.parametrize("n,m,l", I8_SHAPES)
 @pytest.mark.parametrize("nona", [False, True])
 def test_i8_kernels_match_twins(cuda, n, m, l, nona):
     """K6 in its four instantiations against the twin: the raw int32 digit
@@ -119,11 +128,12 @@ def test_i8_kernels_match_twins(cuda, n, m, l, nona):
 @pytest.mark.parametrize("nona", [False, True])
 def test_i8_sums_do_not_depend_on_depth_splits(cuda, nona):
     """Integer sums are exact: the raw sums and outputs are the same with
-    the depth unsplit, split 2, 5 or 16 ways (int32 atomics) and planned."""
+    the depth unsplit, split any of 2-16 ways (int32 atomics; more splits
+    than depth tiles fold to one a tile) and planned."""
     packed, c, inv, V, U = i8_case(2049, 1537, 20, 7, 0.0 if nona else 0.05)
     for kern, W in ((gk.cprod_i8, V), (gk.prod_i8, U)):
         ref = kern(packed, 2049, W, c, inv, nona, True)
-        for s in (1, 2, 5, 16):
+        for s in range(1, 17):
             got = kern(packed, 2049, W, c, inv, nona, True, s)
             assert torch.equal(got[1], ref[1])
             assert torch.equal(got[0], ref[0])
@@ -404,8 +414,7 @@ def test_lassosum_loop_reads_done_flags_every_few_sweeps(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,l", [(1000, 777, 1), (1001, 1500, 12),
-                                   (1002, 3001, 20), (4099, 513, 21)])
+@pytest.mark.parametrize("n,m,l", I8_SHAPES)
 @pytest.mark.parametrize("nona", [False, True])
 def test_i8m_kernels_match_twins_and_k6(cuda, n, m, l, nona):
     """K8 in its four instantiations: the planes built on the card equal to
@@ -440,7 +449,7 @@ def test_i8m_sums_do_not_depend_on_depth_splits(cuda, nona):
     planes = gk.int8m_planes(packed, 2049, nona)
     for kern, W in ((gk.cprod_i8m, V), (gk.prod_i8m, U)):
         ref = kern(planes, 2049, W, c, inv, True)
-        for s in (1, 2, 5, 16):
+        for s in range(1, 17):
             got = kern(planes, 2049, W, c, inv, True, s)
             assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
 

@@ -227,3 +227,89 @@ def test_overflow_guard_raises():
     with pytest.raises(ValueError, match="overflow"):
         gk.cprod_i8(packed, n, torch.zeros((n, 1)), torch.ones(1),
                     torch.ones(1))
+
+
+# ---------------------------------------------------------------------------
+# the launch plan of the K6 / K8 GEMM (`i8_plan`), at the card tests' shapes
+# and at the chip's (slice 3's 50,000 x 100,000 at l = 12 and 20; slices 4
+# and 5's 20,000 x 100,000)
+# ---------------------------------------------------------------------------
+
+# the N widths of wgmma .s32.s8.s8 (PTX ISA: m64nNk32)
+S8_WIDTHS = {8, 16, 24, 32} | set(range(48, 257, 16))
+PLAN_SHAPES = [(1000, 777, 1), (1001, 1500, 12), (1002, 3001, 20),
+               (4099, 513, 21), (1001, 700, 65), (1009, 1500, 20),
+               (50_000, 100_000, 12), (50_000, 100_000, 20),
+               (20_000, 100_000, 20)]
+KINDS = [(prod, nona, mat) for prod in (False, True)
+         for nona in (False, True) for mat in (False, True)]
+
+
+def walk(plan, M, K):
+    """The work items as the kernel's persistent CTAs walk them: each
+    CTA b takes items b, b + grid, ...; an item is (M tile, column tile,
+    depth split) and covers rows, columns and depth tiles."""
+    per_split = plan["m_tiles"] * plan["n_tiles"]
+    items = per_split * plan["splits"]
+    seen = []
+    for b in range(plan["grid"]):
+        for item in range(b, items, plan["grid"]):
+            sp, rem = divmod(item, per_split)
+            nt, mt = divmod(rem, plan["m_tiles"])
+            k0 = sp * plan["kps"]
+            seen.append((mt, nt, k0, min(plan["ktiles"], k0 + plan["kps"])))
+    return seen
+
+
+@pytest.mark.parametrize("n,m,l", PLAN_SHAPES)
+@pytest.mark.parametrize("prod,nona,mat", KINDS)
+def test_i8_plan_covers_the_product_once(n, m, l, prod, nona, mat):
+    """Tiles cover M x padded N exactly once and the depth once an item;
+    a tile is at most 256 wide and a width .s8 wgmma allows; splits <=
+    depth tiles; raw is zeroed exactly when the depth is split; the stages
+    fit in shared memory; the same with the card test's forced splits."""
+    M, K, N4 = (n, m, 4 * l) if prod else (m, n, 4 * l)
+    for splits in (None, 1, 2, 5, 16):
+        plan = gk.i8_plan(prod, nona, mat, m, n, l, 132, splits)
+        bn, nt = plan["bn"], plan["n_tiles"]
+        assert bn <= 256 and bn in S8_WIDTHS and bn in gk.I8_WIDTHS
+        assert plan["n_pad"] == bn * nt and (nt - 1) * bn < N4 <= bn * nt
+        bm = plan["bm"]
+        assert (plan["m_tiles"] - 1) * bm < M <= plan["m_tiles"] * bm
+        assert plan["ktiles"] == -(-K // 128)
+        assert 1 <= plan["splits"] <= plan["ktiles"]
+        assert plan["zero_raw"] == (plan["splits"] > 1)
+        assert 2 <= plan["stages"] <= gk.I8_MAX_STAGES
+        assert plan["smem"] <= gk.I8_SMEM
+        assert 1 <= plan["grid"] <= 132
+        seen = walk(plan, M, K)
+        tiles = {(mt, t) for mt in range(plan["m_tiles"]) for t in range(nt)}
+        for tile in tiles:
+            runs = sorted((k0, k1) for mt, t, k0, k1 in seen
+                          if (mt, t) == tile)
+            assert runs[0][0] == 0 and runs[-1][1] == plan["ktiles"]
+            assert all(k0 < k1 for k0, k1 in runs)
+            assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+        assert len(seen) == len(tiles) * plan["splits"]
+        if splits is not None:
+            assert plan["splits"] <= splits
+
+
+def test_i8_plan_at_the_chip_shapes():
+    """At 50,000 x 100,000 the full depth runs unsplit into plain stores
+    (782 and 391 128-row tiles fill their last waves of 132 CTAs) except
+    in the NA-free prods, whose 196 256-row tiles fill 1.5 waves and split
+    the depth in two; prod at 20,000 samples (157 tiles) splits the
+    depth; the ring keeps >= 4 stages at l = 20."""
+    for prod in (False, True):
+        for nona in (False, True):
+            for mat in (False, True):
+                plan = gk.i8_plan(prod, nona, mat, 100_000, 50_000, 20, 132)
+                wide = prod and nona
+                assert plan["bm"] == (256 if wide else 128)
+                assert plan["splits"] == (2 if wide else 1)
+                assert plan["zero_raw"] == wide
+                assert plan["bn"] == 80 and plan["n_tiles"] == 1
+                assert plan["stages"] >= 4
+                short = gk.i8_plan(True, nona, mat, 100_000, 20_000, 20, 132)
+                assert short["splits"] > 1 and short["zero_raw"]
