@@ -1,41 +1,38 @@
-// Fused 2-bit genotype decode + standardized GEMM for Hopper (sm_90a).
+// K1: fused 2-bit genotype decode + standardized GEMM for Hopper (sm_90a).
 //
-// Replaces the JAX package's Pallas TPU kernels
+// Replaces the JAX package's Pallas TPU kernel
 //   K1  bigsnpr_tpu/ops/pallas_kernels.py  _cprod_kernel (entry pallas_cprod,
 //       mxu="highest"):  out(m, l) = X~^T V,  V (n, l)
-//   K2  bigsnpr_tpu/ops/pallas_kernels.py  _prod_kernel  (entry pallas_prod,
-//       mxu="highest"):  out(n, l) = X~ U,    U (m, l)
 // where X~[j, i] = (d - center[j]) * inv[j] for sample i of variant j, the
 // dosage d = 2 - ((g + 1) >> 1) of 2-bit PLINK code g, and NA (g == 1) -> 0.
+// Its twin K2 (_prod_kernel) runs on exact bf16 bit planes with the
+// tensor cores: geno_split.cu.
 //
 // Layout: packed is (m, nb) uint8, variant-major, in TRUE sample order:
 // byte b of a variant row holds samples 4b..4b+3, sample 4b+k in bits
 // 2k..2k+1 (the TPU kernels' bit-plane sample permutation is not used).
-// Nothing is padded on the device: the kernels mask the ragged edges
+// Nothing is padded on the device: the kernel masks the ragged edges
 // (variants >= m, bytes >= nb, and samples >= n in the partial last byte,
 // whose zero pad bits would otherwise decode as dosage 2).
 //
-// What bounds them on an H100: both do 2*n*m*l float32 operations (n*m*l
-// FMAs) on ceil(n/4)*m packed bytes. At l >= 2 the operations dominate:
-// n = 50,000, m = 100,000, l = 20 is 2.0e11 operations, ~3.0 ms at the
-// 67 TFLOP/s float32 rate of the CUDA cores, against 1.25 GB of packed
-// bytes, ~0.37 ms at 3.35 TB/s. So they are compute-bound, and the design
-// aims to keep the FMA pipes fed:
+// What bounds it on an H100: 2*n*m*l float32 operations (n*m*l FMAs) on
+// ceil(n/4)*m packed bytes. At l >= 2 the operations dominate: n = 50,000,
+// m = 100,000, l = 20 is 2.0e11 operations, ~3.0 ms at the 67 TFLOP/s
+// float32 rate of the CUDA cores, against 1.25 GB of packed bytes, ~0.37
+// ms at 3.35 TB/s. So it is compute-bound, and the design aims to keep the
+// FMA pipes fed:
 //  - each 2-bit code is decoded once per block and used for LT (l-tile)
-//    FMAs held in registers (K1: VPT variants x LT columns per thread;
-//    K2: 4 samples x LT columns per thread);
+//    FMAs held in registers (VPT variants x LT columns per thread);
 //  - the dense operand's tile sits in shared memory and is read as float4
 //    broadcasts (every thread of a warp reads the same address);
-//  - K1 stages the packed tile through shared memory with coalesced byte
+//  - the packed tile is staged through shared memory with coalesced byte
 //    loads, with an odd row stride in 32-bit words so that the 32 variant
-//    rows a warp reads land in 32 distinct banks; K2 reads packed rows
-//    directly, neighbouring threads on neighbouring bytes.
-//  - where one pass leaves SMs idle (K1: few variant tiles; K2: n = 50,000
-//    is only ~98 blocks of 128 bytes), the reduction axis is split over
-//    gridDim.y into partial sums, added by a second pass in a fixed order:
-//    no float atomics, so results repeat bit for bit.
-// The int8 tensor-core route (exact integer planes, K6's algebra) is the
-// later step past the float32 CUDA-core bound.
+//    rows a warp reads land in 32 distinct banks;
+//  - where one pass leaves SMs idle (few variant tiles), the reduction axis
+//    is split over gridDim.y into partial sums, added by a second pass in a
+//    fixed order: no float atomics, so results repeat bit for bit.
+// The tensor-core routes (exact integer planes: geno_split.cu, geno_i8.cu)
+// are the later steps past the float32 CUDA-core bound.
 //
 // C interface for ctypes: every function returns cudaGetLastError() after
 // its launches, as an int. Launches go to the stream passed in.
@@ -51,8 +48,6 @@ constexpr int THREADS = 128;
 constexpr int K1_CB = 32;
 constexpr int K1_CS = 4 * K1_CB;
 constexpr int K1_ROWW = K1_CB / 4 + 1;
-// K2: variants per staged chunk of U.
-constexpr int K2_CV = 64;
 
 __host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -154,77 +149,6 @@ cprod_kernel(const uint8_t* __restrict__ packed, int64_t m, int64_t nb,
   }
 }
 
-template <int LT>
-__global__ void __launch_bounds__(THREADS)
-prod_kernel(const uint8_t* __restrict__ packed, int64_t m, int64_t nb,
-            int64_t n, const float* __restrict__ U, int64_t l,
-            const float* __restrict__ center, const float* __restrict__ inv,
-            float* __restrict__ out, int64_t vars_per_split) {
-  __shared__ __align__(16) float us[K2_CV * LT];
-  __shared__ float cs[K2_CV][2];
-
-  const int t = threadIdx.x;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * THREADS + t;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.z) * LT;
-  const int64_t j_begin = blockIdx.y * vars_per_split;
-  const int64_t j_end = imin(m, j_begin + vars_per_split);
-
-  float acc[4][LT];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int c = 0; c < LT; ++c) acc[q][c] = 0.f;
-
-  for (int64_t j0 = j_begin; j0 < j_end; j0 += K2_CV) {
-    const int cnt = static_cast<int>(imin(K2_CV, j_end - j0));
-    __syncthreads();
-    for (int e = t; e < K2_CV * LT; e += THREADS) {
-      const int r = e / LT, c = e % LT;
-      const int64_t cc = c0 + c;
-      us[e] = (r < cnt && cc < l) ? U[(j0 + r) * l + cc] : 0.f;
-    }
-    for (int e = t; e < K2_CV; e += THREADS) {
-      cs[e][0] = e < cnt ? center[j0 + e] : 0.f;
-      cs[e][1] = e < cnt ? inv[j0 + e] : 0.f;
-    }
-    __syncthreads();
-    if (b < nb) {
-      const uint8_t* row = packed + j0 * nb + b;
-#pragma unroll 4
-      for (int r = 0; r < cnt; ++r) {
-        const uint32_t byte = row[r * nb];
-        const float c = cs[r][0], s = cs[r][1];
-        float x[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) x[q] = decode((byte >> (2 * q)) & 3u, c, s);
-        const float4* ur = reinterpret_cast<const float4*>(us + r * LT);
-#pragma unroll
-        for (int c4 = 0; c4 < LT / 4; ++c4) {
-          const float4 uu = ur[c4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            acc[q][4 * c4 + 0] = fmaf(x[q], uu.x, acc[q][4 * c4 + 0]);
-            acc[q][4 * c4 + 1] = fmaf(x[q], uu.y, acc[q][4 * c4 + 1]);
-            acc[q][4 * c4 + 2] = fmaf(x[q], uu.z, acc[q][4 * c4 + 2]);
-            acc[q][4 * c4 + 3] = fmaf(x[q], uu.w, acc[q][4 * c4 + 3]);
-          }
-        }
-      }
-    }
-  }
-
-  if (b >= nb) return;
-  float* dst = out + static_cast<int64_t>(blockIdx.y) * n * l;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int64_t i = 4 * b + q;
-    if (i >= n) break;
-#pragma unroll
-    for (int c = 0; c < LT; ++c)
-      if (c0 + c < l) dst[i * l + c0 + c] = acc[q][c];
-  }
-}
-
 // out[e] = sum over s of part[s][e], in the order s = 0, 1, ...
 __global__ void sum_splits(const float* __restrict__ part, int splits,
                            int64_t count, float* __restrict__ out) {
@@ -273,17 +197,6 @@ void launch_cprod(const uint8_t* packed, int64_t m, int64_t nb, int64_t n,
       packed, m, nb, n, V, l, center, inv, dst, cps);
 }
 
-template <int LT>
-void launch_prod(const uint8_t* packed, int64_t m, int64_t nb, int64_t n,
-                 const float* U, int64_t l, const float* center,
-                 const float* inv, float* dst, int splits, int64_t vps,
-                 cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(cdiv(nb, THREADS)), splits,
-                  static_cast<unsigned>(cdiv(l, LT)));
-  prod_kernel<LT><<<grid, THREADS, 0, stream>>>(
-      packed, m, nb, n, U, l, center, inv, dst, vps);
-}
-
 void launch_sum(const float* part, int splits, int64_t count, float* out,
                 cudaStream_t stream) {
   const int64_t blocks = cdiv(count, 256);
@@ -295,17 +208,12 @@ void launch_sum(const float* part, int splits, int64_t count, float* out,
 
 extern "C" {
 
-// Number of partial sums (gridDim.y) the wrapper must allocate for:
-// kind 0 = K1 cprod, kind 1 = K2 prod. 1 means no partial buffer.
-int geno_plan(int kind, int64_t m, int64_t nb, int64_t l, int sms) {
+// Number of partial sums (gridDim.y) the wrapper must allocate for K1;
+// 1 means no partial buffer.
+int geno_plan(int64_t m, int64_t nb, int64_t l, int sms) {
   const int lt = pick_lt(l);
-  const int64_t ztiles = cdiv(l, lt);
-  if (kind == 0) {
-    const int64_t tiles = cdiv(m, THREADS * k1_vpt(lt));
-    return plan_splits(tiles * ztiles, cdiv(nb, K1_CB), sms);
-  }
-  const int64_t tiles = cdiv(nb, THREADS);
-  return plan_splits(tiles * ztiles, cdiv(m, 4 * K2_CV), sms);
+  const int64_t tiles = cdiv(m, THREADS * k1_vpt(lt));
+  return plan_splits(tiles * cdiv(l, lt), cdiv(nb, K1_CB), sms);
 }
 
 // K1: out (m, l) = X~^T V for V (n, l). With splits > 1, part holds
@@ -329,30 +237,6 @@ int geno_cprod(const void* packed, int64_t m, int64_t nb, int64_t n,
     default: launch_cprod<32>(pk, m, nb, n, v, l, c, s, dst, splits, cps, st); break;
   }
   if (splits > 1) launch_sum(dst, splits, m * l, o, st);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K2: out (n, l) = X~ U for U (m, l). With splits > 1, part holds
-// (splits, n, l) partial sums.
-int geno_prod(const void* packed, int64_t m, int64_t nb, int64_t n,
-              const void* U, int64_t l, const void* center, const void* inv,
-              void* out, void* part, int splits, void* stream) {
-  const auto* pk = static_cast<const uint8_t*>(packed);
-  const auto* u = static_cast<const float*>(U);
-  const auto* c = static_cast<const float*>(center);
-  const auto* s = static_cast<const float*>(inv);
-  auto* o = static_cast<float*>(out);
-  auto* dst = splits > 1 ? static_cast<float*>(part) : o;
-  auto st = static_cast<cudaStream_t>(stream);
-  const int64_t vps = cdiv(cdiv(m, K2_CV), splits) * K2_CV;
-  switch (pick_lt(l)) {
-    case 4: launch_prod<4>(pk, m, nb, n, u, l, c, s, dst, splits, vps, st); break;
-    case 8: launch_prod<8>(pk, m, nb, n, u, l, c, s, dst, splits, vps, st); break;
-    case 16: launch_prod<16>(pk, m, nb, n, u, l, c, s, dst, splits, vps, st); break;
-    case 24: launch_prod<24>(pk, m, nb, n, u, l, c, s, dst, splits, vps, st); break;
-    default: launch_prod<32>(pk, m, nb, n, u, l, c, s, dst, splits, vps, st); break;
-  }
-  if (splits > 1) launch_sum(dst, splits, n * l, o, st);
   return static_cast<int>(cudaGetLastError());
 }
 

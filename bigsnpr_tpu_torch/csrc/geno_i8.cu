@@ -90,11 +90,13 @@
 #include <cuda_runtime.h>
 
 #include "geno_decode.cuh"
+#include "ring.cuh"
 #include "wgmma_s8.cuh"
 
 namespace {
 
 using geno_decode::cdiv;
+using namespace ring;
 
 constexpr int BK = 128;           // depth of one stage, in bytes
 constexpr int TILE = 128 * 128;   // bytes of a 128 x 128 int8 tile
@@ -136,86 +138,6 @@ __host__ __device__ constexpr int smem_bytes(bool prod, bool nona, bool mat,
          (prod && !mat ? 2 * (nona ? 1 : 2) * msub(prod, nona) * TILE : 0);
 }
 
-// ---- Hopper primitives (PTX) ----------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` of TMA transactions
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A wait that lasts
-// past ~2^34 cycles (several seconds) traps: a fault in the ring ends the
-// launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// 2-D TMA load of one box into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// 16-byte cp.async (both addresses 16-byte aligned); src_size 0 fills the
-// chunk with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           uint32_t src_size) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_size)
-               : "memory");
-}
-
-// one arrival on `bar` once this thread's earlier cp.asyncs have landed
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // barrier of one consumer warpgroup (ids 1 and 2; 0 is __syncthreads)
 __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
@@ -224,33 +146,6 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
 // barrier of both consumer warpgroups (id 3)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 3, %0;\n" ::"n"(CONSUMERS) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Matrix descriptor of a K-major tile with 128-byte rows and the 128-byte
-// swizzle, 1024-byte aligned: stride 1024 bytes between 8-row groups. A
-// 32-byte step in depth adds 2 to it.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return static_cast<uint64_t>((smem_u32(tile) >> 4) & 0x3FFF) |
-         (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// byte offset of (row, col) in a 128-byte-row tile under the 128-byte
-// swizzle, as TMA writes it and wgmma reads it
-__device__ __forceinline__ int sw128(int row, int col) {
-  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
 }
 
 // ---- the GEMM --------------------------------------------------------------
@@ -306,7 +201,7 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap mapT,
       mbar_init(full + s, MAT ? 1 : 1 + 128);  // K6: + cp.async arrivals
       mbar_init(empty + s, CONSUMERS / 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   __syncthreads();
 
@@ -619,49 +514,13 @@ void launch_epilogue(const int32_t* raw, int64_t R, int64_t l,
           raw, R, l, sc_t, sc_na, sumv, A, s, out);
 }
 
-// ---- tensor maps, from the CUDA driver without linking libcuda -------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A 2-D int8 map on rows x inner bytes (row stride `stride`, a multiple of
 // 16), boxes of box_rows x 128 bytes under the 128-byte swizzle; reads past
 // the edges fill zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int64_t inner, int64_t rows,
-              int64_t stride, int box_rows) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
-  const cuuint32_t box[2] = {128u, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1u, 1u};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+bool make_map_u8(CUtensorMap* map, const void* ptr, int64_t inner,
+                 int64_t rows, int64_t stride, int box_rows) {
+  return ring::make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, inner, rows,
+                        stride, 128, box_rows);
 }
 
 struct Launch {
@@ -760,12 +619,12 @@ int geno_i8_gemm(int prod, int nona, int mat, const void* packed, int64_t nb,
   L.p.stages = stages;
   L.p.atomic = splits > 1;
   L.grid = static_cast<int>(L.p.items < grid ? L.p.items : grid);
-  if (!make_map(&L.mDT, dT, ldd, N4, ldd, bn) ||
-      !make_map(&L.mDNA, pn ? dNA : dT, ldd, N4, ldd, bn))
+  if (!make_map_u8(&L.mDT, dT, ldd, N4, ldd, bn) ||
+      !make_map_u8(&L.mDNA, pn ? dNA : dT, ldd, N4, ldd, bn))
     return -2;
   if (mat) {
-    if (!make_map(&L.mT, T, ldn, m, ldn, 128) ||
-        !make_map(&L.mNA, nona ? T : NA, ldn, m, ldn, 128))
+    if (!make_map_u8(&L.mT, T, ldn, m, ldn, 128) ||
+        !make_map_u8(&L.mNA, nona ? T : NA, ldn, m, ldn, 128))
       return -2;
   } else {
     L.mT = L.mDT;

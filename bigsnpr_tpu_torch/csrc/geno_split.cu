@@ -1,340 +1,705 @@
-// K7: the genotype operator on exact bf16 bit planes against the float
-// operand split into bf16 hi + lo, with float32 tensor-core accumulation,
-// for Hopper (sm_90a).
-//
-// Replaces the JAX package's Pallas TPU kernels of the mxu="split2" scheme
-//   bigsnpr_tpu/ops/pallas_kernels.py  _cprod_kernel_split
-//       (entry pallas_cprod(mxu="split2")):  X~^T V
-//   bigsnpr_tpu/ops/pallas_kernels.py  _prod_kernel_split
-//       (entry pallas_prod(mxu="split2")):   X~ U
+// K2 and K7: the genotype operator on exact bf16 bit planes against the
+// float operand split into bf16 terms, with float32 tensor-core
+// accumulation, for Hopper (sm_90a). One kernel template,
+// plane_wgmma_kernel<PROD, TERMS, BNC>, serves
+//   K7 cprod  (PROD = false, TERMS = 2) bigsnpr_tpu/ops/pallas_kernels.py
+//       _cprod_kernel_split (entry pallas_cprod(mxu="split2")):  X~^T V
+//   K7 prod   (PROD = true, TERMS = 2)  _prod_kernel_split
+//       (entry pallas_prod(mxu="split2")):                       X~ U
+//   K2        (PROD = true, TERMS = 3)  _prod_kernel
+//       (entry pallas_prod, mxu="highest", the port's default):  X~ U
 //
 // The algebra (ops/geno_kernels.py has it in torch): the standardized value
 // of 2-bit code g with bits b0 (low), b1 is x~ = A - s t - A na, with
 // t = b1 + (b0 & b1) in {0,1,2}, na = b0 & ~b1 in {0,1}, A = (2 - c) s.
-// t and na are exact in bf16. The wrapper splits the float operand into
-// bf16 hi = bf16(x) and lo = bf16(x - hi) and stacks them as 2l rows
-// (cprod: V^T; prod: zB = U^T s and zA = U^T A, split after the scaling).
-// Each product of a plane value with a bf16 value is exact in float32; the
-// tensor cores accumulate in float32. The GEMM writes the raw sums of every
-// depth split as its own slice of a partial buffer (splits, 2 planes, R,
-// 2l); the epilogue kernel adds the slices in split order, forms
-// pt = hi + lo of the T plane and pna of the NA plane, and gives
-// (sum - pna) A - pt s for cprod, (sum - pna) - pt for prod, per element in
-// that order, as `_split_epilogue_plain` does. No float atomics anywhere,
-// so two launches repeat bit for bit; built with --fmad=false so the
-// epilogue rounds as the twin's separate torch ops do.
+// t and na are exact in bf16. The operand is split into TERMS bf16 terms,
+// hi = bf16(x), then mid = bf16(x - hi) and lo = bf16((x - hi) - mid) (the
+// subtractions in f32, every cast round to nearest even): two terms keep
+// 16 of x's 24 mantissa bits (K7, the JAX package's split2), three all of
+// them (K2). Each product of a plane value and a term is exact in f32; the
+// tensor cores accumulate in f32. cprod's operand is V^T (one for both
+// planes); prod's are zB = U^T s for the T plane and zA = U^T A for the NA
+// plane. The result is (sum - pna) A - pt s (cprod) or (sum - pna) - pt
+// (prod), per element in that order, with pt, pna the plane sums and sum
+// the row sums of V^T (cprod) or zA (prod), as `_split_epilogue_plain`
+// forms it. Built with --fmad=false, so the prep and the epilogue round as
+// the twins' separate torch ops do.
+//
+// What bounds it on an H100, at n = 50,000, m = 100,000, l = 20: K7 does
+// 2 planes x 2 terms x 20 columns x 2nm = 8.0e11 bf16 operations, 0.81 ms
+// at the 989 TFLOP/s dense bf16 peak, K2 3 terms, 1.2e12 and 1.21 ms;
+// both read 1.25 GB of packed bytes, 0.37 ms at 3.35 TB/s. So both are
+// bound by operations, and the work besides the tensor cores (the decode,
+// the pack's loads) has to hide under them.
+//
+// Design:
+// - GEMM shape: rows M (cprod: variants, prod: samples), depth K (cprod:
+//   samples, prod: variants), and columns N = TERMS x BNC: a tile of BNC
+//   of the operand's l columns, its terms stacked as row blocks of BNC
+//   (the JAX kernels' row-stacked hi / lo), so one wgmma a plane and k-step
+//   covers every term, and the epilogue adds a column's terms, which sit
+//   in the same thread's registers. The tensor cores' f32 sums are taken
+//   over one stage (16 k-steps) at a time, each stage's wgmmas starting
+//   anew, and added, terms summed, into f32 registers: summed over all
+//   100,000 variants in the tensor cores, K2 was 2.7e-5 of max |float64
+//   product| off it, and 1e-5 is its limit. A thread holds 2 planes x
+//   (N/2 + BNC/2) floats; ptxas gives it at most 168 registers, so N <= 96
+//   and BNC <= 40 (N = 112 serialised the wgmmas).
+// - A persistent grid, one CTA an SM, walks work items (128-row M tile x
+//   BNC-column tile x depth split), the M tile fastest, so the CTAs that
+//   run together read the same operand tiles at the same depth (L2).
+//   A CTA is two consumer warpgroups (64 rows each) and a producer
+//   warpgroup.
+// - The producer keeps a ring of `stages` stages of `ksub` 64-deep
+//   sub-tiles (the plan takes 4 where two stages fit: a stage's ring
+//   traffic costs about as much as its work at 64 deep), with a full and
+//   an empty mbarrier a stage. The operand tiles (N rows x 64 bf16 a plane
+//   and sub-tile, K-major, 128-byte swizzle, one TMA box a term) come from
+//   the prepared operand (planes, TERMS, l_pad, ldk) bf16. The pack has
+//   row stride nb, which TMA's 16-byte stride rule refuses: the producer
+//   copies the aligned 16-byte chunks that cover each row's bytes of the
+//   stage by cp.async (cp.async.mbarrier.arrive signals the stage); the
+//   readers recompute a row's offset in its first chunk.
+// - No plane tile is ever written: the consumers decode the packed bytes
+//   straight into wgmma's A register fragments (m64nNk16, A from
+//   registers, B from shared memory). A code indexes its bf16 value with
+//   one byte permute a register and plane (prmt on a 4-entry table). Two
+//   fixed permutations make every fragment register come from one byte:
+//     cprod: within each 64 samples of a sub-tile, thread tg's k-step ks
+//       reads byte 4tg + ks (the prep writes the operand's depth in that
+//       order, `sigma64`), its low nibble for k columns 2tg, 2tg+1, its
+//       high one for 2tg+8, 2tg+9: one 4-byte word a row and sub-tile;
+//     prod: fragment rows g and g + 8 of a warp are samples 2g and 2g + 1
+//       of its 16, the same nibble of one byte, so a register (two
+//       variants of one sample) is two bytes, one a variant row.
+//   A warpgroup decodes a sub-tile's four k-steps, issues their wgmmas and
+//   waits for them before it decodes the next: ptxas serialises every
+//   wgmma of a kernel in which other instructions write a wgmma's input
+//   registers while wgmmas run. The two warpgroups overlap each other's
+//   decode and tensor-core work.
+// - The decoded A of a sub-tile serves every term and plane of the item's
+//   column tile: an l of at most 32 (K2) or 40 (K7) is one column tile, so
+//   the pack is decoded once. (Wider l takes more tiles, the pack decoded
+//   once a tile: the accumulators of all columns do not fit in registers;
+//   at the grid PRS's l = 650, 21 tiles, the decode of a sub-tile is ~1/5
+//   of its tensor-core work.)
+// - The epilogue is fused when the depth is not split: out is written from
+//   the f32 sums. Where the plan splits the depth (too few M tiles for
+//   the card), each split writes its raw plane sums as its own slice and
+//   geno_plane_epilogue adds the slices in split order. No float atomics
+//   anywhere: two launches repeat bit for bit.
+// - The operand preparation (geno_plane_prep) is one elementwise kernel:
+//   zB, zA or V^T, split into TERMS terms, written padded (zeros past l and
+//   past the depth) in the kernel's depth order, with per-64 partial row
+//   sums that a second small kernel adds in order.
+// - The launch plan (tile width, stage depth, stages, grid, splits) is
+//   made in Python (ops/geno_kernels.py::plane_plan); geno_plane_gemm
+//   refuses what it cannot run.
 //
 // Layout: packed is (m, nb) uint8 in true sample order (sample 4b+k in bits
-// 2k..2k+1 of byte b), unpadded. The operand is (2l, ldo) bf16 rows, zero
-// past the contraction length and ldo a multiple of BK. Variants >= m and
-// bytes >= nb decode as 0 (t = na = 0); the PLINK pad samples of a partial
-// last byte are code 0 and meet zero operand columns.
-//
-// GEMM shape: rows M (cprod: variants, prod: samples), columns N = 2l
-// stacked hi / lo rows, depth K (cprod: samples, prod: variants). A block
-// of 4 warps owns a 64-row x 8*NT-column tile; each warp runs mma.sync
-// m16n8k16 bf16 x bf16 -> f32 on 16 rows, for both planes. Per BK = 64
-// deep stage the block decodes its A tiles of T and NA straight from the
-// packed bytes into shared memory as bf16 (cprod: a byte gives 4
-// consecutive samples of one variant; prod: 4 variants' bytes give, after
-// a 4 x 4 byte transpose, 4 variants of each of 4 samples) and copies the
-// operand tile in 16-byte loads. Row strides of 144 bytes (36 words) keep
-// the fragment loads conflict-free; the fragments sit at the same byte
-// offsets as K6's int8 ones (a 16-deep bf16 step is 32 bytes).
-//
-// What bounds it on an H100: at n = 50,000, m = 100,000, l = 20 the two
-// planes are 2 x 2 x 40 x n x m = 8.0e11 bf16 operations, 0.81 ms at the
-// 989 TFLOP/s dense bf16 peak, against 1.25 GB of packed bytes, 0.37 ms at
-// 3.35 TB/s. This first kernel is simple: mma.sync (not wgmma), plain loads
-// (no TMA / cp.async pipeline), one stage in flight, and a bf16 A tile
-// twice the bytes of K6's int8 one; the decode and the shared-memory
-// traffic, not the tensor cores, will set its time.
-//
-// Overflow: every index is int64; the partial buffer holds splits x 2 x
-// R x 2l floats (the wrapper allocates it); splits <= 64 and the column
-// tiles of gridDim.z stay far below 65,535 for any l the callers pass. The
-// float32 sums cannot overflow an integer.
+// 2k..2k+1 of byte b), unpadded. Bytes past a row's end and rows past m
+// decode to plane values that meet zero operand entries (or fill rows and
+// columns that are never written out), so the kernel masks nothing.
 //
 // C interface for ctypes: every function returns cudaGetLastError() after
-// its launches, as an int. Launches go to the stream passed in.
+// its launches, as an int, or a negative code for a refused plan (-1) or a
+// tensor map the CUDA driver would not encode (-2). Launches go to the
+// stream passed in.
 
 #include <cstdint>
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "geno_decode.cuh"
+#include "ring.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
-using geno_decode::cdiv;
+using namespace ring;
 
-constexpr int THREADS = 128;
-constexpr int BM = 64;         // rows of the block tile (4 warps x 16)
-constexpr int BK = 64;         // depth of one stage in bf16 values (4 k-steps)
-constexpr int BKB = 2 * BK;    // the same in bytes
-constexpr int SROW = BKB + 16; // shared row stride in bytes: 36 words
-
-// bf16 bits of v in {0, 1, 2}: 0, 0x3F80 (1.0), 0x4000 (2.0)
-__device__ __forceinline__ uint32_t bf16_of(uint32_t v) {
-  return v ? 0x3F00u + (v << 7) : 0u;
+__host__ __device__ __forceinline__ int64_t cdiv(int64_t a, int64_t b) {
+  return (a + b - 1) / b;
 }
 
-// 4 int8 lanes -> 4 bf16 in two words, lane 0 in the low half of the first
-__device__ __forceinline__ uint2 widen(uint32_t x) {
-  uint2 r;
-  r.x = bf16_of(x & 0xFFu) | (bf16_of((x >> 8) & 0xFFu) << 16);
-  r.y = bf16_of((x >> 16) & 0xFFu) | (bf16_of(x >> 24) << 16);
-  return r;
+constexpr int SUB = 64;           // depth of an operand sub-tile: 128 bytes
+constexpr int BM = 128;           // rows of a work item (two warpgroups)
+constexpr int CONSUMERS = 256;    // two consumer warpgroups
+constexpr int PRODUCERS = 128;    // and a producer warpgroup
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+constexpr int MAX_STAGES = 8;
+constexpr int HEAD = 2048;        // barriers and the alignment slack
+constexpr int MAX_SMEM = 232448;  // 227 KB a block on sm_90
+
+// A stage is `ksub` (1, 2 or 4) sub-tiles deep. The pack rows it copies:
+// cprod the item's 128 variants, 16 ksub bytes each (ksub + 1 aligned
+// chunks); prod its 64 ksub variants, 32 bytes each (the item's 128
+// samples: 3 chunks). A row's stride keeps the readers' rows on distinct
+// shared-memory banks.
+__host__ __device__ constexpr int pack_rows(bool prod, int ksub) {
+  return prod ? SUB * ksub : BM;
+}
+__host__ __device__ constexpr int chunks(bool prod, int ksub) {
+  return prod ? 3 : ksub + 1;
+}
+__host__ __device__ constexpr int raw_row(bool prod, int ksub) {
+  return prod || ksub < 2 ? 48 : 16 * (ksub + 1);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// operand tiles a stage: prod one a plane (zB, zA), cprod one for both;
+// a tile is ksub sub-tiles of TERMS x BNC rows of 128 bytes
+__host__ __device__ constexpr int b_planes(bool prod) { return prod ? 2 : 1; }
+
+__host__ __device__ constexpr int stage_bytes(bool prod, int terms, int bnc,
+                                              int ksub) {
+  return b_planes(prod) * ksub * terms * bnc * 128 +
+         pack_rows(prod, ksub) * raw_row(prod, ksub);
 }
 
-// PROD = false: cprod (M = variants, K = samples, one operand for both
-// planes); true: prod (M = samples, K = variants, an operand a plane:
-// opT = zB for T, opNA = zA for NA). NT = 8-column tiles per block.
-template <bool PROD, int NT>
-__global__ void __launch_bounds__(THREADS)
-split_gemm_kernel(const uint8_t* __restrict__ packed, int64_t m, int64_t nb,
-                  int64_t n, const uint16_t* __restrict__ opT,
-                  const uint16_t* __restrict__ opNA, int64_t ldo, int64_t N2,
-                  float* __restrict__ part, int64_t ktiles_per_split) {
-  constexpr int BN = 8 * NT;
-  constexpr int BPLANES = PROD ? 2 : 1;
-  __shared__ __align__(16) uint8_t As[2][BM * SROW];
-  __shared__ __align__(16) uint8_t Bs[BPLANES][BN * SROW];
+__host__ __device__ constexpr int smem_bytes(bool prod, int terms, int bnc,
+                                             int ksub, int stages) {
+  return HEAD + stages * stage_bytes(prod, terms, bnc, ksub);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int64_t M = PROD ? n : m;
-  const int64_t K = PROD ? m : n;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * BM;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.z) * BN;
-  const int64_t kt0 = static_cast<int64_t>(blockIdx.y) * ktiles_per_split;
-  int64_t kt1 = kt0 + ktiles_per_split;
-  const int64_t ktiles = cdiv(K, BK);
-  if (kt1 > ktiles) kt1 = ktiles;
+// bf16 of the T and NA plane values by 2-bit code, low and high bytes:
+// T 0, 0, 1.0 (0x3F80), 2.0 (0x4000); NA 0, 1.0, 0, 0
+constexpr uint32_t T_LO = 0x00800000u, T_HI = 0x403F0000u;
+constexpr uint32_t N_LO = 0x00008000u, N_HI = 0x00003F00u;
 
-  float acc[2][NT][4];
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
+// byte x (codes c0..c3) -> selector bytes (c_i | (c_i + 4) << 4): the low
+// half picks the bf16 pair of codes c0, c1, the high half of c2, c3
+__device__ __forceinline__ uint32_t code_selectors(uint32_t x) {
+  const uint32_t spread = ((x & 0x33u) * 0x1001u & 0x00030003u) |
+                          ((x & 0xCCu) * 0x40040u & 0x03000300u);
+  return spread * 0x11u + 0x40404040u;
+}
 
-  for (int64_t kt = kt0; kt < kt1; ++kt) {
-    const int64_t k0 = kt * BK;
-    __syncthreads();
-    if (!PROD) {
-      // A = planes of variants [r0, r0+64) x samples [k0, k0+64): 64 rows
-      // x 16 bytes, one byte (4 samples, 8 bytes of bf16 a plane) an item
-      geno_decode::decode_variant_rows<BM, BK / 4, THREADS>(
-          packed, m, nb, r0, k0 / 4,
-          [&](int r, int cb, uint32_t t, uint32_t na) {
-            *reinterpret_cast<uint2*>(&As[0][r * SROW + 8 * cb]) = widen(t);
-            *reinterpret_cast<uint2*>(&As[1][r * SROW + 8 * cb]) = widen(na);
-          });
-    } else {
-      // A = planes of samples [r0, r0+64) x variants [k0, k0+64)
-      geno_decode::decode_sample_rows<BK / 4, BM / 4, THREADS>(
-          packed, m, nb, k0, r0 / 4,
-          [&](int row, int vq, uint32_t t, uint32_t na) {
-            *reinterpret_cast<uint2*>(&As[0][row * SROW + 8 * vq]) = widen(t);
-            *reinterpret_cast<uint2*>(&As[1][row * SROW + 8 * vq]) = widen(na);
-          });
+// the depth order of cprod's operand within 64 samples: logical column kk
+// of k-step ks = kk >> 4 is sample sigma64(kk) (see the design note)
+__host__ __device__ __forceinline__ int sigma64(int kk) {
+  return 16 * ((kk & 7) >> 1) + 4 * (kk >> 4) + 2 * ((kk >> 3) & 1) +
+         (kk & 1);
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+struct Params {
+  const uint8_t* packed;  // (m, nb)
+  int64_t nb, m, n, l;
+  const float* center;    // (m,)
+  const float* inv;       // (m,)
+  const float* sumv;      // (l,)
+  float* out;             // (R, l), the depth unsplit
+  float* raw;             // (splits, 2, R, l), the depth split
+  int64_t items;          // m_tiles * n_tiles * splits
+  int m_tiles, n_tiles;
+  int ktiles, kps;        // stages of depth, and a split's share of them
+  int ksub;               // 64-deep sub-tiles a stage
+  int stages, splits, l_pad;
+};
+
+// PROD = false: cprod (M = variants, K = samples); true: prod (M = samples,
+// K = variants). TERMS: bf16 terms of the operand. BNC: the column tile.
+template <bool PROD, int TERMS, int BNC>
+__global__ void __launch_bounds__(THREADS, 1)
+plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
+  constexpr int N = TERMS * BNC;                   // wgmma columns
+  constexpr int BP = b_planes(PROD);
+  constexpr int B_BYTES = N * 128;                 // a plane's sub-tile
+  constexpr int NACC = N / 2;
+  constexpr int NMST = BNC / 2;                    // a thread's columns
+  const int KS = p.ksub;
+  const int STAGE = stage_bytes(PROD, TERMS, BNC, KS);
+  const int PR = pack_rows(PROD, KS);
+  const int CH = chunks(PROD, KS);
+  const int RAW = raw_row(PROD, KS);
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty = full + MAX_STAGES;
+  uint8_t* tiles = base + 1024;
+
+  const int S = p.stages;
+  const int64_t M = PROD ? p.n : p.m;
+  const int64_t per_split = static_cast<int64_t>(p.m_tiles) * p.n_tiles;
+  const uint32_t pk_lo =
+      static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p.packed)) & 15u;
+  const uint32_t nb32 = static_cast<uint32_t>(p.nb);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1 + PRODUCERS);  // TMA arrival + cp.async threads
+      mbar_init(empty + s, CONSUMERS / 32);
     }
-    // operand tiles: rows [c0, c0+BN) x depth [k0, k0+64), 8 bf16 a load
-    for (int e = tid; e < BN * (BKB / 16); e += THREADS) {
-      const int r = e / (BKB / 16), c16 = e % (BKB / 16);
-      const int64_t row = c0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u), w = v;
-      if (row < N2) {
-        v = *reinterpret_cast<const uint4*>(opT + row * ldo + k0 + 8 * c16);
-        if (PROD)
-          w = *reinterpret_cast<const uint4*>(opNA + row * ldo + k0 + 8 * c16);
-      }
-      *reinterpret_cast<uint4*>(&Bs[0][r * SROW + 16 * c16]) = v;
-      if (PROD) *reinterpret_cast<uint4*>(&Bs[BPLANES - 1][r * SROW + 16 * c16]) = w;
-    }
-    __syncthreads();
+    fence_mbarrier_init();
+  }
+  __syncthreads();
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer warpgroup ----
+    const int pt = threadIdx.x - CONSUMERS;
+    if (pt == 0) prefetch_map(&mapB);
+    int s = 0;
+    uint32_t ph = 0;
+    const uintptr_t end16 =
+        (reinterpret_cast<uintptr_t>(p.packed + p.m * p.nb) + 15) &
+        ~static_cast<uintptr_t>(15);
+    for (int64_t item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const int64_t sp = item / per_split, rem = item % per_split;
+      const int nt = static_cast<int>(rem / p.m_tiles);
+      const int mt = static_cast<int>(rem % p.m_tiles);
+      const int r0 = mt * BM, c0 = nt * BNC;
+      const int kt0 = static_cast<int>(sp) * p.kps;
+      const int kt1 = min(p.ktiles, kt0 + p.kps);
+      for (int kt = kt0; kt < kt1; ++kt) {
+        mbar_wait(empty + s, ph ^ 1);
+        uint8_t* st = tiles + s * STAGE;
+        uint8_t* At = st + BP * KS * B_BYTES;
+        const int k0 = kt * SUB * KS;
+        // pack row j: the stage's bytes (cprod: samples k0.. of variant
+        // r0 + r; prod: the item's samples of variant k0 + r) as the
+        // aligned chunks that cover them; rows past m and chunks past the
+        // pack fill zeros
+        const int64_t b0 = PROD ? r0 / 4 : k0 / 4;
+        for (int e = pt; e < PR * CH; e += PRODUCERS) {
+          const int r = e / CH, w = e % CH;
+          const int64_t j = (PROD ? k0 : r0) + r;
+          const uintptr_t a =
+              j < p.m ? reinterpret_cast<uintptr_t>(p.packed + j * p.nb + b0) &
+                            ~static_cast<uintptr_t>(15)
+                      : end16;
+          const bool in = a + 16 * w < end16;
+          cp_async16(At + r * RAW + 16 * w,
+                     in ? reinterpret_cast<const void*>(a + 16 * w)
+                        : static_cast<const void*>(p.packed),
+                     in ? 16u : 0u);
+        }
+        cp_async_arrive(full + s);
+        if (pt == 0) {
+          mbar_expect_tx(full + s, BP * KS * B_BYTES);
+          // plane pl's sub-tile i: its terms' BNC-row boxes, stacked
+          for (int pl = 0; pl < BP; ++pl)
+            for (int i = 0; i < KS; ++i)
 #pragma unroll
-    for (int ks = 0; ks < BKB / 32; ++ks) {
-      const int kc = ks * 32 + 4 * tg;   // bytes: bf16 values 16 ks + 2 tg
-      uint32_t a[2][4];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const uint8_t* base = &As[p][(16 * warp + g) * SROW + kc];
-        a[p][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[p][1] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW);
-        a[p][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        a[p][3] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const uint8_t* bb = &Bs[0][(8 * j + g) * SROW + kc];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bb);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bb + 16);
-        mma_bf16(acc[0][j], a[0], b0, b1);
-        if (PROD) {
-          const uint8_t* bn = &Bs[BPLANES - 1][(8 * j + g) * SROW + kc];
-          mma_bf16(acc[1][j], a[1], *reinterpret_cast<const uint32_t*>(bn),
-                   *reinterpret_cast<const uint32_t*>(bn + 16));
-        } else {
-          mma_bf16(acc[1][j], a[1], b0, b1);
+              for (int t = 0; t < TERMS; ++t)
+                tma_load(st + (pl * KS + i) * B_BYTES + t * BNC * 128, &mapB,
+                         k0 + SUB * i, (pl * TERMS + t) * p.l_pad + c0,
+                         full + s);
+        }
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
         }
       }
     }
+    return;
   }
 
-  // C fragment: c0, c1 at row g, columns 2tg, 2tg+1; c2, c3 at row g + 8.
-  // Every block writes its whole tile of its split's slice, so the
-  // partial buffer needs no clearing.
-  float* slice = part + static_cast<int64_t>(blockIdx.y) * 2 * M * N2;
+  // ---- consumer warpgroups ----
+  const int wg = warp >> 2, w = warp & 3;
+  const int g = lane >> 2, tg = lane & 3;
+  // prod: the byte of this thread's two samples (2g, 2g + 1 of the warp's
+  // 16) in the item's 32, and the nibble that holds them
+  const int bcol = 16 * wg + 4 * w + (g >> 1);
+  const int nsh = 4 * (g & 1);
+  float acc[2][NACC];   // the tensor cores' sums over one stage
+  float mst[2][NMST];   // the item's sums, terms added, in f32 registers
+  int s = 0;
+  uint32_t ph = 0;
+  for (int64_t item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const int64_t sp = item / per_split, rem = item % per_split;
+    const int nt = static_cast<int>(rem / p.m_tiles);
+    const int mt = static_cast<int>(rem % p.m_tiles);
+    const int64_t r0 = static_cast<int64_t>(mt) * BM;
+    const int c0 = nt * BNC;
+    const int kt0 = static_cast<int>(sp) * p.kps;
+    const int kt1 = min(p.ktiles, kt0 + p.kps);
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
+    for (int q = 0; q < 2; ++q)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+      for (int e = 0; e < NMST; ++e) mst[q][e] = 0.f;
+    // cprod: the offsets of this thread's variant rows g, g + 8 in their
+    // copied chunks, before the stage's first byte
+    uint32_t orow[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t row = r0 + 16 * warp + g + (e >= 2 ? 8 : 0);
-        const int64_t col = c0 + 8 * j + 2 * tg + (e & 1);
-        if (row < M && col < N2) slice[(p * M + row) * N2 + col] = acc[p][j][e];
+    for (int h = 0; h < 2; ++h)
+      orow[h] = pk_lo + static_cast<uint32_t>(r0 + 64 * wg + 16 * w + g + 8 * h) *
+                            nb32;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      mbar_wait(full + s, ph);
+      const uint8_t* st = tiles + s * STAGE;
+      const uint8_t* At = st + BP * KS * B_BYTES;
+      const uint64_t dB = sw128_desc(st);
+      const uint32_t k0 = static_cast<uint32_t>(kt) * SUB * KS;
+      // prod: offset of the stage's first row in its copied chunks
+      const uint32_t o0 = pk_lo + k0 * nb32 + static_cast<uint32_t>(r0 / 4);
+      for (int qp = 0; qp < KS; ++qp) {
+        // cprod: bytes 4tg.. of sub-tile qp's 16 in rows g, g + 8
+        uint32_t wrd[2] = {0u, 0u};
+        if (!PROD) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uintptr_t ad = reinterpret_cast<uintptr_t>(
+                At + (64 * wg + 16 * w + g + 8 * h) * RAW +
+                ((orow[h] + k0 / 4) & 15u) + 16 * qp + 4 * tg);
+            const uint32_t* q = reinterpret_cast<const uint32_t*>(
+                ad & ~static_cast<uintptr_t>(3));
+            wrd[h] =
+                __funnelshift_r(q[0], q[1], 8 * static_cast<uint32_t>(ad & 3));
+          }
+        }
+        // the sub-tile's fragments, all decoded before its wgmmas: a
+        // register that a wgmma reads must not be written while wgmmas run
+        // (ptxas then serialises them all)
+        uint32_t a[2][4][4];  // [plane][k-step][register]
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          if (!PROD) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t u = code_selectors((wrd[h] >> (8 * ks)) & 0xFFu);
+              a[0][ks][h] = __byte_perm(T_LO, T_HI, u);
+              a[0][ks][2 + h] = __byte_perm(T_LO, T_HI, u >> 16);
+              a[1][ks][h] = __byte_perm(N_LO, N_HI, u);
+              a[1][ks][2 + h] = __byte_perm(N_LO, N_HI, u >> 16);
+            }
+          } else {
+#pragma unroll
+            for (int pp = 0; pp < 2; ++pp) {
+              // variant rows v, v + 1 of the stage
+              const int v = SUB * qp + 16 * ks + 2 * tg + 8 * pp;
+              const uint32_t x0 =
+                  At[v * RAW + ((o0 + static_cast<uint32_t>(v) * nb32) & 15u) +
+                     bcol];
+              const uint32_t x1 =
+                  At[(v + 1) * RAW +
+                     ((o0 + static_cast<uint32_t>(v + 1) * nb32) & 15u) + bcol];
+              const uint32_t c = __byte_perm(x0, x1, 0x0040u) >> nsh;
+              const uint32_t s0 = (c & 0x0303u) * 0x11u + 0x4040u;
+              const uint32_t s1 = ((c >> 2) & 0x0303u) * 0x11u + 0x4040u;
+              a[0][ks][2 * pp] = __byte_perm(T_LO, T_HI, s0);
+              a[0][ks][2 * pp + 1] = __byte_perm(T_LO, T_HI, s1);
+              a[1][ks][2 * pp] = __byte_perm(N_LO, N_HI, s0);
+              a[1][ks][2 * pp + 1] = __byte_perm(N_LO, N_HI, s1);
+            }
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl)
+            wgmma_bf16::Op<N>::rs(
+                acc[pl], a[pl][ks],
+                dB + ((PROD ? pl : 0) * KS + qp) * (B_BYTES >> 4) + 2 * ks,
+                qp > 0 || ks > 0);  // the stage's first k-step starts anew
+        wgmma_commit();
+        // the other warpgroup decodes while these run
+        wgmma_wait<0>();
+      }
+      // the stage's sums into f32 registers, each column's terms added in
+      // order: the tensor cores' f32 accumulation drops bits (K2 missed
+      // 1e-5 of a float64 product summing 100,000 variants in them); 16
+      // k-steps a sum keeps it to a few ulps
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int x = 0; x < NMST; ++x) {
+          const int j = x >> 2, r = x & 3;  // x = 4j + 2h + e
+          float v = acc[q][4 * j + r];
+#pragma unroll
+          for (int t = 1; t < TERMS; ++t) v = v + acc[q][4 * (j + t * BNC / 8) + r];
+          mst[q][x] = mst[q][x] + v;
+        }
+      if (lane == 0) mbar_arrive(empty + s);
+      if (++s == S) {
+        s = 0;
+        ph ^= 1;
       }
     }
+    // accumulator d[4j + 2h + e]: fragment row g + 8h, column 8j + 2tg + e
+    // of this warp's 16 rows (prod's fragment row (g, h) is sample 2g + h);
+    // term t of column c is column t BNC + c, in the same thread; mst holds
+    // the first term block's layout
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = r0 + 64 * wg + 16 * w + (PROD ? 2 * g + h : g + 8 * h);
+      if (row >= M) continue;
+      float Ar = 0.f, sr = 0.f;
+      if (!PROD && p.splits == 1) {
+        sr = p.inv[row];
+        Ar = (2.0f - p.center[row]) * sr;
+      }
+#pragma unroll
+      for (int j = 0; j < BNC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t col = c0 + 8 * j + 2 * tg + e;
+          if (col >= p.l) continue;
+          const float pt = mst[0][4 * j + 2 * h + e];
+          const float pna = mst[1][4 * j + 2 * h + e];
+          if (p.splits == 1) {
+            p.out[row * p.l + col] =
+                PROD ? (p.sumv[col] - pna) - pt
+                     : (p.sumv[col] - pna) * Ar - pt * sr;
+          } else {
+            float* slice = p.raw + sp * 2 * M * p.l;
+            slice[row * p.l + col] = pt;
+            slice[(M + row) * p.l + col] = pna;
+          }
+        }
+    }
   }
 }
 
+// out (R, l) from the raw plane sums of every depth split (splits, 2, R, l),
+// added in split order
 template <bool PROD>
-__global__ void split_epilogue_kernel(const float* __restrict__ part,
+__global__ void plane_epilogue_kernel(const float* __restrict__ raw,
                                       int splits, int64_t R, int64_t l,
                                       const float* __restrict__ sumv,
-                                      const float* __restrict__ A,
-                                      const float* __restrict__ s,
+                                      const float* __restrict__ center,
+                                      const float* __restrict__ inv,
                                       float* __restrict__ out) {
   const int64_t count = R * l;
-  const int64_t N2 = 2 * l;
-  const int64_t plane = R * N2;
   for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        e < count; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t i = e / l, r = e % l;
-    const float* pt0 = part + i * N2;
-    float th = pt0[r], tl = pt0[l + r];
-    float nh = pt0[plane + r], nl = pt0[plane + l + r];
+    const int64_t i = e / l;
+    float pt = raw[e], pna = raw[count + e];
     for (int sp = 1; sp < splits; ++sp) {
-      const float* q = pt0 + static_cast<int64_t>(sp) * 2 * plane;
-      th = th + q[r];
-      tl = tl + q[l + r];
-      nh = nh + q[plane + r];
-      nl = nl + q[plane + l + r];
+      pt = pt + raw[2 * sp * count + e];
+      pna = pna + raw[(2 * sp + 1) * count + e];
     }
-    const float pt = th + tl;
-    const float pna = nh + nl;
-    out[e] = PROD ? (sumv[r] - pna) - pt : (sumv[r] - pna) * A[i] - pt * s[i];
+    const int64_t r = e % l;
+    if (PROD) {
+      out[e] = (sumv[r] - pna) - pt;
+    } else {
+      const float s = inv[i];
+      out[e] = (sumv[r] - pna) * ((2.0f - center[i]) * s) - pt * s;
+    }
   }
 }
 
-template <bool PROD, int NT>
-void launch_gemm(const uint8_t* packed, int64_t m, int64_t nb, int64_t n,
-                 const uint16_t* opT, const uint16_t* opNA, int64_t ldo,
-                 int64_t N2, float* part, int splits, cudaStream_t st) {
-  const int64_t M = PROD ? n : m, K = PROD ? m : n;
-  const int64_t kps = cdiv(cdiv(K, BK), splits);
-  const dim3 grid(static_cast<unsigned>(cdiv(M, BM)), splits,
-                  static_cast<unsigned>(cdiv(N2, 8 * NT)));
-  split_gemm_kernel<PROD, NT><<<grid, THREADS, 0, st>>>(
-      packed, m, nb, n, opT, opNA, ldo, N2, part, kps);
-}
-
-// 8-column tiles per block: the fewest z-tiles of at most 12, each rounded
-// up to a compiled width (l = 12 and l = 20 fill 3 and 5 tiles exactly)
-int pick_nt(int64_t N2) {
-  const int64_t n8 = cdiv(N2, 8);
-  const int64_t per = cdiv(n8, cdiv(n8, 12));
-  if (per <= 5) return static_cast<int>(per < 1 ? 1 : per);
-  if (per <= 6) return 6;
-  if (per <= 8) return 8;
-  if (per <= 10) return 10;
-  return 12;
-}
-
-template <bool PROD>
-void dispatch_gemm(const uint8_t* packed, int64_t m, int64_t nb, int64_t n,
-                   const uint16_t* opT, const uint16_t* opNA, int64_t ldo,
-                   int64_t N2, float* part, int splits, cudaStream_t st) {
-  switch (pick_nt(N2)) {
-    case 1: launch_gemm<PROD, 1>(packed, m, nb, n, opT, opNA, ldo, N2, part, splits, st); break;
-    case 2: launch_gemm<PROD, 2>(packed, m, nb, n, opT, opNA, ldo, N2, part, splits, st); break;
-    case 3: launch_gemm<PROD, 3>(packed, m, nb, n, opT, opNA, ldo, N2, part, splits, st); break;
-    case 4: launch_gemm<PROD, 4>(packed, m, nb, n, opT, opNA, ldo, N2, part, splits, st); break;
-    case 5: launch_gemm<PROD, 5>(packed, m, nb, n, opT, opNA, ldo, N2, part, splits, st); break;
-    case 6: launch_gemm<PROD, 6>(packed, m, nb, n, opT, opNA, ldo, N2, part, splits, st); break;
-    case 8: launch_gemm<PROD, 8>(packed, m, nb, n, opT, opNA, ldo, N2, part, splits, st); break;
-    case 10: launch_gemm<PROD, 10>(packed, m, nb, n, opT, opNA, ldo, N2, part, splits, st); break;
-    default: launch_gemm<PROD, 12>(packed, m, nb, n, opT, opNA, ldo, N2, part, splits, st); break;
+// The operand: rows c0.. of W (depth, l) f32 over 64 depth entries a block
+// -> Bop (planes, TERMS, l_pad, ldk) bf16 terms in the kernel's depth order,
+// zero past l and past the depth; prod scales row d by inv[d] (zB, the T
+// plane's) and by A[d] = (2 - c[d]) inv[d] (zA, the NA plane's). partial
+// (ldk / 64, l): the block's sums of V (cprod) or zA (prod) over its depth.
+template <bool PROD, int TERMS>
+__global__ void __launch_bounds__(256)
+plane_prep_kernel(const float* __restrict__ W, int64_t depth, int64_t l,
+                  int l_pad, int64_t ldk, const float* __restrict__ center,
+                  const float* __restrict__ inv, uint16_t* __restrict__ Bop,
+                  float* __restrict__ partial) {
+  constexpr int NB = PROD ? 2 : 1;
+  __shared__ float tile[NB][64][65];
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * 64;
+  const int c0 = blockIdx.y * 64;
+  for (int e = threadIdx.x; e < 64 * 64; e += blockDim.x) {
+    const int dk = e / 64, c = e % 64;
+    const int64_t d = k0 + dk, col = c0 + c;
+    const float x = (d < depth && col < l) ? W[d * l + col] : 0.f;
+    if (PROD) {
+      const float s = d < depth ? inv[d] : 0.f;
+      const float A = d < depth ? (2.0f - center[d]) * s : 0.f;
+      tile[0][dk][c] = x * s;
+      tile[NB - 1][dk][c] = x * A;
+    } else {
+      tile[0][dk][c] = x;
+    }
   }
+  __syncthreads();
+  if (threadIdx.x < 64 && c0 + threadIdx.x < l) {
+    float s = 0.f;
+    for (int dk = 0; dk < 64; ++dk) s = s + tile[NB - 1][dk][threadIdx.x];
+    partial[blockIdx.x * l + c0 + threadIdx.x] = s;
+  }
+  for (int e = threadIdx.x; e < NB * 64 * 64; e += blockDim.x) {
+    const int pl = e / 4096, c = (e / 64) % 64, kk = e % 64;
+    const int64_t r = c0 + c;
+    if (r >= l_pad) continue;
+    float x = tile[pl][PROD ? kk : sigma64(kk)][c];
+#pragma unroll
+    for (int t = 0; t < TERMS; ++t) {
+      const __nv_bfloat16 b = __float2bfloat16_rn(x);
+      Bop[((pl * TERMS + t) * static_cast<int64_t>(l_pad) + r) * ldk + k0 + kk] =
+          __bfloat16_as_ushort(b);
+      x = x - __bfloat162float(b);
+    }
+  }
+}
+
+// sumv[r] = the blocks' partial sums of column r, added in block order
+__global__ void plane_sum_kernel(const float* __restrict__ partial,
+                                 int64_t blocks, int64_t l,
+                                 float* __restrict__ sumv) {
+  const int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (r >= l) return;
+  float s = 0.f;
+  for (int64_t b = 0; b < blocks; ++b) s = s + partial[b * l + r];
+  sumv[r] = s;
+}
+
+template <bool PROD, int TERMS, int BNC>
+int launch_gemm(const CUtensorMap& map, const Params& p, int grid,
+                cudaStream_t st) {
+  auto kern = plane_wgmma_kernel<PROD, TERMS, BNC>;
+  static bool opted_in = false;  // > 48 KB of shared memory, once
+  if (!opted_in) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    opted_in = true;
+  }
+  kern<<<grid, THREADS, smem_bytes(PROD, TERMS, BNC, p.ksub, p.stages), st>>>(
+      map, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the compiled column tiles (ops/geno_kernels.py::PLANE_BNC): TERMS x BNC
+// <= 96 wgmma columns a plane, and their registers with the f32 sums
+template <bool PROD, int TERMS>
+int dispatch_width(int bnc, const CUtensorMap& map, const Params& p, int grid,
+                   cudaStream_t st) {
+  switch (bnc) {
+    case 8: return launch_gemm<PROD, TERMS, 8>(map, p, grid, st);
+    case 16: return launch_gemm<PROD, TERMS, 16>(map, p, grid, st);
+    case 24: return launch_gemm<PROD, TERMS, 24>(map, p, grid, st);
+    case 32: return launch_gemm<PROD, TERMS, 32>(map, p, grid, st);
+    default: break;
+  }
+  if constexpr (TERMS == 2) {
+    if (bnc == 40) return launch_gemm<PROD, 2, 40>(map, p, grid, st);
+  }
+  return -1;
+}
+
+bool compiled_width(int terms, int bnc) {
+  return bnc % 8 == 0 && bnc >= 8 && bnc <= (terms == 2 ? 40 : 32);
+}
+
+// the compiled families: K7 cprod, K7 prod, K2
+bool compiled_family(int prod, int terms) {
+  return (!prod && terms == 2) || (prod && (terms == 2 || terms == 3));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Depth splits (gridDim.y) for about 8 blocks an SM, within the number of
-// depth tiles and at most 64: cprod at m = 100,000 fills the card unsplit;
-// prod on 20,000-50,000 samples gets 2-4 splits.
-int geno_split_plan(int prod, int64_t m, int64_t n, int64_t N2, int sms) {
-  const int64_t M = prod ? n : m, K = prod ? m : n;
-  const int nt = pick_nt(N2);
-  const int64_t blocks = cdiv(M, BM) * cdiv(N2, 8 * nt);
-  int64_t s = cdiv(8 * static_cast<int64_t>(sms), blocks);
-  const int64_t ktiles = cdiv(K, BK);
-  if (s > ktiles) s = ktiles;
-  if (s > 64) s = 64;
-  if (s < 1) s = 1;
-  return static_cast<int>(s);
-}
-
-// part (splits, 2, M, N2) f32 = [T; NA] planes x operand, one slice per
-// depth split. opT: the T plane's operand (N2, ldo) bf16; opNA: the NA
-// plane's (prod only; cprod reuses opT).
-int geno_split_gemm(int prod, const void* packed, int64_t m, int64_t nb,
-                    int64_t n, const void* opT, const void* opNA, int64_t ldo,
-                    int64_t N2, void* part, int splits, void* stream) {
-  const auto* pk = static_cast<const uint8_t*>(packed);
-  const auto* t = static_cast<const uint16_t*>(opT);
-  const auto* a = static_cast<const uint16_t*>(opNA);
-  auto* p = static_cast<float*>(part);
+// Bop (planes, terms, l_pad, ldk) bf16 and sumv (l,) f32 from W (depth, l)
+// f32: cprod (prod = 0) W = V, one plane, sumv its column sums; prod W = U
+// scaled into zB and zA, sumv the column sums of zA. partial: (ldk / 64,
+// l) f32 scratch.
+int geno_plane_prep(int prod, int terms, const void* W, int64_t depth,
+                    int64_t l, int64_t l_pad, int64_t ldk, const void* center,
+                    const void* inv, void* Bop, void* partial, void* sumv,
+                    void* stream) {
+  if (!compiled_family(prod, terms) || depth < 1 || l < 1 || l_pad < l ||
+      ldk % SUB != 0 || ldk < depth)
+    return -1;
+  const auto* w = static_cast<const float*>(W);
+  const auto* c = static_cast<const float*>(center);
+  const auto* s = static_cast<const float*>(inv);
+  auto* b = static_cast<uint16_t*>(Bop);
+  auto* pa = static_cast<float*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
-  if (splits < 1 || splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (prod) dispatch_gemm<true>(pk, m, nb, n, t, a, ldo, N2, p, splits, st);
-  else dispatch_gemm<false>(pk, m, nb, n, t, a, ldo, N2, p, splits, st);
+  const int64_t blocks = ldk / SUB;
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(cdiv(l_pad, 64)));
+  const int lp = static_cast<int>(l_pad);
+  if (!prod)
+    plane_prep_kernel<false, 2><<<grid, 256, 0, st>>>(w, depth, l, lp, ldk, c, s, b, pa);
+  else if (terms == 2)
+    plane_prep_kernel<true, 2><<<grid, 256, 0, st>>>(w, depth, l, lp, ldk, c, s, b, pa);
+  else
+    plane_prep_kernel<true, 3><<<grid, 256, 0, st>>>(w, depth, l, lp, ldk, c, s, b, pa);
+  plane_sum_kernel<<<static_cast<unsigned>(cdiv(l, 128)), 128, 0, st>>>(
+      pa, blocks, l, static_cast<float*>(sumv));
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (R, l) f32 from part (splits, 2, R, 2l): the splits added in order,
-// hi + lo, and the epilogue. cprod: A, s are the (R,) variant vectors;
-// prod: unused.
-int geno_split_epilogue(int prod, const void* part, int splits, int64_t R,
-                        int64_t l, const void* sumv, const void* A,
-                        const void* s, void* out, void* stream) {
-  const auto* p = static_cast<const float*>(part);
+// The GEMM on the plan of ops/geno_kernels.py::plane_plan: column tile bn
+// (a compiled width: TERMS x bn wgmma columns) x n_tiles = l_pad / bn >= l,
+// `stages` ring stages of ksub 64-deep sub-tiles, `grid` persistent CTAs,
+// the depth in `splits` runs of kps stages. splits = 1 writes out (R, l)
+// through the fused epilogue; splits > 1 the raw plane sums (splits, 2, R,
+// l) for geno_plane_epilogue. Bop as geno_plane_prep writes it, 16-byte
+// aligned (the depth past ldk reads as zeros).
+int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
+                    int64_t nb, int64_t n, const void* Bop, int64_t ldk,
+                    int64_t l, int64_t l_pad, const void* center,
+                    const void* inv, const void* sumv, void* out, void* raw,
+                    int bn, int n_tiles, int ksub, int stages, int grid,
+                    int kps, int splits, void* stream) {
+  const int64_t M = prod ? n : m, K = prod ? m : n;
+  const int64_t ktiles = cdiv(K, SUB * static_cast<int64_t>(ksub));
+  const int64_t m_tiles = cdiv(M, BM);
+  if (!compiled_family(prod, terms) || !compiled_width(terms, bn) || m < 1 ||
+      n < 1 || l < 1 || nb != cdiv(n, 4) ||
+      static_cast<int64_t>(n_tiles) * bn != l_pad || l_pad < l ||
+      static_cast<int64_t>(n_tiles - 1) * bn >= l ||
+      (ksub != 1 && ksub != 2 && ksub != 4) || stages < 2 ||
+      stages > MAX_STAGES || kps < 1 || splits < 1 ||
+      cdiv(ktiles, kps) != splits || grid < 1 || ktiles > (1 << 30) ||
+      m_tiles > (1 << 30) || ldk % SUB != 0 || ldk < K ||
+      (prod ? 2 : 1) * terms * l_pad > (1 << 30) ||
+      smem_bytes(prod, terms, bn, ksub, stages) > MAX_SMEM ||
+      reinterpret_cast<uintptr_t>(Bop) % 16 != 0)
+    return -1;
+  Params p{};
+  p.packed = static_cast<const uint8_t*>(packed);
+  p.nb = nb;
+  p.m = m;
+  p.n = n;
+  p.l = l;
+  p.center = static_cast<const float*>(center);
+  p.inv = static_cast<const float*>(inv);
+  p.sumv = static_cast<const float*>(sumv);
+  p.out = static_cast<float*>(out);
+  p.raw = static_cast<float*>(raw);
+  p.m_tiles = static_cast<int>(m_tiles);
+  p.n_tiles = n_tiles;
+  p.items = m_tiles * n_tiles * splits;
+  p.ktiles = static_cast<int>(ktiles);
+  p.kps = kps;
+  p.ksub = ksub;
+  p.stages = stages;
+  p.splits = splits;
+  p.l_pad = static_cast<int>(l_pad);
+  CUtensorMap map;
+  if (!make_map(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, Bop, ldk,
+                (prod ? 2 : 1) * terms * l_pad, 2 * ldk, SUB, bn))
+    return -2;
+  const int g = static_cast<int>(p.items < grid ? p.items : grid);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (!prod) return dispatch_width<false, 2>(bn, map, p, g, st);
+  return terms == 2 ? dispatch_width<true, 2>(bn, map, p, g, st)
+                    : dispatch_width<true, 3>(bn, map, p, g, st);
+}
+
+// out (R, l) f32 from raw (splits, 2, R, l): the splits added in order and
+// the epilogue. cprod: center, inv are the (R,) variant vectors.
+int geno_plane_epilogue(int prod, const void* raw, int splits, int64_t R,
+                        int64_t l, const void* sumv, const void* center,
+                        const void* inv, void* out, void* stream) {
+  const auto* r = static_cast<const float*>(raw);
   const auto* sv = static_cast<const float*>(sumv);
-  const auto* fa = static_cast<const float*>(A);
-  const auto* fs = static_cast<const float*>(s);
+  const auto* c = static_cast<const float*>(center);
+  const auto* s = static_cast<const float*>(inv);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const int64_t blocks = cdiv(R * l, 256);
   const unsigned grid = static_cast<unsigned>(blocks < 8192 ? blocks : 8192);
-  if (prod) split_epilogue_kernel<true><<<grid, 256, 0, st>>>(p, splits, R, l, sv, fa, fs, o);
-  else split_epilogue_kernel<false><<<grid, 256, 0, st>>>(p, splits, R, l, sv, fa, fs, o);
+  if (prod) plane_epilogue_kernel<true><<<grid, 256, 0, st>>>(r, splits, R, l, sv, c, s, o);
+  else plane_epilogue_kernel<false><<<grid, 256, 0, st>>>(r, splits, R, l, sv, c, s, o);
   return static_cast<int>(cudaGetLastError());
 }
 

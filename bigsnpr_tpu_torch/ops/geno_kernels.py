@@ -1,12 +1,14 @@
-"""Fused 2-bit decode + standardized GEMM: the CUDA kernels K1/K2, K7 and
-K6, their plain-torch twins, and the operator built on them.
+"""Fused 2-bit decode + standardized GEMM: the CUDA kernels K1, K2, K7, K6
+and K8, their plain-torch twins, and the operator built on them.
 
 Counterpart of `bigsnpr_tpu/ops/pallas_kernels.py` (`pallas_cprod` /
 `pallas_prod` and `PallasOperator`), in three schemes
 (`config.pallas_mxu`):
 
   "highest", K1 `cprod`: X~^T V, V (n, l) -> (m, l)
-             K2 `prod` : X~ U,   U (m, l) -> (n, l)
+             K2 `prod` : X~ U,   U (m, l) -> (n, l), on exact bf16 bit
+             planes against the operand split into three bf16 terms (all
+             24 bits of its mantissa), float32 accumulation
   "split2",  K7 `cprod_split` / `prod_split`: the same products on exact
              bf16 bit planes against the operand split into bf16 hi + lo,
              with float32 accumulation (`_cprod_kernel_split`,
@@ -22,8 +24,9 @@ Counterpart of `bigsnpr_tpu/ops/pallas_kernels.py` (`pallas_cprod` /
 with X~[i, j] = (d_ij - center_j) * inv_j for sample i of variant j, the
 dosage d = 2 - ((g + 1) >> 1) of 2-bit code g, and NA (g == 1) -> 0.
 
-The kernels live in `csrc/geno_gemm.cu` (K1/K2), `csrc/geno_split.cu`
-(K7) and `csrc/geno_i8.cu` (K6 and K8), built with nvcc at first use
+The kernels live in `csrc/geno_gemm.cu` (K1), `csrc/geno_split.cu` (K2
+and K7: one template, `plane_wgmma_kernel<PROD, TERMS, BNC>`) and
+`csrc/geno_i8.cu` (K6 and K8), built with nvcc at first use
 (keyed by the source's hash) into `_build/` and loaded with ctypes by
 `ops/cuda_build.py`. Each
 wrapper launches its kernel for CUDA tensors and counts the launch in
@@ -50,7 +53,7 @@ from bigsnpr_tpu_torch.ops.corr import _pack_is_nona
 SOURCE = cuda_build.PKG / "csrc" / "geno_gemm.cu"
 I8_SOURCE = cuda_build.PKG / "csrc" / "geno_i8.cu"
 SPLIT_SOURCE = cuda_build.PKG / "csrc" / "geno_split.cu"
-# the int8 and split2 epilogues round as the twins' separate torch ops do
+# the int8 and bit-plane epilogues round as the twins' separate torch ops do
 I8_FLAGS = ("--fmad=false",)
 SPLIT_FLAGS = ("--fmad=false",)
 
@@ -58,7 +61,7 @@ NPLANES = 4             # radix-128 int8 digits of the float operand
 # a raw int32 sum is at most 254 x (contraction length) in absolute value
 MAX_I8_DEPTH = 8_000_000
 _I8_BK = 128            # the kernel's depth tile: digit rows are padded to it
-_SPLIT_BK = 64          # K7's depth tile in bf16 values: operand rows padded
+_PLANE_SUB = 64         # K2 / K7's operand sub-tile depth: operands padded
 
 # kernel launches made by the wrappers, by kernel
 launches = {"cprod": 0, "prod": 0, "cprod_split": 0, "prod_split": 0,
@@ -73,7 +76,7 @@ def reset_launches() -> None:
 
 
 def build(verbose: bool = False):
-    """Compile `csrc/geno_gemm.cu` at first use (`cuda_build.build`);
+    """Compile `csrc/geno_gemm.cu` (K1) at first use (`cuda_build.build`);
     returns the library's path."""
     return cuda_build.build(SOURCE, verbose=verbose)
 
@@ -84,18 +87,18 @@ def build_i8(verbose: bool = False):
 
 
 def build_split(verbose: bool = False):
-    """Compile `csrc/geno_split.cu` (K7) at first use; returns its path."""
+    """Compile `csrc/geno_split.cu` (K2, K7) at first use; returns its
+    path."""
     return cuda_build.build(SPLIT_SOURCE, verbose=verbose, extra=SPLIT_FLAGS)
 
 
 def _bind(lib):
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.geno_plan.argtypes = [i32, i64, i64, i64, i32]
+    lib.geno_plan.argtypes = [i64, i64, i64, i32]
     lib.geno_plan.restype = i32
-    for fn in (lib.geno_cprod, lib.geno_prod):
-        fn.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr,
-                       i32, ptr]
-        fn.restype = i32
+    lib.geno_cprod.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr,
+                               ptr, i32, ptr]
+    lib.geno_cprod.restype = i32
 
 
 def _load():
@@ -119,14 +122,16 @@ def _load_i8():
 
 def _bind_split(lib):
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.geno_split_plan.argtypes = [i32, i64, i64, i64, i32]
-    lib.geno_split_plan.restype = i32
-    lib.geno_split_gemm.argtypes = [i32, ptr, i64, i64, i64, ptr, ptr, i64,
-                                    i64, ptr, i32, ptr]
-    lib.geno_split_gemm.restype = i32
-    lib.geno_split_epilogue.argtypes = [i32, ptr, i32, i64, i64, ptr, ptr,
+    lib.geno_plane_prep.argtypes = [i32, i32, ptr, i64, i64, i64, i64, ptr,
+                                    ptr, ptr, ptr, ptr, ptr]
+    lib.geno_plane_prep.restype = i32
+    lib.geno_plane_gemm.argtypes = [i32, i32, ptr, i64, i64, i64, ptr, i64,
+                                    i64, i64, ptr, ptr, ptr, ptr, ptr, i32,
+                                    i32, i32, i32, i32, i32, i32, ptr]
+    lib.geno_plane_gemm.restype = i32
+    lib.geno_plane_epilogue.argtypes = [i32, ptr, i32, i64, i64, ptr, ptr,
                                         ptr, ptr, ptr]
-    lib.geno_split_epilogue.restype = i32
+    lib.geno_plane_epilogue.restype = i32
 
 
 def _load_split():
@@ -159,7 +164,9 @@ def cprod_plain(packed, n, V, center, inv, block=None):
 
 
 def prod_plain(packed, n, U, center, inv, block=None):
-    """K2's function in torch ops, accumulated over variant blocks."""
+    """K2's function in torch ops: decode a variant block, f32 matmul,
+    accumulated over variant blocks (the direct product, which the kernel
+    reaches through the plane algebra)."""
     m = packed.shape[0]
     block = block or pick_block(n)
     out = torch.zeros((n, U.shape[1]), dtype=torch.float32,
@@ -218,25 +225,24 @@ def _check(packed, n, W, w_rows, center, inv):
     _check_operands(packed, W, w_rows, center, inv)
 
 
-def _launch(kind, packed, n, W, center, inv, rows_out):
+def _launch_cprod(packed, n, V, center, inv):
     lib = _load()
     m, nb = packed.shape
-    l = W.shape[1]
+    l = V.shape[1]
     dev = packed.device
-    out = torch.empty((rows_out, l), dtype=torch.float32, device=dev)
+    out = torch.empty((m, l), dtype=torch.float32, device=dev)
     if min(m, n, l) == 0:
         return out.zero_()
-    sms = _sm_count(dev)
-    splits = lib.geno_plan(0 if kind == "cprod" else 1, m, nb, l, sms)
-    part = (torch.empty((splits, rows_out, l), dtype=torch.float32,
-                        device=dev) if splits > 1 else out)
+    splits = lib.geno_plan(m, nb, l, _sm_count(dev))
+    part = (torch.empty((splits, m, l), dtype=torch.float32, device=dev)
+            if splits > 1 else out)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = lib.geno_cprod if kind == "cprod" else lib.geno_prod
-    rc = fn(packed.data_ptr(), m, nb, n, W.data_ptr(), l, center.data_ptr(),
-            inv.data_ptr(), out.data_ptr(), part.data_ptr(), splits, stream)
+    rc = lib.geno_cprod(packed.data_ptr(), m, nb, n, V.data_ptr(), l,
+                        center.data_ptr(), inv.data_ptr(), out.data_ptr(),
+                        part.data_ptr(), splits, stream)
     if rc != 0:
-        raise RuntimeError(f"geno_{kind} launch failed: CUDA error {rc}")
-    launches[kind] += 1
+        raise RuntimeError(f"geno_cprod launch failed: CUDA error {rc}")
+    launches["cprod"] += 1
     return out
 
 
@@ -247,65 +253,78 @@ def cprod(packed, n, V, center, inv):
     _check(packed, n, V, n, center, inv)
     if packed.device.type == "cpu":
         return cprod_plain(packed, n, V, center, inv)
-    return _launch("cprod", packed, n, V, center, inv, packed.shape[0])
+    return _launch_cprod(packed, n, V, center, inv)
 
 
-def prod(packed, n, U, center, inv):
+def prod(packed, n, U, center, inv, splits=None):
     """K2: U (m, l) f32 -> (n, l) f32 = X~ U. CUDA tensors launch the
-    kernel; CPU tensors take `prod_plain`."""
+    bit-plane kernel on the operand split into three bf16 terms
+    (`plane_wgmma_kernel<true, 3, BN>`); CPU tensors take `prod_plain`.
+    `splits` overrides the planned depth splits of the GEMM."""
     _check(packed, n, U, packed.shape[0], center, inv)
     if packed.device.type == "cpu":
         return prod_plain(packed, n, U, center, inv)
-    return _launch("prod", packed, n, U, center, inv, n)
+    return _launch_plane(True, 3, packed, n, U, center, inv, splits)
 
 
 # ---------------------------------------------------------------------------
-# K7: the "split2" scheme (exact bf16 bit planes, operand split hi + lo)
+# K2 and K7: exact bf16 bit planes against the operand split into bf16
+# terms ("highest" prod: three terms; "split2": hi + lo)
 # ---------------------------------------------------------------------------
 
-def split_bf16(x: torch.Tensor):
-    """x f32 -> (hi, lo) bf16 with x ~ hi + lo: `_split_bf16` op for op
-    (both casts round to nearest even), so the two are bit-equal to the
-    JAX package's."""
-    hi = x.to(torch.bfloat16)
-    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+def split_bf16(x: torch.Tensor, terms: int = 2):
+    """x f32 -> `terms` bf16 tensors whose sum is ~x: hi = bf16(x), then
+    the bf16 of what is left, the subtractions in f32 and every cast round
+    to nearest even. Two terms (hi, lo) are `_split_bf16` op for op, so the
+    two are bit-equal to the JAX package's; three (hi, mid, lo) hold all 24
+    bits of x's mantissa (K2's operand)."""
+    out = []
+    r = x
+    for t in range(terms):
+        b = r.to(torch.bfloat16)
+        out.append(b)
+        if t + 1 < terms:
+            r = r - b.to(torch.float32)
+    return tuple(out)
 
 
-def _cprod_split_operands(V, center, inv):
-    """Host-side parts of K7 cprod, shared by kernel and twin: Vᵀ split
-    into bf16 hi and lo rows stacked (2l, n), its row sums, and
+def _cprod_split_operands(V, center, inv, terms=2):
+    """Host-side parts of the bit-plane cprod's twin: Vᵀ split into
+    `terms` bf16 row blocks stacked (terms * l, n), its row sums, and
     A = (2 - c) * inv."""
     Qt = V.T.contiguous()
-    return torch.cat(split_bf16(Qt)), Qt.sum(dim=1), (2.0 - center) * inv
+    return (torch.cat(split_bf16(Qt, terms)), Qt.sum(dim=1),
+            (2.0 - center) * inv)
 
 
-def _prod_split_operands(U, center, inv):
-    """Host-side parts of K7 prod: zB = Uᵀ inv and zA = Uᵀ A, each split
-    into stacked bf16 hi / lo rows (2l, m) after the scaling (as
-    `_prod_kernel_split` splits them), and the row sums of zA."""
+def _prod_split_operands(U, center, inv, terms=2):
+    """Host-side parts of the bit-plane prod's twin: zB = Uᵀ inv and
+    zA = Uᵀ A, each split into `terms` stacked bf16 row blocks
+    (terms * l, m) after the scaling (as `_prod_kernel_split` splits
+    them), and the row sums of zA."""
     Zt = U.T
     zA = Zt * ((2.0 - center) * inv)[None, :]
     zB = Zt * inv[None, :]
-    return (torch.cat(split_bf16(zB.contiguous())),
-            torch.cat(split_bf16(zA.contiguous())), zA.sum(dim=1))
+    return (torch.cat(split_bf16(zB.contiguous(), terms)),
+            torch.cat(split_bf16(zA.contiguous(), terms)), zA.sum(dim=1))
 
 
 def _split_raw_plain(packed, n, ops, prod, block=None):
-    """The raw sums of K7 in torch ops: (2, R, 2l) float32 for the planes
-    [T, NA] with R = m (cprod) or n (prod). The planes' values {0, 1, 2}
-    and the bf16 operand are exact in float32, so each product is exact
-    and only the float32 accumulation rounds; prod accumulates over
-    variant blocks. cprod gives one operand for both planes, prod one a
-    plane."""
+    """The raw sums of the bit-plane products in torch ops: (2, R, N)
+    float32 for the planes [T, NA], R = m (cprod) or n (prod), N the
+    operand's stacked term rows. The planes' values {0, 1, 2} and the bf16
+    operand are exact in float32, so each product is exact and only the
+    float32 accumulation rounds; prod accumulates over variant blocks.
+    cprod gives one operand for both planes, prod one a plane."""
     m = packed.shape[0]
     block = block or pick_block(n)
-    N2 = ops[0].shape[0]
+    N = ops[0].shape[0]
     dev = packed.device
     W = [o.to(torch.float32) for o in ops]
     if prod:
-        acc = torch.zeros((2, n, N2), dtype=torch.float32, device=dev)
+        acc = torch.zeros((2, n, N), dtype=torch.float32, device=dev)
     else:
-        acc = torch.empty((2, m, N2), dtype=torch.float32, device=dev)
+        acc = torch.empty((2, m, N), dtype=torch.float32, device=dev)
     for j0 in range(0, m, block):
         j1 = min(m, j0 + block)
         for p, x in enumerate(int_planes(packed[j0:j1], n)):
@@ -318,68 +337,176 @@ def _split_raw_plain(packed, n, ops, prod, block=None):
     return acc
 
 
-def _split_epilogue_plain(raw, l, sumv, A=None, s=None):
-    """raw (2, R, 2l) -> (R, l) f32: pt = hi + lo sums of the T plane, pna
-    of the NA plane; cprod (A, s given) (sum - pna) * A - pt * s, prod
+def _split_epilogue_plain(raw, l, sumv, A=None, s=None, terms=2):
+    """raw (2, R, terms * l) -> (R, l) f32: pt = the T plane's sums of the
+    terms added in order (hi + lo, or (hi + mid) + lo), pna the NA
+    plane's; cprod (A, s given) (sum - pna) * A - pt * s, prod
     (sum - pna) - pt (the JAX kernels' epilogue)."""
-    pt = raw[0][:, :l] + raw[0][:, l:]
-    pna = raw[1][:, :l] + raw[1][:, l:]
+    def add(r):
+        out = r[:, :l]
+        for t in range(1, terms):
+            out = out + r[:, t * l:(t + 1) * l]
+        return out
+
+    pt, pna = add(raw[0]), add(raw[1])
     if A is None:
         return (sumv[None, :] - pna) - pt
     return (sumv[None, :] - pna) * A[:, None] - pt * s[:, None]
 
 
-def cprod_split_plain(packed, n, V, center, inv):
+def cprod_split_plain(packed, n, V, center, inv, terms=2):
     """K7 cprod's function in torch ops: the same bf16 operand, exact
     products accumulated in float32, and the same epilogue as the
-    kernel."""
-    qs, qsum, A = _cprod_split_operands(V, center, inv)
+    kernel. `terms=3` is the three-term plane algebra."""
+    qs, qsum, A = _cprod_split_operands(V, center, inv, terms)
     raw = _split_raw_plain(packed, n, [qs], prod=False)
-    return _split_epilogue_plain(raw, V.shape[1], qsum, A, inv)
+    return _split_epilogue_plain(raw, V.shape[1], qsum, A, inv, terms)
 
 
-def prod_split_plain(packed, n, U, center, inv):
-    """K7 prod's function in torch ops (see `cprod_split_plain`)."""
-    zbs, zas, zsum = _prod_split_operands(U, center, inv)
+def prod_split_plain(packed, n, U, center, inv, terms=2):
+    """K7 prod's function in torch ops (see `cprod_split_plain`); with
+    `terms=3`, the plane algebra that K2 runs."""
+    zbs, zas, zsum = _prod_split_operands(U, center, inv, terms)
     raw = _split_raw_plain(packed, n, [zbs, zas], prod=True)
-    return _split_epilogue_plain(raw, U.shape[1], zsum)
+    return _split_epilogue_plain(raw, U.shape[1], zsum, terms=terms)
 
 
-def _launch_split(prod, packed, n, ops, R, l, sumv, A, s, splits=None):
-    """Run the K7 GEMM into float32 partial sums (splits, 2, R, 2l), one
-    slice per depth split, then the epilogue kernel, which adds the splits
-    in order; returns out (R, l). `splits` defaults to the library's
-    plan."""
+# The launch plan of the bit-plane GEMM (`csrc/geno_split.cu` checks it):
+# the compiled column tiles by number of terms; a tile's terms are stacked
+# as wgmma columns, terms x tile <= 96 (with the f32 sums of 2 planes, what
+# a thread's registers hold; `gen_wgmma_bf16.py` writes the widths)
+PLANE_BNC = {2: (8, 16, 24, 32, 40), 3: (8, 16, 24, 32)}
+PLANE_MAX_STAGES = 8
+_PLANE_BM = 128         # rows of a work item: two 64-row warpgroups
+_PLANE_HEAD = 2048      # barriers and alignment slack
+_PLANE_MAX_SPLITS = 16
+_PLANE_MIN_STAGES = 2   # the deepest stage that leaves this many in flight
+
+
+def _plane_stage_bytes(prod, terms, bn, ksub):
+    """Shared memory of one ring stage of `ksub` 64-deep sub-tiles: the
+    operand (terms x bn rows of 128 bytes a sub-tile, one a plane in prod)
+    and the pack rows (cprod the item's 128 variants, 16 ksub bytes each,
+    in rows of 16 (ksub + 1) bytes, at least 48; prod 64 ksub variants
+    in rows of 48 bytes), as `csrc/geno_split.cu` lays them out."""
+    rows = _PLANE_SUB * ksub if prod else _PLANE_BM
+    raw = 48 if prod or ksub < 2 else 16 * (ksub + 1)
+    return (2 if prod else 1) * ksub * terms * bn * 128 + rows * raw
+
+
+def plane_plan(prod, terms, m, n, l, sms, splits=None, ksub=None):
+    """The launch plan of the bit-plane GEMM for rows M (cprod m, prod n),
+    depth K (cprod n, prod m) and the operand's l columns: column tiles of
+    `bn` (the least compiled width for `terms` that holds ceil(l /
+    n_tiles), n_tiles = ceil(l / the widest); a wgmma then spans terms x
+    bn columns), l_pad = bn * n_tiles operand
+    rows a term; 128-row M tiles; ring stages of `ksub` 64-deep sub-tiles,
+    the deepest of 4, 2, 1 that leaves at least 2 stages in shared memory
+    (deep stages beat many: on an H100 a stage costs a fixed share of ring
+    traffic, `plane_variants_probe.py --ksub`), and as many stages as it
+    holds (at most PLANE_MAX_STAGES); a persistent grid of at most one CTA
+    an SM; and the depth in `splits` runs of `kps` stages. Unless `splits`
+    is given, the depth is split only when the tiles fill the last wave of
+    CTAs to less than 90%; a split run writes its raw sums as a slice that
+    the epilogue kernel adds in order. `ksub` overrides the stage depth."""
+    widths = PLANE_BNC[terms]
+    n_tiles = -(-l // widths[-1])
+    bn = min(w for w in widths if w >= -(-l // n_tiles))
+    M, K = (n, m) if prod else (m, n)
+    m_tiles = -(-M // _PLANE_BM)
+    tiles = m_tiles * n_tiles
+    for ksub in (4, 2, 1) if ksub is None else (ksub,):
+        stage = _plane_stage_bytes(prod, terms, bn, ksub)
+        stages = min(PLANE_MAX_STAGES, (I8_SMEM - _PLANE_HEAD) // stage)
+        if stages >= _PLANE_MIN_STAGES:
+            break
+    ktiles = -(-K // (_PLANE_SUB * ksub))
+    if splits is None:
+        cap = min(ktiles, _PLANE_MAX_SPLITS)
+        splits = 1
+        while splits < cap:
+            items = tiles * splits
+            if items >= 0.9 * -(-items // sms) * sms:
+                break
+            splits += 1
+    kps = -(-ktiles // max(1, min(splits, ktiles)))
+    splits = -(-ktiles // kps)
+    return {"bn": bn, "n_tiles": n_tiles, "l_pad": bn * n_tiles,
+            "m_tiles": m_tiles, "ksub": ksub, "stages": stages,
+            "grid": min(tiles * splits, sms), "splits": splits, "kps": kps,
+            "ktiles": ktiles, "smem": _PLANE_HEAD + stages * stage}
+
+
+def _plane_operands(prod, terms, W, center, inv, plan):
+    """The bit-plane GEMM's operand (planes, terms, l_pad, ldk) bf16 in
+    the kernel's depth order and its row sums (l,) f32, made on the card
+    by `geno_plane_prep` from W (depth, l): cprod V, prod U (scaled there
+    into zB and zA). Returns (operand, sums, rc)."""
+    lib = _load_split()
+    depth, l = W.shape
+    dev = W.device
+    ldk = -(-depth // _PLANE_SUB) * _PLANE_SUB
+    op = torch.empty((2 if prod else 1, terms, plan["l_pad"], ldk),
+                     dtype=torch.bfloat16, device=dev)
+    partial = torch.empty((ldk // _PLANE_SUB, l), dtype=torch.float32,
+                          device=dev)
+    sumv = torch.empty(l, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.geno_plane_prep(int(prod), terms, W.data_ptr(), depth, l,
+                             plan["l_pad"], ldk, center.data_ptr(),
+                             inv.data_ptr(), op.data_ptr(),
+                             partial.data_ptr(), sumv.data_ptr(), stream)
+    return op, sumv, rc
+
+
+def _plane_gemm(prod, terms, packed, n, op, sumv, l, center, inv, plan):
+    """The bit-plane GEMM on a prepared operand, with its fused epilogue
+    or, when the plan splits the depth, the epilogue kernel that adds the
+    splits in order. Returns (out (R, l) f32, rc)."""
     lib = _load_split()
     m, nb = packed.shape
     dev = packed.device
+    R = n if prod else m
     out = torch.empty((R, l), dtype=torch.float32, device=dev)
-    if min(m, n, l) == 0:
-        return out.zero_()
-    depth = m if prod else n
-    ldo = -(-depth // _SPLIT_BK) * _SPLIT_BK
-    padded = []
-    for o in ops:
-        op = torch.zeros((o.shape[0], ldo), dtype=torch.bfloat16, device=dev)
-        op[:, :depth] = o
-        padded.append(op)
-    N2 = 2 * l
-    if splits is None:
-        sms = _sm_count(dev)
-        splits = lib.geno_split_plan(int(prod), m, n, N2, sms)
-    part = torch.empty((splits, 2, R, N2), dtype=torch.float32, device=dev)
+    raw = (torch.empty((plan["splits"], 2, R, l), dtype=torch.float32,
+                       device=dev) if plan["splits"] > 1 else out)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.geno_split_gemm(int(prod), packed.data_ptr(), m, nb, n,
-                             padded[0].data_ptr(), padded[-1].data_ptr(), ldo,
-                             N2, part.data_ptr(), splits, stream)
+    rc = lib.geno_plane_gemm(
+        int(prod), terms, packed.data_ptr(), m, nb, n, op.data_ptr(),
+        op.shape[-1], l, plan["l_pad"], center.data_ptr(), inv.data_ptr(),
+        sumv.data_ptr(), out.data_ptr(), raw.data_ptr(), plan["bn"],
+        plan["n_tiles"], plan["ksub"], plan["stages"], plan["grid"],
+        plan["kps"], plan["splits"], stream)
+    if rc == 0 and plan["splits"] > 1:
+        rc = lib.geno_plane_epilogue(int(prod), raw.data_ptr(),
+                                     plan["splits"], R, l, sumv.data_ptr(),
+                                     center.data_ptr(), inv.data_ptr(),
+                                     out.data_ptr(), stream)
+    return out, rc
+
+
+def _launch_plane(prod, terms, packed, n, W, center, inv, splits=None):
+    """Prepare the operand and run the bit-plane GEMM (K2: prod, 3 terms,
+    counted as "prod"; K7: 2 terms); returns out (R, l). `splits`
+    overrides the plan's."""
+    m = packed.shape[0]
+    l = W.shape[1]
+    dev = packed.device
+    R = n if prod else m
+    if min(m, n, l) == 0:
+        return torch.zeros((R, l), dtype=torch.float32, device=dev)
+    plan = plane_plan(prod, terms, m, n, l, _sm_count(dev), splits)
+    op, sumv, rc = _plane_operands(prod, terms, W, center, inv, plan)
     if rc == 0:
-        rc = lib.geno_split_epilogue(
-            int(prod), part.data_ptr(), splits, R, l, sumv.data_ptr(),
-            0 if A is None else A.data_ptr(), 0 if s is None else s.data_ptr(),
-            out.data_ptr(), stream)
-    kind = "prod_split" if prod else "cprod_split"
+        out, rc = _plane_gemm(prod, terms, packed, n, op, sumv, l, center,
+                              inv, plan)
+    kind = ("prod" if terms == 3 else
+            "prod_split" if prod else "cprod_split")
     if rc != 0:
-        raise RuntimeError(f"geno {kind} launch failed: CUDA error {rc}")
+        why = {-1: "the library refused the plan",
+               -2: "the CUDA driver would not encode a TMA tensor map"}.get(
+                   rc, f"CUDA error {rc}")
+        raise RuntimeError(f"geno {kind} launch failed: {why} ({plan})")
     launches[kind] += 1
     return out
 
@@ -392,9 +519,7 @@ def cprod_split(packed, n, V, center, inv, splits=None):
     _check(packed, n, V, n, center, inv)
     if packed.device.type == "cpu":
         return cprod_split_plain(packed, n, V, center, inv)
-    qs, qsum, A = _cprod_split_operands(V, center, inv)
-    return _launch_split(False, packed, n, [qs], packed.shape[0], V.shape[1],
-                         qsum, A, inv, splits)
+    return _launch_plane(False, 2, packed, n, V, center, inv, splits)
 
 
 def prod_split(packed, n, U, center, inv, splits=None):
@@ -403,9 +528,7 @@ def prod_split(packed, n, U, center, inv, splits=None):
     _check(packed, n, U, packed.shape[0], center, inv)
     if packed.device.type == "cpu":
         return prod_split_plain(packed, n, U, center, inv)
-    zbs, zas, zsum = _prod_split_operands(U, center, inv)
-    return _launch_split(True, packed, n, [zbs, zas], n, U.shape[1], zsum,
-                         None, None, splits)
+    return _launch_plane(True, 2, packed, n, U, center, inv, splits)
 
 
 # ---------------------------------------------------------------------------

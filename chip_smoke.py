@@ -6,13 +6,15 @@
                           [--region R] [--n4 N4] [--m4 M4] [--n-thr T]
                           [--n-stack S] [--n5 N5] [--m5 M5] [--burn-in5 B]
                           [--num-iter5 I] [--gdp-rows R]
+                          [--gdp-twin-rows R]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. build the CUDA kernels from bigsnpr_tpu_torch/csrc/ (one nvcc a
      source, the four started together);
-  3. hold K1/K2 (decode + GEMM) against their plain-torch twins on the card
-     at awkward shapes (n = 1, 2, 3 mod 4, ragged m, NA, monomorphic and
+  3. hold K1 (decode + f32 GEMM) and K2 (bf16 bit planes against the
+     operand split into three bf16 terms) against their plain-torch twins
+     on the card at awkward shapes (n = 1, 2, 3 mod 4, ragged m, NA, monomorphic and
      scale-0 variants, l in {1, 12, 20, 50}), then on the first 4,096
      variants of the slice-1 cohort;
   4. slice 1 at full size: a 50,000 x 100,000 cohort written to .bed, then
@@ -22,7 +24,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      with no JAX (PCA residuals, GWAS against a dense float64 regression,
      r(PRS, y) on the test set);
   5. K1/K2 timed at every shape slice 1 gives them, beside the plain twin,
-     one torch.matmul on the pre-decoded f32 matrix, and the bound;
+     one torch.matmul on the pre-decoded f32 matrix, and the bound (K2:
+     its GEMM on prepared operands and the whole wrapper; the bound of its
+     bf16 plane algebra beside that of the f32 product; K2 and its twin
+     held within 1e-5 of a float64 product);
   6. slice 2 at full size: a 20,000 x 100,000 cohort made on the card with
      latent-Gaussian AR(1) LD inside blocks of 200-3,000 variants (1% NA on
      5% of the variants), then snp_simuPheno(h2 0.4, 1,000 causal) ->
@@ -81,11 +86,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launching 0 times from randomSVD through the GWAS, the same
      randomSVD on K1/K2, GWAS against dense float64, the native greedy
      against the fixed point on every cell of one chromosome, K2 against
-     its twin at the grid PRS's, lassosum2 scores' and prediction's
-     shapes, and r(SCT, y_test), r(lassosum2, y_test) on the other half;
+     its twin at the grid PRS's (l = 650; also within 1e-5 of float64,
+     timed, and its share of the grid PRS stage), lassosum2 scores' and
+     prediction's shapes, and r(SCT, y_test), r(lassosum2, y_test) on the
+     other half;
  14. K7 timed at the slice's shapes and at 50,000 x 100,000 (l = 20, random
-     bytes) beside its twin, torch.matmul in bf16 on pre-decoded planes and
-     its bound; the sweep kernel's lassosum mode at the slice's bands with
+     bytes), its GEMM on prepared operands and the whole wrapper, beside
+     its twin, torch.matmul in bf16 on pre-decoded planes and its bound; the sweep kernel's lassosum mode at the slice's bands with
      its 120 grid points, bit-equal to its twin, beside it and its bound;
  15. K8 (csrc/geno_i8.cu on int8 planes materialized once, int8m_planes)
      against its twin and K6 in its four instantiations at [9]'s shapes:
@@ -110,8 +117,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      12 and 20, NA and NA-free, beside its twin, torch._int_mm on the same
      planes and its bound, and the NA-free randomSVD on an int8m operator;
      (b) the global-dp mode at slice 5's band, LDpred2-auto's 30 chains
-     and lassosum2's 120 grid points: held against its twin and timed
-     beside its bound and row floor.
+     and lassosum2's 120 grid points: held against its twin on the band of
+     the first --gdp-twin-rows (20,000) variants (the twins' host loops are
+     slow) and timed on the whole band beside its bound and row floor.
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -138,9 +146,11 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 TOL = 1e-4   # kernel vs twin: max |diff| <= TOL * max |twin|, f32 sums in two orders
-SOURCE = "bigsnpr_tpu_torch/csrc/geno_gemm.cu"
+SOURCES = {"cprod": "bigsnpr_tpu_torch/csrc/geno_gemm.cu",
+           "prod": "bigsnpr_tpu_torch/csrc/geno_split.cu"}
 REPLACES = {"cprod": "bigsnpr_tpu/ops/pallas_kernels.py:583",
             "prod": "bigsnpr_tpu/ops/pallas_kernels.py:636"}
+K2_DENSE_TOL = 1e-5   # K2 and its twin vs float64: max |diff| / max |f64|
 SWEEP_SOURCE = "bigsnpr_tpu_torch/csrc/gibbs_sweep.cu"
 I8_SOURCE = "bigsnpr_tpu_torch/csrc/geno_i8.cu"
 I8_REPLACES = {"cprod_i8": "bigsnpr_tpu/ops/pallas_kernels.py:255",
@@ -450,10 +460,85 @@ SHAPES = (("cprod", 20, "all", "randomSVD power step"),
           ("prod", 50, "test", "snp_PRS, 50 thresholds"))
 
 
+def bound_planes(P, W_rows, l, rows_out, nm, terms):
+    """Least time of a bit-plane product (K2: 3 terms, K7: 2): bytes read
+    once and written once over 3.35 TB/s, or 2 planes x terms x 2 l n m
+    bf16 operations over 989 TFLOP/s, the larger."""
+    nbytes = P.numel() + 4 * (W_rows * l + 2 * P.shape[0] + rows_out * l)
+    ops = 2.0 * 2 * terms * l * nm
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_BF16_FLOP_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, nbytes, ops
+
+
+def plane_launch_only(gk, prod, terms, P, n, W, c, inv):
+    """One bit-plane GEMM (with its epilogue) on an operand prepared once
+    (`_plane_operands`): what the library yardstick also leaves out.
+    Returns the function and the plan it runs on."""
+    m = P.shape[0]
+    l = W.shape[1]
+    plan = gk.plane_plan(prod, terms, m, n, l,
+                         gk._sm_count(W.device) if W.is_cuda else 132)
+    if not W.is_cuda:     # CPU rehearsal: the wrapper runs its twin
+        kern = (gk.prod if terms == 3 else
+                gk.prod_split if prod else gk.cprod_split)
+        return (lambda: kern(P, n, W, c, inv)), plan
+    op, sumv, rc = gk._plane_operands(prod, terms, W, c, inv, plan)
+    if rc != 0:
+        fail(f"the bit-plane operand preparation failed: {rc} ({plan})")
+
+    def run():
+        out, rc = gk._plane_gemm(prod, terms, P, n, op, sumv, l, c, inv,
+                                 plan)
+        if rc != 0:
+            fail(f"the bit-plane GEMM launch failed: {rc} ({plan})")
+        return out
+    return run, plan
+
+
+def product64(torch, packed, n, c, inv, W, prod, chunk=4096):
+    """The float64 product X~ W (prod) or X~^T W (cprod), variant chunk by
+    chunk, NA -> 0."""
+    m = packed.shape[0]
+    W64 = W.double()
+    out = torch.zeros((n if prod else m, W.shape[1]), dtype=torch.float64,
+                      device=W.device)
+    for j0 in range(0, m, chunk):
+        j1 = min(m, j0 + chunk)
+        X = dense64(torch, packed[j0:j1], n, c[j0:j1], inv[j0:j1])
+        if prod:
+            out += X.T @ W64[j0:j1]
+        else:
+            out[j0:j1] = X @ W64
+    return out
+
+
+def rel64(y, ref64):
+    """max |y - ref64| / max |ref64|."""
+    return float((y.double() - ref64).abs().max()) / max(
+        float(ref64.abs().max()), 1e-300)
+
+
+def check_k2_dense(torch, P, n, c, inv, W, out, ref, what):
+    """K2 and its twin against a float64 product: both within
+    K2_DENSE_TOL of max |float64|; returns the two relative errors."""
+    ref64 = product64(torch, P, n, c, inv, W, True)
+    d_k, d_t = rel64(out, ref64), rel64(ref, ref64)
+    if max(d_k, d_t) > K2_DENSE_TOL:
+        fail(f"K2 ({what}) or its twin is off the float64 product: "
+             f"{d_k:.2e} / {d_t:.2e} > {K2_DENSE_TOL}")
+    return d_k, d_t
+
+
 def kernel_rows(gk, torch, dev, pack, sc, launches, n_test, reps=10):
     """Time K1/K2 at each shape the main path gives them, beside the twin
-    and one torch.matmul on the pre-decoded f32 matrix; the bound is the
-    larger of bytes / 3.35 TB/s and 2nml f32 FLOP / 67 TFLOP/s."""
+    and one torch.matmul on the pre-decoded f32 matrix. K1's bound is the
+    larger of bytes / 3.35 TB/s and 2nml f32 FLOP / 67 TFLOP/s; K2's that
+    of its bf16 plane algebra (2 planes x 3 terms x 2nml / 989 TFLOP/s),
+    with the f32 product's beside it. K2 is timed as its GEMM on an
+    operand prepared once and as the whole wrapper, and held with its twin
+    within 1e-5 of a float64 product."""
     from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator
 
     op = GenoOperator(pack, sc["center"], sc["scale"], device=dev)
@@ -480,6 +565,8 @@ def kernel_rows(gk, torch, dev, pack, sc, launches, n_test, reps=10):
         err, rel = rel_err(out, ref)
         if rel > TOL:
             fail(f"full-size {name} l={l}: rel max err {rel:.3e} > {TOL}")
+        if name == "prod":
+            d64 = check_k2_dense(torch, P, ns, c, inv, W, out, ref, what)
         del out, ref
         ms = timer(lambda: kern(P, ns, W, c, inv), reps=reps)
         plain_ms = timer(lambda: plain(P, ns, W, c, inv), reps=3)
@@ -489,19 +576,41 @@ def kernel_rows(gk, torch, dev, pack, sc, launches, n_test, reps=10):
         nbytes = P.numel() + 4 * (W.numel() + 2 * m + rows_out * l)
         flops = 2.0 * ns * m * l
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"  {name:5s} l={l:2d} n={ns}: kernel {ms:.3f} ms, twin "
-            f"{plain_ms:.3f} ms, torch.matmul on decoded {library_ms:.3f} ms, "
-            f"bound {max(t_bytes, t_ops):.3f} ms ({bound_by}: "
-            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB); max abs err "
-            f"{err:.3e} (rel {rel:.2e}) [{what}]")
+        t_f32 = flops / PEAK_F32_FLOP_PER_S * 1e3
+        wrapper_ms = ms
+        if name == "cprod":
+            bound, bound_by = max(t_bytes, t_f32), (
+                "operations" if t_f32 >= t_bytes else "bytes")
+            log(f"  {name:5s} l={l:2d} n={ns}: kernel {ms:.3f} ms, twin "
+                f"{plain_ms:.3f} ms, torch.matmul on decoded {library_ms:.3f}"
+                f" ms, bound {bound:.3f} ms ({bound_by}: "
+                f"{flops / 1e9:.1f} GFLOP f32, {nbytes / 1e9:.3f} GB); max "
+                f"abs err {err:.3e} (rel {rel:.2e}) [{what}]")
+        else:
+            run, plan = plane_launch_only(gk, True, 3, P, ns, W, c, inv)
+            ms = timer(run, reps=reps)
+            del run
+            bound, bound_by, _, ops = bound_planes(P, m, l, ns, ns * m, 3)
+            log(f"  {name:5s} l={l:2d} n={ns}: kernel {ms:.3f} ms (GEMM + "
+                f"epilogue on an operand prepared once; the whole wrapper "
+                f"{wrapper_ms:.3f} ms; {ops / ms / 1e9:.1f} TFLOP/s bf16), "
+                f"twin {plain_ms:.3f} ms, torch.matmul on decoded "
+                f"{library_ms:.3f} ms, {plan_text(plan)}; bound "
+                f"{bound:.3f} ms ({bound_by}: {ops / 1e12:.3f} TFLOP bf16 "
+                f"over 989 TFLOP/s = "
+                f"{ops / PEAK_BF16_FLOP_PER_S * 1e3:.3f} ms; "
+                f"{nbytes / 1e9:.3f} GB over 3.35 TB/s = {t_bytes:.3f} ms; "
+                f"the f32 product's bound {max(t_f32, t_bytes):.3f} ms); max "
+                f"abs err {err:.3e} (rel {rel:.2e}, limit {TOL}); vs "
+                f"float64: kernel {d64[0]:.2e}, twin {d64[1]:.2e} (limit "
+                f"{K2_DENSE_TOL}) [{what}]")
         if l == 20:
             rows.append({
                 "name": f"geno_{name} ({'K1' if name == 'cprod' else 'K2'})",
-                "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-                "launches": launches[name], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": library_ms})
     del X
     return rows
@@ -1278,22 +1387,15 @@ def phase_slice3(bp, gk, torch, dev, args):
     return pack, svd, train, path
 
 
-def i8_ptxas_summary(lib_path):
-    """One line an instantiation of the K6 / K8 GEMM from ptxas' report
-    (`-Xptxas -v`, kept beside the library): registers, static shared
-    memory, stack and spills. The ring's shared memory is dynamic: the
-    plan's (`i8_plan`) is printed where the kernel is timed."""
+def ptxas_summary(lib_path, kernel, pat, kind):
+    """One line an instantiation of `kernel` from ptxas' report (`-Xptxas
+    -v`, kept beside the library): registers, static shared memory, stack
+    and spills; `pat` matches the mangled template arguments and `kind`
+    names them. The ring's shared memory is dynamic: the plan's is printed
+    where the kernel is timed."""
     import re
     from bigsnpr_tpu_torch.ops import cuda_build
     text = cuda_build.report(lib_path).read_text()
-    pat = r"i8_wgmma_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d+)E"
-
-    def kind(t):
-        return ((("K8 " if t[3] == "1" else "K6 ")
-                 + ("prod" if t[1] == "1" else "cprod")
-                 + (" nona" if t[2] == "1" else "")).ljust(15)
-                + f" BN {t[4]:>3s}")
-
     lines = []
     for part in re.split(r"Compiling entry function '", text)[1:]:
         t = re.search(pat, part.split("'", 1)[0])
@@ -1308,8 +1410,7 @@ def i8_ptxas_summary(lib_path):
                      f"{smem[1] if smem else 0} B static smem, stack / spill "
                      f"stores / loads "
                      f"{'/'.join(spill.groups()) if spill else '?'} B")
-    log(f"  ptxas, i8_wgmma_kernel<PROD, NONA, MAT, BN>: {len(lines)} "
-        f"instantiations")
+    log(f"  ptxas, {kernel}: {len(lines)} instantiations")
     for line in lines:
         log(line)
     for m in re.finditer(r"Performance Loss: (wgmma[^']*?) (?:in|for) the "
@@ -1317,6 +1418,27 @@ def i8_ptxas_summary(lib_path):
         t = re.search(pat, m[2])
         if t is not None:
             log(f"    {kind(t)}: {m[1]}")
+
+
+def i8_ptxas_summary(lib_path):
+    """K6 / K8: i8_wgmma_kernel<PROD, NONA, MAT, BN>."""
+    ptxas_summary(
+        lib_path, "i8_wgmma_kernel<PROD, NONA, MAT, BN>",
+        r"i8_wgmma_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d+)E",
+        lambda t: ((("K8 " if t[3] == "1" else "K6 ")
+                    + ("prod" if t[1] == "1" else "cprod")
+                    + (" nona" if t[2] == "1" else "")).ljust(15)
+                   + f" BN {t[4]:>3s}"))
+
+
+def plane_ptxas_summary(lib_path):
+    """K2 / K7: plane_wgmma_kernel<PROD, TERMS, BNC>."""
+    ptxas_summary(
+        lib_path, "plane_wgmma_kernel<PROD, TERMS, BNC>",
+        r"plane_wgmma_kernelILb(\d)ELi(\d)ELi(\d+)E",
+        lambda t: (("K2 prod" if t[2] == "3" else
+                    "K7 " + ("prod" if t[1] == "1" else "cprod")).ljust(9)
+                   + f" BNC {t[3]:>3s}"))
 
 
 def bound_i8(P, W_rows, l, rows_out, planes, nm):
@@ -1378,8 +1500,9 @@ def i8_launch_only(gk, prod, nona, src, n, W, c, inv):
 
 
 def plan_text(plan):
+    depth = f" of {plan['ksub']} sub-tiles" if "ksub" in plan else ""
     return (f"plan: BN {plan['bn']} x {plan['n_tiles']}, {plan['stages']} "
-            f"stages, {plan['smem']} B smem, grid {plan['grid']}, "
+            f"stages{depth}, {plan['smem']} B smem, grid {plan['grid']}, "
             f"splits {plan['splits']}")
 
 
@@ -1781,11 +1904,14 @@ def stack_rows(n_train, args):
 
 
 def check_k2_slice4(bp, gk, torch, dev, pack, train, test, multi, final,
-                    beta_l):
+                    beta_l, grid_s, grid_launches):
     """K2 against its twin on the operands slice 4 gives it: the training
     samples' pack with the grid PRS's first weight matrix (13 cells x 50
-    thresholds), the test samples' pack with the lassosum2 grid's betas and
-    with the SCT prediction's beta.G."""
+    thresholds: l = 650), the test samples' pack with the lassosum2 grid's
+    betas and with the SCT prediction's beta.G. At the grid PRS's width
+    also against a float64 product, timed (GEMM on a prepared operand, the
+    whole wrapper, torch.matmul on the decoded f32 matrix, the bound), and
+    its launches' share of the grid PRS stage."""
     from bigsnpr_tpu_torch.ops import matvec
     from bigsnpr_tpu_torch.pgs import sct as psct
 
@@ -1796,11 +1922,11 @@ def check_k2_slice4(bp, gk, torch, dev, pack, train, test, multi, final,
                           multi.grid_lpS_thr)
     sub_test = pack.subset(ind_row=test, device=dev)
     timer = Timer(torch, dev)
-    for sub, W, what in (
+    for i, (sub, W, what) in enumerate((
             (pack.subset(ind_row=train, device=dev), B,
              "snp_grid_PRS, one group of cells"),
             (sub_test, np.nan_to_num(beta_l), "lassosum2 grid scores"),
-            (sub_test, final["beta.G"], "SCT prediction")):
+            (sub_test, final["beta.G"], "SCT prediction"))):
         packed, W, _, c, inv = matvec._prep(sub, W, sub.m, what, None, None,
                                             dev)
         got = gk.prod(packed, sub.n, W, c, inv)
@@ -1808,12 +1934,41 @@ def check_k2_slice4(bp, gk, torch, dev, pack, train, test, multi, final,
         if dev.type == "cuda":
             torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
+        if not (rel <= TOL and torch.isfinite(got).all()):
+            fail(f"K2 disagrees with its twin at slice 4's {what}")
         ms = timer(lambda: gk.prod(packed, sub.n, W, c, inv), reps=3)
         log(f"    K2 vs its twin at n={sub.n} m={sub.m} l={W.shape[1]} "
             f"[{what}]: max abs err {err:.3e} (rel {rel:.2e}, limit {TOL}); "
-            f"kernel {ms:.3f} ms")
-        if not (rel <= TOL and torch.isfinite(got).all()):
-            fail(f"K2 disagrees with its twin at slice 4's {what}")
+            f"the whole wrapper {ms:.3f} ms")
+        if i:
+            continue
+        d64 = check_k2_dense(torch, packed, sub.n, c, inv, W, got, ref, what)
+        del got, ref
+        run, plan = plane_launch_only(gk, True, 3, packed, sub.n, W, c, inv)
+        gemm_ms = timer(run, reps=3)
+        del run
+        X = torch.empty((sub.m, sub.n), dtype=torch.float32, device=dev)
+        for j0 in range(0, sub.m, 4096):
+            X[j0:j0 + 4096] = gk.standardized(
+                packed[j0:j0 + 4096], sub.n, c[j0:j0 + 4096],
+                inv[j0:j0 + 4096])
+        library_ms = timer(lambda: X.T @ W, reps=3)
+        del X
+        l = W.shape[1]
+        bound, by, nbytes, ops = bound_planes(packed, sub.m, l, sub.n,
+                                              sub.n * sub.m, 3)
+        t_f32 = 2.0 * sub.n * sub.m * l / PEAK_F32_FLOP_PER_S * 1e3
+        log(f"      vs float64: kernel {d64[0]:.2e}, twin {d64[1]:.2e} "
+            f"(limit {K2_DENSE_TOL}); GEMM + epilogue on a prepared operand "
+            f"{gemm_ms:.3f} ms ({ops / gemm_ms / 1e9:.1f} TFLOP/s bf16), "
+            f"torch.matmul on the decoded f32 matrix {library_ms:.3f} ms, "
+            f"{plan_text(plan)}; bound {bound:.3f} ms ({by}: "
+            f"{ops / 1e12:.3f} TFLOP bf16; the f32 product's "
+            f"{t_f32:.3f} ms); snp_grid_PRS launched K2 {grid_launches} "
+            f"times (groups of up to {l} columns): {grid_launches} x "
+            f"{ms:.3f} ms = "
+            f"{grid_launches * ms / 1e3:.3f} s of the stage's {grid_s:.3f} s "
+            f"({100 * grid_launches * ms / 1e3 / max(grid_s, 1e-9):.1f}%)")
 
 
 def phase_slice4(bp, gk, gsk, torch, dev, args):
@@ -1848,9 +2003,11 @@ def phase_slice4(bp, gk, gsk, torch, dev, args):
     lpS = stage("gwas_pvalues", lambda: -bp.gwas_pvalues(gwas, log10=True))
     all_keep, grid = stage("snp_grid_clumping", lambda: bp.snp_grid_clumping(
         pack, chrs, pos, lpS, ind_row=train))
+    k2_before = gk.launches["prod"]
     multi = stage("snp_grid_PRS", lambda: bp.snp_grid_PRS(
         pack, all_keep, gwas["estim"], lpS, n_thr_lpS=args.n_thr,
         ind_row=train))
+    grid_launches = gk.launches["prod"] - k2_before
     # the stacking on the scores of args.n_stack of the training samples:
     # its host CD costs (samples x 30,800 columns) a pass
     stack = stack_rows(len(train), args)
@@ -1929,7 +2086,7 @@ def phase_slice4(bp, gk, gsk, torch, dev, args):
     check_greedy_one_chromosome(bp, pack, chrs, pos, lpS, train, all_keep,
                                 dev)
     check_k2_slice4(bp, gk, torch, dev, pack, train, test, multi, final,
-                    beta_l)
+                    beta_l, times["snp_grid_PRS"], grid_launches)
     y_test = y[test]
     r_sct = float(np.corrcoef(pred, y_test)[0, 1])
     r_ct, r_ct_train = best_column_r(bp, pack, multi, y[train], test, y_test)
@@ -1959,17 +2116,6 @@ def phase_slice4(bp, gk, gsk, torch, dev, args):
                 df_beta=df_beta, path=path, launches=launches)
 
 
-def bound_split(P, W_rows, l, rows_out, nm):
-    """Least time of a K7 product: bytes read once and written once over
-    3.35 TB/s, or 2 planes x 2 (2l) n m bf16 operations over 989 TFLOP/s."""
-    nbytes = P.numel() + 4 * (W_rows * l + 2 * P.shape[0] + rows_out * l)
-    ops = 2.0 * 2 * (2 * l) * nm
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_BF16_FLOP_PER_S * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_bytes, t_ops), by, nbytes, ops
-
-
 def bf16_planes(gk, torch, P, n):
     """Pre-decoded bf16 T and NA planes (m, n) of a pack, for the library
     yardstick (the decode is not timed)."""
@@ -1985,7 +2131,8 @@ def bf16_planes(gk, torch, P, n):
 
 def phase_split_timed(bp, gk, torch, dev, s4, args, reps=5):
     """K7 at the shapes of the slice and at 50,000 x 100,000 on random
-    bytes, beside its twin, bf16 torch.matmul on pre-decoded planes and
+    bytes, as its GEMM on an operand prepared once and as the whole
+    wrapper, beside its twin, bf16 torch.matmul on pre-decoded planes and
     its bound."""
     pack, train, svd = s4["pack"], s4["train"], s4["svd"]
     n, m = pack.n, pack.m
@@ -2028,7 +2175,10 @@ def phase_split_timed(bp, gk, torch, dev, s4, args, reps=5):
         if rel > SPLIT_TOL:
             fail(f"full-size {key} ({what}) disagrees with its twin")
         del got, ref
-        ms = timer(lambda: kern(P_, n_, W, c_, i_), reps=reps)
+        wrapper_ms = timer(lambda: kern(P_, n_, W, c_, i_), reps=reps)
+        run, plan = plane_launch_only(gk, not cprod, 2, P_, n_, W, c_, i_)
+        ms = timer(run, reps=reps)
+        del run
         plain_ms = timer(lambda: plain(P_, n_, W, c_, i_), reps=1, warmup=0)
         if id(P_) not in planes:
             planes.clear()
@@ -2043,11 +2193,14 @@ def phase_split_timed(bp, gk, torch, dev, s4, args, reps=5):
             zbs, zas, _ = gk._prod_split_operands(W, c_, i_)
             lib = lambda: (zbs @ T, zas @ NA)  # noqa: E731
         library_ms = timer(lib, reps=reps)
-        bound, by, nbytes, ops = bound_split(P_, n_ if cprod else P_.shape[0],
-                                             l, P_.shape[0] if cprod else n_,
-                                             n_ * P_.shape[0])
+        bound, by, nbytes, ops = bound_planes(
+            P_, n_ if cprod else P_.shape[0], l,
+            P_.shape[0] if cprod else n_, n_ * P_.shape[0], 2)
         log(f"  {key:11s} l={l:2d} n={n_} m={P_.shape[0]}: kernel {ms:.3f} "
-            f"ms, twin {plain_ms:.1f} ms, bf16 torch.matmul on pre-decoded "
+            f"ms (GEMM + epilogue on an operand prepared once; the whole "
+            f"wrapper {wrapper_ms:.3f} ms; {ops / ms / 1e9:.1f} TFLOP/s), "
+            f"{plan_text(plan)}, twin {plain_ms:.1f} ms, bf16 "
+            f"torch.matmul on pre-decoded "
             f"planes {library_ms:.3f} ms (decode not timed), bound "
             f"{bound:.3f} ms ({by}: {ops / 1e12:.3f} TFLOP over 989 TFLOP/s ="
             f" {ops / PEAK_BF16_FLOP_PER_S * 1e3:.3f} ms; {nbytes / 1e9:.3f} "
@@ -2058,8 +2211,8 @@ def phase_split_timed(bp, gk, torch, dev, s4, args, reps=5):
                 "name": f"geno_{key} (K7)", "route": "cuda",
                 "source": SPLIT_SOURCE, "replaces": SPLIT_REPLACES[key],
                 "launches": s4["path"][key], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": library_ms}
+                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
     del planes, Pb
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2224,15 +2377,18 @@ def phase_i8m_small(bp, gk, torch, dev, rng):
              "one")
 
 
-def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer):
+def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer,
+                   sb_time=None):
     """The global-dp sweep on one band against its twin on the card (same
     pre-drawn u / z): SWEEP_TOL, causal equal, two launches bit-equal;
-    returns (max abs err, kernel ms, twin ms)."""
+    then timed, on `sb_time` if given (a band too long for the twin's host
+    loop), else on the same band; returns (max abs err, kernel ms, twin
+    ms)."""
     st = sweep_inputs(torch, sb, NC, rng)
 
-    def run(fn):
+    def run(fn, band=sb, st=st):
         dp = st["dp"].clone()
-        out = fn(sb, dp, st["cb"], st["bh"], st["C2"], st["C4"], st["s1"],
+        out = fn(band, dp, st["cb"], st["bh"], st["C2"], st["C4"], st["s1"],
                  st["u"], st["z"], st["inv_odd_p"], st["p"], st["sparse"],
                  0.95, True)
         if dev.type == "cuda":
@@ -2249,30 +2405,35 @@ def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer):
     errs = [(float((a - b).abs().max()),
              SWEEP_TOL * max(float(b.abs().max()), 1e-30))
             for i, (a, b) in enumerate(zip(got, ref)) if i != 2]
-    ms = timer(lambda: gsk.sweep(sb, st["dp"].clone(), st["cb"], st["bh"],
-                                 st["C2"], st["C4"], st["s1"], st["u"],
-                                 st["z"], st["inv_odd_p"], st["p"],
-                                 st["sparse"], 0.95, True), reps=3)
     gdp = sb.plans.get(NC, (0, 0, False))[2]
-    log(f"  global-dp sweep, {tag}: {sb.max_rows} rows, width {sb.wkmax}, "
-        f"{NC} chains, global-dp mode {gdp}: max |kernel - twin| "
-        f"{max(e[0] for e in errs):.2e} (limit {SWEEP_TOL} x max |twin|), "
-        f"causal {causal_diff} differ (0); two launches bit-equal {repeat}; "
-        f"kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms")
     if dev.type == "cuda" and not (
             gdp and gsk.launches["sweep_global"] > before):
         fail(f"the global-dp sweep ({tag}) did not run in the global-dp mode")
+    band, st_t = sb, st
+    if sb_time is not None:
+        band, st_t = sb_time, sweep_inputs(torch, sb_time, NC, rng)
+        before = gsk.launches["sweep_global"]
+    ms = timer(lambda: run(gsk.sweep, band, st_t), reps=3)
+    if sb_time is not None and dev.type == "cuda" and not (
+            sb_time.plans.get(NC, (0, 0, False))[2]
+            and gsk.launches["sweep_global"] > before):
+        fail(f"the timed global-dp sweep ({tag}) did not run in the "
+             f"global-dp mode")
+    log(f"  global-dp sweep, {tag}: held against its twin on {sb.max_rows} "
+        f"rows, width {sb.wkmax}, {NC} chains, global-dp mode {gdp}: max "
+        f"|kernel - twin| {max(e[0] for e in errs):.2e} (limit {SWEEP_TOL} "
+        f"x max |twin|), causal {causal_diff} differ (0); two launches "
+        f"bit-equal {repeat}; twin {plain_ms:.1f} ms; kernel {ms:.3f} ms a "
+        f"sweep on {band.max_rows} rows, width {band.wkmax}")
     if causal_diff or not repeat or any(e[0] > e[1] for e in errs):
         fail(f"the global-dp sweep ({tag}) disagrees with its twin or does "
              f"not repeat")
     return max(e[0] for e in errs), ms, plain_ms
 
 
-def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer):
-    """The lassosum mode in global dp on one band against its twin on the
-    card, from the state after 3 sweeps, one point in five frozen:
-    bit-equal, two launches bit-equal; returns (max abs err, kernel ms,
-    twin ms)."""
+def lasso_state(gsk, torch, dev, sb, NG, rng):
+    """The lassosum mode's inputs on a band and its state after 3 sweeps
+    (dp, beta), one grid point in five then frozen."""
     f = lambda a: torch.as_tensor(a, dtype=sb.dtype, device=dev)  # noqa: E731
     m = sb.m
     bh, pf = f(rng.normal(0, 0.02, m)), f(rng.uniform(0.8, 1.5, m))
@@ -2283,6 +2444,17 @@ def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer):
         gsk.lassosum_sweep(sb, dp, beta, bh, pf, lam, delta,
                            torch.ones(NG, dtype=torch.bool, device=dev))
     active = torch.as_tensor(np.arange(NG) % 5 != 3, device=dev)
+    return bh, pf, lam, delta, dp, beta, active
+
+
+def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer,
+                   sb_time=None):
+    """The lassosum mode in global dp on one band against its twin on the
+    card, from the state after 3 sweeps, one point in five frozen:
+    bit-equal, two launches bit-equal; then timed, on `sb_time` if given,
+    else on the same band; returns (max abs err, kernel ms, twin ms)."""
+    bh, pf, lam, delta, dp, beta, active = lasso_state(gsk, torch, dev, sb,
+                                                       NG, rng)
 
     def run(fn):
         d, b = dp.clone(), beta.clone()
@@ -2300,17 +2472,30 @@ def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer):
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     err = max(float((a.double() - r.double()).abs().max())
               for a, r in zip(got, ref))
-    ms = timer(lambda: gsk.lassosum_sweep(sb, dp.clone(), beta.clone(), bh,
-                                          pf, lam, delta, active), reps=3)
     gdp = sb.plans.get(NG, (0, 0, False))[2]
-    log(f"  global-dp lassosum mode, {tag}: {sb.max_rows} rows, width "
-        f"{sb.wkmax}, {NG} grid points ({int(active.sum())} active), "
-        f"global-dp mode {gdp}: bit-equal to the twin {bit} (max abs diff "
-        f"{err:.1e}); two launches bit-equal {repeat}; kernel {ms:.3f} ms a "
-        f"sweep, twin {plain_ms:.1f} ms")
     if dev.type == "cuda" and not (
             gdp and gsk.launches["lassosum_global"] > before):
         fail(f"the lassosum mode ({tag}) did not run in the global-dp mode")
+    band, state = sb, (bh, pf, lam, delta, dp, beta, active)
+    if sb_time is not None:
+        band = sb_time
+        state = lasso_state(gsk, torch, dev, sb_time, NG, rng)
+        before = gsk.launches["lassosum_global"]
+    tb, tpf, tlam, tdelta, tdp, tbeta, tact = state
+    ms = timer(lambda: gsk.lassosum_sweep(band, tdp.clone(), tbeta.clone(),
+                                          tb, tpf, tlam, tdelta, tact),
+               reps=3)
+    if sb_time is not None and dev.type == "cuda" and not (
+            sb_time.plans.get(NG, (0, 0, False))[2]
+            and gsk.launches["lassosum_global"] > before):
+        fail(f"the timed lassosum mode ({tag}) did not run in the global-dp "
+             f"mode")
+    log(f"  global-dp lassosum mode, {tag}: held against its twin on "
+        f"{sb.max_rows} rows, width {sb.wkmax}, {NG} grid points "
+        f"({int(active.sum())} active), global-dp mode {gdp}: bit-equal to "
+        f"the twin {bit} (max abs diff {err:.1e}); two launches bit-equal "
+        f"{repeat}; twin {plain_ms:.1f} ms; kernel {ms:.3f} ms a sweep on "
+        f"{band.max_rows} rows, width {band.wkmax}")
     if not (bit and repeat):
         fail(f"the global-dp lassosum mode ({tag}) disagrees with its twin "
              f"or does not repeat")
@@ -2561,13 +2746,23 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
     rows, with the launches of the slice-5 path."""
     from bigsnpr_tpu_torch.pgs.band import one_block_bands
 
-    log("[17b] the global-dp mode at the slice-5 band, against its twin and "
-        "timed")
+    log("[17b] the global-dp mode at the slice-5 band: held against its twin "
+        "on the band of its first variants, timed on the whole band")
     sb = one_block_bands(s5["corr"]).device_put(dev)
+    k = min(args.gdp_twin_rows, sb.m)
+    sb_twin = one_block_bands(s5["corr"], ind_corr=np.arange(k)).device_put(
+        dev)
+    NG = 4 * args.nlambda
+    if dev.type == "cuda":
+        # the first rows' dp fits in shared memory: plan the mode against
+        # none, as [15] does on its short band
+        for n_ in (N_CHAINS, NG):
+            sb_twin.plans[n_] = gsk.plan(sb_twin, n_, 0)
     rng = np.random.default_rng(args.seed + 34)
     timer = Timer(torch, dev)
-    err, ms, plain_ms = gdp_sweep_case(bp, gsk, torch, dev, sb, N_CHAINS, rng,
-                                       "slice-5 band", timer)
+    err, ms, plain_ms = gdp_sweep_case(bp, gsk, torch, dev, sb_twin,
+                                       N_CHAINS, rng, "slice-5 band", timer,
+                                       sb_time=sb)
     bound, by, t_tiles, t_lat = sweep_bound(sb, N_CHAINS, 1)
     log(f"    bound {bound:.3f} ms ({by}); rows x step latency {t_lat:.3f} "
         f"ms; {ms / max(t_lat, 1e-9):.1f}x that floor")
@@ -2575,11 +2770,10 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
                      f"rows, {N_CHAINS} chains)", "route": "cuda",
              "source": SWEEP_SOURCE, "replaces": GDP_REPLACES["sweep"],
              "launches": s5["launches"]["sweep_global"], "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-             "bound_by": by, "library_ms": None}]
-    NG = 4 * args.nlambda
-    err, ms, plain_ms = gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng,
-                                       "slice-5 band", timer)
+             "ms": ms, "plain_ms": plain_ms, "plain_rows": sb_twin.max_rows,
+             "bound_ms": bound, "bound_by": by, "library_ms": None}]
+    err, ms, plain_ms = gdp_lasso_case(bp, gsk, torch, dev, sb_twin, NG, rng,
+                                       "slice-5 band", timer, sb_time=sb)
     bound, by = lasso_bound(sb, NG)
     log(f"    bound {bound:.3f} ms ({by}); rows x step latency {t_lat:.3f} "
         f"ms; {ms / max(t_lat, 1e-9):.1f}x that floor")
@@ -2589,7 +2783,8 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
                  "replaces": GDP_REPLACES["lassosum"],
                  "launches": s5["launches"]["lassosum_global"],
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound, "bound_by": by, "library_ms": None})
+                 "plain_rows": sb_twin.max_rows, "bound_ms": bound,
+                 "bound_by": by, "library_ms": None})
     return rows
 
 
@@ -2621,6 +2816,9 @@ def arg_parser():
     ap.add_argument("--gdp-rows", type=int, default=29_100,
                     help="rows of [15]'s float64 band, past the shared "
                     "memory of one block")
+    ap.add_argument("--gdp-twin-rows", type=int, default=20_000,
+                    help="first variants of slice 5's band on which [17b] "
+                    "holds the global-dp mode against its twin")
     # cut only by a CPU rehearsal, whose twins are slow
     ap.add_argument("--n-thr", type=int, default=50)
     ap.add_argument("--nlambda", type=int, default=30)
@@ -2672,6 +2870,7 @@ def main(argv=None):
         log(f"  built {', '.join(os.path.relpath(p, here) for p in libs)} "
             f"in {time.perf_counter() - t0:.1f} s")
         i8_ptxas_summary(libs[1])
+        plane_ptxas_summary(libs[2])
 
     rng = np.random.default_rng(args.seed)
     timer = Timer(torch, dev)

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1/K2 decode + GEMM, K7 on bf16 bit planes, K6 on
+"""The CUDA kernels (K1 decode + GEMM, K2 and K7 on bf16 bit planes, K6 on
 int8 bit planes, K8 on materialized int8 planes, the Gibbs sweep and its
 lassosum mode, each with dp in shared memory or in the global-dp mode)
 against their plain-torch twins on a card.
@@ -23,10 +23,23 @@ def cuda():
     return torch.device("cuda")
 
 
+def dense64(packed, n, c, inv):
+    """The float64 standardized matrix (m, n) of a pack on the card."""
+    from bigsnpr_tpu_torch.core.unpack import unpack_dosage
+
+    d, na = unpack_dosage(packed, n, dtype=torch.float64)
+    return torch.where(na, 0.0, (d - c.double()[:, None])
+                       * inv.double()[:, None])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,l", [(1001, 777, 1), (1002, 1500, 12),
-                                   (1003, 3001, 20), (4097, 513, 50)])
+                                   (1003, 3001, 20), (4097, 513, 50),
+                                   (2003, 1500, 650)])
 def test_kernels_match_twins(cuda, n, m, l):
+    """K1 and K2 against their twins (1e-4 of max |twin|); K2 (the
+    three-term bit-plane kernel) and its twin also within 1e-5 of max
+    |float64 product|."""
     pp = pt.snp_fake(n, m, seed=l, na_prob=0.05)
     packed = pp.device_packed(cuda)
     rng = np.random.default_rng(l)
@@ -42,6 +55,9 @@ def test_kernels_match_twins(cuda, n, m, l):
         out, ref = kern(packed, n, W, c, inv), plain(packed, n, W, c, inv)
         torch.cuda.synchronize()
         assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    ref64 = dense64(packed, n, c, inv).T @ U.double()
+    for y in (out, ref):
+        assert (y.double() - ref64).abs().max() <= 1e-5 * ref64.abs().max()
     assert gk.launches["cprod"] == before["cprod"] + 1
     assert gk.launches["prod"] == before["prod"] + 1
 
@@ -295,11 +311,8 @@ def test_split_kernels_match_twins(cuda, n, m, l, na_prob):
     another order), both within 2e-5 of max |float64 product|, two
     launches bit-equal, one count a launch; monomorphic and scale-0
     variants, n = 0..3 (mod 4)."""
-    from bigsnpr_tpu_torch.core.unpack import unpack_dosage
-
     packed, c, inv, V, U = i8_case(n, m, l, l, na_prob)
-    d, na = unpack_dosage(packed, n, dtype=torch.float64)
-    X = torch.where(na, 0.0, (d - c.double()[:, None]) * inv.double()[:, None])
+    X = dense64(packed, n, c, inv)
     for kern, plain, W, ref64, key in (
             (gk.cprod_split, gk.cprod_split_plain, V, X @ V.double(),
              "cprod_split"),
@@ -318,17 +331,47 @@ def test_split_kernels_match_twins(cuda, n, m, l, na_prob):
 
 @pytest.mark.cuda
 def test_split_depth_splits_repeat(cuda):
-    """Any depth split gives the twin's result within 1e-5 of its max, and
-    each split count repeats bit for bit (no float atomics)."""
+    """Any depth split (1-16) gives the twin's result within 1e-5 of its
+    max (K2: 1e-4 of its direct twin), and each split count repeats bit
+    for bit (no float atomics)."""
     packed, c, inv, V, U = i8_case(3001, 2049, 20, 9, 0.05)
-    for kern, plain, W in ((gk.cprod_split, gk.cprod_split_plain, V),
-                           (gk.prod_split, gk.prod_split_plain, U)):
+    for kern, plain, W, tol in (
+            (gk.cprod_split, gk.cprod_split_plain, V, 1e-5),
+            (gk.prod_split, gk.prod_split_plain, U, 1e-5),
+            (gk.prod, gk.prod_plain, U, 1e-4)):
         ref = plain(packed, 3001, W, c, inv)
-        for sp_ in (1, 2, 5, 16):
+        for sp_ in range(1, 17):
             a = kern(packed, 3001, W, c, inv, splits=sp_)
             b = kern(packed, 3001, W, c, inv, splits=sp_)
             assert torch.equal(a, b)
-            assert (a - ref).abs().max() <= 1e-5 * ref.abs().max()
+            assert (a - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,l", [(1000, 777, 1), (1001, 1500, 12),
+                                   (1002, 3001, 20), (1003, 513, 21),
+                                   (4099, 2049, 50), (20_011, 2100, 20)])
+@pytest.mark.parametrize("na_prob", [0.05, 0.0])
+def test_k2_planes_match_twins_and_float64(cuda, n, m, l, na_prob):
+    """K2 on three-term bit planes at awkward shapes (n = 0..3 mod 4,
+    ragged m, monomorphic and scale-0 variants, NA and NA-free packs):
+    within 1e-4 of max |direct twin|, within 1e-5 of max |float64| as its
+    twin is, within 1e-5 of the plain three-term plane algebra
+    (`prod_split_plain(terms=3)`: f32 sums in another order); two launches
+    bit-equal, one count a launch."""
+    packed, c, inv, V, U = i8_case(n, m, l, l + 1, na_prob)
+    ref64 = dense64(packed, n, c, inv).T @ U.double()
+    before = gk.launches["prod"]
+    out, again = gk.prod(packed, n, U, c, inv), gk.prod(packed, n, U, c, inv)
+    ref = gk.prod_plain(packed, n, U, c, inv)
+    alg = gk.prod_split_plain(packed, n, U, c, inv, terms=3)
+    torch.cuda.synchronize()
+    assert gk.launches["prod"] == before + 2
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert (out - alg).abs().max() <= 1e-5 * alg.abs().max()
+    for y in (out, ref):
+        assert (y.double() - ref64).abs().max() <= 1e-5 * ref64.abs().max()
 
 
 @pytest.mark.cuda

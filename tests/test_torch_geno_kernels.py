@@ -145,6 +145,9 @@ def test_wrappers_take_twins_on_cpu_and_check_inputs():
     before = dict(gk.launches)
     torch.testing.assert_close(gk.cprod(packed, 30, V, c, inv),
                                gk.cprod_plain(packed, 30, V, c, inv))
+    U = torch.randn(12, 3)
+    assert torch.equal(gk.prod(packed, 30, U, c, inv),
+                       gk.prod_plain(packed, 30, U, c, inv))
     assert gk.launches == before            # no kernel ran
     with pytest.raises(ValueError):
         gk.cprod(packed, 30, V.double(), c, inv)
