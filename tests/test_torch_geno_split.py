@@ -6,8 +6,12 @@ Pallas kernels run in interpret mode (`PallasOperator(interpret=True,
 mxu="split2")`) within 1e-5 of max |ref| (both float32; the sums run in
 another order, per sample tile there, whole here), and against a float64
 dense oracle within 2e-5 of max |oracle| (tests/test_pallas.py's bound for
-split2). `split_bf16` is bit-equal to `_split_bf16`.
-tests/test_torch_cuda.py holds the CUDA kernel against the twins on a
+split2). `split_bf16` is bit-equal to `_split_bf16`. The same plane
+algebra with the operand split into three bf16 terms, which K2 (the
+"highest" prod) runs on the card, is held against the JAX package's
+f32-HIGHEST kernels and float64 within 1e-5, and `plane_plan`, the two
+kernels' launch plan, against the C side's checks.
+tests/test_torch_cuda.py holds the CUDA kernels against the twins on a
 card."""
 
 import numpy as np
