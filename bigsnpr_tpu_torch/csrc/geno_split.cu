@@ -25,6 +25,20 @@
 // forms it. Built with --fmad=false, so the prep and the epilogue round as
 // the twins' separate torch ops do.
 //
+// K2 centres its operand. pt and sum each grow like m when U's columns do
+// not average zero (U = 1, all-positive weights), while the result grows
+// like sqrt(m): in f32 the difference loses the result (about 3e-4 of max
+// |float64| at m = 100,000). So K2's T-plane operand is zB - alpha and its
+// NA-plane operand zA - beta, alpha and beta per column, and every column
+// tile ends in a count column of ones whose plane sums are T_i = sum_j t_ij
+// and N_i = sum_j na_ij, exact integers in f32. Then
+//   out = ((sum - alpha T) - beta N) - pna' - pt'
+// in float64, pt', pna' the centred plane sums (about sqrt(m) in size).
+// alpha is the mean of zB weighted by E t = 2 - c, beta the mean of zA,
+// each rounded to bf16 so that zB - alpha rounds only where an entry is
+// 2^16 times alpha; a mean below 2^-10 of the mean |entry| is taken as 0
+// (its column has nothing to cancel). The sums are in float64.
+//
 // What bounds it on an H100, at n = 50,000, m = 100,000, l = 20: K7 does
 // 2 planes x 2 terms x 20 columns x 2nm = 8.0e11 bf16 operations, 0.81 ms
 // at the 989 TFLOP/s dense bf16 peak, K2 3 terms, 1.2e12 and 1.21 ms;
@@ -78,7 +92,8 @@
 //   registers while wgmmas run. The two warpgroups overlap each other's
 //   decode and tensor-core work.
 // - The decoded A of a sub-tile serves every term and plane of the item's
-//   column tile: an l of at most 32 (K2) or 40 (K7) is one column tile, so
+//   column tile: an l of at most 31 (K2, whose tile of 32 ends in its count
+//   column) or 40 (K7) is one column tile, so
 //   the pack is decoded once. (Wider l takes more tiles, the pack decoded
 //   once a tile: the accumulators of all columns do not fit in registers;
 //   at the grid PRS's l = 650, 21 tiles, the decode of a sub-tile is ~1/5
@@ -88,10 +103,11 @@
 //   the card), each split writes its raw plane sums as its own slice and
 //   geno_plane_epilogue adds the slices in split order. No float atomics
 //   anywhere: two launches repeat bit for bit.
-// - The operand preparation (geno_plane_prep) is one elementwise kernel:
-//   zB, zA or V^T, split into TERMS terms, written padded (zeros past l and
-//   past the depth) in the kernel's depth order, with per-64 partial row
-//   sums that a second small kernel adds in order.
+// - The operand preparation (geno_plane_prep) is three small kernels: the
+//   float64 sums of each 64 depth rows, their sums in order (with K2's
+//   alpha and beta), then zB, zA or V^T, centred for K2, split into TERMS
+//   terms and written padded (zeros past l and past the depth) in the
+//   kernel's depth order, K2's count rows among them.
 // - The launch plan (tile width, stage depth, stages, grid, splits) is
 //   made in Python (ops/geno_kernels.py::plane_plan); geno_plane_gemm
 //   refuses what it cannot run.
@@ -192,9 +208,10 @@ struct Params {
   int64_t nb, m, n, l;
   const float* center;    // (m,)
   const float* inv;       // (m,)
-  const float* sumv;      // (l,)
+  const double* sumv;     // (l,)
+  const float* shift;     // (2, l): K2's alpha and beta
   float* out;             // (R, l), the depth unsplit
-  float* raw;             // (splits, 2, R, l), the depth split
+  float* raw;             // (splits, 2, R, l + K2's count), the depth split
   int64_t items;          // m_tiles * n_tiles * splits
   int m_tiles, n_tiles;
   int ktiles, kps;        // stages of depth, and a split's share of them
@@ -207,6 +224,8 @@ struct Params {
 template <bool PROD, int TERMS, int BNC>
 __global__ void __launch_bounds__(THREADS, 1)
 plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
+  constexpr bool CENTRED = PROD && TERMS == 3;     // K2 (see the note)
+  constexpr int COLS = BNC - (CENTRED ? 1 : 0);    // l's columns a tile
   constexpr int N = TERMS * BNC;                   // wgmma columns
   constexpr int BP = b_planes(PROD);
   constexpr int B_BYTES = N * 128;                 // a plane's sub-tile
@@ -255,7 +274,7 @@ plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
       const int64_t sp = item / per_split, rem = item % per_split;
       const int nt = static_cast<int>(rem / p.m_tiles);
       const int mt = static_cast<int>(rem % p.m_tiles);
-      const int r0 = mt * BM, c0 = nt * BNC;
+      const int r0 = mt * BM, b0r = nt * BNC;
       const int kt0 = static_cast<int>(sp) * p.kps;
       const int kt1 = min(p.ktiles, kt0 + p.kps);
       for (int kt = kt0; kt < kt1; ++kt) {
@@ -290,7 +309,7 @@ plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
 #pragma unroll
               for (int t = 0; t < TERMS; ++t)
                 tma_load(st + (pl * KS + i) * B_BYTES + t * BNC * 128, &mapB,
-                         k0 + SUB * i, (pl * TERMS + t) * p.l_pad + c0,
+                         k0 + SUB * i, (pl * TERMS + t) * p.l_pad + b0r,
                          full + s);
         }
         if (++s == S) {
@@ -318,7 +337,7 @@ plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
     const int nt = static_cast<int>(rem / p.m_tiles);
     const int mt = static_cast<int>(rem % p.m_tiles);
     const int64_t r0 = static_cast<int64_t>(mt) * BM;
-    const int c0 = nt * BNC;
+    const int c0 = nt * COLS;
     const int kt0 = static_cast<int>(sp) * p.kps;
     const int kt1 = min(p.ktiles, kt0 + p.kps);
 #pragma unroll
@@ -427,9 +446,18 @@ plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
     // accumulator d[4j + 2h + e]: fragment row g + 8h, column 8j + 2tg + e
     // of this warp's 16 rows (prod's fragment row (g, h) is sample 2g + h);
     // term t of column c is column t BNC + c, in the same thread; mst holds
-    // the first term block's layout
+    // the first term block's layout. K2's count column, BNC - 1, is lane
+    // tg = 3's, e = 1, j = BNC / 8 - 1.
+    const int64_t lr = p.l + (CENTRED ? 1 : 0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      float cnt[2] = {0.f, 0.f};  // K2: T_i and N_i
+      if constexpr (CENTRED) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          cnt[q] = __shfl_sync(0xFFFFFFFFu, mst[q][4 * (BNC / 8 - 1) + 2 * h + 1],
+                               lane | 3);
+      }
       const int64_t row = r0 + 64 * wg + 16 * w + (PROD ? 2 * g + h : g + 8 * h);
       if (row >= M) continue;
       float Ar = 0.f, sr = 0.f;
@@ -437,93 +465,197 @@ plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
         sr = p.inv[row];
         Ar = (2.0f - p.center[row]) * sr;
       }
+      float* slice = p.raw + sp * 2 * M * lr;
 #pragma unroll
       for (int j = 0; j < BNC / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int64_t col = c0 + 8 * j + 2 * tg + e;
-          if (col >= p.l) continue;
+          const int x = 8 * j + 2 * tg + e;
+          const int64_t col = c0 + x;
+          if (x >= COLS || col >= p.l) continue;
           const float pt = mst[0][4 * j + 2 * h + e];
           const float pna = mst[1][4 * j + 2 * h + e];
-          if (p.splits == 1) {
-            p.out[row * p.l + col] =
-                PROD ? (p.sumv[col] - pna) - pt
-                     : (p.sumv[col] - pna) * Ar - pt * sr;
+          if (p.splits > 1) {
+            slice[row * lr + col] = pt;
+            slice[(M + row) * lr + col] = pna;
+          } else if constexpr (CENTRED) {
+            p.out[row * p.l + col] = static_cast<float>(
+                ((p.sumv[col] - static_cast<double>(p.shift[col]) * cnt[0]) -
+                 static_cast<double>(p.shift[p.l + col]) * cnt[1]) -
+                static_cast<double>(pna) - static_cast<double>(pt));
           } else {
-            float* slice = p.raw + sp * 2 * M * p.l;
-            slice[row * p.l + col] = pt;
-            slice[(M + row) * p.l + col] = pna;
+            const float sv = static_cast<float>(p.sumv[col]);
+            p.out[row * p.l + col] =
+                PROD ? (sv - pna) - pt : (sv - pna) * Ar - pt * sr;
           }
         }
+      if (CENTRED && p.splits > 1 && nt == 0 && tg == 0) {
+        slice[row * lr + p.l] = cnt[0];
+        slice[(M + row) * lr + p.l] = cnt[1];
+      }
     }
   }
 }
 
-// out (R, l) from the raw plane sums of every depth split (splits, 2, R, l),
-// added in split order
-template <bool PROD>
+// out (R, l) from the raw plane sums of every depth split (splits, 2, R,
+// l + K2's count column), added in split order
+template <bool PROD, bool CENTRED>
 __global__ void plane_epilogue_kernel(const float* __restrict__ raw,
                                       int splits, int64_t R, int64_t l,
-                                      const float* __restrict__ sumv,
+                                      const double* __restrict__ sumv,
+                                      const float* __restrict__ shift,
                                       const float* __restrict__ center,
                                       const float* __restrict__ inv,
                                       float* __restrict__ out) {
-  const int64_t count = R * l;
+  const int64_t lr = l + (CENTRED ? 1 : 0), count = R * lr;
   for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < count; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t i = e / l;
-    float pt = raw[e], pna = raw[count + e];
+       e < R * l; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t i = e / l, r = e % l, x = i * lr + r;
+    float pt = raw[x], pna = raw[count + x];
     for (int sp = 1; sp < splits; ++sp) {
-      pt = pt + raw[2 * sp * count + e];
-      pna = pna + raw[(2 * sp + 1) * count + e];
+      pt = pt + raw[2 * sp * count + x];
+      pna = pna + raw[(2 * sp + 1) * count + x];
     }
-    const int64_t r = e % l;
-    if (PROD) {
-      out[e] = (sumv[r] - pna) - pt;
+    if (CENTRED) {
+      float T = 0.f, N = 0.f;  // integers: exact in any order
+      for (int sp = 0; sp < splits; ++sp) {
+        T += raw[2 * sp * count + i * lr + l];
+        N += raw[(2 * sp + 1) * count + i * lr + l];
+      }
+      out[e] = static_cast<float>(
+          ((sumv[r] - static_cast<double>(shift[r]) * T) -
+           static_cast<double>(shift[l + r]) * N) -
+          static_cast<double>(pna) - static_cast<double>(pt));
+    } else if (PROD) {
+      out[e] = (static_cast<float>(sumv[r]) - pna) - pt;
     } else {
       const float s = inv[i];
-      out[e] = (sumv[r] - pna) * ((2.0f - center[i]) * s) - pt * s;
+      out[e] = (static_cast<float>(sumv[r]) - pna) * ((2.0f - center[i]) * s) -
+               pt * s;
     }
   }
 }
 
-// The operand: rows c0.. of W (depth, l) f32 over 64 depth entries a block
-// -> Bop (planes, TERMS, l_pad, ldk) bf16 terms in the kernel's depth order,
-// zero past l and past the depth; prod scales row d by inv[d] (zB, the T
-// plane's) and by A[d] = (2 - c[d]) inv[d] (zA, the NA plane's). partial
-// (ldk / 64, l): the block's sums of V (cprod) or zA (prod) over its depth.
-template <bool PROD, int TERMS>
-__global__ void __launch_bounds__(256)
-plane_prep_kernel(const float* __restrict__ W, int64_t depth, int64_t l,
-                  int l_pad, int64_t ldk, const float* __restrict__ center,
-                  const float* __restrict__ inv, uint16_t* __restrict__ Bop,
-                  float* __restrict__ partial) {
-  constexpr int NB = PROD ? 2 : 1;
-  __shared__ float tile[NB][64][65];
-  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * 64;
-  const int c0 = blockIdx.y * 64;
-  for (int e = threadIdx.x; e < 64 * 64; e += blockDim.x) {
-    const int dk = e / 64, c = e % 64;
-    const int64_t d = k0 + dk, col = c0 + c;
-    const float x = (d < depth && col < l) ? W[d * l + col] : 0.f;
+// The operand, in three steps over 64 depth rows d of W (depth, l) f32 a
+// block. prod scales row d by inv[d] (zB, the T plane's) and by A[d] =
+// (2 - c[d]) inv[d] (zA, the NA plane's).
+// 1. partial (4, l, blocks) float64: the block's sums of V (cprod) or zA,
+//    and (prod) of |zB|, |zA| and 2 - c.
+template <bool PROD>
+__global__ void plane_partial_kernel(const float* __restrict__ W,
+                                     int64_t depth, int64_t l,
+                                     const float* __restrict__ center,
+                                     const float* __restrict__ inv,
+                                     double* __restrict__ partial) {
+  const int64_t col = blockIdx.y * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (col >= l) return;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * SUB;
+  double q[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int64_t d = k0; d < k0 + SUB && d < depth; ++d) {
+    const float x = W[d * l + col];
     if (PROD) {
-      const float s = d < depth ? inv[d] : 0.f;
-      const float A = d < depth ? (2.0f - center[d]) * s : 0.f;
-      tile[0][dk][c] = x * s;
-      tile[NB - 1][dk][c] = x * A;
+      const float s = inv[d];
+      const float zb = x * s, za = x * ((2.0f - center[d]) * s);
+      q[0] += za;
+      q[1] += fabsf(zb);
+      q[2] += fabsf(za);
+      q[3] += 2.0f - center[d];
     } else {
-      tile[0][dk][c] = x;
+      q[0] += x;
     }
   }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    partial[(k * l + col) * static_cast<int64_t>(gridDim.x) + blockIdx.x] = q[k];
+}
+
+// 2. One block a column r: sumv[r] = the sum of its blocks' sums (each
+//    thread's share, blocks t, t + 256, ..., added in order, then the
+//    threads' in a fixed tree); K2's shift[r] = alpha and shift[l + r] =
+//    beta (see the note), else 0.
+template <bool CENTRED>
+__global__ void __launch_bounds__(256)
+plane_sum_kernel(const double* __restrict__ partial, int64_t blocks,
+                 int64_t l, int64_t depth, double* __restrict__ sumv,
+                 float* __restrict__ shift) {
+  __shared__ double red[4][256];
+  const int64_t r = blockIdx.x;
+  double q[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int64_t b = threadIdx.x; b < blocks; b += 256)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[k] += partial[(k * l + r) * blocks + b];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) red[k][threadIdx.x] = q[k];
   __syncthreads();
-  if (threadIdx.x < 64 && c0 + threadIdx.x < l) {
-    float s = 0.f;
-    for (int dk = 0; dk < 64; ++dk) s = s + tile[NB - 1][dk][threadIdx.x];
-    partial[blockIdx.x * l + c0 + threadIdx.x] = s;
+  for (unsigned h = 128; h > 0; h >>= 1) {
+    if (threadIdx.x < h)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        red[k][threadIdx.x] = red[k][threadIdx.x] + red[k][threadIdx.x + h];
+    __syncthreads();
   }
+  if (threadIdx.x != 0) return;
+  sumv[r] = red[0][0];
+  float alpha = 0.f, beta = 0.f;
+  if (CENTRED) {
+    const double a0 = red[3][0] > 0.0 ? red[0][0] / red[3][0] : 0.0;
+    const double b0 = red[0][0] / static_cast<double>(depth);
+    if (fabs(a0) * 1024.0 * depth >= red[1][0])
+      alpha = __bfloat162float(__float2bfloat16_rn(static_cast<float>(a0)));
+    if (fabs(b0) * 1024.0 * depth >= red[2][0])
+      beta = __bfloat162float(__float2bfloat16_rn(static_cast<float>(b0)));
+  }
+  shift[r] = alpha;
+  shift[l + r] = beta;
+}
+
+// 3. Bop (planes, TERMS, l_pad, ldk) bf16: each operand row's terms in the
+//    kernel's depth order, zero past l and past the depth. K2's operand
+//    rows come in column tiles of bn: bn - 1 of l's columns, centred by
+//    shift, then the count row (1 on every variant).
+template <bool PROD, int TERMS>
+__global__ void __launch_bounds__(256)
+plane_write_kernel(const float* __restrict__ W, int64_t depth, int64_t l,
+                   int l_pad, int bn, int64_t ldk,
+                   const float* __restrict__ center,
+                   const float* __restrict__ inv,
+                   const float* __restrict__ shift,
+                   uint16_t* __restrict__ Bop) {
+  constexpr int NB = PROD ? 2 : 1;
+  constexpr bool CENTRED = PROD && TERMS == 3;
+  __shared__ float tile[NB][64][65];
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * 64;
+  const int r0 = blockIdx.y * 64;
+  for (int e = threadIdx.x; e < 64 * 64; e += blockDim.x) {
+    const int dk = e / 64, c = e % 64;
+    const int64_t d = k0 + dk;
+    const int r = r0 + c;
+    const bool count = CENTRED && r % bn == bn - 1;
+    const int64_t col = CENTRED ? (r / bn) * (bn - 1) + r % bn : r;
+    float v0 = 0.f, v1 = 0.f;
+    if (d < depth && count) {
+      v0 = v1 = 1.f;
+    } else if (d < depth && col < l) {
+      const float x = W[d * l + col];
+      if (PROD) {
+        const float s = inv[d];
+        v0 = x * s;
+        v1 = x * ((2.0f - center[d]) * s);
+        if (CENTRED) {
+          v0 = v0 - shift[col];
+          v1 = v1 - shift[l + col];
+        }
+      } else {
+        v0 = x;
+      }
+    }
+    tile[0][dk][c] = v0;
+    tile[NB - 1][dk][c] = PROD ? v1 : v0;
+  }
+  __syncthreads();
   for (int e = threadIdx.x; e < NB * 64 * 64; e += blockDim.x) {
     const int pl = e / 4096, c = (e / 64) % 64, kk = e % 64;
-    const int64_t r = c0 + c;
+    const int64_t r = r0 + c;
     if (r >= l_pad) continue;
     float x = tile[pl][PROD ? kk : sigma64(kk)][c];
 #pragma unroll
@@ -534,17 +666,6 @@ plane_prep_kernel(const float* __restrict__ W, int64_t depth, int64_t l,
       x = x - __bfloat162float(b);
     }
   }
-}
-
-// sumv[r] = the blocks' partial sums of column r, added in block order
-__global__ void plane_sum_kernel(const float* __restrict__ partial,
-                                 int64_t blocks, int64_t l,
-                                 float* __restrict__ sumv) {
-  const int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (r >= l) return;
-  float s = 0.f;
-  for (int64_t b = 0; b < blocks; ++b) s = s + partial[b * l + r];
-  sumv[r] = s;
 }
 
 template <bool PROD, int TERMS, int BNC>
@@ -590,62 +711,87 @@ bool compiled_family(int prod, int terms) {
   return (!prod && terms == 2) || (prod && (terms == 2 || terms == 3));
 }
 
+// l's columns in a column tile of bn operand rows (K2's last is its count)
+int64_t tile_cols(int prod, int terms, int bn) {
+  return bn - (prod && terms == 3 ? 1 : 0);
+}
+
+// K2's plane sums of the count column are exact while below 2^24
+constexpr int64_t MAX_K2_DEPTH = int64_t{1} << 23;
+
 }  // namespace
 
 extern "C" {
 
-// Bop (planes, terms, l_pad, ldk) bf16 and sumv (l,) f32 from W (depth, l)
-// f32: cprod (prod = 0) W = V, one plane, sumv its column sums; prod W = U
-// scaled into zB and zA, sumv the column sums of zA. partial: (ldk / 64,
-// l) f32 scratch.
+// Bop (planes, terms, l_pad, ldk) bf16, sumv (l,) f64 and shift (2, l) f32
+// from W (depth, l) f32: cprod (prod = 0) W = V, one plane, sumv its column
+// sums; prod W = U scaled into zB and zA, sumv the column sums of zA; K2
+// (prod, 3 terms) centres them by shift and lays the operand rows out in
+// column tiles of bn, each ending in its count row. partial: (4, l, ldk /
+// 64) f64 scratch.
 int geno_plane_prep(int prod, int terms, const void* W, int64_t depth,
-                    int64_t l, int64_t l_pad, int64_t ldk, const void* center,
-                    const void* inv, void* Bop, void* partial, void* sumv,
-                    void* stream) {
-  if (!compiled_family(prod, terms) || depth < 1 || l < 1 || l_pad < l ||
-      ldk % SUB != 0 || ldk < depth)
+                    int64_t l, int64_t l_pad, int bn, int64_t ldk,
+                    const void* center, const void* inv, void* Bop,
+                    void* partial, void* sumv, void* shift, void* stream) {
+  if (!compiled_family(prod, terms) || depth < 1 || l < 1 || bn < 2 ||
+      l_pad % bn != 0 || l_pad / bn * tile_cols(prod, terms, bn) < l ||
+      ldk % SUB != 0 || ldk < depth || l_pad > (1 << 30) || l > (1 << 30))
     return -1;
   const auto* w = static_cast<const float*>(W);
   const auto* c = static_cast<const float*>(center);
   const auto* s = static_cast<const float*>(inv);
   auto* b = static_cast<uint16_t*>(Bop);
-  auto* pa = static_cast<float*>(partial);
+  auto* pa = static_cast<double*>(partial);
+  auto* sv = static_cast<double*>(sumv);
+  auto* sh = static_cast<float*>(shift);
   auto st = static_cast<cudaStream_t>(stream);
   const int64_t blocks = ldk / SUB;
+  const dim3 pgrid(static_cast<unsigned>(blocks),
+                   static_cast<unsigned>(cdiv(l, 128)));
+  if (prod) plane_partial_kernel<true><<<pgrid, 128, 0, st>>>(w, depth, l, c, s, pa);
+  else plane_partial_kernel<false><<<pgrid, 128, 0, st>>>(w, depth, l, c, s, pa);
+  const unsigned sgrid = static_cast<unsigned>(l);
+  if (prod && terms == 3)
+    plane_sum_kernel<true><<<sgrid, 256, 0, st>>>(pa, blocks, l, depth, sv, sh);
+  else
+    plane_sum_kernel<false><<<sgrid, 256, 0, st>>>(pa, blocks, l, depth, sv, sh);
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>(cdiv(l_pad, 64)));
   const int lp = static_cast<int>(l_pad);
   if (!prod)
-    plane_prep_kernel<false, 2><<<grid, 256, 0, st>>>(w, depth, l, lp, ldk, c, s, b, pa);
+    plane_write_kernel<false, 2><<<grid, 256, 0, st>>>(w, depth, l, lp, bn, ldk, c, s, sh, b);
   else if (terms == 2)
-    plane_prep_kernel<true, 2><<<grid, 256, 0, st>>>(w, depth, l, lp, ldk, c, s, b, pa);
+    plane_write_kernel<true, 2><<<grid, 256, 0, st>>>(w, depth, l, lp, bn, ldk, c, s, sh, b);
   else
-    plane_prep_kernel<true, 3><<<grid, 256, 0, st>>>(w, depth, l, lp, ldk, c, s, b, pa);
-  plane_sum_kernel<<<static_cast<unsigned>(cdiv(l, 128)), 128, 0, st>>>(
-      pa, blocks, l, static_cast<float*>(sumv));
+    plane_write_kernel<true, 3><<<grid, 256, 0, st>>>(w, depth, l, lp, bn, ldk, c, s, sh, b);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The GEMM on the plan of ops/geno_kernels.py::plane_plan: column tile bn
-// (a compiled width: TERMS x bn wgmma columns) x n_tiles = l_pad / bn >= l,
-// `stages` ring stages of ksub 64-deep sub-tiles, `grid` persistent CTAs,
-// the depth in `splits` runs of kps stages. splits = 1 writes out (R, l)
-// through the fused epilogue; splits > 1 the raw plane sums (splits, 2, R,
-// l) for geno_plane_epilogue. Bop as geno_plane_prep writes it, 16-byte
-// aligned (the depth past ldk reads as zeros).
+// (a compiled width: TERMS x bn wgmma columns, bn of them l's, bn - 1 for
+// K2) x n_tiles, l_pad = bn x n_tiles operand rows a term, `stages` ring
+// stages of ksub 64-deep sub-tiles, `grid` persistent CTAs, the depth in
+// `splits` runs of kps stages. splits = 1 writes out (R, l) through the
+// fused epilogue; splits > 1 the raw plane sums (splits, 2, R, l + 1 for
+// K2's count) for geno_plane_epilogue. Bop, sumv and shift as
+// geno_plane_prep writes them, Bop 16-byte aligned (the depth past ldk
+// reads as zeros).
 int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
                     int64_t nb, int64_t n, const void* Bop, int64_t ldk,
                     int64_t l, int64_t l_pad, const void* center,
-                    const void* inv, const void* sumv, void* out, void* raw,
-                    int bn, int n_tiles, int ksub, int stages, int grid,
-                    int kps, int splits, void* stream) {
+                    const void* inv, const void* sumv, const void* shift,
+                    void* out, void* raw, int bn, int n_tiles, int ksub,
+                    int stages, int grid, int kps, int splits, void* stream) {
   const int64_t M = prod ? n : m, K = prod ? m : n;
   const int64_t ktiles = cdiv(K, SUB * static_cast<int64_t>(ksub));
   const int64_t m_tiles = cdiv(M, BM);
+  const int64_t cols = tile_cols(prod, terms, bn);
   if (!compiled_family(prod, terms) || !compiled_width(terms, bn) || m < 1 ||
       n < 1 || l < 1 || nb != cdiv(n, 4) ||
-      static_cast<int64_t>(n_tiles) * bn != l_pad || l_pad < l ||
-      static_cast<int64_t>(n_tiles - 1) * bn >= l ||
+      static_cast<int64_t>(n_tiles) * bn != l_pad ||
+      static_cast<int64_t>(n_tiles) * cols < l ||
+      static_cast<int64_t>(n_tiles - 1) * cols >= l ||
+      (prod && terms == 3 && m > MAX_K2_DEPTH) ||
       (ksub != 1 && ksub != 2 && ksub != 4) || stages < 2 ||
       stages > MAX_STAGES || kps < 1 || splits < 1 ||
       cdiv(ktiles, kps) != splits || grid < 1 || ktiles > (1 << 30) ||
@@ -662,7 +808,8 @@ int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
   p.l = l;
   p.center = static_cast<const float*>(center);
   p.inv = static_cast<const float*>(inv);
-  p.sumv = static_cast<const float*>(sumv);
+  p.sumv = static_cast<const double*>(sumv);
+  p.shift = static_cast<const float*>(shift);
   p.out = static_cast<float*>(out);
   p.raw = static_cast<float*>(raw);
   p.m_tiles = static_cast<int>(m_tiles);
@@ -685,21 +832,28 @@ int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
                     : dispatch_width<true, 3>(bn, map, p, g, st);
 }
 
-// out (R, l) f32 from raw (splits, 2, R, l): the splits added in order and
-// the epilogue. cprod: center, inv are the (R,) variant vectors.
-int geno_plane_epilogue(int prod, const void* raw, int splits, int64_t R,
-                        int64_t l, const void* sumv, const void* center,
+// out (R, l) f32 from raw (splits, 2, R, l + 1 for K2) and the epilogue,
+// the splits added in order. cprod: center, inv are the (R,) variant
+// vectors.
+int geno_plane_epilogue(int prod, int terms, const void* raw, int splits,
+                        int64_t R, int64_t l, const void* sumv,
+                        const void* shift, const void* center,
                         const void* inv, void* out, void* stream) {
   const auto* r = static_cast<const float*>(raw);
-  const auto* sv = static_cast<const float*>(sumv);
+  const auto* sv = static_cast<const double*>(sumv);
+  const auto* sh = static_cast<const float*>(shift);
   const auto* c = static_cast<const float*>(center);
   const auto* s = static_cast<const float*>(inv);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const int64_t blocks = cdiv(R * l, 256);
   const unsigned grid = static_cast<unsigned>(blocks < 8192 ? blocks : 8192);
-  if (prod) plane_epilogue_kernel<true><<<grid, 256, 0, st>>>(r, splits, R, l, sv, c, s, o);
-  else plane_epilogue_kernel<false><<<grid, 256, 0, st>>>(r, splits, R, l, sv, c, s, o);
+  if (prod && terms == 3)
+    plane_epilogue_kernel<true, true><<<grid, 256, 0, st>>>(r, splits, R, l, sv, sh, c, s, o);
+  else if (prod)
+    plane_epilogue_kernel<true, false><<<grid, 256, 0, st>>>(r, splits, R, l, sv, sh, c, s, o);
+  else
+    plane_epilogue_kernel<false, false><<<grid, 256, 0, st>>>(r, splits, R, l, sv, sh, c, s, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -122,15 +122,15 @@ def _load_i8():
 
 def _bind_split(lib):
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.geno_plane_prep.argtypes = [i32, i32, ptr, i64, i64, i64, i64, ptr,
-                                    ptr, ptr, ptr, ptr, ptr]
+    lib.geno_plane_prep.argtypes = [i32, i32, ptr, i64, i64, i64, i32, i64,
+                                    ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.geno_plane_prep.restype = i32
     lib.geno_plane_gemm.argtypes = [i32, i32, ptr, i64, i64, i64, ptr, i64,
-                                    i64, i64, ptr, ptr, ptr, ptr, ptr, i32,
-                                    i32, i32, i32, i32, i32, i32, ptr]
+                                    i64, i64, ptr, ptr, ptr, ptr, ptr, ptr,
+                                    i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.geno_plane_gemm.restype = i32
-    lib.geno_plane_epilogue.argtypes = [i32, ptr, i32, i64, i64, ptr, ptr,
-                                        ptr, ptr, ptr]
+    lib.geno_plane_epilogue.argtypes = [i32, i32, ptr, i32, i64, i64, ptr,
+                                        ptr, ptr, ptr, ptr, ptr]
     lib.geno_plane_epilogue.restype = i32
 
 
@@ -297,16 +297,47 @@ def _cprod_split_operands(V, center, inv, terms=2):
             (2.0 - center) * inv)
 
 
+def _plane_shift(zB, zA, center):
+    """K2's centring constants (`csrc/geno_split.cu` says why): per column
+    of zB, zA (l, m), alpha = the mean of zB weighted by E t = 2 - c and
+    beta = the mean of zA, each rounded to bf16, or 0 where it is below
+    2^-10 of the mean |entry|; with the float64 sums of zA. Returns
+    (sumv (l,) f64, alpha (l,) f32, beta (l,) f32)."""
+    depth = zA.shape[1]
+    sumv = zA.double().sum(dim=1)
+    w = (2.0 - center).double().sum()
+    a0 = sumv / w if float(w) > 0 else torch.zeros_like(sumv)
+    b0 = sumv / depth
+
+    def pick(x0, entries):
+        keep = x0.abs() * (1024.0 * depth) >= entries.double().abs().sum(1)
+        return torch.where(keep, x0.float().to(torch.bfloat16).float(),
+                           torch.zeros_like(x0, dtype=torch.float32))
+    return sumv, pick(a0, zB), pick(b0, zA)
+
+
 def _prod_split_operands(U, center, inv, terms=2):
     """Host-side parts of the bit-plane prod's twin: zB = Uᵀ inv and
     zA = Uᵀ A, each split into `terms` stacked bf16 row blocks
     (terms * l, m) after the scaling (as `_prod_kernel_split` splits
-    them), and the row sums of zA."""
+    them), the row sums of zA, and, for three terms (K2), the centring
+    (alpha, beta) taken off zB and zA before the split, with a count row
+    of ones below each block (`_plane_shift`; the sums then float64).
+    Returns (zB terms, zA terms, sums, shift or None)."""
     Zt = U.T
     zA = Zt * ((2.0 - center) * inv)[None, :]
     zB = Zt * inv[None, :]
-    return (torch.cat(split_bf16(zB.contiguous(), terms)),
-            torch.cat(split_bf16(zA.contiguous(), terms)), zA.sum(dim=1))
+    if terms != 3:
+        return (torch.cat(split_bf16(zB.contiguous(), terms)),
+                torch.cat(split_bf16(zA.contiguous(), terms)), zA.sum(dim=1),
+                None)
+    sumv, alpha, beta = _plane_shift(zB, zA, center)
+    ones = torch.ones((1, zB.shape[1]), dtype=torch.bfloat16,
+                      device=zB.device)
+    return (torch.cat(split_bf16((zB - alpha[:, None]).contiguous(), 3)
+                      + (ones,)),
+            torch.cat(split_bf16((zA - beta[:, None]).contiguous(), 3)
+                      + (ones,)), sumv, (alpha, beta))
 
 
 def _split_raw_plain(packed, n, ops, prod, block=None):
@@ -337,11 +368,14 @@ def _split_raw_plain(packed, n, ops, prod, block=None):
     return acc
 
 
-def _split_epilogue_plain(raw, l, sumv, A=None, s=None, terms=2):
-    """raw (2, R, terms * l) -> (R, l) f32: pt = the T plane's sums of the
-    terms added in order (hi + lo, or (hi + mid) + lo), pna the NA
+def _split_epilogue_plain(raw, l, sumv, A=None, s=None, terms=2,
+                          shift=None):
+    """raw (2, R, terms * l [+ 1]) -> (R, l) f32: pt = the T plane's sums
+    of the terms added in order (hi + lo, or (hi + mid) + lo), pna the NA
     plane's; cprod (A, s given) (sum - pna) * A - pt * s, prod
-    (sum - pna) - pt (the JAX kernels' epilogue)."""
+    (sum - pna) - pt (the JAX kernels' epilogue); K2 (shift = (alpha,
+    beta) given, raw's last column the count rows' sums T, N)
+    ((sum - alpha T) - beta N) - pna - pt in float64."""
     def add(r):
         out = r[:, :l]
         for t in range(1, terms):
@@ -349,6 +383,12 @@ def _split_epilogue_plain(raw, l, sumv, A=None, s=None, terms=2):
         return out
 
     pt, pna = add(raw[0]), add(raw[1])
+    if shift is not None:
+        T, N = raw[0][:, terms * l].double(), raw[1][:, terms * l].double()
+        alpha, beta = (x.double() for x in shift)
+        return ((((sumv[None, :] - alpha[None, :] * T[:, None])
+                  - beta[None, :] * N[:, None]) - pna.double())
+                - pt.double()).float()
     if A is None:
         return (sumv[None, :] - pna) - pt
     return (sumv[None, :] - pna) * A[:, None] - pt * s[:, None]
@@ -365,10 +405,11 @@ def cprod_split_plain(packed, n, V, center, inv, terms=2):
 
 def prod_split_plain(packed, n, U, center, inv, terms=2):
     """K7 prod's function in torch ops (see `cprod_split_plain`); with
-    `terms=3`, the plane algebra that K2 runs."""
-    zbs, zas, zsum = _prod_split_operands(U, center, inv, terms)
+    `terms=3`, the centred plane algebra that K2 runs."""
+    zbs, zas, zsum, shift = _prod_split_operands(U, center, inv, terms)
     raw = _split_raw_plain(packed, n, [zbs, zas], prod=True)
-    return _split_epilogue_plain(raw, U.shape[1], zsum, terms=terms)
+    return _split_epilogue_plain(raw, U.shape[1], zsum, terms=terms,
+                                 shift=shift)
 
 
 # The launch plan of the bit-plane GEMM (`csrc/geno_split.cu` checks it):
@@ -394,33 +435,45 @@ def _plane_stage_bytes(prod, terms, bn, ksub):
     return (2 if prod else 1) * ksub * terms * bn * 128 + rows * raw
 
 
-def plane_plan(prod, terms, m, n, l, sms, splits=None, ksub=None):
+def plane_ring(prod, terms, bn, ksub, K):
+    """The ring of stages of `ksub` 64-deep sub-tiles for column tiles of
+    `bn` and depth K: stages (as many as shared memory holds, at most
+    PLANE_MAX_STAGES), ktiles (stages of depth) and smem (bytes)."""
+    stage = _plane_stage_bytes(prod, terms, bn, ksub)
+    stages = min(PLANE_MAX_STAGES, (I8_SMEM - _PLANE_HEAD) // stage)
+    return {"ksub": ksub, "stages": stages,
+            "ktiles": -(-K // (_PLANE_SUB * ksub)),
+            "smem": _PLANE_HEAD + stages * stage}
+
+
+def plane_plan(prod, terms, m, n, l, sms, splits=None):
     """The launch plan of the bit-plane GEMM for rows M (cprod m, prod n),
     depth K (cprod n, prod m) and the operand's l columns: column tiles of
-    `bn` (the least compiled width for `terms` that holds ceil(l /
-    n_tiles), n_tiles = ceil(l / the widest); a wgmma then spans terms x
-    bn columns), l_pad = bn * n_tiles operand
-    rows a term; 128-row M tiles; ring stages of `ksub` 64-deep sub-tiles,
-    the deepest of 4, 2, 1 that leaves at least 2 stages in shared memory
-    (deep stages beat many: on an H100 a stage costs a fixed share of ring
-    traffic, `plane_variants_probe.py --ksub`), and as many stages as it
-    holds (at most PLANE_MAX_STAGES); a persistent grid of at most one CTA
-    an SM; and the depth in `splits` runs of `kps` stages. Unless `splits`
-    is given, the depth is split only when the tiles fill the last wave of
-    CTAs to less than 90%; a split run writes its raw sums as a slice that
-    the epilogue kernel adds in order. `ksub` overrides the stage depth."""
+    `bn` operand rows, `cols` of them l's (K2 keeps the last for its count
+    column: bn - 1); n_tiles = ceil(l / the widest tile's cols), and `bn`
+    the least compiled width for `terms` whose cols hold ceil(l /
+    n_tiles) (a wgmma then spans terms x bn columns); l_pad = bn * n_tiles
+    operand rows a term; 128-row M tiles; ring stages of `ksub` 64-deep
+    sub-tiles, the deepest of 4, 2, 1 that leaves at least 2 stages in
+    shared memory (deep stages beat many: on an H100 a stage costs a fixed
+    share of ring traffic), and as many stages as it holds (`plane_ring`);
+    a persistent grid of at most one CTA an SM; and the depth in `splits`
+    runs of `kps` stages. Unless `splits` is given, the depth is split
+    only when the tiles fill the last wave of CTAs to less than 90%; a
+    split run writes its raw sums as a slice that the epilogue kernel adds
+    in order."""
     widths = PLANE_BNC[terms]
-    n_tiles = -(-l // widths[-1])
-    bn = min(w for w in widths if w >= -(-l // n_tiles))
+    ones = 1 if prod and terms == 3 else 0
+    n_tiles = -(-l // (widths[-1] - ones))
+    bn = min(w for w in widths if w - ones >= -(-l // n_tiles))
     M, K = (n, m) if prod else (m, n)
     m_tiles = -(-M // _PLANE_BM)
     tiles = m_tiles * n_tiles
-    for ksub in (4, 2, 1) if ksub is None else (ksub,):
-        stage = _plane_stage_bytes(prod, terms, bn, ksub)
-        stages = min(PLANE_MAX_STAGES, (I8_SMEM - _PLANE_HEAD) // stage)
-        if stages >= _PLANE_MIN_STAGES:
+    for ksub in (4, 2, 1):
+        ring = plane_ring(prod, terms, bn, ksub, K)
+        if ring["stages"] >= _PLANE_MIN_STAGES:
             break
-    ktiles = -(-K // (_PLANE_SUB * ksub))
+    ktiles = ring["ktiles"]
     if splits is None:
         cap = min(ktiles, _PLANE_MAX_SPLITS)
         splits = 1
@@ -431,57 +484,62 @@ def plane_plan(prod, terms, m, n, l, sms, splits=None, ksub=None):
             splits += 1
     kps = -(-ktiles // max(1, min(splits, ktiles)))
     splits = -(-ktiles // kps)
-    return {"bn": bn, "n_tiles": n_tiles, "l_pad": bn * n_tiles,
-            "m_tiles": m_tiles, "ksub": ksub, "stages": stages,
-            "grid": min(tiles * splits, sms), "splits": splits, "kps": kps,
-            "ktiles": ktiles, "smem": _PLANE_HEAD + stages * stage}
+    return {**ring, "bn": bn, "cols": bn - ones, "n_tiles": n_tiles,
+            "l_pad": bn * n_tiles, "m_tiles": m_tiles,
+            "grid": min(tiles * splits, sms), "splits": splits, "kps": kps}
 
 
 def _plane_operands(prod, terms, W, center, inv, plan):
     """The bit-plane GEMM's operand (planes, terms, l_pad, ldk) bf16 in
-    the kernel's depth order and its row sums (l,) f32, made on the card
-    by `geno_plane_prep` from W (depth, l): cprod V, prod U (scaled there
-    into zB and zA). Returns (operand, sums, rc)."""
+    the kernel's depth order and its sums, made on the card by
+    `geno_plane_prep` from W (depth, l): cprod V, prod U (scaled there
+    into zB and zA; K2 centres them and adds its count rows). The sums are
+    (sumv (l,) f64, shift (2, l) f32: K2's alpha and beta, else 0).
+    Returns (operand, sums, rc)."""
     lib = _load_split()
     depth, l = W.shape
     dev = W.device
     ldk = -(-depth // _PLANE_SUB) * _PLANE_SUB
     op = torch.empty((2 if prod else 1, terms, plan["l_pad"], ldk),
                      dtype=torch.bfloat16, device=dev)
-    partial = torch.empty((ldk // _PLANE_SUB, l), dtype=torch.float32,
+    partial = torch.empty((4, l, ldk // _PLANE_SUB), dtype=torch.float64,
                           device=dev)
-    sumv = torch.empty(l, dtype=torch.float32, device=dev)
+    sumv = torch.empty(l, dtype=torch.float64, device=dev)
+    shift = torch.empty((2, l), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.geno_plane_prep(int(prod), terms, W.data_ptr(), depth, l,
-                             plan["l_pad"], ldk, center.data_ptr(),
-                             inv.data_ptr(), op.data_ptr(),
-                             partial.data_ptr(), sumv.data_ptr(), stream)
-    return op, sumv, rc
+                             plan["l_pad"], plan["bn"], ldk,
+                             center.data_ptr(), inv.data_ptr(), op.data_ptr(),
+                             partial.data_ptr(), sumv.data_ptr(),
+                             shift.data_ptr(), stream)
+    return op, (sumv, shift), rc
 
 
-def _plane_gemm(prod, terms, packed, n, op, sumv, l, center, inv, plan):
-    """The bit-plane GEMM on a prepared operand, with its fused epilogue
-    or, when the plan splits the depth, the epilogue kernel that adds the
-    splits in order. Returns (out (R, l) f32, rc)."""
+def _plane_gemm(prod, terms, packed, n, op, sums, l, center, inv, plan):
+    """The bit-plane GEMM on a prepared operand and its sums, with its
+    fused epilogue or, when the plan splits the depth, the epilogue kernel
+    that adds the splits in order. Returns (out (R, l) f32, rc)."""
     lib = _load_split()
     m, nb = packed.shape
     dev = packed.device
     R = n if prod else m
+    sumv, shift = sums
     out = torch.empty((R, l), dtype=torch.float32, device=dev)
-    raw = (torch.empty((plan["splits"], 2, R, l), dtype=torch.float32,
+    lr = l + plan["bn"] - plan["cols"]       # K2's raw sums: its count too
+    raw = (torch.empty((plan["splits"], 2, R, lr), dtype=torch.float32,
                        device=dev) if plan["splits"] > 1 else out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.geno_plane_gemm(
         int(prod), terms, packed.data_ptr(), m, nb, n, op.data_ptr(),
         op.shape[-1], l, plan["l_pad"], center.data_ptr(), inv.data_ptr(),
-        sumv.data_ptr(), out.data_ptr(), raw.data_ptr(), plan["bn"],
-        plan["n_tiles"], plan["ksub"], plan["stages"], plan["grid"],
-        plan["kps"], plan["splits"], stream)
+        sumv.data_ptr(), shift.data_ptr(), out.data_ptr(), raw.data_ptr(),
+        plan["bn"], plan["n_tiles"], plan["ksub"], plan["stages"],
+        plan["grid"], plan["kps"], plan["splits"], stream)
     if rc == 0 and plan["splits"] > 1:
-        rc = lib.geno_plane_epilogue(int(prod), raw.data_ptr(),
+        rc = lib.geno_plane_epilogue(int(prod), terms, raw.data_ptr(),
                                      plan["splits"], R, l, sumv.data_ptr(),
-                                     center.data_ptr(), inv.data_ptr(),
-                                     out.data_ptr(), stream)
+                                     shift.data_ptr(), center.data_ptr(),
+                                     inv.data_ptr(), out.data_ptr(), stream)
     return out, rc
 
 
@@ -496,9 +554,9 @@ def _launch_plane(prod, terms, packed, n, W, center, inv, splits=None):
     if min(m, n, l) == 0:
         return torch.zeros((R, l), dtype=torch.float32, device=dev)
     plan = plane_plan(prod, terms, m, n, l, _sm_count(dev), splits)
-    op, sumv, rc = _plane_operands(prod, terms, W, center, inv, plan)
+    op, sums, rc = _plane_operands(prod, terms, W, center, inv, plan)
     if rc == 0:
-        out, rc = _plane_gemm(prod, terms, packed, n, op, sumv, l, center,
+        out, rc = _plane_gemm(prod, terms, packed, n, op, sums, l, center,
                               inv, plan)
     kind = ("prod" if terms == 3 else
             "prod_split" if prod else "cprod_split")

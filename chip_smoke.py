@@ -6,7 +6,6 @@
                           [--region R] [--n4 N4] [--m4 M4] [--n-thr T]
                           [--n-stack S] [--n5 N5] [--m5 M5] [--burn-in5 B]
                           [--num-iter5 I] [--gdp-rows R]
-                          [--gdp-twin-rows R]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -27,7 +26,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      one torch.matmul on the pre-decoded f32 matrix, and the bound (K2:
      its GEMM on prepared operands and the whole wrapper; the bound of its
      bf16 plane algebra beside that of the f32 product; K2 and its twin
-     held within 1e-5 of a float64 product);
+     held within 1e-5 of a float64 product, also on operands of mean far
+     from zero: |N(0,1)| + 1 at l = 20 and 1 at l = 1);
   6. slice 2 at full size: a 20,000 x 100,000 cohort made on the card with
      latent-Gaussian AR(1) LD inside blocks of 200-3,000 variants (1% NA on
      5% of the variants), then snp_simuPheno(h2 0.4, 1,000 causal) ->
@@ -117,9 +117,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      12 and 20, NA and NA-free, beside its twin, torch._int_mm on the same
      planes and its bound, and the NA-free randomSVD on an int8m operator;
      (b) the global-dp mode at slice 5's band, LDpred2-auto's 30 chains
-     and lassosum2's 120 grid points: held against its twin on the band of
-     the first --gdp-twin-rows (20,000) variants (the twins' host loops are
-     slow) and timed on the whole band beside its bound and row floor.
+     and lassosum2's 120 grid points: held against its twin and timed
+     beside its bound and row floor.
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -484,12 +483,12 @@ def plane_launch_only(gk, prod, terms, P, n, W, c, inv):
         kern = (gk.prod if terms == 3 else
                 gk.prod_split if prod else gk.cprod_split)
         return (lambda: kern(P, n, W, c, inv)), plan
-    op, sumv, rc = gk._plane_operands(prod, terms, W, c, inv, plan)
+    op, sums, rc = gk._plane_operands(prod, terms, W, c, inv, plan)
     if rc != 0:
         fail(f"the bit-plane operand preparation failed: {rc} ({plan})")
 
     def run():
-        out, rc = gk._plane_gemm(prod, terms, P, n, op, sumv, l, c, inv,
+        out, rc = gk._plane_gemm(prod, terms, P, n, op, sums, l, c, inv,
                                  plan)
         if rc != 0:
             fail(f"the bit-plane GEMM launch failed: {rc} ({plan})")
@@ -613,6 +612,24 @@ def kernel_rows(gk, torch, dev, pack, sc, launches, n_test, reps=10):
                 "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": library_ms})
     del X
+    # K2 on operands whose columns do not average zero (all-positive
+    # weights, U = 1): its plane sums grow like m, the result like sqrt(m)
+    for l, kind in ((20, "|N(0,1)| + 1"), (1, "1")):
+        W = torch.as_tensor(np.abs(rng.standard_normal((m, l))) + 1 if l > 1
+                            else np.ones((m, 1)), dtype=torch.float32,
+                            device=dev)
+        out = gk.prod(packed, n, W, c, inv)
+        ref = gk.prod_plain(packed, n, W, c, inv)
+        err, rel = rel_err(out, ref)
+        d64 = check_k2_dense(torch, packed, n, c, inv, W, out, ref,
+                             f"operand {kind}")
+        log(f"  prod  l={l:2d} n={n}, operand {kind} (mean far from 0): "
+            f"rel max err {rel:.2e} against the twin (limit {TOL}); vs "
+            f"float64: kernel {d64[0]:.2e}, twin {d64[1]:.2e} (limit "
+            f"{K2_DENSE_TOL})")
+        if rel > TOL:
+            fail(f"K2 on operand {kind}: rel max err {rel:.3e} > {TOL}")
+        del out, ref
     return rows
 
 
@@ -2190,7 +2207,7 @@ def phase_split_timed(bp, gk, torch, dev, s4, args, reps=5):
             qs = gk._cprod_split_operands(W, c_, i_)[0].T.contiguous()
             lib = lambda: (T @ qs, NA @ qs)  # noqa: E731
         else:
-            zbs, zas, _ = gk._prod_split_operands(W, c_, i_)
+            zbs, zas = gk._prod_split_operands(W, c_, i_)[:2]
             lib = lambda: (zbs @ T, zas @ NA)  # noqa: E731
         library_ms = timer(lib, reps=reps)
         bound, by, nbytes, ops = bound_planes(
@@ -2377,18 +2394,15 @@ def phase_i8m_small(bp, gk, torch, dev, rng):
              "one")
 
 
-def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer,
-                   sb_time=None):
+def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer):
     """The global-dp sweep on one band against its twin on the card (same
     pre-drawn u / z): SWEEP_TOL, causal equal, two launches bit-equal;
-    then timed, on `sb_time` if given (a band too long for the twin's host
-    loop), else on the same band; returns (max abs err, kernel ms, twin
-    ms)."""
+    returns (max abs err, kernel ms, twin ms)."""
     st = sweep_inputs(torch, sb, NC, rng)
 
-    def run(fn, band=sb, st=st):
+    def run(fn):
         dp = st["dp"].clone()
-        out = fn(band, dp, st["cb"], st["bh"], st["C2"], st["C4"], st["s1"],
+        out = fn(sb, dp, st["cb"], st["bh"], st["C2"], st["C4"], st["s1"],
                  st["u"], st["z"], st["inv_odd_p"], st["p"], st["sparse"],
                  0.95, True)
         if dev.type == "cuda":
@@ -2405,35 +2419,30 @@ def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer,
     errs = [(float((a - b).abs().max()),
              SWEEP_TOL * max(float(b.abs().max()), 1e-30))
             for i, (a, b) in enumerate(zip(got, ref)) if i != 2]
+    ms = timer(lambda: gsk.sweep(sb, st["dp"].clone(), st["cb"], st["bh"],
+                                 st["C2"], st["C4"], st["s1"], st["u"],
+                                 st["z"], st["inv_odd_p"], st["p"],
+                                 st["sparse"], 0.95, True), reps=3)
     gdp = sb.plans.get(NC, (0, 0, False))[2]
+    log(f"  global-dp sweep, {tag}: {sb.max_rows} rows, width {sb.wkmax}, "
+        f"{NC} chains, global-dp mode {gdp}: max |kernel - twin| "
+        f"{max(e[0] for e in errs):.2e} (limit {SWEEP_TOL} x max |twin|), "
+        f"causal {causal_diff} differ (0); two launches bit-equal {repeat}; "
+        f"kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms")
     if dev.type == "cuda" and not (
             gdp and gsk.launches["sweep_global"] > before):
         fail(f"the global-dp sweep ({tag}) did not run in the global-dp mode")
-    band, st_t = sb, st
-    if sb_time is not None:
-        band, st_t = sb_time, sweep_inputs(torch, sb_time, NC, rng)
-        before = gsk.launches["sweep_global"]
-    ms = timer(lambda: run(gsk.sweep, band, st_t), reps=3)
-    if sb_time is not None and dev.type == "cuda" and not (
-            sb_time.plans.get(NC, (0, 0, False))[2]
-            and gsk.launches["sweep_global"] > before):
-        fail(f"the timed global-dp sweep ({tag}) did not run in the "
-             f"global-dp mode")
-    log(f"  global-dp sweep, {tag}: held against its twin on {sb.max_rows} "
-        f"rows, width {sb.wkmax}, {NC} chains, global-dp mode {gdp}: max "
-        f"|kernel - twin| {max(e[0] for e in errs):.2e} (limit {SWEEP_TOL} "
-        f"x max |twin|), causal {causal_diff} differ (0); two launches "
-        f"bit-equal {repeat}; twin {plain_ms:.1f} ms; kernel {ms:.3f} ms a "
-        f"sweep on {band.max_rows} rows, width {band.wkmax}")
     if causal_diff or not repeat or any(e[0] > e[1] for e in errs):
         fail(f"the global-dp sweep ({tag}) disagrees with its twin or does "
              f"not repeat")
     return max(e[0] for e in errs), ms, plain_ms
 
 
-def lasso_state(gsk, torch, dev, sb, NG, rng):
-    """The lassosum mode's inputs on a band and its state after 3 sweeps
-    (dp, beta), one grid point in five then frozen."""
+def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer):
+    """The lassosum mode in global dp on one band against its twin on the
+    card, from the state after 3 sweeps, one point in five frozen:
+    bit-equal, two launches bit-equal; returns (max abs err, kernel ms,
+    twin ms)."""
     f = lambda a: torch.as_tensor(a, dtype=sb.dtype, device=dev)  # noqa: E731
     m = sb.m
     bh, pf = f(rng.normal(0, 0.02, m)), f(rng.uniform(0.8, 1.5, m))
@@ -2444,17 +2453,6 @@ def lasso_state(gsk, torch, dev, sb, NG, rng):
         gsk.lassosum_sweep(sb, dp, beta, bh, pf, lam, delta,
                            torch.ones(NG, dtype=torch.bool, device=dev))
     active = torch.as_tensor(np.arange(NG) % 5 != 3, device=dev)
-    return bh, pf, lam, delta, dp, beta, active
-
-
-def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer,
-                   sb_time=None):
-    """The lassosum mode in global dp on one band against its twin on the
-    card, from the state after 3 sweeps, one point in five frozen:
-    bit-equal, two launches bit-equal; then timed, on `sb_time` if given,
-    else on the same band; returns (max abs err, kernel ms, twin ms)."""
-    bh, pf, lam, delta, dp, beta, active = lasso_state(gsk, torch, dev, sb,
-                                                       NG, rng)
 
     def run(fn):
         d, b = dp.clone(), beta.clone()
@@ -2472,30 +2470,17 @@ def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer,
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     err = max(float((a.double() - r.double()).abs().max())
               for a, r in zip(got, ref))
+    ms = timer(lambda: gsk.lassosum_sweep(sb, dp.clone(), beta.clone(), bh,
+                                          pf, lam, delta, active), reps=3)
     gdp = sb.plans.get(NG, (0, 0, False))[2]
+    log(f"  global-dp lassosum mode, {tag}: {sb.max_rows} rows, width "
+        f"{sb.wkmax}, {NG} grid points ({int(active.sum())} active), "
+        f"global-dp mode {gdp}: bit-equal to the twin {bit} (max abs diff "
+        f"{err:.1e}); two launches bit-equal {repeat}; kernel {ms:.3f} ms a "
+        f"sweep, twin {plain_ms:.1f} ms")
     if dev.type == "cuda" and not (
             gdp and gsk.launches["lassosum_global"] > before):
         fail(f"the lassosum mode ({tag}) did not run in the global-dp mode")
-    band, state = sb, (bh, pf, lam, delta, dp, beta, active)
-    if sb_time is not None:
-        band = sb_time
-        state = lasso_state(gsk, torch, dev, sb_time, NG, rng)
-        before = gsk.launches["lassosum_global"]
-    tb, tpf, tlam, tdelta, tdp, tbeta, tact = state
-    ms = timer(lambda: gsk.lassosum_sweep(band, tdp.clone(), tbeta.clone(),
-                                          tb, tpf, tlam, tdelta, tact),
-               reps=3)
-    if sb_time is not None and dev.type == "cuda" and not (
-            sb_time.plans.get(NG, (0, 0, False))[2]
-            and gsk.launches["lassosum_global"] > before):
-        fail(f"the timed lassosum mode ({tag}) did not run in the global-dp "
-             f"mode")
-    log(f"  global-dp lassosum mode, {tag}: held against its twin on "
-        f"{sb.max_rows} rows, width {sb.wkmax}, {NG} grid points "
-        f"({int(active.sum())} active), global-dp mode {gdp}: bit-equal to "
-        f"the twin {bit} (max abs diff {err:.1e}); two launches bit-equal "
-        f"{repeat}; twin {plain_ms:.1f} ms; kernel {ms:.3f} ms a sweep on "
-        f"{band.max_rows} rows, width {band.wkmax}")
     if not (bit and repeat):
         fail(f"the global-dp lassosum mode ({tag}) disagrees with its twin "
              f"or does not repeat")
@@ -2746,23 +2731,13 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
     rows, with the launches of the slice-5 path."""
     from bigsnpr_tpu_torch.pgs.band import one_block_bands
 
-    log("[17b] the global-dp mode at the slice-5 band: held against its twin "
-        "on the band of its first variants, timed on the whole band")
+    log("[17b] the global-dp mode at the slice-5 band, against its twin and "
+        "timed")
     sb = one_block_bands(s5["corr"]).device_put(dev)
-    k = min(args.gdp_twin_rows, sb.m)
-    sb_twin = one_block_bands(s5["corr"], ind_corr=np.arange(k)).device_put(
-        dev)
-    NG = 4 * args.nlambda
-    if dev.type == "cuda":
-        # the first rows' dp fits in shared memory: plan the mode against
-        # none, as [15] does on its short band
-        for n_ in (N_CHAINS, NG):
-            sb_twin.plans[n_] = gsk.plan(sb_twin, n_, 0)
     rng = np.random.default_rng(args.seed + 34)
     timer = Timer(torch, dev)
-    err, ms, plain_ms = gdp_sweep_case(bp, gsk, torch, dev, sb_twin,
-                                       N_CHAINS, rng, "slice-5 band", timer,
-                                       sb_time=sb)
+    err, ms, plain_ms = gdp_sweep_case(bp, gsk, torch, dev, sb, N_CHAINS, rng,
+                                       "slice-5 band", timer)
     bound, by, t_tiles, t_lat = sweep_bound(sb, N_CHAINS, 1)
     log(f"    bound {bound:.3f} ms ({by}); rows x step latency {t_lat:.3f} "
         f"ms; {ms / max(t_lat, 1e-9):.1f}x that floor")
@@ -2770,10 +2745,11 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
                      f"rows, {N_CHAINS} chains)", "route": "cuda",
              "source": SWEEP_SOURCE, "replaces": GDP_REPLACES["sweep"],
              "launches": s5["launches"]["sweep_global"], "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms, "plain_rows": sb_twin.max_rows,
-             "bound_ms": bound, "bound_by": by, "library_ms": None}]
-    err, ms, plain_ms = gdp_lasso_case(bp, gsk, torch, dev, sb_twin, NG, rng,
-                                       "slice-5 band", timer, sb_time=sb)
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by, "library_ms": None}]
+    NG = 4 * args.nlambda
+    err, ms, plain_ms = gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng,
+                                       "slice-5 band", timer)
     bound, by = lasso_bound(sb, NG)
     log(f"    bound {bound:.3f} ms ({by}); rows x step latency {t_lat:.3f} "
         f"ms; {ms / max(t_lat, 1e-9):.1f}x that floor")
@@ -2783,8 +2759,7 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
                  "replaces": GDP_REPLACES["lassosum"],
                  "launches": s5["launches"]["lassosum_global"],
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "plain_rows": sb_twin.max_rows, "bound_ms": bound,
-                 "bound_by": by, "library_ms": None})
+                 "bound_ms": bound, "bound_by": by, "library_ms": None})
     return rows
 
 
@@ -2816,9 +2791,6 @@ def arg_parser():
     ap.add_argument("--gdp-rows", type=int, default=29_100,
                     help="rows of [15]'s float64 band, past the shared "
                     "memory of one block")
-    ap.add_argument("--gdp-twin-rows", type=int, default=20_000,
-                    help="first variants of slice 5's band on which [17b] "
-                    "holds the global-dp mode against its twin")
     # cut only by a CPU rehearsal, whose twins are slow
     ap.add_argument("--n-thr", type=int, default=50)
     ap.add_argument("--nlambda", type=int, default=30)

@@ -89,6 +89,14 @@ def variant_source(src, name):
     return src
 
 
+def at_depth(gk, plan, prod, terms, m, n, ksub):
+    """`plan` with its ring at stages of `ksub` 64-deep sub-tiles, the
+    depth split as often as before."""
+    ring = gk.plane_ring(prod, terms, plan["bn"], ksub, m if prod else n)
+    kps = -(-ring["ktiles"] // plan["splits"])
+    return {**plan, **ring, "kps": kps, "splits": -(-ring["ktiles"] // kps)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=50_000)
@@ -158,12 +166,12 @@ def main(argv=None):
                                      ("K7 prod", True, 2, U),
                                      ("K7 cprod", False, 2, V)):
             plan = gk.plane_plan(prod, terms, m, n, l, sms)
-            op, sumv, rc = gk._plane_operands(prod, terms, W, c, inv, plan)
+            op, sums, rc = gk._plane_operands(prod, terms, W, c, inv, plan)
             if rc != 0:
                 raise RuntimeError(f"{name}: operand preparation failed {rc}")
 
-            def f(prod=prod, terms=terms, op=op, sumv=sumv, plan=plan):
-                out, rc = gk._plane_gemm(prod, terms, P, n, op, sumv, l, c,
+            def f(prod=prod, terms=terms, op=op, sums=sums, plan=plan):
+                out, rc = gk._plane_gemm(prod, terms, P, n, op, sums, l, c,
                                          inv, plan)
                 if rc != 0:
                     raise RuntimeError(f"GEMM launch failed {rc}")
@@ -178,10 +186,11 @@ def main(argv=None):
             for name, prod, terms, W in (("K2 prod", True, 3, U),
                                          ("K7 prod", True, 2, U),
                                          ("K7 cprod", False, 2, V)):
-                plan = gk.plane_plan(prod, terms, m, n, l, sms, ksub=ksub)
-                op, sumv, rc = gk._plane_operands(prod, terms, W, c, inv,
+                plan = at_depth(gk, gk.plane_plan(prod, terms, m, n, l, sms),
+                                prod, terms, m, n, ksub)
+                op, sums, rc = gk._plane_operands(prod, terms, W, c, inv,
                                                   plan)
-                times.append(f"{name} {ms(lambda: gk._plane_gemm(prod, terms, P, n, op, sumv, l, c, inv, plan)):.3f} ({plan['stages']} stages)")
+                times.append(f"{name} {ms(lambda: gk._plane_gemm(prod, terms, P, n, op, sums, l, c, inv, plan)):.3f} ({plan['stages']} stages)")
             print(f"l={l} ksub {ksub}: {', '.join(times)} ms", flush=True)
         load = gk._load_split
         for vname, path in libs.items():

@@ -375,6 +375,40 @@ def test_k2_planes_match_twins_and_float64(cuda, n, m, l, na_prob):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["|N|+1", "ones", "-|N|-1"])
+def test_k2_holds_operands_of_nonzero_mean(cuda, kind):
+    """K2 on an operand whose columns do not average zero (all-positive or
+    all-negative weights, U = 1), at 100,000 variants of a cohort scaled
+    by its own means: the plane sums grow like m and the result like
+    sqrt(m), so K2 centres its operand. Within 1e-5 of max |float64| as
+    its twin is, 1e-4 of the twin, 1e-5 of the plain three-term algebra;
+    unsplit and with the depth split in 7; two launches bit-equal."""
+    n, m = 2003, 100_000
+    pp = pt.snp_fake(n, m, seed=17, na_prob=0.01)
+    sc = pt.bed_scaleBinom(pp, device=cuda)
+    op = pt.GenoOperator(pp, sc["center"], sc["scale"], device=cuda)
+    packed, c, inv = op.packed, op.center, op.inv
+    rng = np.random.default_rng(17)
+    U = {"|N|+1": np.abs(rng.standard_normal((m, 20))) + 1,
+         "ones": np.ones((m, 1)),
+         "-|N|-1": -np.abs(rng.standard_normal((m, 20))) - 1}[kind]
+    U = torch.as_tensor(U, dtype=torch.float32, device=cuda)
+    ref64 = dense64(packed, n, c, inv).T @ U.double()
+    twin = gk.prod_plain(packed, n, U, c, inv)
+    alg = gk.prod_split_plain(packed, n, U, c, inv, terms=3)
+    assert (twin.double() - ref64).abs().max() <= 1e-5 * ref64.abs().max()
+    for splits in (None, 7):
+        out = gk.prod(packed, n, U, c, inv, splits=splits)
+        again = gk.prod(packed, n, U, c, inv, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert (out - twin).abs().max() <= 1e-4 * twin.abs().max()
+        assert (out - alg).abs().max() <= 1e-5 * alg.abs().max()
+        assert ((out.double() - ref64).abs().max()
+                <= 1e-5 * ref64.abs().max())
+
+
+@pytest.mark.cuda
 def test_split_operator_masks_like_the_plain_one(cuda):
     pp = pt.snp_fake(533, 700, seed=5, na_prob=0.05)
     sc = pt.bed_scaleBinom(pp, device="cpu")

@@ -8,8 +8,9 @@ another order, per sample tile there, whole here), and against a float64
 dense oracle within 2e-5 of max |oracle| (tests/test_pallas.py's bound for
 split2). `split_bf16` is bit-equal to `_split_bf16`. The same plane
 algebra with the operand split into three bf16 terms, which K2 (the
-"highest" prod) runs on the card, is held against the JAX package's
-f32-HIGHEST kernels and float64 within 1e-5, and `plane_plan`, the two
+"highest" prod) runs on the card, centred, is held against the JAX
+package's f32-HIGHEST kernels and float64 within 1e-5, also on operands
+of mean far from zero, and `plane_plan`, the two
 kernels' launch plan, against the C side's checks.
 tests/test_torch_cuda.py holds the CUDA kernels against the twins on a
 card."""
@@ -210,6 +211,36 @@ def test_three_term_algebra_matches_pallas_highest_and_oracle(n, m, na_prob):
     assert np.all(B[::17] == 0.0)
 
 
+@pytest.mark.parametrize("kind", ["|N|+1", "ones", "-|N|-1"])
+@pytest.mark.parametrize("na_prob", [0.05, 0.0])
+def test_three_term_algebra_holds_operands_of_nonzero_mean(kind, na_prob):
+    """An operand whose columns do not average zero (all-positive
+    weights, U = 1) makes the plane sums grow like m and the result like
+    sqrt(m): the centred three-term algebra (K2's) stays within 1e-5 of
+    max |float64| as the direct f32 twin does, at 40,000 variants, one
+    sample with a fifth of its genotypes missing."""
+    n, m = 203, 40_000
+    jp = bt.snp_fake(n, m, seed=11, na_prob=na_prob)
+    packed = np.asarray(jp.packed).copy()
+    packed[:m // 5, 0] |= 0x03
+    packed[:m // 5, 0] &= 0xFD                     # sample 0: NA (code 1)
+    sc = bt.bed_scaleBinom(bt.GenoPack(packed=packed, n=n))
+    scale = scale_with_zeros(sc)
+    pop = pt.GenoOperator(interop.pack_from_numpy(packed, n), sc["center"],
+                          scale)
+    P, c, inv = pop.packed, pop.center, pop.inv
+    rng = np.random.default_rng(3)
+    U = {"|N|+1": np.abs(rng.standard_normal((m, 12))) + 1,
+         "ones": np.ones((m, 1)),
+         "-|N|-1": -np.abs(rng.standard_normal((m, 12))) - 1}[kind]
+    U = torch.as_tensor(U.astype(np.float32))
+    ref64 = dense(packed, n, sc["center"], scale) @ U.double().numpy()
+    Y = gk.prod_split_plain(P, n, U, c, inv, terms=3).numpy()
+    close(Y, ref64, 1e-5)
+    close(gk.prod_plain(P, n, U, c, inv).numpy(), ref64, 1e-5)
+    assert np.abs(ref64[0]).max() > 0
+
+
 # ---------------------------------------------------------------------------
 # the launch plan of the K2 / K7 GEMM (`plane_plan`), at the card tests'
 # shapes and the chip's
@@ -233,7 +264,8 @@ def plane_refused(plan, prod, terms, m, n, l):
                                     * 128 + rows * raw)
     return (bn not in gk.PLANE_BNC[terms] or bn % 8 or terms * bn > 96
             or nt * bn != plan["l_pad"]
-            or plan["l_pad"] < l or (nt - 1) * bn >= l
+            or nt * plan["cols"] < l or (nt - 1) * plan["cols"] >= l
+            or plan["cols"] != bn - (1 if prod and terms == 3 else 0)
             or ks not in (1, 2, 4) or not 2 <= plan["stages"] <= 8
             or plan["kps"] < 1
             or -(-ktiles // plan["kps"]) != plan["splits"]
@@ -281,10 +313,11 @@ def test_plane_plan_covers_the_product_once(l, n, prod, terms):
 
 
 def test_plane_plan_at_the_main_path_shapes():
-    """The plans the chip's shapes get: l <= 32 (K2) or 40 (K7) is one
-    column tile (the pack decoded once an item); slice 1's 50,000-sample
-    prod fills the card unsplit; the grid PRS's l = 650 takes 21 tiles of
-    32 under K2."""
+    """The plans the chip's shapes get: l <= 31 (K2, whose tile of 32
+    ends in its count column) or 40 (K7) is one column tile (the pack
+    decoded once an item); slice 1's 50,000-sample prod fills the card
+    unsplit; the grid PRS's l = 650 takes 21 tiles of 32 (31 columns
+    each) under K2."""
     p = gk.plane_plan(True, 3, 100_000, 50_000, 20, 132)
     assert (p["bn"], p["n_tiles"], p["splits"]) == (24, 1, 1)
     assert p["ksub"] == 4 and p["stages"] >= 2
@@ -293,11 +326,12 @@ def test_plane_plan_at_the_main_path_shapes():
     p = gk.plane_plan(True, 3, 100_000, 50_000, 50, 132)
     assert (p["bn"], p["n_tiles"], p["splits"]) == (32, 2, 1)
     p = gk.plane_plan(True, 3, 100_000, 15_000, 650, 132)
-    assert (p["bn"], p["n_tiles"], p["l_pad"]) == (32, 21, 672)
+    assert (p["bn"], p["n_tiles"], p["l_pad"], p["cols"]) == (32, 21, 672,
+                                                              31)
     assert p["stages"] >= 2
     p = gk.plane_plan(False, 2, 100_000, 50_000, 20, 132)
     assert (p["bn"], p["n_tiles"], p["splits"], p["ksub"]) == (24, 1, 1, 4)
-    for terms, widest in ((2, 40), (3, 32)):
+    for terms, widest in ((2, 40), (3, 31)):
         for l in range(1, widest + 1):
             assert gk.plane_plan(True, terms, 100_000, 20_000, l,
                                  132)["n_tiles"] == 1
