@@ -196,14 +196,17 @@ def fail(msg):
 
 
 class Timer:
-    """Milliseconds per call: CUDA events around `reps` calls on the card,
-    the host clock on the CPU."""
+    """Milliseconds per call: CUDA events around `reps` calls after
+    `warmup` on the card; on the CPU (a rehearsal, whose times are never
+    reported) the host clock around one call."""
 
     def __init__(self, torch, dev):
         self.torch, self.dev = torch, dev
 
     def __call__(self, fn, reps=5, warmup=1):
         torch = self.torch
+        if self.dev.type != "cuda":
+            reps, warmup = 1, 0
         for _ in range(warmup):
             fn()
         if self.dev.type == "cuda":
