@@ -59,21 +59,52 @@
 // partials 0. gap, df and maxshift are per (grid point, block) partials in
 // row order, reduced by the caller in block order; no atomics.
 //
-// The global-dp mode (GDP = true; the entries' `gdp` argument) is the same
-// sweep for a block whose dp (rows + 2W values a chain) does not fit in
-// shared memory: the unblocked samplers, whose one block holds every
-// variant (the JAX package's `_sweep_gibbs` and `lassosum_cd`'s
-// `sweep_step`, bigsnpr_tpu/pgs/gibbs.py:28-72, 373-389, XLA lax.scans
-// there, not Pallas). Each chain's dp stays in its global arena and is
-// updated there in place; the __syncthreads() around the AXPY order the
-// CTA's global accesses as they order its shared ones. The caller spreads
-// the chains over CTAs (one a CTA), since one block now holds every row.
-// At 100,000 variants and W = 500, 30 chains' dp is 12 MB and stays in the
-// 50 MB L2; a row's dependent chain now waits on L2 instead of shared
-// memory, so the rows x one step's latency bound a sweep, as above.
+// The ring mode (entries' `ring` argument > 0; the "global-dp" launches of
+// the wrapper) is the same sweep for a block whose dp (rows + 2W values a
+// chain) does not fit in shared memory: the unblocked samplers, whose one
+// block holds every variant (the JAX package's `_sweep_gibbs` and
+// `lassosum_cd`'s `sweep_step`, bigsnpr_tpu/pgs/gibbs.py:28-72, 373-389,
+// XLA lax.scans there, not Pallas). Only 2W + 1 entries of a chain's dp
+// are live at a row: row j reads dp[j + W] and updates dp[j .. j + 2W],
+// and no later row of the sweep touches dp[j] again. So each chain keeps
+// a ring of its live entries in shared memory (`ring` slots, a power of
+// two); device memory sees one read and one write of each entry a sweep.
+// Rows go in tiles of 32, one a lane. A CTA holds one or two chains:
+// - a row warp per chain: lane k holds dp[j0 + W + k] in a register; every
+//   lane runs the scalar step of its own row on its own entry, so lane i's
+//   is row j0 + i's, __shfl_sync broadcasts its diff, and every lane whose
+//   entry the row reaches adds diff * band (entries already read included,
+//   so an entry leaves the warp complete for the tile). A row's critical
+//   path is its scalar step, one shuffle and one multiply and add: no
+//   barrier, no memory access but a shared-memory load issued a row
+//   ahead. At the tile's end the warp writes its entries back, loads the
+//   next tile's 32 entries once the update threads are done with them,
+//   applies the tile's diffs to them in row order, recomputes each lane's
+//   outputs from the entry it read, and hands the diffs on;
+// - 256 update threads, one tile behind, apply the tile's diffs to every
+//   other live entry (a rank-32 update, each entry's updates in row
+//   order), write back the entries no later row touches and stream in
+//   those the next tile reaches. Entry e belongs to update thread e mod
+//   256 at every tile, so they need no barrier among themselves; they fold
+//   each chain's h2 / gap (df / maxshift) partials in row order;
+// - a producer warp copies, by bulk copies (TMA) one band row each, the
+//   row warps' strips (a row's 64 band values on the diagonal, three
+//   buffers, a tile ahead) and the band itself through three stages of 16
+//   rows for the update threads (`srw` values a stage row; 0: they read it
+//   in place, where the stages do not fit: float64, wide bands).
+// Row warps, update threads and producer meet on mbarriers (ready / done a
+// tile, full / empty a stage), whose waits trap after ~2^34 cycles instead
+// of hanging the card. Every dp entry gets the same multiply and add (or
+// fused multiply-add) in the same row order as in the shared-memory mode,
+// so the two modes are bit-equal where both can run. The plan
+// (ops/gibbs_kernels.py::plan) picks the ring length, chains a CTA and the
+// stages; the kernel traps on a ring or a stage too short for its block.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
+
+#include "ring.cuh"
 
 namespace {
 
@@ -215,7 +246,7 @@ __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
-template <typename T, bool LASSO, bool GDP>
+template <typename T, bool LASSO>
 __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * a.nct;
@@ -230,20 +261,17 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
   const int32_t* gidx = a.gidx + a.blk_gidx[b];
   const int64_t dp_off = a.blk_dp[b];
 
-  // each chain's dp for the block: in shared memory (nct x Ls), or in
-  // place in the global arena in the global-dp mode
+  // each chain's dp for the block in shared memory (nct x Ls)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const dp_g = a.dp + (int64_t)c0 * a.dp_stride + dp_off;
   T* const sdp = reinterpret_cast<T*>(smem_raw);
-  T* const dpv = GDP ? dp_g : sdp;
-  const int64_t ld = GDP ? a.dp_stride : (int64_t)a.Ls;
-  T* const sdiff = GDP ? sdp : sdp + (int64_t)a.nct * a.Ls;  // nct
+  T* const dpv = sdp;
+  const int64_t ld = (int64_t)a.Ls;
+  T* const sdiff = sdp + (int64_t)a.nct * a.Ls;  // nct
 
-  if (!GDP) {
-    for (int t = 0; t < nct; ++t) {
-      const T* src = dp_g + (int64_t)t * a.dp_stride;
-      for (int i = tid; i < L; i += nthr) sdp[t * a.Ls + i] = src[i];
-    }
+  for (int t = 0; t < nct; ++t) {
+    const T* src = dp_g + (int64_t)t * a.dp_stride;
+    for (int i = tid; i < L; i += nthr) sdp[t * a.Ls + i] = src[i];
   }
 
   const bool scalar = tid < nct;
@@ -355,11 +383,9 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
     for (int k = 0; k < KMAX; ++k) bcur[k] = bnext[k];
   }
 
-  if (!GDP) {
-    for (int t = 0; t < nct; ++t) {
-      T* dst = dp_g + (int64_t)t * a.dp_stride;
-      for (int i = tid; i < L; i += nthr) dst[i] = sdp[t * a.Ls + i];
-    }
+  for (int t = 0; t < nct; ++t) {
+    T* dst = dp_g + (int64_t)t * a.dp_stride;
+    for (int i = tid; i < L; i += nthr) dst[i] = sdp[t * a.Ls + i];
   }
   if (scalar) {
     const int64_t o = (int64_t)c * a.nblk + b;
@@ -373,28 +399,667 @@ __global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
   }
 }
 
-template <typename T, bool LASSO, bool GDP>
-int launch_mode(const SweepArgs<T>& a, int threads, void* stream) {
-  const size_t smem =
-      ((GDP ? 0 : (size_t)a.nct * a.Ls) + (size_t)a.nct) * sizeof(T);
+// ---- the ring mode ---------------------------------------------------------
+
+constexpr int RK = 32;        // rows a tile: one a lane of a row warp
+constexpr int RNU = 256;      // update threads a CTA
+constexpr int RSTRIPS = 3;    // strip buffers of the row warps' band values
+constexpr int RMAXC = 2;      // chains a CTA at most
+constexpr int RKE = 4;        // entries an update thread at most (staged band)
+constexpr int RHALF = 16;     // band rows a stage: half a tile
+constexpr int RSTAGES = 3;    // band stages
+
+// dynamic shared memory of the ring mode: 13 mbarriers (128 B), the
+// chains' rings, the strip buffers (RK rows of 2 RK + V values, V values a
+// 16-byte chunk), two tiles of diffs and partial terms, and (srw > 0) the
+// band stages, RSTAGES x RHALF rows of srw values, and RK values of slack
+// (ops/gibbs_kernels.py's `ring_smem_bytes` is the same formula)
+inline size_t ring_smem_bytes(int nct, int S, int sz, int srw) {
+  const int V = 16 / sz;
+  return 128 + (size_t)nct * S * sz +
+         (size_t)RSTRIPS * RK * (2 * RK + V) * sz +
+         (size_t)6 * nct * RK * sz +
+         (srw > 0 ? ((size_t)RSTAGES * RHALF * srw + RK) * sz : 0);
+}
+
+// x + d b as the mode rounds it: fused in the lassosum mode's float32
+// (lasso_mul_add), two roundings otherwise
+template <typename T, bool LASSO>
+__device__ __forceinline__ T ring_madd(T d, T b, T x) {
+  if constexpr (LASSO) {
+    return lasso_mul_add(d, b, x);
+  } else {
+    return x + d * b;
+  }
+}
+
+// one bulk copy (TMA) of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(ring::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(ring::smem_u32(bar))
+      : "memory");
+}
+
+// a shared-memory load the compiler issues where it stands (it would sink
+// a plain load into the predicated multiply-add that uses it, and the
+// update threads would wait on each one)
+__device__ __forceinline__ float lds_now(const float* p) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(ring::smem_u32(p)));
+  return v;
+}
+__device__ __forceinline__ double lds_now(const double* p) {
+  double v;
+  asm volatile("ld.shared.f64 %0, [%1];\n"
+               : "=d"(v)
+               : "r"(ring::smem_u32(p)));
+  return v;
+}
+
+// The diagonal strip of tile rows j0 .. j0 + RK - 1 (of `nrow` rows) for
+// the row warps: band columns W - i .. W - i + 2 RK - 1 of row j0 + i,
+// copied from the 16-byte chunk that holds the first into line i (SW
+// values), one bulk copy a row by lane i of the producer warp, completing
+// on `bar` (the arena's BAND_PAD zeros cover the copies past its end;
+// values outside a row's band are never used)
+template <typename T>
+__device__ __forceinline__ void issue_strip(const T* band_all,
+                                            int64_t band_len, int64_t f0,
+                                            int W2, int nrow, T* dst,
+                                            uint64_t* bar, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int SW = 2 * RK + V;
+  if (lane == 0) ring::mbar_expect_tx(bar, nrow * SW * sizeof(T));
+  __syncwarp();
+  if (lane < nrow) {
+    // f0 + i W2 = the flat index of band[j0 + i, W - i]
+    const int64_t src = (f0 + (int64_t)lane * W2) & ~(int64_t)(V - 1);
+    if (src + SW > band_len) __trap();  // the arena lacks its padding
+    bulk_copy(dst + lane * SW, band_all + src, SW * sizeof(T), bar);
+  }
+}
+
+// A row's inputs as the ring mode's row warp loads them, a tile ahead,
+// from its variant g (prefetched a tile before that): the LDpred2 sweep's
+// RowIn, or the lassosum mode's bh, pf and cb (lam and dp1 are formed when
+// the tile starts). Pad slots (g < 0) are inert.
+template <typename T, bool LASSO>
+struct RingIn {
+  T bh, c2, c4, s1, u, z, cb;
+  int g;
+};
+template <typename T>
+struct RingIn<T, true> {
+  T bh, pf, cb;
+  int g;
+};
+
+template <typename T, bool LASSO>
+__device__ __forceinline__ RingIn<T, LASSO> ring_load(const SweepArgs<T>& a,
+                                                      int g, int c) {
+  RingIn<T, LASSO> r;
+  r.g = g;
+  const int64_t o = (int64_t)c * a.m + g;
+  if constexpr (LASSO) {
+    r.bh = g >= 0 ? a.bh[g] : T(0);
+    r.pf = g >= 0 ? a.pf[g] : T(0);
+    r.cb = g >= 0 ? a.cb[o] : T(0);
+  } else {
+    r.bh = g >= 0 ? a.bh[g] : T(0);
+    r.c2 = g >= 0 ? a.C2[o] : T(0);
+    r.c4 = g >= 0 ? a.C4[o] : T(1);
+    r.s1 = g >= 0 ? a.s1[o] : T(1);
+    r.u = g >= 0 ? a.u[o] : T(2);
+    r.z = g >= 0 ? a.z[o] : T(0);
+    r.cb = g >= 0 ? a.cb[o] : T(0);
+  }
+  return r;
+}
+
+// The update threads' positions of tile j0: entries j0 + q, q = ut mod
+// RNU, q < span = 2W + RK, but the row warp's two tiles (W <= q < W + 2 RK)
+// and the entries past the sweep (j0 + q >= Lp). Slot k of a thread is
+// q = q0 + k RNU; rows lo .. hi of the tile reach its entry.
+struct RingPos {
+  int q0, span, W, W2, j0, Lp, nrow;
+  __device__ __forceinline__ bool valid(int q) const {
+    return q < span && (q < W || q >= W + 2 * RK) && j0 + q < Lp;
+  }
+  __device__ __forceinline__ int lo(int q) const { return max(0, q - W2); }
+  __device__ __forceinline__ int hi(int q) const { return min(nrow - 1, q); }
+};
+
+template <typename T, bool LASSO>
+__global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
+    gibbs_ring_kernel(SweepArgs<T> a, int S, int srw, int64_t band_len) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int SW = 2 * RK + V;
+  const int b = blockIdx.x;
+  const int c0 = blockIdx.y * a.nct;
+  const int nct = min(a.nct, a.NC - c0);
+  const int tid = threadIdx.x;
+  // warps 0 .. a.nct - 1 run the chains' rows, the next RNU / 32 update,
+  // the last produces
+  const int nrw = 32 * a.nct;
+  const int rows = a.blk_rows[b];
+  const int W = a.blk_W[b];
+  const int W2 = 2 * W;
+  const int wk = W2 + 1;
+  const int64_t bb = a.blk_band[b];
+  const T* band = a.band + bb;
+  const int32_t* gidx = a.gidx + a.blk_gidx[b];
+  T* const dpg = a.dp + (int64_t)c0 * a.dp_stride + a.blk_dp[b];
+  const int Lp = rows > 0 ? rows + W2 : 0;  // the entries the sweep touches
+  // tile t reads and writes entries below RK t + A; S >= A + 2 RK keeps
+  // every live entry (RK t - 2 RK .. RK t + A) in its own slot
+  const int A = W + RK + max(W, RK);
+  const int span = W2 + RK;  // tile t touches entries j0 .. j0 + span - 1
+  const int ntile = (rows + RK - 1) / RK;
+  const int S1 = S - 1;
+  // a band stage's line holds a row from the 16-byte chunk of its start;
+  // an update thread's entries are q0 + k RNU, k < RKE
+  if (A + 2 * RK > S || (srw > 0 && (srw < wk + V - 1 || span > RKE * RNU)))
+    __trap();
+
+  if constexpr (LASSO) {  // no active grid point: nothing to do
+    bool any = false;
+    for (int t = 0; t < nct; ++t) any = any || a.active[c0 + t] != 0;
+    if (!any) {
+      if (tid < nct) {
+        const int64_t o = (int64_t)(c0 + tid) * a.nblk + b;
+        a.part_gap[o] = T(0);
+        a.part_df[o] = 0;
+        a.part_ms[o] = T(0);
+      }
+      return;
+    }
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* const ready = reinterpret_cast<uint64_t*>(smem_raw);  // [2]
+  uint64_t* const done = ready + 2;                                 // [2]
+  uint64_t* const sfull = ready + 4;                                // [3]
+  uint64_t* const bfull = ready + 7;                                // [3]
+  uint64_t* const bempty = ready + 10;                              // [3]
+  T* const ring = reinterpret_cast<T*>(smem_raw + 128);  // [a.nct][S]
+  T* const strip = ring + (size_t)a.nct * S;             // [3][RK][SW]
+  T* const sd = strip + RSTRIPS * RK * SW;               // [2][a.nct][RK]
+  T* const sc1 = sd + 2 * a.nct * RK;
+  T* const sc2 = sc1 + 2 * a.nct * RK;
+  T* const sbs = sc2 + 2 * a.nct * RK;                   // [3][RHALF][srw]
+
+  if (tid == 0) {
+    for (int k = 0; k < 2; ++k) {
+      ring::mbar_init(ready + k, 32 * nct);
+      ring::mbar_init(done + k, RNU);
+    }
+    for (int k = 0; k < RSTRIPS; ++k) ring::mbar_init(sfull + k, 1);
+    for (int k = 0; k < RSTAGES; ++k) {
+      ring::mbar_init(bfull + k, 1);
+      ring::mbar_init(bempty + k, RNU / 32);
+    }
+    ring::fence_mbarrier_init();
+  }
+  if (tid >= nrw && tid < nrw + RNU) {  // the first window: entries < A
+    const int n0 = min(A, Lp);
+    for (int c = 0; c < nct; ++c) {
+      for (int e = tid - nrw; e < n0; e += RNU) {
+        ring[c * S + e] = dpg[(int64_t)c * a.dp_stride + e];
+      }
+    }
+  }
+  __syncthreads();
+  // flat index of band[j0, W] of tile 0; + j0 wk for tile j0 / RK
+  const int64_t f00 = bb + W;
+
+  if (tid >= nrw + RNU) {
+    // ---- the producer warp: strips and band stages, by bulk copies -------
+    // The strip of tile u goes to buffer u mod 3 once the row warps have
+    // left tile u - 3 (ready(u - 2) follows). Half h of the sweep's tiles
+    // (band rows RHALF h ..) goes to stage h mod 3 once the update threads
+    // have left the half three before it.
+    const int lane = tid & 31;
+    auto strip_of = [&](int u) {
+      issue_strip(a.band, band_len, f00 + (int64_t)u * RK * wk, W2,
+                  min(RK, rows - u * RK), strip + (u % RSTRIPS) * RK * SW,
+                  sfull + u % RSTRIPS, lane);
+    };
+    for (int u = 0; u < min(2, ntile); ++u) strip_of(u);
+    const int nhalf = srw > 0 ? 2 * ntile : 0;
+    for (int u = 2, h = 0; u < ntile || h < nhalf;) {
+      // the next strip first unless the band is a half ahead of it
+      if (u < ntile && (h >= nhalf || h >= 2 * u)) {
+        ring::mbar_wait(ready + ((u - 2) & 1), ((u - 2) >> 1) & 1);
+        strip_of(u++);
+        continue;
+      }
+      const int s = h % RSTAGES;
+      if (h >= RSTAGES) ring::mbar_wait(bempty + s, ((h / RSTAGES) - 1) & 1);
+      const int j = RHALF * h + lane;  // this lane's row
+      int64_t src = 0;
+      uint32_t bytes = 0;
+      if (lane < RHALF && j < rows) {
+        const int64_t f = bb + (int64_t)j * wk;   // flat index of band[j, 0]
+        src = f & ~(int64_t)(V - 1);
+        bytes = (uint32_t)(((f + wk - src + V - 1) / V) * 16);
+        if (src + (int64_t)(bytes / sizeof(T)) > band_len) __trap();
+      }
+      uint32_t total = bytes;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        total += __shfl_xor_sync(0xffffffffu, total, o);
+      if (lane == 0) ring::mbar_expect_tx(bfull + s, total);
+      __syncwarp();
+      if (bytes) {
+        bulk_copy(sbs + (s * RHALF + lane) * srw, a.band + src, bytes,
+                  bfull + s);
+      }
+      ++h;
+    }
+  } else if (tid < nrw) {
+    // ---- a row warp: chain c0 + w --------------------------------------
+    const int w = tid >> 5, lane = tid & 31;
+    if (w < nct && ntile > 0) {
+      const int c = c0 + w;
+      T* const rc = ring + w * S;
+      T iop = T(0), pc = T(0), lam_c = T(0), delta_c = T(0);
+      bool sp = false, live = true;
+      if constexpr (LASSO) {
+        lam_c = a.lam[c];
+        delta_c = a.delta[c];
+        live = a.active[c] != 0;
+      } else {
+        iop = a.inv_odd_p[c];
+        pc = a.p[c];
+        sp = a.sparse[c] != 0;
+      }
+      const T shrink = a.shrink;
+      const T one_m_shrink = T(1) - shrink;
+      // lane k's rows: j0 + k of this tile (in), the next (g1), the one
+      // after (g2, loaded a tile before its inputs)
+      int g1 = RK + lane < rows ? gidx[RK + lane] : -1;
+      RingIn<T, LASSO> in =
+          ring_load<T, LASSO>(a, lane < rows ? gidx[lane] : -1, c);
+      T cur = W + lane < Lp ? rc[(W + lane) & S1] : T(0);
+
+      for (int t = 0; t < ntile; ++t) {
+        const int j0 = t * RK;
+        const int nrow = min(RK, rows - j0);
+        const bool more = t + 1 < ntile;
+        const int64_t f0 = f00 + (int64_t)j0 * wk;
+        const int g2 = j0 + 2 * RK + lane < rows ? gidx[j0 + 2 * RK + lane]
+                                                 : -1;
+        const RingIn<T, LASSO> nxt = ring_load<T, LASSO>(a, g1, c);
+        ring::mbar_wait(sfull + t % RSTRIPS, (t / RSTRIPS) & 1);
+        const T* st = strip + (t % RSTRIPS) * RK * SW;
+        const int off0 = (int)(f0 & (V - 1));
+
+        // lane k's own row (j0 + k): its step's inputs
+        T iops1 = T(0), zs = T(0), lam = T(1), dp1 = T(1);
+        if constexpr (LASSO) {
+          if (in.g >= 0) {
+            lam = in.pf * lam_c;
+            dp1 = in.pf * delta_c + T(1);
+          }
+        } else {
+          iops1 = iop * in.s1;
+          zs = in.z * sqrt_t(in.c4);
+        }
+        // the step of row j0 + k from its entry dp[j0 + k + W] = dot: the
+        // diff, or with `out` every output and partial term
+        T o_beta = T(0), o_postp = T(0), o_binc = T(0), o_dps = T(0);
+        T o_c1 = T(0), o_c2 = T(0);
+        bool o_samp = false;
+        auto step = [&](T dot, auto out) -> T {
+          constexpr bool OUT = decltype(out)::value;
+          if constexpr (LASSO) {  // no branch: the division runs always
+            const T u = in.bh - (dot - in.cb);
+            const T nm = u > T(0) ? u - lam : u + lam;
+            const T qd = nm / dp1;
+            T nb = (u * nm > T(0)) ? qd : T(0);
+            nb = (abs_t(u) > lam) ? nb : T(0);
+            if constexpr (OUT) o_c1 = live ? nb : T(0);
+            return live ? nb - in.cb : T(0);
+          } else {
+            const T res = in.bh - shrink * (dot - in.cb);
+            const T C3 = in.c2 * res;
+            const T postp =
+                T(1) / (T(1) + iops1 * exp_t(-C3 * C3 / in.c4 * T(0.5)));
+            const T samp = C3 + zs;
+            const bool sparse_skip = sp && (postp < pc);
+            const bool jump = a.no_jump && (samp * in.cb < T(0));
+            const bool sampled = (postp > in.u) && !sparse_skip && !jump;
+            const T new_beta = sampled ? samp : T(0);
+            const T diff = new_beta - in.cb;
+            if constexpr (OUT) {
+              const T dps = shrink * dot + one_m_shrink * in.cb;
+              o_c1 = diff * (T(2) * dps + diff);
+              o_c2 = sampled ? samp * samp : T(0);
+              o_beta = new_beta;
+              o_samp = sampled;
+              o_postp = sparse_skip ? T(0) : postp;
+              o_binc = sparse_skip ? T(0) : C3 * postp;
+              o_dps = dps;
+            }
+            return diff;
+          }
+        };
+        // row j0 + i: every lane runs the step on its own entry and row;
+        // lane i's entry holds dp[j0 + i + W] complete up to this row, so
+        // its step is the row's, and its diff goes to every lane
+        T my_dot = T(0), my_diff = T(0);
+        auto row = [&](int i) {
+          const T b = st[i * SW + ((off0 + i * W2) & (V - 1)) + lane];
+          const bool reach = (unsigned)(W + lane - i) <= (unsigned)W2;
+          const T diff = step(cur, std::false_type{});
+          my_dot = lane == i ? cur : my_dot;
+          my_diff = lane == i ? diff : my_diff;
+          const T d = __shfl_sync(0xffffffffu, diff, i);
+          if (reach) cur = ring_madd<T, LASSO>(d, b, cur);
+        };
+        if (nrow == RK) {
+#pragma unroll
+          for (int i = 0; i < RK; ++i) row(i);
+        } else {
+#pragma unroll 1
+          for (int i = 0; i < nrow; ++i) row(i);
+        }
+
+        // this tile's entries are complete for it: back to the ring
+        const int e = j0 + W + lane;
+        if (e < Lp) rc[e & S1] = cur;
+        // the next tile's entries, once the update threads have applied
+        // every earlier tile to them, then this tile's diffs in row order;
+        // beside it each lane's row's outputs, from the entry it read
+        if (t >= 1) ring::mbar_wait(done + ((t - 1) & 1), ((t - 1) >> 1) & 1);
+        const int en = j0 + RK + W + lane;
+        T nx = en < Lp ? rc[en & S1] : T(0);
+        auto next = [&](int i) {  // column W + RK + lane - i of row j0 + i
+          const T b = st[i * SW + ((off0 + i * W2) & (V - 1)) + RK + lane];
+          const T d = __shfl_sync(0xffffffffu, my_diff, i);
+          if (lane - i <= W - RK) nx = ring_madd<T, LASSO>(d, b, nx);
+        };
+        if (nrow == RK) {
+#pragma unroll
+          for (int i = 0; i < RK; ++i) next(i);
+        } else {
+#pragma unroll 1
+          for (int i = 0; i < nrow; ++i) next(i);
+        }
+        step(my_dot, std::true_type{});
+        if (!more && en < Lp) rc[en & S1] = nx;
+        // the tile's diffs and partial terms, for the update threads
+        const int sb = (t & 1) * a.nct * RK + w * RK + lane;
+        sd[sb] = lane < nrow ? my_diff : T(0);
+        sc1[sb] = o_c1;
+        sc2[sb] = o_c2;
+        ring::mbar_arrive(ready + (t & 1));
+        if (lane < nrow && in.g >= 0) {
+          const int64_t o = (int64_t)c * a.m + in.g;
+          if constexpr (LASSO) {
+            if (live) a.out_beta[o] = o_c1;
+          } else {
+            a.out_beta[o] = o_beta;
+            a.out_causal[o] = o_samp ? 1 : 0;
+            a.out_postp[o] = o_postp;
+            a.out_binc[o] = o_binc;
+            a.out_dps[o] = o_dps;
+          }
+        }
+        cur = nx;
+        in = nxt;
+        g1 = g2;
+      }
+    }
+  } else {
+    // ---- the update threads ---------------------------------------------
+    const int ut = tid - nrw;
+    T h2 = T(0), gap = T(0), ms = T(0);
+    int32_t df = 0;
+    bool live_u = true;
+    if constexpr (LASSO) {
+      if (ut < nct) live_u = a.active[c0 + ut] != 0;
+    }
+    auto pos = [&](int t) {
+      const int j0 = t * RK;
+      return RingPos{(ut - j0) & (RNU - 1), span, W, W2, j0, Lp,
+                     min(RK, rows - j0)};
+    };
+    const int lane_u = ut & 31;
+    for (int t = 0; t < ntile; ++t) {
+      const RingPos P = pos(t);
+      const int j0 = P.j0, nrow = P.nrow;
+      // prefetch the entries that tile t + 1 reaches first (stored below)
+      const int e_in = j0 + A + ((ut - (j0 + A)) & (RNU - 1));
+      const bool do_in = e_in < j0 + A + RK && e_in < Lp;
+      T pre[RMAXC];
+#pragma unroll
+      for (int cc = 0; cc < RMAXC; ++cc) {
+        pre[cc] = (do_in && cc < nct)
+                      ? dpg[(int64_t)cc * a.dp_stride + e_in] : T(0);
+      }
+      ring::mbar_wait(ready + (t & 1), (t >> 1) & 1);
+      const T* sdt = sd + (t & 1) * a.nct * RK;
+      if (ut < nct) {  // chain ut's partials, in row order
+        const T* c1 = sc1 + (t & 1) * a.nct * RK + ut * RK;
+        const T* c2 = sc2 + (t & 1) * a.nct * RK + ut * RK;
+        for (int i = 0; i < nrow; ++i) {
+          if constexpr (LASSO) {
+            if (live_u) {
+              const T nb = c1[i];
+              if (nb != T(0)) {
+                gap = gap + nb * nb;
+                ++df;
+              }
+              const T ad = abs_t(sdt[ut * RK + i]);
+              if (ad > ms || ad != ad) ms = ad;  // NaN sticks
+            }
+          } else {
+            h2 = h2 + c1[i];
+            gap = gap + c2[i];
+          }
+        }
+      }
+      // every entry the tile reaches but the row warp's two tiles: the
+      // tile's diffs in row order
+      if (srw > 0) {
+        // staged: the thread's entries j0 + q0 + k RNU advance together,
+        // row by row, each row's band values read from its stage
+        uint32_t mk[RKE];  // rows of the tile that reach entry k
+        int qk[RKE];       // its position (0 for an entry it does not have)
+#pragma unroll
+        for (int k = 0; k < RKE; ++k) {
+          const int q = P.q0 + k * RNU;
+          const int lo = P.lo(q), hi = P.hi(q);
+          mk[k] = (P.valid(q) && hi >= lo) ? (2u << hi) - (1u << lo) : 0u;
+          qk[k] = mk[k] ? q : 0;
+        }
+        // band[j0 + i, c] is at line i of its half's stage, (fi + c), fi
+        // the row start's place in its 16-byte chunk
+        const int f0m = (int)((bb + (int64_t)j0 * wk) & (V - 1));
+        const int wkm = wk & (V - 1);
+        for (int cc = 0; cc < nct; ++cc) {
+          T* const rcc = ring + cc * S;
+          const T* const dc = sdt + cc * RK;
+          T x[RKE];
+#pragma unroll
+          for (int k = 0; k < RKE; ++k) {
+            x[k] = mk[k] ? rcc[(j0 + qk[k]) & S1] : T(0);
+          }
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int h = 2 * t + hf;
+            if (cc == 0) {
+              ring::mbar_wait(bfull + h % RSTAGES, (h / RSTAGES) & 1);
+            }
+            const T* const sb = sbs + (h % RSTAGES) * RHALF * srw;
+            T bv[RHALF][RKE];  // the half's band values, loaded first
+#pragma unroll
+            for (int r = 0; r < RHALF; ++r) {
+              const int i = RHALF * hf + r;
+              const T* const line =
+                  sb + r * srw + ((f0m + i * wkm) & (V - 1)) - i;
+#pragma unroll
+              for (int k = 0; k < RKE; ++k) bv[r][k] = lds_now(line + qk[k]);
+            }
+#pragma unroll
+            for (int r = 0; r < RHALF; ++r) {
+              const int i = RHALF * hf + r;
+              const T d = dc[i];
+#pragma unroll
+              for (int k = 0; k < RKE; ++k) {
+                if (mk[k] & (1u << i)) {
+                  x[k] = ring_madd<T, LASSO>(d, bv[r][k], x[k]);
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < RKE; ++k) {
+            if (mk[k]) rcc[(j0 + qk[k]) & S1] = x[k];
+          }
+        }
+        __syncwarp();  // the warp has read both halves: free their stages
+        if (lane_u == 0) {
+          ring::mbar_arrive(bempty + (2 * t) % RSTAGES);
+          ring::mbar_arrive(bempty + (2 * t + 1) % RSTAGES);
+        }
+      } else {
+        // in place: two entries at a time (slots k and k + 1), their 32
+        // band values loaded first
+        const T* const bt = band + (int64_t)j0 * wk;
+        for (int k = 0; P.q0 + k * RNU < span; k += 2) {
+          const int q = P.q0 + k * RNU, qb = q + RNU;
+          const bool va = P.valid(q), vb = P.valid(qb);
+          if (!va && !vb) continue;
+          const int loa = P.lo(q), hia = P.hi(q);
+          const int lob = P.lo(qb), hib = P.hi(qb);
+          auto update = [&](auto all_rows) {  // both entries, rows 0 .. RK - 1
+            constexpr bool ALL = decltype(all_rows)::value;
+            T ba[RK], bv[RK];
+#pragma unroll
+            for (int i = 0; i < RK; ++i) {  // band[j0 + i, q - i]
+              const bool ra = ALL || (va && i >= loa && i <= hia);
+              const bool rb = ALL || (vb && i >= lob && i <= hib);
+              ba[i] = ra ? bt[(int64_t)i * W2 + q] : T(0);
+              bv[i] = rb ? bt[(int64_t)i * W2 + qb] : T(0);
+            }
+            for (int cc = 0; cc < nct; ++cc) {
+              T* const rcc = ring + cc * S;
+              const T* dc = sdt + cc * RK;
+              T xa = va ? rcc[(j0 + q) & S1] : T(0);
+              T xb = vb ? rcc[(j0 + qb) & S1] : T(0);
+#pragma unroll
+              for (int i = 0; i < RK; ++i) {
+                const T d = dc[i];
+                if (ALL || (va && i >= loa && i <= hia)) {
+                  xa = ring_madd<T, LASSO>(d, ba[i], xa);
+                }
+                if (ALL || (vb && i >= lob && i <= hib)) {
+                  xb = ring_madd<T, LASSO>(d, bv[i], xb);
+                }
+              }
+              if (va) rcc[(j0 + q) & S1] = xa;
+              if (vb) rcc[(j0 + qb) & S1] = xb;
+            }
+          };
+          if (va && vb && loa == 0 && lob == 0 && hia == RK - 1 &&
+              hib == RK - 1) {
+            update(std::true_type{});
+          } else {
+            update(std::false_type{});
+          }
+        }
+      }
+      if (t >= 1) {  // entries j0 - RK .. j0 - 1: no later row touches them
+        const int e = j0 - RK + ((ut - (j0 - RK)) & (RNU - 1));
+        if (e < j0 && e < Lp) {
+          for (int cc = 0; cc < nct; ++cc) {
+            dpg[(int64_t)cc * a.dp_stride + e] = ring[cc * S + (e & S1)];
+          }
+        }
+      }
+      if (do_in) {
+#pragma unroll
+        for (int cc = 0; cc < RMAXC; ++cc) {
+          if (cc < nct) ring[cc * S + (e_in & S1)] = pre[cc];
+        }
+      }
+      ring::mbar_arrive(done + (t & 1));
+    }
+    if (ntile > 0) {  // the last window's entries
+      const int lo = (ntile - 1) * RK;
+      for (int e = lo + ((ut - lo) & (RNU - 1)); e < Lp; e += RNU) {
+        for (int cc = 0; cc < nct; ++cc) {
+          dpg[(int64_t)cc * a.dp_stride + e] = ring[cc * S + (e & S1)];
+        }
+      }
+    }
+    if (ut < nct) {
+      const int64_t o = (int64_t)(c0 + ut) * a.nblk + b;
+      a.part_gap[o] = gap;
+      if constexpr (LASSO) {
+        a.part_df[o] = df;
+        a.part_ms[o] = ms;
+      } else {
+        a.part_h2[o] = h2;
+      }
+    }
+  }
+}
+
+template <typename T, bool LASSO>
+int launch_shared(const SweepArgs<T>& a, int threads, void* stream) {
+  const size_t smem = ((size_t)a.nct * a.Ls + (size_t)a.nct) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      gibbs_sweep_kernel<T, LASSO, GDP>,
+      gibbs_sweep_kernel<T, LASSO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.nblk, (a.NC + a.nct - 1) / a.nct);
-  gibbs_sweep_kernel<T, LASSO, GDP>
+  gibbs_sweep_kernel<T, LASSO>
       <<<grid, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// the ring mode: `ring` slots a chain (a power of two, at least 256),
+// band stages of `srw` values a row (0: the update threads read the band
+// in place), threads = 32 chains a CTA + 256 update threads + a producer
+// warp
 template <typename T, bool LASSO>
-int launch_args(const SweepArgs<T>& a, int threads, int gdp, void* stream) {
+int launch_ring(const SweepArgs<T>& a, int threads, int ring, int srw,
+                int64_t band_len, void* stream) {
+  if (a.nct > RMAXC || threads != 32 * a.nct + RNU + 32 || ring < 256 ||
+      (ring & (ring - 1)) != 0 || srw < 0 || srw % (16 / (int)sizeof(T))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = ring_smem_bytes(a.nct, ring, sizeof(T), srw);
+  cudaError_t err = cudaFuncSetAttribute(
+      gibbs_ring_kernel<T, LASSO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.nblk, (a.NC + a.nct - 1) / a.nct);
+  gibbs_ring_kernel<T, LASSO>
+      <<<grid, threads, smem, (cudaStream_t)stream>>>(a, ring, srw,
+                                                      band_len);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool LASSO>
+int launch_args(const SweepArgs<T>& a, int threads, int ring, int srw,
+                int64_t band_len, void* stream) {
   if (a.nblk <= 0 || a.NC <= 0) return 0;
   if (a.nct < 1 || threads < a.nct || threads > 1024 || threads % 32) {
     return (int)cudaErrorInvalidValue;
   }
-  return gdp ? launch_mode<T, LASSO, true>(a, threads, stream)
-             : launch_mode<T, LASSO, false>(a, threads, stream);
+  return ring > 0
+             ? launch_ring<T, LASSO>(a, threads, ring, srw, band_len, stream)
+             : launch_shared<T, LASSO>(a, threads, stream);
 }
 
 template <typename T>
@@ -407,14 +1072,14 @@ int launch(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
            const uint8_t* sparse, double shrink, int no_jump, T* out_beta,
            uint8_t* out_causal, T* out_postp, T* out_binc, T* out_dps,
            T* part_h2, T* part_gap, int NC, int nct, int Ls, int threads,
-           int gdp, void* stream) {
+           int ring, int srw, int64_t band_len, void* stream) {
   SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L,
                  gidx, dp, dp_stride, cb, bh, C2, C4, s1, u, z, m,
                  inv_odd_p, p, sparse, (T)shrink, no_jump, out_beta,
                  out_causal, out_postp, out_binc, out_dps, part_h2, part_gap,
                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                  nblk, NC, nct, Ls};
-  return launch_args<T, false>(a, threads, gdp, stream);
+  return launch_args<T, false>(a, threads, ring, srw, band_len, stream);
 }
 
 template <typename T>
@@ -425,14 +1090,15 @@ int launch_lasso(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
                  const T* bh, const T* pf, int64_t m, const T* lam,
                  const T* delta, const uint8_t* active, T* part_gap,
                  int32_t* part_df, T* part_ms, int NC, int nct, int Ls,
-                 int threads, int gdp, void* stream) {
+                 int threads, int ring, int srw, int64_t band_len,
+                 void* stream) {
   SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L,
                  gidx, dp, dp_stride, beta, bh, nullptr, nullptr, nullptr,
                  nullptr, nullptr, m, nullptr, nullptr, nullptr, T(1), 0,
                  beta, nullptr, nullptr, nullptr, nullptr, nullptr, part_gap,
                  pf, lam, delta, active, part_df, part_ms,
                  nblk, NC, nct, Ls};
-  return launch_args<T, true>(a, threads, gdp, stream);
+  return launch_args<T, true>(a, threads, ring, srw, band_len, stream);
 }
 
 }  // namespace
@@ -447,12 +1113,13 @@ int launch_lasso(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
       const T* p, const uint8_t* sparse, double shrink, int no_jump,         \
       T* out_beta, uint8_t* out_causal, T* out_postp, T* out_binc,           \
       T* out_dps, T* part_h2, T* part_gap, int NC, int nct, int Ls,          \
-      int threads, int gdp, void* stream) {                                  \
+      int threads, int ring, int srw, int64_t band_len, void* stream) {      \
     return launch<T>(band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W,      \
                      blk_L, nblk, gidx, dp, dp_stride, cb, bh, C2, C4, s1,   \
                      u, z, m, inv_odd_p, p, sparse, shrink, no_jump,         \
                      out_beta, out_causal, out_postp, out_binc, out_dps,     \
-                     part_h2, part_gap, NC, nct, Ls, threads, gdp, stream);  \
+                     part_h2, part_gap, NC, nct, Ls, threads, ring, srw,     \
+                     band_len, stream);                                      \
   }
 
 SWEEP_ENTRY(gibbs_sweep_f32, float)
@@ -467,11 +1134,12 @@ SWEEP_ENTRY(gibbs_sweep_f64, double)
       int64_t dp_stride, T* beta, const T* bh, const T* pf, int64_t m,       \
       const T* lam, const T* delta, const uint8_t* active, T* part_gap,      \
       int32_t* part_df, T* part_ms, int NC, int nct, int Ls, int threads,    \
-      int gdp, void* stream) {                                               \
+      int ring, int srw, int64_t band_len, void* stream) {                   \
     return launch_lasso<T>(band, blk_band, blk_dp, blk_gidx, blk_rows,       \
                            blk_W, blk_L, nblk, gidx, dp, dp_stride, beta, bh, \
                            pf, m, lam, delta, active, part_gap, part_df,     \
-                           part_ms, NC, nct, Ls, threads, gdp, stream);      \
+                           part_ms, NC, nct, Ls, threads, ring, srw,         \
+                           band_len, stream);                                \
   }
 
 LASSO_ENTRY(lassosum_sweep_f32, float)

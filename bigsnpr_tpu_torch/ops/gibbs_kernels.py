@@ -12,10 +12,12 @@ There is no fallback from a CUDA tensor to the twin.
 
 When one chain's dp does not fit in shared memory (a block of about
 28,000 rows or more in float64, twice that in float32: the unblocked
-samplers' one block over every variant), `plan` picks the kernel's
-global-dp mode, which keeps dp in place in device memory, one chain a
-CTA; its launches count in `launches["sweep_global"]` (and
-`"lassosum_global"`).
+samplers' one block over every variant), `plan` picks the kernel's ring
+mode (`gibbs_ring_kernel`): dp stays in device memory, and each chain
+keeps only its 2W + 1 live entries, in a ring in shared memory, with one
+warp a chain running the rows 32 at a time and 256 threads applying each
+tile's diffs to the rest of the window one tile behind. Its launches
+count in `launches["sweep_global"]` (and `"lassosum_global"`).
 
 The kernel's lassosum mode (`lassosum_sweep`, twin `lassosum_sweep_plain`,
 count `launches["lassosum"]`) runs one deterministic lassosum2
@@ -41,6 +43,7 @@ C4 = sqrt1pC1 = 1, everything else 0), as in the JAX package.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +54,17 @@ SOURCE = cuda_build.PKG / "csrc" / "gibbs_sweep.cu"
 EXTRA_FLAGS = ("--fmad=false",)
 KMAX = 8                 # band columns a thread holds per row (gibbs_sweep.cu)
 SMEM_TARGET = 100 << 10  # shared memory per CTA aimed at: two CTAs an SM
+# the ring mode (gibbs_sweep.cu: RK, RNU, RSTRIPS, RMAXC)
+RING_ROWS = 32           # rows a tile, one a lane of a chain's row warp
+RING_UPDATE = 256        # update threads a CTA
+RING_STRIPS = 3          # strip buffers of the row warps' band values
+RING_MAX_CHAINS = 2      # chains a CTA at most
+RING_ENTRIES = 4         # entries of a tile an update thread takes at most
+RING_HALF = 16           # band rows a stage (half a tile)
+RING_STAGES = 3          # band stages
+BAND_PAD = 80            # zeros after the band arena: the bulk copies take
+                         # whole 16-byte chunks and a strip row 64 + V values
+RING_CTAS = 128          # CTAs aimed at (~ an H100's 132 SMs): ceil(NC / 128)
 
 # kernel launches made by the wrapper
 launches = {"sweep": 0, "lassosum": 0, "sweep_global": 0,
@@ -73,11 +87,11 @@ def _bind(lib):
     for fn in (lib.gibbs_sweep_f32, lib.gibbs_sweep_f64):
         fn.argtypes = ([p] * 7 + [i32, p, p, i64] + [p] * 7 + [i64]
                        + [p] * 3 + [f64, i32] + [p] * 7
-                       + [i32, i32, i32, i32, i32, p])
+                       + [i32, i32, i32, i32, i32, i32, i64, p])
         fn.restype = i32
     for fn in (lib.lassosum_sweep_f32, lib.lassosum_sweep_f64):
         fn.argtypes = ([p] * 7 + [i32, p, p, i64] + [p] * 3 + [i64]
-                       + [p] * 6 + [i32, i32, i32, i32, i32, p])
+                       + [p] * 6 + [i32, i32, i32, i32, i32, i32, i64, p])
         fn.restype = i32
     lib.gibbs_sweep_max_smem.argtypes = [i32]
     lib.gibbs_sweep_max_smem.restype = i32
@@ -89,8 +103,8 @@ def _load():
 
 class SweepBands:
     """Every bucket of a `BlockBands` on one device: a flat band arena
-    with per-block offset tables (the kernel's operand) and per-bucket
-    views (the twin's).
+    (and BAND_PAD zeros after it) with per-block offset tables (the
+    kernel's operand) and per-bucket views (the twin's).
 
     buckets: list of host (bands (Bk, mbk, 2W+1), gidx (Bk, mbk)) with
     gidx the global variant of each slot (-1 at padding, valid slots a
@@ -129,8 +143,8 @@ class SweepBands:
             g_off += Bk * mbk
             nblk += Bk
         dev = self.device
-        self.band = (torch.cat(band_parts) if band_parts
-                     else torch.zeros(0, dtype=dtype, device=dev))
+        self.band = torch.cat(band_parts + [torch.zeros(
+            BAND_PAD, dtype=dtype, device=dev)])
         self.gidx = (torch.cat(gidx_parts) if gidx_parts
                      else torch.zeros(0, dtype=torch.int32, device=dev))
         i64 = lambda v: torch.as_tensor(v, dtype=torch.int64, device=dev)  # noqa: E731
@@ -145,7 +159,7 @@ class SweepBands:
         self.Lmax = max(blk_L, default=1)
         self.wkmax = max((2 * w + 1 for w in blk_W), default=1)
         self.max_rows = max(blk_rows, default=0)
-        self.plans = {}  # NC -> (chains per CTA, threads, global dp)
+        self.plans = {}  # NC -> SweepPlan
         self._host = buckets
         self._merged = None
 
@@ -238,6 +252,25 @@ def _check(sb, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p, sparse):
 # plain twin (CPU; the reference the kernel is held to on the card)
 # ---------------------------------------------------------------------------
 
+def sweep_step(dot, cbj, bhj, c2j, c4j, s1j, uj, zsj, iop, pc, spc, sh,
+               one_m_sh, no_jump):
+    """One row's scalar step for every chain (and block), from its dp entry
+    `dot` = dp[j + W]: the kernel's operations in its order. zsj = z
+    sqrt(C4); iop, pc, spc the chains' inv_odd_p, p and sparse flags, shaped
+    to broadcast. Returns (diff, new_beta, sampled, sparse skip, postp, C3,
+    dps, samp)."""
+    res = bhj - sh * (dot - cbj)
+    C3 = c2j * res
+    postp = 1 / (1 + iop * s1j * torch.exp(-C3 * C3 / c4j * 0.5))
+    samp = C3 + zsj
+    skip = spc & (postp < pc)
+    jump = (samp * cbj < 0) if no_jump else torch.zeros_like(skip)
+    sampled = (postp > uj) & ~skip & ~jump
+    new_beta = torch.where(sampled, samp, 0.0)
+    dps = sh * dot + one_m_sh * cbj
+    return new_beta - cbj, new_beta, sampled, skip, postp, C3, dps, samp
+
+
 def sweep_plain(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
                 sparse, shrink, no_jump):
     """The kernel's function in torch ops: a loop over rows vectorised
@@ -267,19 +300,11 @@ def sweep_plain(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
     h2 = torch.zeros((NC, nblk), dtype=dt, device=dev)
     gap = torch.zeros((NC, nblk), dtype=dt, device=dev)
     for j in range(sb.max_rows):
-        dot = dpm[:, :, j + Wm]
         cbj = cb_s[:, :, j]
-        res = bh_s[:, j] - sh * (dot - cbj)
-        C3 = c2_s[:, :, j] * res
-        postp = 1 / (1 + iop * s1_s[:, :, j]
-                     * torch.exp(-C3 * C3 / c4_s[:, :, j] * 0.5))
-        samp = C3 + z_s[:, :, j] * sc4[:, :, j]
-        skip = spc & (postp < pc)
-        jump = (samp * cbj < 0) if no_jump else torch.zeros_like(skip)
-        sampled = (postp > u_s[:, :, j]) & ~skip & ~jump
-        new_beta = torch.where(sampled, samp, 0.0)
-        dps = sh * dot + one_m_sh * cbj
-        diff = new_beta - cbj
+        diff, new_beta, sampled, skip, postp, C3, dps, samp = sweep_step(
+            dpm[:, :, j + Wm], cbj, bh_s[:, j], c2_s[:, :, j],
+            c4_s[:, :, j], s1_s[:, :, j], u_s[:, :, j],
+            z_s[:, :, j] * sc4[:, :, j], iop, pc, spc, sh, one_m_sh, no_jump)
         dpm[:, :, j:j + wk] += diff[:, :, None] * bands[None, :, j, :]
         h2 = h2 + diff * (2 * dps + diff)
         gap = gap + torch.where(sampled, samp * samp, 0.0)
@@ -299,30 +324,117 @@ def sweep_plain(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-def plan(sb: SweepBands, NC: int, max_smem: int):
-    """(chains per CTA, threads per CTA, global dp) for a launch: as many
-    chains as fit SMEM_TARGET bytes of dp (at least one, within the
-    device's limit), and enough threads for one per chain and KMAX band
-    columns each. A chain whose dp does not fit in `max_smem` bytes takes
-    the global-dp mode, one chain a CTA."""
+class SweepPlan(NamedTuple):
+    """A launch of `gibbs_sweep.cu`: chains a CTA, threads a CTA, whether
+    it takes the ring mode, the ring's slots a chain (0 in the
+    shared-memory mode), the values a row of a band stage holds (0: the
+    update threads read the band in place) and the dynamic shared memory
+    in bytes."""
+    nct: int
+    threads: int
+    ring: bool
+    ring_len: int
+    stage: int
+    smem: int
+
+
+def ring_smem_bytes(nct: int, ring_len: int, elem: int, stage: int = 0
+                    ) -> int:
+    """The ring mode's dynamic shared memory (gibbs_sweep.cu's
+    `ring_smem_bytes`): 128 B of mbarriers, nct rings of `ring_len`
+    values, RING_STRIPS strips of 32 rows x (64 + V) values (V a 16-byte
+    chunk), two tiles of diffs and partial terms a chain, and with `stage`
+    values a row, RING_STAGES band stages of RING_HALF rows and 32 values
+    of slack."""
+    V = 16 // elem
+    return (128 + nct * ring_len * elem
+            + RING_STRIPS * RING_ROWS * (2 * RING_ROWS + V) * elem
+            + 6 * nct * RING_ROWS * elem
+            + ((RING_STAGES * RING_HALF * stage + RING_ROWS) * elem
+               if stage else 0))
+
+
+def ring_threads(nct: int) -> int:
+    """Threads of a ring-mode CTA: a row warp a chain, RING_UPDATE update
+    threads and a producer warp."""
+    return 32 * nct + RING_UPDATE + 32
+
+
+def ring_len_for(W: int) -> int:
+    """Ring slots a chain for half-width W: a power of two (at least
+    RING_UPDATE, so that entry e keeps update thread e mod 256 and slot e
+    mod len) holding A + 64 entries, A = W + 32 + max(W, 32): tile t reads
+    and writes entries below 32 t + A, and the entries 32 t - 64 .. 32 t
+    - 1 may not be written back yet."""
+    K = RING_ROWS
+    need = W + K + max(W, K) + 2 * K
+    return max(RING_UPDATE, 1 << (need - 1).bit_length())
+
+
+def plan(sb: SweepBands, NC: int, max_smem: int, ring=None) -> SweepPlan:
+    """The launch for NC chains, given the device's `max_smem` bytes of
+    shared memory a block. The shared-memory mode when one chain's dp
+    fits: as many chains a CTA as fit SMEM_TARGET bytes of dp (at least
+    one, within the limit), threads for one a chain and KMAX band columns
+    each. Otherwise (or with ring=True) the ring mode: ceil(NC /
+    RING_CTAS) chains a CTA, at most RING_MAX_CHAINS (more chains a CTA
+    read the band fewer times but give the update threads more to do a
+    tile, and the update threads set the pace of lassosum's short rows:
+    LDpred2-auto's 30 chains and lassosum2's 120 grid points take one CTA
+    each), fewer if the shared memory runs out; the band comes
+    through RING_STAGES stages of RING_HALF rows (each row from the
+    16-byte chunk of its start: 2W + V values rounded up to V) where they
+    still fit and a tile's 2W + 32 entries are at most RING_ENTRIES an
+    update thread, else the update threads read it in place; raises
+    ValueError on a band whose ring does not fit with one chain."""
     sz = torch.empty((), dtype=sb.dtype).element_size()
     per_chain = (sb.Lmax + 1) * sz
-    gdp = per_chain > max_smem
-    nct = 1 if gdp else max(1, min(NC, max(SMEM_TARGET, per_chain)
-                                   // per_chain, max_smem // per_chain, 1024))
-    need = -(-sb.wkmax // KMAX)
-    threads = max(-(-nct // 32) * 32, -(-need // 32) * 32, 32)
-    if threads > 1024:
-        raise ValueError(f"band width {sb.wkmax} exceeds the kernel's "
-                         f"{1024 * KMAX} columns")
-    return nct, threads, gdp
+    if ring is None:
+        ring = per_chain > max_smem
+    if not ring:
+        if per_chain > max_smem:
+            raise ValueError(f"one chain's dp ({per_chain} B) exceeds the "
+                             f"{max_smem} B of shared memory a block")
+        nct = max(1, min(NC, max(SMEM_TARGET, per_chain) // per_chain,
+                         max_smem // per_chain, 1024))
+        need = -(-sb.wkmax // KMAX)
+        threads = max(-(-nct // 32) * 32, -(-need // 32) * 32, 32)
+        if threads > 1024:
+            raise ValueError(f"band width {sb.wkmax} exceeds the kernel's "
+                             f"{1024 * KMAX} columns")
+        return SweepPlan(nct, threads, False, 0, 0,
+                         (nct * sb.Lmax + nct) * sz)
+    W = (sb.wkmax - 1) // 2
+    S = ring_len_for(W)
+    nct = max(1, min(NC, RING_MAX_CHAINS, -(-NC // RING_CTAS)))
+    while nct > 1 and ring_smem_bytes(nct, S, sz) > max_smem:
+        nct -= 1
+    smem = ring_smem_bytes(nct, S, sz)
+    if smem > max_smem:
+        raise ValueError(
+            f"band half-width {W} needs a ring of {S} slots a chain, "
+            f"{smem} B of shared memory with one chain a CTA: more than the "
+            f"{max_smem} B a block may use")
+    V = 16 // sz
+    stage = -(-(2 * W + V) // V) * V
+    if 2 * W + RING_ROWS > RING_ENTRIES * RING_UPDATE or \
+            ring_smem_bytes(nct, S, sz, stage) > max_smem:
+        stage = 0
+    return SweepPlan(nct, ring_threads(nct), True, S, stage,
+                     ring_smem_bytes(nct, S, sz, stage))
 
 
-def _plan_for(sb, lib, NC):
+def max_smem(device) -> int:
+    """The shared memory a block may use on `device` (bytes)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _load().gibbs_sweep_max_smem(index)
+
+
+def _plan_for(sb, NC):
     if NC not in sb.plans:
-        dev_index = sb.device.index if sb.device.index is not None else \
-            torch.cuda.current_device()
-        sb.plans[NC] = plan(sb, NC, lib.gibbs_sweep_max_smem(dev_index))
+        sb.plans[NC] = plan(sb, NC, max_smem(sb.device))
     return sb.plans[NC]
 
 
@@ -342,7 +454,7 @@ def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
     outs = _outputs(NC, m, sb.dtype, sb.device, sb.nblk)
     if sb.nblk == 0 or NC == 0:
         return outs[:5] + (outs[5].sum(1), outs[6].sum(1))
-    nct, threads, gdp = _plan_for(sb, lib, NC)
+    pl = _plan_for(sb, NC)
     fn = lib.gibbs_sweep_f64 if sb.dtype == torch.float64 else \
         lib.gibbs_sweep_f32
     ptr = lambda t: t.data_ptr()  # noqa: E731
@@ -351,11 +463,12 @@ def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
             ptr(sb.gidx), ptr(dp), sb.dp_len, ptr(cb), ptr(bh), ptr(C2),
             ptr(C4), ptr(s1), ptr(u), ptr(z), m, ptr(inv_odd_p), ptr(p),
             ptr(sparse), float(shrink), int(bool(no_jump)),
-            *(ptr(t) for t in outs), NC, nct, sb.Lmax, threads, int(gdp),
+            *(ptr(t) for t in outs), NC, pl.nct, sb.Lmax, pl.threads,
+            pl.ring_len, pl.stage, sb.band.numel(),
             torch.cuda.current_stream(sb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gibbs_sweep launch failed: CUDA error {rc}")
-    launches["sweep_global" if gdp else "sweep"] += 1
+    launches["sweep_global" if pl.ring else "sweep"] += 1
     return outs[:5] + (outs[5].sum(1), outs[6].sum(1))
 
 
@@ -409,6 +522,16 @@ def _mul_add(a, b, c):
     return c + a * b
 
 
+def lasso_step(dot, cbj, bhj, lamj, dp1j):
+    """One row's coordinate-descent step of the lassosum mode for every
+    grid point (and block), from dp[j + W] = `dot`: the soft-thresholded
+    new beta, the kernel's operations in its order."""
+    u = bhj - (dot - cbj)
+    nm = torch.where(u > 0, u - lamj, u + lamj)
+    nb = torch.where(u * nm > 0, nm / dp1j, 0.0)
+    return torch.where(u.abs() > lamj, nb, 0.0)
+
+
 def lassosum_sweep_plain(sb: SweepBands, dp, beta, bh, pf, lam, delta,
                          active):
     """The lassosum mode's function in torch ops: one coordinate-descent
@@ -443,13 +566,9 @@ def lassosum_sweep_plain(sb: SweepBands, dp, beta, bh, pf, lam, delta,
     df = torch.zeros((NG, nblk), dtype=torch.int32, device=dev)
     ms = torch.zeros((NG, nblk), dtype=dt, device=dev)
     for j in range(sb.max_rows):
-        dot = dpm[:, :, j + Wm]
         cbj = cb_s[:, :, j]
-        lamj = lam_s[:, :, j]
-        u = bh_s[:, j] - (dot - cbj)
-        nm = torch.where(u > 0, u - lamj, u + lamj)
-        nb = torch.where(u * nm > 0, nm / dp1_s[:, :, j], 0.0)
-        nb = torch.where(u.abs() > lamj, nb, 0.0)
+        nb = lasso_step(dpm[:, :, j + Wm], cbj, bh_s[:, j], lam_s[:, :, j],
+                        dp1_s[:, :, j])
         nb = torch.where(act, nb, cbj)
         shift = nb - cbj
         dpm[:, :, j:j + wk] = _mul_add(shift[:, :, None], bands[None, :, j, :],
@@ -482,7 +601,7 @@ def lassosum_sweep(sb: SweepBands, dp, beta, bh, pf, lam, delta, active):
     ms = torch.zeros((NG, sb.nblk), dtype=sb.dtype, device=dev)
     if sb.nblk == 0 or NG == 0:
         return gap.sum(1), df.sum(1, dtype=torch.int32), ms.amax(1)
-    nct, threads, gdp = _plan_for(sb, lib, NG)
+    pl = _plan_for(sb, NG)
     fn = lib.lassosum_sweep_f64 if sb.dtype == torch.float64 else \
         lib.lassosum_sweep_f32
     ptr = lambda t: t.data_ptr()  # noqa: E731
@@ -490,9 +609,10 @@ def lassosum_sweep(sb: SweepBands, dp, beta, bh, pf, lam, delta, active):
             ptr(sb.blk_rows), ptr(sb.blk_W), ptr(sb.blk_L), sb.nblk,
             ptr(sb.gidx), ptr(dp), sb.dp_len, ptr(beta), ptr(bh), ptr(pf), m,
             ptr(lam), ptr(delta), ptr(active), ptr(gap), ptr(df), ptr(ms),
-            NG, nct, sb.Lmax, threads, int(gdp),
+            NG, pl.nct, sb.Lmax, pl.threads, pl.ring_len, pl.stage,
+            sb.band.numel(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lassosum_sweep launch failed: CUDA error {rc}")
-    launches["lassosum_global" if gdp else "lassosum"] += 1
+    launches["lassosum_global" if pl.ring else "lassosum"] += 1
     return gap.sum(1), df.sum(1, dtype=torch.int32), ms.amax(1)

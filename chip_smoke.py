@@ -48,7 +48,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      float64 case, each run twice for bit-equality, timed beside the twin
      and its bound;
   8. torch.profiler around a 20-sweep snp_ldpred2_auto call on the slice-2
-     data: the device's busy share and the kernels that take it;
+     data: the device's busy share and the kernels that take it (and the
+     same in slice 5, [16], on the unblocked sampler);
   9. K6 (the int8 bit-plane kernels, csrc/geno_i8.cu) against its twin in
      its four instantiations at awkward shapes (n = 0..3 mod 4, ragged m,
      l in {1, 12, 20, 21}, NA and NA-free packs, monomorphic and scale-0
@@ -97,11 +98,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
  15. K8 (csrc/geno_i8.cu on int8 planes materialized once, int8m_planes)
      against its twin and K6 in its four instantiations at [9]'s shapes:
      raw int32 sums equal to both, outputs bit-equal to K6's; the masked
-     int8m operator bit-equal to the int8 one; the sweep kernel's
-     global-dp mode (dp in device memory) and its lassosum mode in it
-     against their twins on a float64 band too long for shared memory
-     (--gdp-rows 29,100) and, forced, on a short float32 one at 30 chains
-     and 120 grid points;
+     int8m operator bit-equal to the int8 one; the sweep kernel's ring
+     mode (dp in device memory, its live window in shared memory; the
+     "global-dp" launches) and its lassosum mode in it against their twins
+     on a float64 band too long for shared memory (--gdp-rows 29,100) and,
+     forced, on a short float32 one at 30 chains and 120 grid points, there
+     also bit-equal to the shared-memory mode;
  16. slice 5 at 20,000 x 100,000 (slice 2's one-chromosome generator,
      15,000 training / 5,000 test): bed_scaleBinom ->
      GenoOperator(mxu="int8m") -> snp_randomSVD(op=) (K8 only, d / u / v
@@ -112,13 +114,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      JAX default burn-in is 500) -> chain QC
      -> snp_ldpred2_grid(blocks=None, 3 x 3) and return_sampling_betas ->
      snp_lassosum2(blocks=None, 4 x 30) -> snp_PRS, every sweep in the
-     global-dp mode;
+     ring mode; torch.profiler around 20 of the LDpred2-auto sweeps: the
+     device's idle share, the driver's time a sweep beside the kernel's;
  17. (a, inside [11]) K8 timed on slice 3's 50,000 x 100,000 planes, l =
      12 and 20, NA and NA-free, beside its twin, torch._int_mm on the same
      planes and its bound, and the NA-free randomSVD on an int8m operator;
-     (b) the global-dp mode at slice 5's band, LDpred2-auto's 30 chains
-     and lassosum2's 120 grid points: held against its twin and timed
-     beside its bound and row floor.
+     (b) the ring mode at slice 5's band, LDpred2-auto's 30 chains and
+     lassosum2's 120 grid points: held against its twin and timed beside
+     its bound and its row floor.
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -169,7 +172,7 @@ SPLIT_TOL = 1e-5     # K7 vs twin: f32 sums of exact products in two orders
 SPLIT_DENSE_TOL = 2e-5   # K7 and twin vs float64 (tests/test_pallas.py's bound)
 PEAK_BF16_FLOP_PER_S = 989e12
 LASSO_REPLACES = "bigsnpr_tpu/pgs/gibbs_blocked.py:1427"
-# the unblocked samplers' lax.scans, which the global-dp mode replaces
+# the unblocked samplers' lax.scans, which the ring mode replaces
 GDP_REPLACES = {"sweep": "bigsnpr_tpu/pgs/gibbs.py:28",
                 "lassosum": "bigsnpr_tpu/pgs/gibbs.py:373"}
 K7 = tuple(SPLIT_REPLACES)
@@ -182,6 +185,14 @@ SWEEP_TOL = 1e-5   # sweep vs twin: max |diff| <= SWEEP_TOL * max |twin|
 # read-modify-write, two barriers), ~300 cycles in float32 and ~600 in
 # float64, at the H100 SXM's 1.98 GHz boost clock
 STEP_CYCLES = {4: 300, 8: 600}
+# the ring mode's row floor: a row's dependent chain in the row warp (its
+# scalar step from dp[j + W], one shuffle of the diff, one multiply and add
+# into the next lane's entry; no barrier, no memory access). LDpred2:
+# ~12 dependent float ops, two IEEE divisions and an exp, ~200 cycles in
+# float32 and ~500 in float64; lassosum: ~8 ops and one division, ~100 and
+# ~250
+RING_ROW_CYCLES = {("sweep", 4): 200, ("sweep", 8): 500,
+                   ("lassosum", 4): 100, ("lassosum", 8): 250}
 CLOCK_HZ = 1.98e9
 N_CHAINS = 30     # LDpred2-auto chains: the vignette's vec_p_init length
 GRID_CELLS = 9    # LDpred2-grid: 3 p x 3 h2
@@ -1106,18 +1117,20 @@ def phase_sweep_kernels(bp, gsk, torch, dev, bb, launches, timer, seed):
     return rows
 
 
-def phase_profile(torch, dev, run_auto):
+def phase_profile(torch, dev, run_auto, label="[8]", sweep_kernel=None):
     """torch.profiler around one snp_ldpred2_auto call of 20 sweeps (1 in
-    a CPU rehearsal, whose twin makes ~10^5 events a sweep) on the slice-2
-    data: the device's busy share of the call's wall time (one stream, so
-    the kernels' summed device time is its busy time) and the kernels that
-    take it. Only device events count: a host op's device time repeats
-    that of the kernels it launched."""
+    a CPU rehearsal, whose twin makes ~10^5 events a sweep): the device's
+    busy share of the call's wall time (one stream, so the kernels' summed
+    device time is its busy time) and the kernels that take it. Only device
+    events count: a host op's device time repeats that of the kernels it
+    launched. With `sweep_kernel` (a substring of the sweep kernel's
+    name), the same inside the sweeps' own window, and the driver's time
+    a sweep beside the kernel's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sweeps = 20 if dev.type == "cuda" else 1
-    log(f"[8] profile of snp_ldpred2_auto, {sweeps} sweeps")
+    log(f"{label} profile of snp_ldpred2_auto, {sweeps} sweeps")
     run_auto(0, 1)                                   # warm
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -1143,6 +1156,30 @@ def phase_profile(torch, dev, run_auto):
     for a in sorted(avgs, key=lambda a: -a.self_device_time_total)[:8]:
         log(f"    {a.self_device_time_total / 1e3:9.3f} ms  {a.count:6d} x  "
             f"{a.key[:70]}")
+    if sweep_kernel is None:
+        return
+    # the sweeps' own window, from the first sweep kernel's start to the
+    # last one's end on the device (the call's set-up, such as a band
+    # build, lies before it): its busy share, and the driver's time a
+    # sweep (start to start) beside the kernel's
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = sorted((e for e in dev if sweep_kernel in e.name),
+                  key=lambda e: e.time_range.start)
+    if len(kern) < 2:
+        return
+    t0, t1 = kern[0].time_range.start, kern[-1].time_range.end
+    busy_w = sum(max(0, min(e.time_range.end, t1)
+                     - max(e.time_range.start, t0)) for e in dev) / 1e3
+    win = (t1 - t0) / 1e3
+    period = (kern[-1].time_range.start - kern[0].time_range.start) / 1e3 \
+        / (len(kern) - 1)
+    k_ms = sum(e.time_range.end - e.time_range.start for e in kern) / 1e3 \
+        / len(kern)
+    log(f"  over the sweeps' window ({len(kern)} launches of {sweep_kernel}, "
+        f"{win:.1f} ms): device busy {busy_w:.1f} ms = "
+        f"{100 * busy_w / win:.1f}% (idle {100 * (1 - busy_w / win):.1f}%); "
+        f"the driver's time a sweep {period:.3f} ms, the kernel's "
+        f"{k_ms:.3f} ms: host and other work {period - k_ms:.3f} ms a sweep")
 
 
 # ---------------------------------------------------------------------------
@@ -1459,6 +1496,16 @@ def plane_ptxas_summary(lib_path):
         lambda t: (("K2 prod" if t[2] == "3" else
                     "K7 " + ("prod" if t[1] == "1" else "cprod")).ljust(9)
                    + f" BNC {t[3]:>3s}"))
+
+
+def sweep_ptxas_summary(lib_path):
+    """The sweep kernel: gibbs_ring_kernel<T, LASSO> (the ring mode) and
+    gibbs_sweep_kernel<T, LASSO> (dp in shared memory)."""
+    for name in ("gibbs_ring_kernel", "gibbs_sweep_kernel"):
+        ptxas_summary(
+            lib_path, f"{name}<T, LASSO>", name + r"I([fd])Lb(\d)E",
+            lambda t: (("float32 " if t[1] == "f" else "float64 ")
+                       + ("lassosum" if t[2] == "1" else "LDpred2")))
 
 
 def bound_i8(P, W_rows, l, rows_out, planes, nm):
@@ -2319,7 +2366,7 @@ def phase_lasso_timed(bp, torch, dev, s4, args):
 
 # ---------------------------------------------------------------------------
 # slice 5: K8 (int8m) under randomSVD -> GWAS -> the unblocked LDpred2 and
-# lassosum2 on the sweep kernel's global-dp mode
+# lassosum2 on the sweep kernel's ring mode
 # ---------------------------------------------------------------------------
 
 def check_i8m(gk, torch, dev, packed, n, c, inv, V, U, nona, tag):
@@ -2365,7 +2412,7 @@ def band_ld(bp, rows, width, seed):
 
 def phase_i8m_small(bp, gk, torch, dev, rng):
     log("[15] K8 (materialized int8 planes) vs its twin and K6 at awkward "
-        "shapes; the sweep kernel's global-dp mode vs its twin")
+        "shapes; the sweep kernel's ring mode vs its twin")
     for n, m, l in ((1000, 777, 1), (1001, 1500, 12), (1002, 3001, 20),
                     (1003, 513, 21), (20000, 2100, 20)):
         for na in (True, False):
@@ -2397,10 +2444,19 @@ def phase_i8m_small(bp, gk, torch, dev, rng):
              "one")
 
 
-def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer):
-    """The global-dp sweep on one band against its twin on the card (same
-    pre-drawn u / z): SWEEP_TOL, causal equal, two launches bit-equal;
-    returns (max abs err, kernel ms, twin ms)."""
+def force_ring(gsk, torch, dev, sb, k):
+    """Plan the ring mode for k chains on `sb` whatever its dp's length."""
+    if dev.type == "cuda":
+        sb.plans[k] = gsk.plan(sb, k, gsk.max_smem(dev), ring=True)
+
+
+def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer,
+                   force=False):
+    """The ring mode ("global-dp" launches) on one band against its twin
+    on the card (same pre-drawn u / z): SWEEP_TOL, causal equal, two
+    launches bit-equal; with `force`, on a band whose dp fits in shared
+    memory, first run in the shared-memory mode and then forced into the
+    ring mode, bit-equal to it. Returns (max abs err, kernel ms, twin ms)."""
     st = sweep_inputs(torch, sb, NC, rng)
 
     def run(fn):
@@ -2412,12 +2468,20 @@ def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer):
             torch.cuda.synchronize()
         return (dp,) + tuple(out)
 
+    shared = None
+    if force:
+        shared = run(gsk.sweep)
+        if dev.type == "cuda" and sb.plans[NC].ring:
+            fail(f"the band of [{tag}] does not fit the shared-memory mode")
+        force_ring(gsk, torch, dev, sb, NC)
     before = gsk.launches["sweep_global"]
     got, again = run(gsk.sweep), run(gsk.sweep)
     t = time.perf_counter()
     ref = run(gsk.sweep_plain)
     plain_ms = (time.perf_counter() - t) * 1e3
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    same = shared is None or all(torch.equal(a, b)
+                                 for a, b in zip(got, shared))
     causal_diff = int((got[2] != ref[2]).sum())
     errs = [(float((a - b).abs().max()),
              SWEEP_TOL * max(float(b.abs().max()), 1e-30))
@@ -2426,26 +2490,32 @@ def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer):
                                  st["C2"], st["C4"], st["s1"], st["u"],
                                  st["z"], st["inv_odd_p"], st["p"],
                                  st["sparse"], 0.95, True), reps=3)
-    gdp = sb.plans.get(NC, (0, 0, False))[2]
-    log(f"  global-dp sweep, {tag}: {sb.max_rows} rows, width {sb.wkmax}, "
-        f"{NC} chains, global-dp mode {gdp}: max |kernel - twin| "
-        f"{max(e[0] for e in errs):.2e} (limit {SWEEP_TOL} x max |twin|), "
-        f"causal {causal_diff} differ (0); two launches bit-equal {repeat}; "
-        f"kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms")
+    pl = sb.plans.get(NC)
+    gdp = bool(pl and pl.ring)
+    log(f"  ring-mode sweep, {tag}: {sb.max_rows} rows, width {sb.wkmax}, "
+        f"{NC} chains, ring mode {gdp} ({plan_ring_text(pl)}): max |kernel "
+        f"- twin| {max(e[0] for e in errs):.2e} (limit {SWEEP_TOL} x max "
+        f"|twin|), causal {causal_diff} differ (0); two launches bit-equal "
+        f"{repeat}" + ("" if shared is None else
+                       f"; bit-equal to the shared-memory mode {same}")
+        + f"; kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms")
     if dev.type == "cuda" and not (
             gdp and gsk.launches["sweep_global"] > before):
-        fail(f"the global-dp sweep ({tag}) did not run in the global-dp mode")
-    if causal_diff or not repeat or any(e[0] > e[1] for e in errs):
-        fail(f"the global-dp sweep ({tag}) disagrees with its twin or does "
-             f"not repeat")
+        fail(f"the sweep ({tag}) did not run in the ring mode")
+    if causal_diff or not repeat or not same or any(
+            e[0] > e[1] for e in errs):
+        fail(f"the ring-mode sweep ({tag}) disagrees with its twin or the "
+             f"shared-memory mode, or does not repeat")
     return max(e[0] for e in errs), ms, plain_ms
 
 
-def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer):
-    """The lassosum mode in global dp on one band against its twin on the
-    card, from the state after 3 sweeps, one point in five frozen:
-    bit-equal, two launches bit-equal; returns (max abs err, kernel ms,
-    twin ms)."""
+def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer,
+                   force=False):
+    """The lassosum mode in the ring mode on one band against its twin on
+    the card, from the state after 3 sweeps, one point in five frozen:
+    bit-equal, two launches bit-equal; with `force` also bit-equal to the
+    shared-memory mode, as in `gdp_sweep_case`. Returns (max abs err,
+    kernel ms, twin ms)."""
     f = lambda a: torch.as_tensor(a, dtype=sb.dtype, device=dev)  # noqa: E731
     m = sb.m
     bh, pf = f(rng.normal(0, 0.02, m)), f(rng.uniform(0.8, 1.5, m))
@@ -2464,6 +2534,12 @@ def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer):
             torch.cuda.synchronize()
         return (d, b) + tuple(out)
 
+    shared = None
+    if force:
+        shared = run(gsk.lassosum_sweep)
+        if dev.type == "cuda" and sb.plans[NG].ring:
+            fail(f"the band of [{tag}] does not fit the shared-memory mode")
+        force_ring(gsk, torch, dev, sb, NG)
     before = gsk.launches["lassosum_global"]
     got, again = run(gsk.lassosum_sweep), run(gsk.lassosum_sweep)
     t = time.perf_counter()
@@ -2471,32 +2547,55 @@ def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer):
     plain_ms = (time.perf_counter() - t) * 1e3
     bit = all(torch.equal(a, r) for a, r in zip(got, ref))
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    same = shared is None or all(torch.equal(a, b)
+                                 for a, b in zip(got, shared))
     err = max(float((a.double() - r.double()).abs().max())
               for a, r in zip(got, ref))
     ms = timer(lambda: gsk.lassosum_sweep(sb, dp.clone(), beta.clone(), bh,
                                           pf, lam, delta, active), reps=3)
-    gdp = sb.plans.get(NG, (0, 0, False))[2]
-    log(f"  global-dp lassosum mode, {tag}: {sb.max_rows} rows, width "
-        f"{sb.wkmax}, {NG} grid points ({int(active.sum())} active), "
-        f"global-dp mode {gdp}: bit-equal to the twin {bit} (max abs diff "
-        f"{err:.1e}); two launches bit-equal {repeat}; kernel {ms:.3f} ms a "
-        f"sweep, twin {plain_ms:.1f} ms")
+    pl = sb.plans.get(NG)
+    gdp = bool(pl and pl.ring)
+    log(f"  ring-mode lassosum, {tag}: {sb.max_rows} rows, width "
+        f"{sb.wkmax}, {NG} grid points ({int(active.sum())} active), ring "
+        f"mode {gdp} ({plan_ring_text(pl)}): bit-equal to the twin {bit} "
+        f"(max abs diff {err:.1e}); two launches bit-equal {repeat}"
+        + ("" if shared is None else
+           f"; bit-equal to the shared-memory mode {same}")
+        + f"; kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms")
     if dev.type == "cuda" and not (
             gdp and gsk.launches["lassosum_global"] > before):
-        fail(f"the lassosum mode ({tag}) did not run in the global-dp mode")
-    if not (bit and repeat):
-        fail(f"the global-dp lassosum mode ({tag}) disagrees with its twin "
-             f"or does not repeat")
+        fail(f"the lassosum mode ({tag}) did not run in the ring mode")
+    if not (bit and repeat and same):
+        fail(f"the ring-mode lassosum ({tag}) disagrees with its twin or "
+             f"the shared-memory mode, or does not repeat")
     return err, ms, plain_ms
 
 
+def plan_ring_text(pl):
+    if pl is None or not pl.ring:
+        return "no ring plan"
+    return (f"{pl.nct} chains a CTA, {pl.threads} threads, ring of "
+            f"{pl.ring_len} slots, "
+            + (f"band stages of {pl.stage} values a row"
+               if pl.stage else "band read in place")
+            + f", {pl.smem} B of shared memory")
+
+
+def ring_floor_ms(sb, kind):
+    """The ring mode's row floor: the longest block's rows x one row's
+    dependent chain (RING_ROW_CYCLES) at CLOCK_HZ."""
+    return (sb.max_rows * RING_ROW_CYCLES[(kind, sb.band.element_size())]
+            / CLOCK_HZ * 1e3)
+
+
 def phase_gdp_small(bp, gsk, torch, dev, args):
-    """The global-dp mode against its twin: in float64 on a band of
-    --gdp-rows variants, one chain's dp past the 227 KB of shared memory a
-    block may use (so the plan takes the mode by itself), and in float32
-    on a short band with the mode forced (the plan computed against no
-    shared memory) at slice 5's 30 chains and 120 grid points. [17b] holds
-    the float32 mode where the plan takes it by itself, at slice 5's band."""
+    """The ring mode against its twin: in float64 on a band of --gdp-rows
+    variants, one chain's dp past the 227 KB of shared memory a block may
+    use (so the plan takes the mode by itself), and in float32 on a short
+    band at slice 5's 30 chains and 120 grid points, first in the
+    shared-memory mode and then with the ring mode forced, bit-equal to
+    it. [17b] holds the float32 mode where the plan takes it by itself, at
+    slice 5's band."""
     from bigsnpr_tpu_torch.pgs.band import one_block_bands
 
     rng = np.random.default_rng(args.seed + 32)
@@ -2507,16 +2606,16 @@ def phase_gdp_small(bp, gsk, torch, dev, args):
         corr = band_ld(bp, n_rows, 64, args.seed + 33)
         sb = one_block_bands(corr, dtype=dt).device_put(dev, dtype=dt)
         tag = f"{np.dtype(dt).name}" + (", forced" if forced else "")
-        if forced and dev.type == "cuda":
-            for k in (NC, NG):
-                sb.plans[k] = gsk.plan(sb, k, 0)
-        gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer)
+        gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer,
+                       force=forced)
         bound, by, t_tiles, t_lat = sweep_bound(sb, NC, 1)
-        log(f"    bound {bound:.3f} ms ({by}); longest block's rows x step "
-            f"latency {t_lat:.3f} ms")
-        gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer)
+        log(f"    bound {bound:.3f} ms ({by}); row floor "
+            f"{ring_floor_ms(sb, 'sweep'):.3f} ms")
+        gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer,
+                       force=forced)
         bound, by = lasso_bound(sb, NG)
-        log(f"    bound {bound:.3f} ms ({by})")
+        log(f"    bound {bound:.3f} ms ({by}); row floor "
+            f"{ring_floor_ms(sb, 'lassosum'):.3f} ms")
         del sb
 
 
@@ -2632,6 +2731,10 @@ def phase_slice5(bp, gk, gsk, torch, dev, args):
         f"of {N_CHAINS} chains with the band build; {n_auto} sweeps follow")
     auto = stage("snp_ldpred2_auto (unblocked)", lambda: run_auto(
         args.burn_in5, args.num_iter5))
+    before = dict(gsk.launches)     # the profile's launches do not count
+    phase_profile(torch, dev, run_auto, label="  [16]",
+                  sweep_kernel="gibbs_ring_kernel")
+    gsk.launches.update(before)
     keep, beta_auto = stage("ldpred2_auto_chain_qc",
                             lambda: bp.ldpred2_auto_chain_qc(auto))
     h2s = np.asarray([0.7, 1.0, 1.4]) * h2i
@@ -2674,7 +2777,7 @@ def phase_slice5(bp, gk, gsk, torch, dev, args):
         if not (svd_path["cprod_i8m"] and svd_path["prod_i8m"]):
             fail("K8 was not launched by the int8m randomSVD")
         if not (launches["sweep_global"] and launches["lassosum_global"]):
-            fail("the global-dp mode was not launched on slice 5")
+            fail("the ring mode was not launched on slice 5")
         if launches["sweep"] or launches["lassosum"]:
             fail("slice 5's unblocked samplers took the shared-memory mode")
 
@@ -2728,13 +2831,13 @@ def phase_slice5(bp, gk, gsk, torch, dev, args):
 
 
 def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
-    """[17b] the global-dp mode at slice 5's band and at the main path's
-    launch shapes (LDpred2-auto's 30 chains, lassosum2's grid), held against
-    its twin and timed beside its bound and row floor; the kernel table's
-    rows, with the launches of the slice-5 path."""
+    """[17b] the ring mode at slice 5's band and at the main path's launch
+    shapes (LDpred2-auto's 30 chains, lassosum2's grid), held against its
+    twin and timed beside its bound and row floor; the kernel table's rows,
+    with the launches of the slice-5 path."""
     from bigsnpr_tpu_torch.pgs.band import one_block_bands
 
-    log("[17b] the global-dp mode at the slice-5 band, against its twin and "
+    log("[17b] the ring mode at the slice-5 band, against its twin and "
         "timed")
     sb = one_block_bands(s5["corr"]).device_put(dev)
     rng = np.random.default_rng(args.seed + 34)
@@ -2742,9 +2845,11 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
     err, ms, plain_ms = gdp_sweep_case(bp, gsk, torch, dev, sb, N_CHAINS, rng,
                                        "slice-5 band", timer)
     bound, by, t_tiles, t_lat = sweep_bound(sb, N_CHAINS, 1)
-    log(f"    bound {bound:.3f} ms ({by}); rows x step latency {t_lat:.3f} "
-        f"ms; {ms / max(t_lat, 1e-9):.1f}x that floor")
-    rows = [{"name": f"gibbs_sweep global-dp mode (LDpred2, {sb.max_rows} "
+    floor = ring_floor_ms(sb, "sweep")
+    log(f"    bound {bound:.3f} ms ({by}); row floor {floor:.3f} ms "
+        f"({RING_ROW_CYCLES[('sweep', 4)]} cycles a row); "
+        f"{ms / max(floor, 1e-9):.2f}x that floor")
+    rows = [{"name": f"gibbs_sweep ring mode (LDpred2, {sb.max_rows} "
                      f"rows, {N_CHAINS} chains)", "route": "cuda",
              "source": SWEEP_SOURCE, "replaces": GDP_REPLACES["sweep"],
              "launches": s5["launches"]["sweep_global"], "max_abs_err": err,
@@ -2754,9 +2859,11 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
     err, ms, plain_ms = gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng,
                                        "slice-5 band", timer)
     bound, by = lasso_bound(sb, NG)
-    log(f"    bound {bound:.3f} ms ({by}); rows x step latency {t_lat:.3f} "
-        f"ms; {ms / max(t_lat, 1e-9):.1f}x that floor")
-    rows.append({"name": f"gibbs_sweep lassosum mode, global dp (lassosum2, "
+    floor = ring_floor_ms(sb, "lassosum")
+    log(f"    bound {bound:.3f} ms ({by}); row floor {floor:.3f} ms "
+        f"({RING_ROW_CYCLES[('lassosum', 4)]} cycles a row); "
+        f"{ms / max(floor, 1e-9):.2f}x that floor")
+    rows.append({"name": f"gibbs_sweep lassosum mode, ring mode (lassosum2, "
                          f"{sb.max_rows} rows, {NG} grid points)",
                  "route": "cuda", "source": SWEEP_SOURCE,
                  "replaces": GDP_REPLACES["lassosum"],
@@ -2846,6 +2953,7 @@ def main(argv=None):
             f"in {time.perf_counter() - t0:.1f} s")
         i8_ptxas_summary(libs[1])
         plane_ptxas_summary(libs[2])
+        sweep_ptxas_summary(libs[3])
 
     rng = np.random.default_rng(args.seed)
     timer = Timer(torch, dev)

@@ -1,7 +1,7 @@
 """The CUDA kernels (K1 decode + GEMM, K2 and K7 on bf16 bit planes, K6 on
 int8 bit planes, K8 on materialized int8 planes, the Gibbs sweep and its
-lassosum mode, each with dp in shared memory or in the global-dp mode)
-against their plain-torch twins on a card.
+lassosum mode, each with dp in shared memory or, where it does not fit,
+in the ring mode) against their plain-torch twins on a card.
 
 Imports only torch and the port, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -563,17 +563,17 @@ def test_i8m_operator_equals_the_int8_one(cuda):
     ([257, 60], 5, torch.float64, 0.9, True)])
 def test_global_dp_sweep_matches_twin_and_shared_mode(cuda, sizes, NC, dtype,
                                                       shrink, no_jump):
-    """The global-dp mode, forced on small blocks by planning against no
-    shared memory: against the twin as the shared-memory mode is (1e-5 of
-    max |twin|, causal equal), bit-equal to the shared-memory mode (the
-    same operations in the same order; only where dp lives differs), two
-    launches bit-equal, counted as global-dp launches."""
+    """The global-dp launches' ring mode, forced on small blocks: against
+    the twin as the shared-memory mode is (1e-5 of max |twin|, causal
+    equal), bit-equal to the shared-memory mode (the same operations in the
+    same order; only where dp lives differs), two launches bit-equal,
+    counted as global-dp launches."""
     from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
 
     sb, st = sweep_case(sizes, NC, 3, dtype)
     shared = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
     assert not sb.plans[NC][2]
-    sb.plans[NC] = gsk.plan(sb, NC, 0)
+    sb.plans[NC] = gsk.plan(sb, NC, gsk.max_smem(cuda), ring=True)
     before = gsk.launches["sweep_global"]
     got = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
     again = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
@@ -595,7 +595,7 @@ def test_global_dp_lassosum_mode_matches_twin_bit_for_bit(cuda, sizes, NG,
     from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
 
     sb, st = lasso_case(sizes, NG, 6, dtype)
-    sb.plans[NG] = gsk.plan(sb, NG, 0)
+    sb.plans[NG] = gsk.plan(sb, NG, gsk.max_smem(cuda), ring=True)
 
     def run(fn):
         dp, beta = st["dp"].clone(), st["beta"].clone()
@@ -655,6 +655,104 @@ def test_unblocked_band_takes_the_global_dp_mode(cuda):
     for fn in (gsk.lassosum_sweep, gsk.lassosum_sweep_plain):
         dp, beta = sb.dp0(NC), torch.zeros((NC, m), dtype=torch.float64,
                                            device="cuda")
+        out = fn(sb, dp, beta, st["bh"], pf, lam, delta, active)
+        torch.cuda.synchronize()
+        res.append((dp, beta) + tuple(out))
+    assert all(torch.equal(a, b) for a, b in zip(*res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,width,NC,dtype", [
+    ([333, 70], 5, 4, torch.float32),        # W < 32, rows % 32 != 0
+    ([100, 31], 0, 3, torch.float32),        # W = 0
+    ([45, 33], 31, 2, torch.float64),        # W just under a tile
+    ([700], None, 30, torch.float64)])       # float64 at 30 chains
+def test_ring_mode_edge_bands(cuda, sizes, width, NC, dtype):
+    """The ring mode on bands narrower than a tile, on rows that are not a
+    multiple of 32, and in float64 at LDpred2-auto's 30 chains: the sweep
+    against the twin (1e-5, causal equal) and bit-equal to the
+    shared-memory mode; the lassosum mode bit-equal to its twin, inactive
+    grid points included; two launches bit-equal."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+
+    sb, st = sweep_case(sizes, NC, 12, dtype, width=width)
+    shared = run_sweep(gsk.sweep, sb, st, 0.95, True)
+    assert not sb.plans[NC].ring
+    sb.plans[NC] = gsk.plan(sb, NC, gsk.max_smem(cuda), ring=True)
+    got = run_sweep(gsk.sweep, sb, st, 0.95, True)
+    again = run_sweep(gsk.sweep, sb, st, 0.95, True)
+    ref = run_sweep(gsk.sweep_plain, sb, st, 0.95, True)
+    assert torch.equal(got[2], ref[2])
+    for a, b in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(got, again, shared))
+    rng = np.random.default_rng(13)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+    m = sb.m
+    bh, pf = st["bh"], f(rng.uniform(0.8, 1.5, m))
+    lam, delta = f(rng.uniform(0.001, 0.05, NC)), f(rng.uniform(0.01, 1, NC))
+    active = torch.as_tensor(np.arange(NC) % 3 != 1, device="cuda")
+    beta0 = f(rng.normal(0, 0.05, (NC, m)) * (rng.random((NC, m)) < 0.5))
+    res = []
+    for fn in (gsk.lassosum_sweep, gsk.lassosum_sweep, gsk.lassosum_sweep_plain):
+        dp, beta = st["dp"].clone(), beta0.clone()
+        out = fn(sb, dp, beta, bh, pf, lam, delta, active)
+        torch.cuda.synchronize()
+        res.append((dp, beta) + tuple(out))
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(*res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,elem", [(torch.float32, 4),
+                                        (torch.float64, 8)])
+def test_ring_mode_on_the_widest_band_the_plan_takes(cuda, dtype, elem):
+    """A 100-row band of the largest half-width whose ring still fits the
+    device's shared memory (a random band: the kernel's arithmetic does not
+    need it to be an LD matrix): the sweep against its twin and the
+    lassosum mode bit-equal to its twin, at 3 chains."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+
+    smem = gsk.max_smem(cuda)
+    fixed = gsk.ring_smem_bytes(1, 0, elem)
+    S = 1 << ((smem - fixed) // elem).bit_length() - 1
+    W = (S - 3 * gsk.RING_ROWS) // 2
+    rows, NC = 100, 3
+    rng = np.random.default_rng(14)
+    band = rng.normal(0, 0.01, (rows, 2 * W + 1))
+    band[:, W] = 1.0
+    sb = gsk.SweepBands([(band[None].astype(np.float32),
+                          np.arange(rows, dtype=np.int32)[None])], rows,
+                        cuda, dtype)
+    pl = gsk.plan(sb, NC, smem, ring=True)
+    assert pl.ring_len == S
+    with pytest.raises(ValueError):
+        gsk.plan(gsk.SweepBands([(np.zeros((1, 4, 2 * W + 3), np.float32),
+                                  np.arange(4, dtype=np.int32)[None])], 4,
+                                cuda, dtype), NC, smem, ring=True)
+    sb.plans[NC] = pl
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+    st = dict(bh=f(rng.normal(0, 0.05, rows)),
+              C2=f(rng.uniform(0.1, 0.9, (NC, rows))),
+              C4=f(rng.uniform(0.1, 0.9, (NC, rows))),
+              s1=f(rng.uniform(1.0, 2.0, (NC, rows))),
+              u=f(rng.uniform(0, 1, (NC, rows))),
+              z=f(rng.normal(0, 1, (NC, rows))),
+              cb=f(rng.normal(0, 0.05, (NC, rows))), inv_odd_p=f([2., 5., 9.]),
+              p=f([0.3, 0.1, 0.2]),
+              sparse=torch.tensor([False, True, False], device="cuda"),
+              dp=f(rng.normal(0, 0.05, (NC, sb.dp_len))))
+    got = run_sweep(gsk.sweep, sb, st, 0.95, True)
+    ref = run_sweep(gsk.sweep_plain, sb, st, 0.95, True)
+    assert torch.equal(got[2], ref[2])
+    for a, b in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)
+    pf, lam, delta = f(np.ones(rows)), f([0.01, 0.001, 0.02]), f([0.1, 1., 2.])
+    active = torch.tensor([True, False, True], device="cuda")
+    res = []
+    for fn in (gsk.lassosum_sweep, gsk.lassosum_sweep_plain):
+        dp, beta = st["dp"].clone(), st["cb"].clone()
         out = fn(sb, dp, beta, st["bh"], pf, lam, delta, active)
         torch.cuda.synchronize()
         res.append((dp, beta) + tuple(out))

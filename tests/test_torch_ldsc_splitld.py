@@ -22,6 +22,15 @@ from bigsnpr_tpu_torch import interop
 from bigsnpr_tpu_torch.ops.splitld import COLUMNS, block_num
 from bigsnpr_tpu_torch.pgs import ldsc as pldsc
 
+from oracle_native import private_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX oracle's native library, built for this test process alone
+    (tests/oracle_native.py), so that no oracle falls back to numpy."""
+    yield from private_native(tmp_path_factory)
+
 torch.set_num_threads(2)
 
 

@@ -13,6 +13,15 @@ from bigsnpr_tpu.linalg import penalized as jpen
 import bigsnpr_tpu_torch as pt
 from bigsnpr_tpu_torch.linalg import penalized as ppen
 
+from oracle_native import private_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX oracle's native library, built for this test process alone
+    (tests/oracle_native.py), so that no oracle falls back to numpy."""
+    yield from private_native(tmp_path_factory)
+
 
 def collinear(n, p, seed):
     """Nested, near-collinear columns like stacked C+T scores, a constant

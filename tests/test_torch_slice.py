@@ -24,6 +24,15 @@ from bigsnpr_tpu.core.genotypes import GenoPack as JaxGenoPack
 import bigsnpr_tpu_torch as pt
 from bigsnpr_tpu_torch.core import unpack
 
+from oracle_native import private_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX oracle's native library, built for this test process alone
+    (tests/oracle_native.py), so that no oracle falls back to numpy."""
+    yield from private_native(tmp_path_factory)
+
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV2 = {**os.environ, "OMP_NUM_THREADS": "2"}   # subprocesses: 2 threads
@@ -418,8 +427,8 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "r(SCT prediction", "native greedy vs the fixed point",
                   "lassosum2: grid point", "[14]", "bf16 torch.matmul",
                   "lassosum mode", "[15]", "cprod_i8m_nona",
-                  "masked int8m operator", "global-dp sweep, float64",
-                  "global-dp lassosum mode, float32", "[16]",
+                  "masked int8m operator", "ring-mode sweep, float64",
+                  "ring-mode lassosum, float32", "[16]",
                   "snp_randomSVD on K8 vs on K6", "snp_ldpred2_auto "
                   "(unblocked)", "sampling betas", "[17a]",
                   "NA-free copy, int8m", "[17b]"):
