@@ -27,7 +27,7 @@ A second package beside the JAX one, ported slice by slice.
   K8 on int8 planes materialized once, in `csrc/geno_i8.cu` beside K6)
   under `snp_randomSVD(op=)` -> GWAS -> `snp_cor` -> `snp_ldsc2` -> the
   unblocked LDpred2-auto, -grid, sampling betas and lassosum2 on the
-  sweep kernel's global-dp mode.
+  sweep kernel, one band over every variant.
 - Slices 6a-6c (matching, the store, `.rds`; the remaining statistics;
   byte-coded dosages, BGEN, imputation) and 7 (several cards) are still
   to come (ROADMAP): the entry points that would take a `DosagePack`

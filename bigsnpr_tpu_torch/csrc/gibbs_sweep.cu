@@ -3,11 +3,16 @@
 //
 // Replaces the TPU kernels K3 `_sweep_kernel` (bigsnpr_tpu/pgs/
 // gibbs_pallas.py:37), K4 `_sweep_kernel_mc` (:171) and K5
-// `_sweep_kernel_v3` (:302). The three compute one function; their split
-// into one chain / chain-batched / width-paneled versions, with the j % 8
-// row pre-shift and the lane padding of the bands, exists only for the
-// TPU's VMEM budget and Mosaic's alignment rules. Here one kernel takes
-// every block of every bucket in one launch, from per-block offset tables.
+// `_sweep_kernel_v3` (:302), the JAX package's XLA sweeps of the blocked
+// lassosum2 (`lassosum_cd_blocked`, bigsnpr_tpu/pgs/gibbs_blocked.py:1427)
+// and of the unblocked samplers (`_sweep_gibbs` and `lassosum_cd`'s
+// `sweep_step`, bigsnpr_tpu/pgs/gibbs.py:28-72, 373-389). They compute one
+// function; the TPU's split into one chain / chain-batched /
+// width-paneled versions, with the j % 8 row pre-shift and the lane
+// padding of the bands, exists only for its VMEM budget and Mosaic's
+// alignment rules. Here one kernel, `gibbs_ring_kernel`, takes every block
+// of every bucket in one launch, from per-block offset tables, whether the
+// band is cut into LD blocks or is one block over every variant.
 //
 // Per block b and chain c, rows j = 0..rows_b-1 run in order:
 //   dotprod = dp[j + W];  res = bh - shrink (dotprod - cb);  C3 = C2 res
@@ -21,30 +26,10 @@
 // [new_beta, sampled, postp, C3 postp, dps] written at the variant's
 // global index (postp and C3 postp are 0 where the sparse skip fires).
 //
-// Design (a simple kernel that is right first):
-// - one CTA per (LD block, chain tile); each chain's dp for the block
-//   (rows + 2W values) lives in dynamic shared memory for the whole sweep;
-// - one thread per chain takes the scalar step of the row; the row's
-//   2W + 1 band values are read from global memory once per CTA and
-//   applied to every chain of the tile; __syncthreads() brackets the AXPY;
-// - the next row's band values and per-chain inputs are loaded into
-//   registers while the current row runs, so the dependent chain of rows
-//   does not wait on global memory;
-// - h2_inc and gap are summed per (chain, block) in row order and written
-//   as partials; the caller adds the blocks in a fixed order. No float
-//   atomics, so launches repeat bit for bit. Built with --fmad=false, the
-//   arithmetic rounds as the plain torch twin's separate operations do.
-//
-// Bound: each chain tile reads the block's band once (bytes), but the
-// rows of a block are a chain of dependent steps, so the longest block's
-// rows x one step's latency bounds the sweep at these sizes.
-//
 // The lassosum mode (LASSO = true; entries lassosum_sweep_f32/_f64) runs
-// one deterministic lassosum2 coordinate-descent sweep with the same
-// skeleton, for the JAX package's `lassosum_cd_blocked`
-// (bigsnpr_tpu/pgs/gibbs_blocked.py:1427, XLA there, not Pallas) under its
-// vmap over the grid: a "chain" is a grid point (lambda, delta). Per row,
-// with lam = pf lambda and dp1 = pf delta + 1:
+// one deterministic lassosum2 coordinate-descent sweep, a "chain" being a
+// grid point (lambda, delta). Per row, with lam = pf lambda and dp1 = pf
+// delta + 1:
 //   u = bh - (dp[j + W] - cb);  nm = u > 0 ? u - lam : u + lam
 //   new = (u nm > 0 ? nm / dp1 : 0) if |u| > lam, else 0
 //   shift = new - cb;  dp[j .. j + 2W] += shift * band[j, :]
@@ -54,22 +39,24 @@
 // programs, which contract it inside their scans; in float64 it rounds
 // twice, as the rest of the file does under --fmad=false. dp1 rounds twice
 // in both (the JAX package computes it outside the scan, uncontracted). A
-// grid point whose `active` flag is 0
-// (converged or stopped) is left as it is: shift 0, nothing written, its
-// partials 0. gap, df and maxshift are per (grid point, block) partials in
-// row order, reduced by the caller in block order; no atomics.
+// grid point whose `active` flag is 0 (converged or stopped) is skipped:
+// its dp and beta are not touched, its partials are 0.
 //
-// The ring mode (entries' `ring` argument > 0; the "global-dp" launches of
-// the wrapper) is the same sweep for a block whose dp (rows + 2W values a
-// chain) does not fit in shared memory: the unblocked samplers, whose one
-// block holds every variant (the JAX package's `_sweep_gibbs` and
-// `lassosum_cd`'s `sweep_step`, bigsnpr_tpu/pgs/gibbs.py:28-72, 373-389,
-// XLA lax.scans there, not Pallas). Only 2W + 1 entries of a chain's dp
-// are live at a row: row j reads dp[j + W] and updates dp[j .. j + 2W],
-// and no later row of the sweep touches dp[j] again. So each chain keeps
-// a ring of its live entries in shared memory (`ring` slots, a power of
-// two); device memory sees one read and one write of each entry a sweep.
-// Rows go in tiles of 32, one a lane. A CTA holds one or two chains:
+// Bound. A sweep moves the band once (bytes), but the rows of a block are
+// a chain of dependent steps: the longest block's rows x one row's latency
+// (the row floor) bounds it, and over all blocks and chains the card's
+// issue rate (the (chain, row) pairs' step instructions and the band's
+// multiply-adds over 132 SMs x 4 schedulers).
+//
+// Design. Only 2W + 1 entries of a chain's dp are live at a row: row j
+// reads dp[j + W] and updates dp[j .. j + 2W], and no later row of the
+// sweep touches dp[j] again. So each chain keeps a ring of its live
+// entries in shared memory (`ring` slots, a power of two); device memory
+// sees one read and one write of each entry a sweep. Rows go in tiles of
+// 32, one a lane. A CTA runs one (block, chain tile): up to NCMAX chains of
+// one block, the chain tile the fastest-varying CTA index and the blocks
+// in the plan's order (longest first), so that one block's chain tiles run
+// together and read its band from L2 after the first; the CTA has
 // - a row warp per chain: lane k holds dp[j0 + W + k] in a register; every
 //   lane runs the scalar step of its own row on its own entry, so lane i's
 //   is row j0 + i's, __shfl_sync broadcasts its diff, and every lane whose
@@ -82,33 +69,42 @@
 //   applies the tile's diffs to them in row order, recomputes each lane's
 //   outputs from the entry it read, and hands the diffs on;
 // - 256 update threads, one tile behind, apply the tile's diffs to every
-//   other live entry (a rank-32 update, each entry's updates in row
-//   order), write back the entries no later row touches and stream in
-//   those the next tile reaches. Entry e belongs to update thread e mod
-//   256 at every tile, so they need no barrier among themselves; they fold
-//   each chain's h2 / gap (df / maxshift) partials in row order;
+//   other live entry of every chain (a rank-32 update, each entry's updates
+//   in row order), each band value loaded once and applied to every chain
+//   of the CTA in registers; they write back the entries no later row
+//   touches and stream in those the next tile reaches. Entry e belongs to
+//   update thread e mod 256 at every tile, so they need no barrier among
+//   themselves; they fold each chain's h2 / gap (df / maxshift) partials
+//   in row order;
 // - a producer warp copies, by bulk copies (TMA) one band row each, the
 //   row warps' strips (a row's 64 band values on the diagonal, three
-//   buffers, a tile ahead) and the band itself through three stages of 16
-//   rows for the update threads (`srw` values a stage row; 0: they read it
-//   in place, where the stages do not fit: float64, wide bands).
+//   buffers, a tile ahead, issued before the band once it has reached the
+//   tile before) and the band itself through four stages of 8 rows (a
+//   tile) for the update threads (`srw` values a stage row; 0: they read
+//   it in place, from L2, where the stages do not fit: float64 beside
+//   wide rings).
 // Row warps, update threads and producer meet on mbarriers (ready / done a
 // tile, full / empty a stage), whose waits trap after ~2^34 cycles instead
-// of hanging the card. Every dp entry gets the same multiply and add (or
-// fused multiply-add) in the same row order as in the shared-memory mode,
-// so the two modes are bit-equal where both can run. The plan
-// (ops/gibbs_kernels.py::plan) picks the ring length, chains a CTA and the
-// stages; the kernel traps on a ring or a stage too short for its block.
+// of hanging the card. h2_inc and gap (gap, df, maxshift) are per (chain,
+// block) partials in row order, added by the caller in block order: no
+// float atomics, so launches repeat bit for bit. Every dp entry gets the
+// same multiply and add (fused only in the lassosum mode's float32) in row
+// order, and with --fmad=false the arithmetic rounds as the plain torch
+// twin's separate operations do: the kernel is bit-equal to its twin. The
+// plan (ops/gibbs_kernels.py::plan) picks the ring length, the chains a
+// CTA (up to NCMAX = 3 or 7: the instantiation, whose launch bound, 12 or
+// 16 warps, sets the registers a thread may use, 168 or 128; the lassosum
+// mode takes 3 at most), the stages and the block order; the kernel traps
+// on a ring or a stage too short for its block.
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 #include <cuda_runtime.h>
 
 #include "ring.cuh"
 
 namespace {
-
-constexpr int KMAX = 8;  // band columns a thread holds per row
 
 template <typename T>
 struct SweepArgs {
@@ -118,7 +114,7 @@ struct SweepArgs {
   const int64_t* blk_gidx;   // (nblk,) offset of the block's slot -> variant table
   const int32_t* blk_rows;   // (nblk,) rows to run
   const int32_t* blk_W;      // (nblk,) half-width W; dp length rows_pad + 2W
-  const int32_t* blk_L;      // (nblk,) dp length of the block
+  const int32_t* blk_order;  // (nblk,) the blocks in launch order
   const int32_t* gidx;       // flat slot -> global variant (-1 = pad slot)
   T* dp;                     // (NC, dp_stride), updated in place
   int64_t dp_stride;
@@ -152,36 +148,7 @@ struct SweepArgs {
   int nblk;
   int NC;
   int nct;                   // chains per CTA
-  int Ls;                    // shared-memory stride of one chain's dp
 };
-
-template <typename T>
-struct RowIn {
-  T bh, c2, c4, s1, u, z, cb;
-  int64_t g;
-};
-
-template <typename T>
-__device__ __forceinline__ RowIn<T> load_row(const SweepArgs<T>& a,
-                                             const int32_t* gidx, int j,
-                                             int c) {
-  RowIn<T> r;
-  r.g = gidx[j];
-  if (r.g >= 0) {
-    const int64_t o = (int64_t)c * a.m + r.g;
-    r.bh = a.bh[r.g];
-    r.c2 = a.C2[o];
-    r.c4 = a.C4[o];
-    r.s1 = a.s1[o];
-    r.u = a.u[o];
-    r.z = a.z[o];
-    r.cb = a.cb[o];
-  } else {  // pad slot: inert (never sampled, diff 0)
-    r.bh = T(0); r.c2 = T(0); r.c4 = T(1); r.s1 = T(1);
-    r.u = T(2); r.z = T(0); r.cb = T(0);
-  }
-  return r;
-}
 
 // a * b + c as the lassosum mode rounds it (ops/gibbs_kernels.py::_mul_add)
 __device__ __forceinline__ float lasso_mul_add(float a, float b, float c) {
@@ -192,53 +159,6 @@ __device__ __forceinline__ double lasso_mul_add(double a, double b,
   return c + a * b;
 }
 
-// lassosum mode: one row's inputs; pad slots are inert (bh 0, lam 1,
-// dp1 1, cb 0), the JAX package's fill values
-template <typename T>
-struct LassoIn {
-  T bh, lam, dp1, cb;
-  int64_t g;
-};
-
-template <typename T>
-__device__ __forceinline__ LassoIn<T> load_lasso_row(const SweepArgs<T>& a,
-                                                     const int32_t* gidx,
-                                                     int j, int c, T lam_c,
-                                                     T delta_c) {
-  LassoIn<T> r;
-  r.g = gidx[j];
-  if (r.g >= 0) {
-    const T pf = a.pf[r.g];
-    r.bh = a.bh[r.g];
-    r.lam = pf * lam_c;
-    r.dp1 = pf * delta_c + T(1);
-    r.cb = a.cb[(int64_t)c * a.m + r.g];
-  } else {
-    r.bh = T(0); r.lam = T(1); r.dp1 = T(1); r.cb = T(0);
-  }
-  return r;
-}
-
-template <typename T, bool LASSO>
-struct RowOf {
-  using type = RowIn<T>;
-};
-template <typename T>
-struct RowOf<T, true> {
-  using type = LassoIn<T>;
-};
-
-template <typename T, bool LASSO>
-__device__ __forceinline__ typename RowOf<T, LASSO>::type load_in(
-    const SweepArgs<T>& a, const int32_t* gidx, int j, int c, T lam_c,
-    T delta_c) {
-  if constexpr (LASSO) {
-    return load_lasso_row(a, gidx, j, c, lam_c, delta_c);
-  } else {
-    return load_row(a, gidx, j, c);
-  }
-}
-
 __device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_t(double x) { return fabs(x); }
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
@@ -246,180 +166,31 @@ __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
-template <typename T, bool LASSO>
-__global__ void gibbs_sweep_kernel(SweepArgs<T> a) {
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * a.nct;
-  const int nct = min(a.nct, a.NC - c0);
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int rows = a.blk_rows[b];
-  const int W = a.blk_W[b];
-  const int wk = 2 * W + 1;
-  const int L = a.blk_L[b];
-  const T* band = a.band + a.blk_band[b];
-  const int32_t* gidx = a.gidx + a.blk_gidx[b];
-  const int64_t dp_off = a.blk_dp[b];
-
-  // each chain's dp for the block in shared memory (nct x Ls)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const dp_g = a.dp + (int64_t)c0 * a.dp_stride + dp_off;
-  T* const sdp = reinterpret_cast<T*>(smem_raw);
-  T* const dpv = sdp;
-  const int64_t ld = (int64_t)a.Ls;
-  T* const sdiff = sdp + (int64_t)a.nct * a.Ls;  // nct
-
-  for (int t = 0; t < nct; ++t) {
-    const T* src = dp_g + (int64_t)t * a.dp_stride;
-    for (int i = tid; i < L; i += nthr) sdp[t * a.Ls + i] = src[i];
-  }
-
-  const bool scalar = tid < nct;
-  const int c = c0 + tid;
-  T inv_odd_p = T(0), pc = T(0), lam_c = T(0), delta_c = T(0);
-  bool sp = false, live = false;
-  if (scalar) {
-    if constexpr (LASSO) {
-      lam_c = a.lam[c];
-      delta_c = a.delta[c];
-      live = a.active[c] != 0;
-    } else {
-      inv_odd_p = a.inv_odd_p[c];
-      pc = a.p[c];
-      sp = a.sparse[c] != 0;
-    }
-  }
-  const T shrink = a.shrink;
-  const T one_m_shrink = T(1) - shrink;
-  T h2 = T(0), gap = T(0), ms = T(0);
-  int32_t df = 0;
-
-  typename RowOf<T, LASSO>::type cur;
-  if (scalar && rows > 0) cur = load_in<T, LASSO>(a, gidx, 0, c, lam_c, delta_c);
-  T bcur[KMAX];
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    const int d = tid + k * nthr;
-    bcur[k] = (rows > 0 && d < wk) ? band[d] : T(0);
-  }
-  __syncthreads();
-
-  for (int j = 0; j < rows; ++j) {
-    const bool more = j + 1 < rows;
-    typename RowOf<T, LASSO>::type nxt;
-    if (scalar && more) nxt = load_in<T, LASSO>(a, gidx, j + 1, c, lam_c, delta_c);
-    T bnext[KMAX];
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      const int d = tid + k * nthr;
-      bnext[k] = (more && d < wk) ? band[(int64_t)(j + 1) * wk + d] : T(0);
-    }
-
-    if constexpr (LASSO) {
-      if (scalar) {
-        T diff = T(0);
-        if (live) {
-          const T dotprod = dpv[tid * ld + j + W];
-          const T u = cur.bh - (dotprod - cur.cb);
-          const T nm = u > T(0) ? u - cur.lam : u + cur.lam;
-          T nb = (u * nm > T(0)) ? nm / cur.dp1 : T(0);
-          nb = (abs_t(u) > cur.lam) ? nb : T(0);
-          diff = nb - cur.cb;
-          if (nb != T(0)) {
-            gap = gap + nb * nb;
-            ++df;
-          }
-          const T ad = abs_t(diff);
-          if (ad > ms || ad != ad) ms = ad;   // NaN sticks, as torch.maximum
-          if (cur.g >= 0) a.out_beta[(int64_t)c * a.m + cur.g] = nb;
-        }
-        sdiff[tid] = diff;
-      }
-    } else if (scalar) {
-      const T dotprod = dpv[tid * ld + j + W];
-      const T res = cur.bh - shrink * (dotprod - cur.cb);
-      const T C3 = cur.c2 * res;
-      const T postp =
-          T(1) / (T(1) + inv_odd_p * cur.s1 *
-                             exp_t(-C3 * C3 / cur.c4 * T(0.5)));
-      const T samp = C3 + cur.z * sqrt_t(cur.c4);
-      const bool sparse_skip = sp && (postp < pc);
-      const bool jump = a.no_jump && (samp * cur.cb < T(0));
-      const bool sampled = (postp > cur.u) && !sparse_skip && !jump;
-      const T new_beta = sampled ? samp : T(0);
-      const T dps = shrink * dotprod + one_m_shrink * cur.cb;
-      const T diff = new_beta - cur.cb;
-      sdiff[tid] = diff;
-      h2 = h2 + diff * (T(2) * dps + diff);
-      gap = gap + (sampled ? samp * samp : T(0));
-      if (cur.g >= 0) {
-        const int64_t o = (int64_t)c * a.m + cur.g;
-        a.out_beta[o] = new_beta;
-        a.out_causal[o] = sampled ? 1 : 0;
-        a.out_postp[o] = sparse_skip ? T(0) : postp;
-        a.out_binc[o] = sparse_skip ? T(0) : C3 * postp;
-        a.out_dps[o] = dps;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      const int d = tid + k * nthr;
-      if (d < wk) {
-        const T bv = bcur[k];
-        for (int t = 0; t < nct; ++t) {
-          T* q = dpv + t * ld + j + d;
-          if constexpr (LASSO) {
-            *q = lasso_mul_add(sdiff[t], bv, *q);
-          } else {
-            *q = *q + sdiff[t] * bv;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (scalar && more) cur = nxt;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) bcur[k] = bnext[k];
-  }
-
-  for (int t = 0; t < nct; ++t) {
-    T* dst = dp_g + (int64_t)t * a.dp_stride;
-    for (int i = tid; i < L; i += nthr) dst[i] = sdp[t * a.Ls + i];
-  }
-  if (scalar) {
-    const int64_t o = (int64_t)c * a.nblk + b;
-    a.part_gap[o] = gap;
-    if constexpr (LASSO) {
-      a.part_df[o] = df;
-      a.part_ms[o] = ms;
-    } else {
-      a.part_h2[o] = h2;
-    }
-  }
-}
-
-// ---- the ring mode ---------------------------------------------------------
-
 constexpr int RK = 32;        // rows a tile: one a lane of a row warp
 constexpr int RNU = 256;      // update threads a CTA
 constexpr int RSTRIPS = 3;    // strip buffers of the row warps' band values
-constexpr int RMAXC = 2;      // chains a CTA at most
+// chains a CTA: of the narrow instantiation (11-12 warps, 3 a scheduler:
+// 168 registers a thread) and of the wide one (16 warps, 4 a scheduler:
+// 128), the most
+constexpr int RNARROW = 3;
+constexpr int RMAXC = 7;
 constexpr int RKE = 4;        // entries an update thread at most (staged band)
-constexpr int RHALF = 16;     // band rows a stage: half a tile
-constexpr int RSTAGES = 3;    // band stages
+constexpr int RSR = 8;        // band rows a stage
+constexpr int RSUB = RK / RSR;  // stages a tile
+constexpr int RSTAGES = 4;    // band stages: a tile's rows
+static_assert(4 + RSTRIPS + 2 * RSTAGES <= 16, "mbarriers fit 128 bytes");
 
-// dynamic shared memory of the ring mode: 13 mbarriers (128 B), the
-// chains' rings, the strip buffers (RK rows of 2 RK + V values, V values a
-// 16-byte chunk), two tiles of diffs and partial terms, and (srw > 0) the
-// band stages, RSTAGES x RHALF rows of srw values, and RK values of slack
+// dynamic shared memory: the mbarriers (128 B), the chains' rings, the
+// strip buffers (RK rows of 2 RK + V values, V values a 16-byte chunk), two
+// tiles of diffs and partial terms, and (srw > 0) the band stages, RSTAGES
+// x RSR rows of srw values, and RK values of slack
 // (ops/gibbs_kernels.py's `ring_smem_bytes` is the same formula)
 inline size_t ring_smem_bytes(int nct, int S, int sz, int srw) {
   const int V = 16 / sz;
   return 128 + (size_t)nct * S * sz +
          (size_t)RSTRIPS * RK * (2 * RK + V) * sz +
          (size_t)6 * nct * RK * sz +
-         (srw > 0 ? ((size_t)RSTAGES * RHALF * srw + RK) * sz : 0);
+         (srw > 0 ? ((size_t)RSTAGES * RSR * srw + RK) * sz : 0);
 }
 
 // x + d b as the mode rounds it: fused in the lassosum mode's float32
@@ -462,6 +233,27 @@ __device__ __forceinline__ double lds_now(const double* p) {
   return v;
 }
 
+// one value copied from device memory into shared memory by cp.async,
+// landed once the thread's cp.async.wait_all returns
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   ring::smem_u32(dst)),
+               "l"(src), "n"((int)sizeof(T))
+               : "memory");
+}
+
+// N consecutive values from 16-byte aligned shared memory, 16 bytes a load
+template <typename T, int N>
+__device__ __forceinline__ void lds_vec(const T* p, T (&out)[N]) {
+  static_assert((N * sizeof(T)) % 16 == 0, "whole 16-byte chunks");
+#pragma unroll
+  for (int i = 0; i < (int)(N * sizeof(T) / 16); ++i) {
+    const float4 v = reinterpret_cast<const float4*>(p)[i];
+    memcpy(&out[i * (16 / sizeof(T))], &v, 16);
+  }
+}
+
 // The diagonal strip of tile rows j0 .. j0 + RK - 1 (of `nrow` rows) for
 // the row warps: band columns W - i .. W - i + 2 RK - 1 of row j0 + i,
 // copied from the 16-byte chunk that holds the first into line i (SW
@@ -485,10 +277,10 @@ __device__ __forceinline__ void issue_strip(const T* band_all,
   }
 }
 
-// A row's inputs as the ring mode's row warp loads them, a tile ahead,
-// from its variant g (prefetched a tile before that): the LDpred2 sweep's
-// RowIn, or the lassosum mode's bh, pf and cb (lam and dp1 are formed when
-// the tile starts). Pad slots (g < 0) are inert.
+// A row's inputs as the row warp loads them, a tile ahead, from its
+// variant g (prefetched a tile before that): the LDpred2 sweep's inputs,
+// or the lassosum mode's bh, pf and cb (lam and dp1 are formed when the
+// tile starts). Pad slots (g < 0) are inert (never sampled, diff 0).
 template <typename T, bool LASSO>
 struct RingIn {
   T bh, c2, c4, s1, u, z, cb;
@@ -535,13 +327,18 @@ struct RingPos {
   __device__ __forceinline__ int hi(int q) const { return min(nrow - 1, q); }
 };
 
-template <typename T, bool LASSO>
-__global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
+template <typename T, bool LASSO, int NCMAX>
+__global__ void __launch_bounds__(32 * NCMAX + RNU + 32)
     gibbs_ring_kernel(SweepArgs<T> a, int S, int srw, int64_t band_len) {
   constexpr int V = 16 / sizeof(T);
   constexpr int SW = 2 * RK + V;
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * a.nct;
+  // CTA -> (block, chain tile): the chain tile varies fastest, the blocks
+  // come in the plan's order
+  const int ntc = (a.NC + a.nct - 1) / a.nct;
+  const int pos = blockIdx.x / ntc;
+  const int b = a.blk_order[pos];
+  auto ct0 = [&]() { return (int)(blockIdx.x - pos * ntc) * a.nct; };
+  const int c0 = ct0();
   const int nct = min(a.nct, a.NC - c0);
   const int tid = threadIdx.x;
   // warps 0 .. a.nct - 1 run the chains' rows, the next RNU / 32 update,
@@ -567,36 +364,43 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
   if (A + 2 * RK > S || (srw > 0 && (srw < wk + V - 1 || span > RKE * RNU)))
     __trap();
 
-  if constexpr (LASSO) {  // no active grid point: nothing to do
-    bool any = false;
-    for (int t = 0; t < nct; ++t) any = any || a.active[c0 + t] != 0;
-    if (!any) {
-      if (tid < nct) {
-        const int64_t o = (int64_t)(c0 + tid) * a.nblk + b;
-        a.part_gap[o] = T(0);
+  // the chains this CTA runs: every one of its tile but the lassosum
+  // mode's frozen grid points, which it skips
+  uint32_t livem = 0;
+  for (int t = 0; t < nct; ++t) {
+    if (!LASSO || a.active[c0 + t] != 0) livem |= 1u << t;
+  }
+  auto live = [&](int cc) { return ((livem >> cc) & 1u) != 0; };
+  if (livem == 0) {  // nothing to do
+    if (tid < nct) {
+      const int64_t o = (int64_t)(c0 + tid) * a.nblk + b;
+      a.part_gap[o] = T(0);
+      if constexpr (LASSO) {
         a.part_df[o] = 0;
         a.part_ms[o] = T(0);
+      } else {
+        a.part_h2[o] = T(0);
       }
-      return;
     }
+    return;
   }
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* const ready = reinterpret_cast<uint64_t*>(smem_raw);  // [2]
   uint64_t* const done = ready + 2;                                 // [2]
-  uint64_t* const sfull = ready + 4;                                // [3]
-  uint64_t* const bfull = ready + 7;                                // [3]
-  uint64_t* const bempty = ready + 10;                              // [3]
+  uint64_t* const sfull = ready + 4;                          // [RSTRIPS]
+  uint64_t* const bfull = sfull + RSTRIPS;                    // [RSTAGES]
+  uint64_t* const bempty = bfull + RSTAGES;                   // [RSTAGES]
   T* const ring = reinterpret_cast<T*>(smem_raw + 128);  // [a.nct][S]
   T* const strip = ring + (size_t)a.nct * S;             // [3][RK][SW]
   T* const sd = strip + RSTRIPS * RK * SW;               // [2][a.nct][RK]
   T* const sc1 = sd + 2 * a.nct * RK;
   T* const sc2 = sc1 + 2 * a.nct * RK;
-  T* const sbs = sc2 + 2 * a.nct * RK;                   // [3][RHALF][srw]
+  T* const sbs = sc2 + 2 * a.nct * RK;             // [RSTAGES][RSR][srw]
 
   if (tid == 0) {
     for (int k = 0; k < 2; ++k) {
-      ring::mbar_init(ready + k, 32 * nct);
+      ring::mbar_init(ready + k, 32 * __popc(livem));
       ring::mbar_init(done + k, RNU);
     }
     for (int k = 0; k < RSTRIPS; ++k) ring::mbar_init(sfull + k, 1);
@@ -609,6 +413,7 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
   if (tid >= nrw && tid < nrw + RNU) {  // the first window: entries < A
     const int n0 = min(A, Lp);
     for (int c = 0; c < nct; ++c) {
+      if (!live(c)) continue;
       for (int e = tid - nrw; e < n0; e += RNU) {
         ring[c * S + e] = dpg[(int64_t)c * a.dp_stride + e];
       }
@@ -621,9 +426,9 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
   if (tid >= nrw + RNU) {
     // ---- the producer warp: strips and band stages, by bulk copies -------
     // The strip of tile u goes to buffer u mod 3 once the row warps have
-    // left tile u - 3 (ready(u - 2) follows). Half h of the sweep's tiles
-    // (band rows RHALF h ..) goes to stage h mod 3 once the update threads
-    // have left the half three before it.
+    // left tile u - 3 (ready(u - 2) follows). Band rows RSR h .. RSR h +
+    // RSR - 1 go to stage h mod RSTAGES once the update threads have left
+    // the stage's rows a tile before them.
     const int lane = tid & 31;
     auto strip_of = [&](int u) {
       issue_strip(a.band, band_len, f00 + (int64_t)u * RK * wk, W2,
@@ -631,20 +436,22 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
                   sfull + u % RSTRIPS, lane);
     };
     for (int u = 0; u < min(2, ntile); ++u) strip_of(u);
-    const int nhalf = srw > 0 ? 2 * ntile : 0;
-    for (int u = 2, h = 0; u < ntile || h < nhalf;) {
-      // the next strip first unless the band is a half ahead of it
-      if (u < ntile && (h >= nhalf || h >= 2 * u)) {
+    const int nst = srw > 0 ? RSUB * ntile : 0;
+    for (int u = 2, h = 0; u < ntile || h < nst;) {
+      // the next strip first once the band has reached the tile before
+      // the row warps' last (the stages wait on the update threads, a tile
+      // behind; the strips only on the row warps)
+      if (u < ntile && (h >= nst || h >= RSUB * (u - 1))) {
         ring::mbar_wait(ready + ((u - 2) & 1), ((u - 2) >> 1) & 1);
         strip_of(u++);
         continue;
       }
       const int s = h % RSTAGES;
       if (h >= RSTAGES) ring::mbar_wait(bempty + s, ((h / RSTAGES) - 1) & 1);
-      const int j = RHALF * h + lane;  // this lane's row
+      const int j = RSR * h + lane;  // this lane's row
       int64_t src = 0;
       uint32_t bytes = 0;
-      if (lane < RHALF && j < rows) {
+      if (lane < RSR && j < rows) {
         const int64_t f = bb + (int64_t)j * wk;   // flat index of band[j, 0]
         src = f & ~(int64_t)(V - 1);
         bytes = (uint32_t)(((f + wk - src + V - 1) / V) * 16);
@@ -657,7 +464,7 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
       if (lane == 0) ring::mbar_expect_tx(bfull + s, total);
       __syncwarp();
       if (bytes) {
-        bulk_copy(sbs + (s * RHALF + lane) * srw, a.band + src, bytes,
+        bulk_copy(sbs + (s * RSR + lane) * srw, a.band + src, bytes,
                   bfull + s);
       }
       ++h;
@@ -665,15 +472,14 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
   } else if (tid < nrw) {
     // ---- a row warp: chain c0 + w --------------------------------------
     const int w = tid >> 5, lane = tid & 31;
-    if (w < nct && ntile > 0) {
+    if (w < nct && live(w) && ntile > 0) {
       const int c = c0 + w;
       T* const rc = ring + w * S;
       T iop = T(0), pc = T(0), lam_c = T(0), delta_c = T(0);
-      bool sp = false, live = true;
+      bool sp = false;
       if constexpr (LASSO) {
         lam_c = a.lam[c];
         delta_c = a.delta[c];
-        live = a.active[c] != 0;
       } else {
         iop = a.inv_odd_p[c];
         pc = a.p[c];
@@ -724,8 +530,8 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
             const T qd = nm / dp1;
             T nb = (u * nm > T(0)) ? qd : T(0);
             nb = (abs_t(u) > lam) ? nb : T(0);
-            if constexpr (OUT) o_c1 = live ? nb : T(0);
-            return live ? nb - in.cb : T(0);
+            if constexpr (OUT) o_c1 = nb;
+            return nb - in.cb;
           } else {
             const T res = in.bh - shrink * (dot - in.cb);
             const T C3 = in.c2 * res;
@@ -803,7 +609,7 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
         if (lane < nrow && in.g >= 0) {
           const int64_t o = (int64_t)c * a.m + in.g;
           if constexpr (LASSO) {
-            if (live) a.out_beta[o] = o_c1;
+            a.out_beta[o] = o_c1;
           } else {
             a.out_beta[o] = o_beta;
             a.out_causal[o] = o_samp ? 1 : 0;
@@ -822,44 +628,42 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
     const int ut = tid - nrw;
     T h2 = T(0), gap = T(0), ms = T(0);
     int32_t df = 0;
-    bool live_u = true;
-    if constexpr (LASSO) {
-      if (ut < nct) live_u = a.active[c0 + ut] != 0;
-    }
-    auto pos = [&](int t) {
+    const bool live_u = ut < nct && live(ut);
+    auto pos_of = [&](int t) {
       const int j0 = t * RK;
       return RingPos{(ut - j0) & (RNU - 1), span, W, W2, j0, Lp,
                      min(RK, rows - j0)};
     };
     const int lane_u = ut & 31;
     for (int t = 0; t < ntile; ++t) {
-      const RingPos P = pos(t);
+      const RingPos P = pos_of(t);
       const int j0 = P.j0, nrow = P.nrow;
-      // prefetch the entries that tile t + 1 reaches first (stored below)
+      // stream in the entries that tile t + 1 reaches first: their slots
+      // held entries written back a tile ago, and no row of this tile
+      // reaches them (the copies land before the arrival on done)
       const int e_in = j0 + A + ((ut - (j0 + A)) & (RNU - 1));
-      const bool do_in = e_in < j0 + A + RK && e_in < Lp;
-      T pre[RMAXC];
-#pragma unroll
-      for (int cc = 0; cc < RMAXC; ++cc) {
-        pre[cc] = (do_in && cc < nct)
-                      ? dpg[(int64_t)cc * a.dp_stride + e_in] : T(0);
+      if (e_in < j0 + A + RK && e_in < Lp) {
+        for (int cc = 0; cc < nct; ++cc) {
+          if (live(cc)) {
+            cp_async_elem(ring + cc * S + (e_in & S1),
+                          dpg + (int64_t)cc * a.dp_stride + e_in);
+          }
+        }
       }
       ring::mbar_wait(ready + (t & 1), (t >> 1) & 1);
       const T* sdt = sd + (t & 1) * a.nct * RK;
-      if (ut < nct) {  // chain ut's partials, in row order
+      if (live_u) {  // chain ut's partials, in row order
         const T* c1 = sc1 + (t & 1) * a.nct * RK + ut * RK;
         const T* c2 = sc2 + (t & 1) * a.nct * RK + ut * RK;
         for (int i = 0; i < nrow; ++i) {
           if constexpr (LASSO) {
-            if (live_u) {
-              const T nb = c1[i];
-              if (nb != T(0)) {
-                gap = gap + nb * nb;
-                ++df;
-              }
-              const T ad = abs_t(sdt[ut * RK + i]);
-              if (ad > ms || ad != ad) ms = ad;  // NaN sticks
+            const T nb = c1[i];
+            if (nb != T(0)) {
+              gap = gap + nb * nb;
+              ++df;
             }
+            const T ad = abs_t(sdt[ut * RK + i]);
+            if (ad > ms || ad != ad) ms = ad;  // NaN sticks
           } else {
             h2 = h2 + c1[i];
             gap = gap + c2[i];
@@ -870,7 +674,8 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
       // tile's diffs in row order
       if (srw > 0) {
         // staged: the thread's entries j0 + q0 + k RNU advance together,
-        // row by row, each row's band values read from its stage
+        // row by row; each stage's band values are read once and applied
+        // to every chain
         uint32_t mk[RKE];  // rows of the tile that reach entry k
         int qk[RKE];       // its position (0 for an entry it does not have)
 #pragma unroll
@@ -880,59 +685,57 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
           mk[k] = (P.valid(q) && hi >= lo) ? (2u << hi) - (1u << lo) : 0u;
           qk[k] = mk[k] ? q : 0;
         }
-        // band[j0 + i, c] is at line i of its half's stage, (fi + c), fi
+        // band[j0 + i, c] is at line i mod RSR of its stage, (fi + c), fi
         // the row start's place in its 16-byte chunk
         const int f0m = (int)((bb + (int64_t)j0 * wk) & (V - 1));
         const int wkm = wk & (V - 1);
-        for (int cc = 0; cc < nct; ++cc) {
-          T* const rcc = ring + cc * S;
-          const T* const dc = sdt + cc * RK;
-          T x[RKE];
 #pragma unroll
-          for (int k = 0; k < RKE; ++k) {
-            x[k] = mk[k] ? rcc[(j0 + qk[k]) & S1] : T(0);
+        for (int sub = 0; sub < RSUB; ++sub) {
+          const int h = RSUB * t + sub;
+          ring::mbar_wait(bfull + h % RSTAGES, (h / RSTAGES) & 1);
+          const T* const sb = sbs + (h % RSTAGES) * RSR * srw;
+          T bv[RSR][RKE];  // the stage's band values, loaded first
+#pragma unroll
+          for (int r = 0; r < RSR; ++r) {
+            const int i = RSR * sub + r;
+            const T* const line =
+                sb + r * srw + ((f0m + i * wkm) & (V - 1)) - i;
+#pragma unroll
+            for (int k = 0; k < RKE; ++k) bv[r][k] = lds_now(line + qk[k]);
           }
+          for (int cc = 0; cc < nct; ++cc) {
+            if (!live(cc)) continue;
+            T* const rcc = ring + cc * S;
+            T d[RSR];
+            lds_vec(sdt + cc * RK + RSR * sub, d);
+            T x[RKE];
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int h = 2 * t + hf;
-            if (cc == 0) {
-              ring::mbar_wait(bfull + h % RSTAGES, (h / RSTAGES) & 1);
-            }
-            const T* const sb = sbs + (h % RSTAGES) * RHALF * srw;
-            T bv[RHALF][RKE];  // the half's band values, loaded first
-#pragma unroll
-            for (int r = 0; r < RHALF; ++r) {
-              const int i = RHALF * hf + r;
-              const T* const line =
-                  sb + r * srw + ((f0m + i * wkm) & (V - 1)) - i;
-#pragma unroll
-              for (int k = 0; k < RKE; ++k) bv[r][k] = lds_now(line + qk[k]);
+            for (int k = 0; k < RKE; ++k) {
+              x[k] = mk[k] ? rcc[(j0 + qk[k]) & S1] : T(0);
             }
 #pragma unroll
-            for (int r = 0; r < RHALF; ++r) {
-              const int i = RHALF * hf + r;
-              const T d = dc[i];
+            for (int r = 0; r < RSR; ++r) {
+              const int i = RSR * sub + r;
 #pragma unroll
               for (int k = 0; k < RKE; ++k) {
                 if (mk[k] & (1u << i)) {
-                  x[k] = ring_madd<T, LASSO>(d, bv[r][k], x[k]);
+                  x[k] = ring_madd<T, LASSO>(d[r], bv[r][k], x[k]);
                 }
               }
             }
-          }
 #pragma unroll
-          for (int k = 0; k < RKE; ++k) {
-            if (mk[k]) rcc[(j0 + qk[k]) & S1] = x[k];
+            for (int k = 0; k < RKE; ++k) {
+              if (mk[k]) rcc[(j0 + qk[k]) & S1] = x[k];
+            }
           }
-        }
-        __syncwarp();  // the warp has read both halves: free their stages
-        if (lane_u == 0) {
-          ring::mbar_arrive(bempty + (2 * t) % RSTAGES);
-          ring::mbar_arrive(bempty + (2 * t + 1) % RSTAGES);
+          __syncwarp();  // the warp is done with the stage: free it
+          if (lane_u == 0) ring::mbar_arrive(bempty + h % RSTAGES);
         }
       } else {
-        // in place: two entries at a time (slots k and k + 1), their 32
-        // band values loaded first
+        // in place: two entries at a time (slots k and k + 1), in two
+        // halves of the tile's rows, each half's 16 band values an entry
+        // loaded first and applied to every chain
+        constexpr int RH = RK / 2;
         const T* const bt = band + (int64_t)j0 * wk;
         for (int k = 0; P.q0 + k * RNU < span; k += 2) {
           const int q = P.q0 + k * RNU, qb = q + RNU;
@@ -942,31 +745,41 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
           const int lob = P.lo(qb), hib = P.hi(qb);
           auto update = [&](auto all_rows) {  // both entries, rows 0 .. RK - 1
             constexpr bool ALL = decltype(all_rows)::value;
-            T ba[RK], bv[RK];
 #pragma unroll
-            for (int i = 0; i < RK; ++i) {  // band[j0 + i, q - i]
-              const bool ra = ALL || (va && i >= loa && i <= hia);
-              const bool rb = ALL || (vb && i >= lob && i <= hib);
-              ba[i] = ra ? bt[(int64_t)i * W2 + q] : T(0);
-              bv[i] = rb ? bt[(int64_t)i * W2 + qb] : T(0);
-            }
-            for (int cc = 0; cc < nct; ++cc) {
-              T* const rcc = ring + cc * S;
-              const T* dc = sdt + cc * RK;
-              T xa = va ? rcc[(j0 + q) & S1] : T(0);
-              T xb = vb ? rcc[(j0 + qb) & S1] : T(0);
+            for (int hf = 0; hf < 2; ++hf) {
+              T ba[RH], bv[RH];
 #pragma unroll
-              for (int i = 0; i < RK; ++i) {
-                const T d = dc[i];
-                if (ALL || (va && i >= loa && i <= hia)) {
-                  xa = ring_madd<T, LASSO>(d, ba[i], xa);
-                }
-                if (ALL || (vb && i >= lob && i <= hib)) {
-                  xb = ring_madd<T, LASSO>(d, bv[i], xb);
-                }
+              for (int r = 0; r < RH; ++r) {  // band[j0 + i, q - i]
+                const int i = RH * hf + r;
+                const bool ra = ALL || (va && i >= loa && i <= hia);
+                const bool rb = ALL || (vb && i >= lob && i <= hib);
+                ba[r] = ra ? bt[(int64_t)i * W2 + q] : T(0);
+                bv[r] = rb ? bt[(int64_t)i * W2 + qb] : T(0);
               }
-              if (va) rcc[(j0 + q) & S1] = xa;
-              if (vb) rcc[(j0 + qb) & S1] = xb;
+              for (int cc = 0; cc < nct; ++cc) {
+                if (!live(cc)) continue;
+                T* const rcc = ring + cc * S;
+                const T* dc = sdt + cc * RK + RH * hf;
+                T xa = va ? rcc[(j0 + q) & S1] : T(0);
+                T xb = vb ? rcc[(j0 + qb) & S1] : T(0);
+#pragma unroll
+                for (int g = 0; g < RH; g += RSR) {
+                  T d[RSR];
+                  lds_vec(dc + g, d);
+#pragma unroll
+                  for (int r = 0; r < RSR; ++r) {
+                    const int i = RH * hf + g + r;
+                    if (ALL || (va && i >= loa && i <= hia)) {
+                      xa = ring_madd<T, LASSO>(d[r], ba[g + r], xa);
+                    }
+                    if (ALL || (vb && i >= lob && i <= hib)) {
+                      xb = ring_madd<T, LASSO>(d[r], bv[g + r], xb);
+                    }
+                  }
+                }
+                if (va) rcc[(j0 + q) & S1] = xa;
+                if (vb) rcc[(j0 + qb) & S1] = xb;
+              }
             }
           };
           if (va && vb && loa == 0 && lob == 0 && hia == RK - 1 &&
@@ -981,28 +794,30 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
         const int e = j0 - RK + ((ut - (j0 - RK)) & (RNU - 1));
         if (e < j0 && e < Lp) {
           for (int cc = 0; cc < nct; ++cc) {
-            dpg[(int64_t)cc * a.dp_stride + e] = ring[cc * S + (e & S1)];
+            if (live(cc)) {
+              dpg[(int64_t)cc * a.dp_stride + e] = ring[cc * S + (e & S1)];
+            }
           }
         }
       }
-      if (do_in) {
-#pragma unroll
-        for (int cc = 0; cc < RMAXC; ++cc) {
-          if (cc < nct) ring[cc * S + (e_in & S1)] = pre[cc];
-        }
-      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
       ring::mbar_arrive(done + (t & 1));
     }
     if (ntile > 0) {  // the last window's entries
       const int lo = (ntile - 1) * RK;
       for (int e = lo + ((ut - lo) & (RNU - 1)); e < Lp; e += RNU) {
         for (int cc = 0; cc < nct; ++cc) {
-          dpg[(int64_t)cc * a.dp_stride + e] = ring[cc * S + (e & S1)];
+          if (live(cc)) {
+            dpg[(int64_t)cc * a.dp_stride + e] = ring[cc * S + (e & S1)];
+          }
         }
       }
     }
     if (ut < nct) {
-      const int64_t o = (int64_t)(c0 + ut) * a.nblk + b;
+      // the block and first chain loaded anew (volatile), not held in
+      // registers across the sweep
+      const int bo = *(volatile const int32_t*)(a.blk_order + pos);
+      const int64_t o = (int64_t)(ct0() + ut) * a.nblk + bo;
       a.part_gap[o] = gap;
       if constexpr (LASSO) {
         a.part_df[o] = df;
@@ -1014,90 +829,83 @@ __global__ void __launch_bounds__(32 * RMAXC + RNU + 32)
   }
 }
 
-template <typename T, bool LASSO>
-int launch_shared(const SweepArgs<T>& a, int threads, void* stream) {
-  const size_t smem = ((size_t)a.nct * a.Ls + (size_t)a.nct) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      gibbs_sweep_kernel<T, LASSO>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.nblk, (a.NC + a.nct - 1) / a.nct);
-  gibbs_sweep_kernel<T, LASSO>
-      <<<grid, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// the ring mode: `ring` slots a chain (a power of two, at least 256),
-// band stages of `srw` values a row (0: the update threads read the band
-// in place), threads = 32 chains a CTA + 256 update threads + a producer
-// warp
-template <typename T, bool LASSO>
-int launch_ring(const SweepArgs<T>& a, int threads, int ring, int srw,
-                int64_t band_len, void* stream) {
-  if (a.nct > RMAXC || threads != 32 * a.nct + RNU + 32 || ring < 256 ||
-      (ring & (ring - 1)) != 0 || srw < 0 || srw % (16 / (int)sizeof(T))) {
-    return (int)cudaErrorInvalidValue;
-  }
+// one launch of the NCMAX instantiation: a CTA for every (block, chain
+// tile), threads = 32 chains a CTA + 256 update threads + a producer warp
+template <typename T, bool LASSO, int NCMAX>
+int launch_ring(const SweepArgs<T>& a, int ring, int srw, int64_t band_len,
+                void* stream) {
   const size_t smem = ring_smem_bytes(a.nct, ring, sizeof(T), srw);
   cudaError_t err = cudaFuncSetAttribute(
-      gibbs_ring_kernel<T, LASSO>,
+      gibbs_ring_kernel<T, LASSO, NCMAX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.nblk, (a.NC + a.nct - 1) / a.nct);
-  gibbs_ring_kernel<T, LASSO>
-      <<<grid, threads, smem, (cudaStream_t)stream>>>(a, ring, srw,
-                                                      band_len);
+  const int ntc = (a.NC + a.nct - 1) / a.nct;
+  gibbs_ring_kernel<T, LASSO, NCMAX>
+      <<<a.nblk * ntc, 32 * a.nct + RNU + 32, smem,
+         (cudaStream_t)stream>>>(a, ring, srw, band_len);
   return (int)cudaGetLastError();
 }
 
+// `ring` slots a chain (a power of two, at least 256), band stages of
+// `srw` values a row (0: the update threads read the band in place); the
+// instantiation is the narrow one up to RNARROW chains a CTA, and always
+// for the lassosum mode (at the wide one's 128 registers its float32 code
+// spills)
 template <typename T, bool LASSO>
 int launch_args(const SweepArgs<T>& a, int threads, int ring, int srw,
                 int64_t band_len, void* stream) {
   if (a.nblk <= 0 || a.NC <= 0) return 0;
-  if (a.nct < 1 || threads < a.nct || threads > 1024 || threads % 32) {
+  const int nct = a.nct;
+  if (nct < 1 || nct > (LASSO ? RNARROW : RMAXC) ||
+      threads != 32 * nct + RNU + 32 || ring < RNU ||
+      (ring & (ring - 1)) != 0 || srw < 0 || srw % (16 / (int)sizeof(T))) {
     return (int)cudaErrorInvalidValue;
   }
-  return ring > 0
-             ? launch_ring<T, LASSO>(a, threads, ring, srw, band_len, stream)
-             : launch_shared<T, LASSO>(a, threads, stream);
+  if constexpr (LASSO) {
+    return launch_ring<T, LASSO, RNARROW>(a, ring, srw, band_len, stream);
+  } else {
+    return nct <= RNARROW
+               ? launch_ring<T, LASSO, RNARROW>(a, ring, srw, band_len,
+                                                stream)
+               : launch_ring<T, LASSO, RMAXC>(a, ring, srw, band_len, stream);
+  }
 }
 
 template <typename T>
 int launch(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
            const int64_t* blk_gidx, const int32_t* blk_rows,
-           const int32_t* blk_W, const int32_t* blk_L, int nblk,
+           const int32_t* blk_W, const int32_t* blk_order, int nblk,
            const int32_t* gidx, T* dp, int64_t dp_stride, const T* cb,
            const T* bh, const T* C2, const T* C4, const T* s1, const T* u,
            const T* z, int64_t m, const T* inv_odd_p, const T* p,
            const uint8_t* sparse, double shrink, int no_jump, T* out_beta,
            uint8_t* out_causal, T* out_postp, T* out_binc, T* out_dps,
-           T* part_h2, T* part_gap, int NC, int nct, int Ls, int threads,
-           int ring, int srw, int64_t band_len, void* stream) {
-  SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L,
-                 gidx, dp, dp_stride, cb, bh, C2, C4, s1, u, z, m,
+           T* part_h2, T* part_gap, int NC, int nct, int threads, int ring,
+           int srw, int64_t band_len, void* stream) {
+  SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W,
+                 blk_order, gidx, dp, dp_stride, cb, bh, C2, C4, s1, u, z, m,
                  inv_odd_p, p, sparse, (T)shrink, no_jump, out_beta,
                  out_causal, out_postp, out_binc, out_dps, part_h2, part_gap,
                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                 nblk, NC, nct, Ls};
+                 nblk, NC, nct};
   return launch_args<T, false>(a, threads, ring, srw, band_len, stream);
 }
 
 template <typename T>
 int launch_lasso(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
                  const int64_t* blk_gidx, const int32_t* blk_rows,
-                 const int32_t* blk_W, const int32_t* blk_L, int nblk,
+                 const int32_t* blk_W, const int32_t* blk_order, int nblk,
                  const int32_t* gidx, T* dp, int64_t dp_stride, T* beta,
                  const T* bh, const T* pf, int64_t m, const T* lam,
                  const T* delta, const uint8_t* active, T* part_gap,
-                 int32_t* part_df, T* part_ms, int NC, int nct, int Ls,
-                 int threads, int ring, int srw, int64_t band_len,
-                 void* stream) {
-  SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L,
-                 gidx, dp, dp_stride, beta, bh, nullptr, nullptr, nullptr,
-                 nullptr, nullptr, m, nullptr, nullptr, nullptr, T(1), 0,
-                 beta, nullptr, nullptr, nullptr, nullptr, nullptr, part_gap,
-                 pf, lam, delta, active, part_df, part_ms,
-                 nblk, NC, nct, Ls};
+                 int32_t* part_df, T* part_ms, int NC, int nct, int threads,
+                 int ring, int srw, int64_t band_len, void* stream) {
+  SweepArgs<T> a{band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W,
+                 blk_order, gidx, dp, dp_stride, beta, bh, nullptr, nullptr,
+                 nullptr, nullptr, nullptr, m, nullptr, nullptr, nullptr,
+                 T(1), 0, beta, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 part_gap, pf, lam, delta, active, part_df, part_ms,
+                 nblk, NC, nct};
   return launch_args<T, true>(a, threads, ring, srw, band_len, stream);
 }
 
@@ -1107,18 +915,18 @@ int launch_lasso(const T* band, const int64_t* blk_band, const int64_t* blk_dp,
   extern "C" int NAME(                                                       \
       const T* band, const int64_t* blk_band, const int64_t* blk_dp,         \
       const int64_t* blk_gidx, const int32_t* blk_rows, const int32_t* blk_W, \
-      const int32_t* blk_L, int nblk, const int32_t* gidx, T* dp,            \
+      const int32_t* blk_order, int nblk, const int32_t* gidx, T* dp,        \
       int64_t dp_stride, const T* cb, const T* bh, const T* C2, const T* C4, \
       const T* s1, const T* u, const T* z, int64_t m, const T* inv_odd_p,    \
       const T* p, const uint8_t* sparse, double shrink, int no_jump,         \
       T* out_beta, uint8_t* out_causal, T* out_postp, T* out_binc,           \
-      T* out_dps, T* part_h2, T* part_gap, int NC, int nct, int Ls,          \
-      int threads, int ring, int srw, int64_t band_len, void* stream) {      \
+      T* out_dps, T* part_h2, T* part_gap, int NC, int nct, int threads,     \
+      int ring, int srw, int64_t band_len, void* stream) {                   \
     return launch<T>(band, blk_band, blk_dp, blk_gidx, blk_rows, blk_W,      \
-                     blk_L, nblk, gidx, dp, dp_stride, cb, bh, C2, C4, s1,   \
-                     u, z, m, inv_odd_p, p, sparse, shrink, no_jump,         \
+                     blk_order, nblk, gidx, dp, dp_stride, cb, bh, C2, C4,   \
+                     s1, u, z, m, inv_odd_p, p, sparse, shrink, no_jump,     \
                      out_beta, out_causal, out_postp, out_binc, out_dps,     \
-                     part_h2, part_gap, NC, nct, Ls, threads, ring, srw,     \
+                     part_h2, part_gap, NC, nct, threads, ring, srw,         \
                      band_len, stream);                                      \
   }
 
@@ -1130,16 +938,16 @@ SWEEP_ENTRY(gibbs_sweep_f64, double)
   extern "C" int NAME(                                                       \
       const T* band, const int64_t* blk_band, const int64_t* blk_dp,         \
       const int64_t* blk_gidx, const int32_t* blk_rows, const int32_t* blk_W, \
-      const int32_t* blk_L, int nblk, const int32_t* gidx, T* dp,            \
+      const int32_t* blk_order, int nblk, const int32_t* gidx, T* dp,        \
       int64_t dp_stride, T* beta, const T* bh, const T* pf, int64_t m,       \
       const T* lam, const T* delta, const uint8_t* active, T* part_gap,      \
-      int32_t* part_df, T* part_ms, int NC, int nct, int Ls, int threads,    \
-      int ring, int srw, int64_t band_len, void* stream) {                   \
+      int32_t* part_df, T* part_ms, int NC, int nct, int threads, int ring,  \
+      int srw, int64_t band_len, void* stream) {                             \
     return launch_lasso<T>(band, blk_band, blk_dp, blk_gidx, blk_rows,       \
-                           blk_W, blk_L, nblk, gidx, dp, dp_stride, beta, bh, \
-                           pf, m, lam, delta, active, part_gap, part_df,     \
-                           part_ms, NC, nct, Ls, threads, ring, srw,         \
-                           band_len, stream);                                \
+                           blk_W, blk_order, nblk, gidx, dp, dp_stride, beta, \
+                           bh, pf, m, lam, delta, active, part_gap, part_df, \
+                           part_ms, NC, nct, threads, ring, srw, band_len,   \
+                           stream);                                          \
   }
 
 LASSO_ENTRY(lassosum_sweep_f32, float)

@@ -1,33 +1,41 @@
-"""The blocked Gibbs sweep: the CUDA kernel that replaces K3, K4 and K5,
-its plain-torch twin, and the banded LD operand they share.
+"""The Gibbs sweep: the CUDA kernel that replaces K3, K4, K5 and the
+JAX package's XLA sweeps, its plain-torch twin, and the banded LD operand
+they share.
 
 Counterpart of `bigsnpr_tpu/pgs/gibbs_pallas.py` (`sweep_bucket_pallas`,
-`sweep_bucket_pallas_mc`, `sweep_bucket_pallas_v3`) and of the XLA twin
-`gibbs_blocked._sweep_gibbs_batched`: one lockstep LDpred2 Gibbs sweep
-over every LD block for NC chains. The kernel is `csrc/gibbs_sweep.cu`,
+`sweep_bucket_pallas_mc`, `sweep_bucket_pallas_v3`), of the XLA twin
+`gibbs_blocked._sweep_gibbs_batched` and of the unblocked samplers'
+`_sweep_gibbs`: one lockstep LDpred2 Gibbs sweep over every LD block for
+NC chains. The kernel is `gibbs_ring_kernel` in `csrc/gibbs_sweep.cu`,
 built with nvcc at first use into `_build/` and loaded with ctypes
-(`ops/cuda_build.py`). `sweep` launches it for CUDA tensors and counts the
-launch in `launches["sweep"]`; for CPU tensors it runs `sweep_plain`.
-There is no fallback from a CUDA tensor to the twin.
+(`ops/cuda_build.py`). `sweep` launches it for CUDA tensors and counts
+the launch in `launches["sweep"]`, or in `launches["sweep_global"]` on a
+band of one block (the unblocked samplers' band over every variant); for
+CPU tensors it runs `sweep_plain`. There is no fallback from a CUDA
+tensor to the twin.
 
-When one chain's dp does not fit in shared memory (a block of about
-28,000 rows or more in float64, twice that in float32: the unblocked
-samplers' one block over every variant), `plan` picks the kernel's ring
-mode (`gibbs_ring_kernel`): dp stays in device memory, and each chain
-keeps only its 2W + 1 live entries, in a ring in shared memory, with one
-warp a chain running the rows 32 at a time and 256 threads applying each
-tile's diffs to the rest of the window one tile behind. Its launches
-count in `launches["sweep_global"]` (and `"lassosum_global"`).
+One kernel serves every band. Each chain keeps only its 2W + 1 live dp
+entries, in a ring in shared memory (dp itself stays in device memory),
+with one warp a chain running the rows 32 at a time and 256 threads
+applying each tile's diffs to the rest of the window one tile behind,
+each band value they load applied to every chain of the CTA. A CTA runs
+one block's chain tile; `plan` picks the chains a CTA (a launch fills
+about RING_CTAS CTAs, at most RING_MAX_CHAINS chains each, RING_NARROW in
+the lassosum mode), the ring, the
+band stages, and `SweepBands` the block order (longest first, a block's
+chain tiles side by side).
 
 The kernel's lassosum mode (`lassosum_sweep`, twin `lassosum_sweep_plain`,
-count `launches["lassosum"]`) runs one deterministic lassosum2
-coordinate-descent sweep with the same skeleton, a grid point in place of
-a chain: the port of the JAX package's XLA `lassosum_cd_blocked` sweep.
+counts `launches["lassosum"]` and `"lassosum_global"`) runs one
+deterministic lassosum2 coordinate-descent sweep with the same skeleton, a
+grid point in place of a chain: the port of the JAX package's XLA
+`lassosum_cd_blocked` and `lassosum_cd` sweeps. Frozen grid points are
+skipped.
 
-Bound: a chain tile reads each block's band once (bytes: band x chain
-tiles plus the per-row inputs and outputs), but the rows of a block are a
-chain of dependent steps, so at these sizes the longest block's rows x
-one step's latency bounds a sweep.
+Bound: a sweep reads the band once (bytes: band plus the per-row inputs
+and outputs), but the rows of a block are a chain of dependent steps, so
+at these sizes the longest block's rows x one row's latency (the row
+floor) and the card's issue rate over every (chain, row) bound a sweep.
 
 Layout: the bands keep their natural per-block shape (rows, 2W + 1),
 bucketed as `BlockBands` builds them; `SweepBands` lays every bucket into
@@ -52,19 +60,20 @@ from bigsnpr_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.PKG / "csrc" / "gibbs_sweep.cu"
 EXTRA_FLAGS = ("--fmad=false",)
-KMAX = 8                 # band columns a thread holds per row (gibbs_sweep.cu)
-SMEM_TARGET = 100 << 10  # shared memory per CTA aimed at: two CTAs an SM
-# the ring mode (gibbs_sweep.cu: RK, RNU, RSTRIPS, RMAXC)
+# gibbs_sweep.cu's RK, RNU, RSTRIPS, RNARROW, RMAXC, RKE, RSR, RSTAGES
 RING_ROWS = 32           # rows a tile, one a lane of a chain's row warp
 RING_UPDATE = 256        # update threads a CTA
 RING_STRIPS = 3          # strip buffers of the row warps' band values
-RING_MAX_CHAINS = 2      # chains a CTA at most
+RING_NARROW = 3          # chains a CTA of the narrow instantiation
+RING_MAX_CHAINS = 7      # chains a CTA at most (the wide instantiation;
+                         # the lassosum mode takes the narrow one only)
 RING_ENTRIES = 4         # entries of a tile an update thread takes at most
-RING_HALF = 16           # band rows a stage (half a tile)
-RING_STAGES = 3          # band stages
+RING_STAGE_ROWS = 8      # band rows a stage
+RING_STAGES = 4          # band stages (a tile's rows)
 BAND_PAD = 80            # zeros after the band arena: the bulk copies take
                          # whole 16-byte chunks and a strip row 64 + V values
-RING_CTAS = 128          # CTAs aimed at (~ an H100's 132 SMs): ceil(NC / 128)
+RING_CTAS = 128          # CTAs a launch aims at (~ an H100's 132 SMs)
+SCHED_REGS = 16384       # 32-bit registers of each of an SM's 4 schedulers
 
 # kernel launches made by the wrapper
 launches = {"sweep": 0, "lassosum": 0, "sweep_global": 0,
@@ -86,12 +95,12 @@ def _bind(lib):
                         ctypes.c_double)
     for fn in (lib.gibbs_sweep_f32, lib.gibbs_sweep_f64):
         fn.argtypes = ([p] * 7 + [i32, p, p, i64] + [p] * 7 + [i64]
-                       + [p] * 3 + [f64, i32] + [p] * 7
-                       + [i32, i32, i32, i32, i32, i32, i64, p])
+                       + [p] * 3 + [f64, i32] + [p] * 7 + [i32] * 5
+                       + [i64, p])
         fn.restype = i32
     for fn in (lib.lassosum_sweep_f32, lib.lassosum_sweep_f64):
         fn.argtypes = ([p] * 7 + [i32, p, p, i64] + [p] * 3 + [i64]
-                       + [p] * 6 + [i32, i32, i32, i32, i32, i32, i64, p])
+                       + [p] * 6 + [i32] * 5 + [i64, p])
         fn.restype = i32
     lib.gibbs_sweep_max_smem.argtypes = [i32]
     lib.gibbs_sweep_max_smem.restype = i32
@@ -103,8 +112,9 @@ def _load():
 
 class SweepBands:
     """Every bucket of a `BlockBands` on one device: a flat band arena
-    (and BAND_PAD zeros after it) with per-block offset tables (the
-    kernel's operand) and per-bucket views (the twin's).
+    (and BAND_PAD zeros after it) with per-block offset tables and the
+    kernel's block order, longest block first (the kernel's operand), and
+    per-bucket views (the twin's).
 
     buckets: list of host (bands (Bk, mbk, 2W+1), gidx (Bk, mbk)) with
     gidx the global variant of each slot (-1 at padding, valid slots a
@@ -115,8 +125,7 @@ class SweepBands:
         self.device = torch.empty(0, device=device).device  # "cuda" -> "cuda:0"
         self.dtype = dtype
         band_parts, gidx_parts, self.views = [], [], []
-        blk_band, blk_dp, blk_gidx, blk_rows, blk_W, blk_L = ([] for _ in
-                                                              range(6))
+        blk_band, blk_dp, blk_gidx, blk_rows, blk_W = ([] for _ in range(5))
         band_off = dp_off = g_off = nblk = 0
         for bands, gidx in buckets:
             Bk, mbk, wk = bands.shape
@@ -130,7 +139,6 @@ class SweepBands:
                 blk_gidx.append(g_off + b * mbk)
                 blk_rows.append(int(rows[b]))
                 blk_W.append(W)
-                blk_L.append(L)
             band_parts.append(torch.as_tensor(
                 np.ascontiguousarray(bands), dtype=dtype,
                 device=self.device).reshape(-1))
@@ -152,14 +160,16 @@ class SweepBands:
         self.blk_band, self.blk_dp, self.blk_gidx = (i64(blk_band),
                                                      i64(blk_dp),
                                                      i64(blk_gidx))
-        self.blk_rows, self.blk_W, self.blk_L = (i32(blk_rows), i32(blk_W),
-                                                 i32(blk_L))
+        self.blk_rows, self.blk_W = i32(blk_rows), i32(blk_W)
+        # longest first, so that the longest blocks' chains start first
+        self.order = np.argsort(-np.asarray(blk_rows, np.int64),
+                                kind="stable").astype(np.int32)
+        self.blk_order = i32(self.order)
         self.nblk = nblk
         self.dp_len = dp_off
-        self.Lmax = max(blk_L, default=1)
         self.wkmax = max((2 * w + 1 for w in blk_W), default=1)
         self.max_rows = max(blk_rows, default=0)
-        self.plans = {}  # NC -> SweepPlan
+        self.plans = {}  # plan_key(NC, lasso) -> SweepPlan
         self._host = buckets
         self._merged = None
 
@@ -325,14 +335,12 @@ def sweep_plain(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
 # ---------------------------------------------------------------------------
 
 class SweepPlan(NamedTuple):
-    """A launch of `gibbs_sweep.cu`: chains a CTA, threads a CTA, whether
-    it takes the ring mode, the ring's slots a chain (0 in the
-    shared-memory mode), the values a row of a band stage holds (0: the
+    """A launch of `gibbs_ring_kernel`: chains a CTA, threads a CTA, the
+    ring's slots a chain, the values a row of a band stage holds (0: the
     update threads read the band in place) and the dynamic shared memory
     in bytes."""
     nct: int
     threads: int
-    ring: bool
     ring_len: int
     stage: int
     smem: int
@@ -340,24 +348,40 @@ class SweepPlan(NamedTuple):
 
 def ring_smem_bytes(nct: int, ring_len: int, elem: int, stage: int = 0
                     ) -> int:
-    """The ring mode's dynamic shared memory (gibbs_sweep.cu's
+    """The kernel's dynamic shared memory (gibbs_sweep.cu's
     `ring_smem_bytes`): 128 B of mbarriers, nct rings of `ring_len`
     values, RING_STRIPS strips of 32 rows x (64 + V) values (V a 16-byte
     chunk), two tiles of diffs and partial terms a chain, and with `stage`
-    values a row, RING_STAGES band stages of RING_HALF rows and 32 values
-    of slack."""
+    values a row, RING_STAGES band stages of RING_STAGE_ROWS rows and 32
+    values of slack."""
     V = 16 // elem
     return (128 + nct * ring_len * elem
             + RING_STRIPS * RING_ROWS * (2 * RING_ROWS + V) * elem
             + 6 * nct * RING_ROWS * elem
-            + ((RING_STAGES * RING_HALF * stage + RING_ROWS) * elem
+            + ((RING_STAGES * RING_STAGE_ROWS * stage + RING_ROWS) * elem
                if stage else 0))
 
 
+def ring_capacity(nct: int) -> int:
+    """The chains a CTA of the instantiation that runs nct chains a CTA:
+    RING_NARROW up to that many, else RING_MAX_CHAINS."""
+    return RING_NARROW if nct <= RING_NARROW else RING_MAX_CHAINS
+
+
 def ring_threads(nct: int) -> int:
-    """Threads of a ring-mode CTA: a row warp a chain, RING_UPDATE update
-    threads and a producer warp."""
+    """Threads of a CTA: a row warp a chain, RING_UPDATE update threads and
+    a producer warp."""
     return 32 * nct + RING_UPDATE + 32
+
+
+def ring_regs(nct: int) -> int:
+    """The registers a thread may use under the launch bound of nct's
+    instantiation, one CTA of its full thread count an SM: its warps go
+    to the SM's 4 schedulers in turn, each with SCHED_REGS registers, in
+    ptxas' steps of 8: 168 for the narrow one (12 warps), 128 for the
+    wide one (16)."""
+    warps = ring_threads(ring_capacity(nct)) // 32
+    return SCHED_REGS // (32 * -(-warps // 4)) // 8 * 8
 
 
 def ring_len_for(W: int) -> int:
@@ -371,42 +395,32 @@ def ring_len_for(W: int) -> int:
     return max(RING_UPDATE, 1 << (need - 1).bit_length())
 
 
-def plan(sb: SweepBands, NC: int, max_smem: int, ring=None) -> SweepPlan:
-    """The launch for NC chains, given the device's `max_smem` bytes of
-    shared memory a block. The shared-memory mode when one chain's dp
-    fits: as many chains a CTA as fit SMEM_TARGET bytes of dp (at least
-    one, within the limit), threads for one a chain and KMAX band columns
-    each. Otherwise (or with ring=True) the ring mode: ceil(NC /
-    RING_CTAS) chains a CTA, at most RING_MAX_CHAINS (more chains a CTA
-    read the band fewer times but give the update threads more to do a
-    tile, and the update threads set the pace of lassosum's short rows:
-    LDpred2-auto's 30 chains and lassosum2's 120 grid points take one CTA
-    each), fewer if the shared memory runs out; the band comes
-    through RING_STAGES stages of RING_HALF rows (each row from the
-    16-byte chunk of its start: 2W + V values rounded up to V) where they
-    still fit and a tile's 2W + 32 entries are at most RING_ENTRIES an
-    update thread, else the update threads read it in place; raises
-    ValueError on a band whose ring does not fit with one chain."""
+def plan(sb: SweepBands, NC: int, max_smem: int, lasso: bool = False
+         ) -> SweepPlan:
+    """The launch for NC chains on `sb` (its widest band and its number of
+    blocks), given the device's `max_smem` bytes of shared memory a block.
+    Chains a CTA: enough that the launch's nblk x NC (block, chain) pairs
+    make about RING_CTAS CTAs, at least one and at most RING_MAX_CHAINS
+    (RING_NARROW for the lassosum mode, `lasso`: its float32 code spills
+    at the wide instantiation's registers) (more chains a CTA share each
+    band value the update threads load, and
+    keep more row warps an SM; fewer give the update threads less to do a
+    tile: slice 5's one band at LDpred2-auto's 30 chains and lassosum2's
+    120 grid points takes one a CTA, slice 2's 67 blocks at 30 chains
+    six, slice 4's 42 at 120 points three), spread evenly over the chain
+    tiles, fewer if the shared memory
+    runs out. The band comes through RING_STAGES stages of RING_STAGE_ROWS
+    rows (each row from the 16-byte chunk of its start: 2W + V values
+    rounded up to V) where they still fit and a tile's 2W + 32 entries are
+    at most RING_ENTRIES an update thread, else the update threads read it
+    in place. Raises ValueError on a band whose ring does not fit with one
+    chain."""
     sz = torch.empty((), dtype=sb.dtype).element_size()
-    per_chain = (sb.Lmax + 1) * sz
-    if ring is None:
-        ring = per_chain > max_smem
-    if not ring:
-        if per_chain > max_smem:
-            raise ValueError(f"one chain's dp ({per_chain} B) exceeds the "
-                             f"{max_smem} B of shared memory a block")
-        nct = max(1, min(NC, max(SMEM_TARGET, per_chain) // per_chain,
-                         max_smem // per_chain, 1024))
-        need = -(-sb.wkmax // KMAX)
-        threads = max(-(-nct // 32) * 32, -(-need // 32) * 32, 32)
-        if threads > 1024:
-            raise ValueError(f"band width {sb.wkmax} exceeds the kernel's "
-                             f"{1024 * KMAX} columns")
-        return SweepPlan(nct, threads, False, 0, 0,
-                         (nct * sb.Lmax + nct) * sz)
     W = (sb.wkmax - 1) // 2
     S = ring_len_for(W)
-    nct = max(1, min(NC, RING_MAX_CHAINS, -(-NC // RING_CTAS)))
+    cap = RING_NARROW if lasso else RING_MAX_CHAINS
+    nct = max(1, min(NC, cap, -(-NC * sb.nblk // RING_CTAS)))
+    nct = -(-NC // -(-NC // nct))      # the same tiles, chains spread evenly
     while nct > 1 and ring_smem_bytes(nct, S, sz) > max_smem:
         nct -= 1
     smem = ring_smem_bytes(nct, S, sz)
@@ -420,7 +434,7 @@ def plan(sb: SweepBands, NC: int, max_smem: int, ring=None) -> SweepPlan:
     if 2 * W + RING_ROWS > RING_ENTRIES * RING_UPDATE or \
             ring_smem_bytes(nct, S, sz, stage) > max_smem:
         stage = 0
-    return SweepPlan(nct, ring_threads(nct), True, S, stage,
+    return SweepPlan(nct, ring_threads(nct), S, stage,
                      ring_smem_bytes(nct, S, sz, stage))
 
 
@@ -432,16 +446,23 @@ def max_smem(device) -> int:
     return _load().gibbs_sweep_max_smem(index)
 
 
-def _plan_for(sb, NC):
-    if NC not in sb.plans:
-        sb.plans[NC] = plan(sb, NC, max_smem(sb.device))
-    return sb.plans[NC]
+def plan_key(NC: int, lasso: bool = False):
+    """The key of a launch's plan in `SweepBands.plans`: NC for the
+    LDpred2 sweep, ("lassosum", NC) for the lassosum mode."""
+    return ("lassosum", NC) if lasso else NC
+
+
+def _plan_for(sb, NC, lasso=False):
+    key = plan_key(NC, lasso)
+    if key not in sb.plans:
+        sb.plans[key] = plan(sb, NC, max_smem(sb.device), lasso)
+    return sb.plans[key]
 
 
 def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
           sparse, shrink, no_jump):
     """One Gibbs sweep over every block for NC chains (see `sweep_plain`
-    for the outputs). CUDA tensors launch `gibbs_sweep_kernel`; CPU
+    for the outputs). CUDA tensors launch `gibbs_ring_kernel`; CPU
     tensors take `sweep_plain`."""
     _check(sb, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p, sparse)
     if sb.device.type == "cpu":
@@ -459,16 +480,16 @@ def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
         lib.gibbs_sweep_f32
     ptr = lambda t: t.data_ptr()  # noqa: E731
     rc = fn(ptr(sb.band), ptr(sb.blk_band), ptr(sb.blk_dp), ptr(sb.blk_gidx),
-            ptr(sb.blk_rows), ptr(sb.blk_W), ptr(sb.blk_L), sb.nblk,
+            ptr(sb.blk_rows), ptr(sb.blk_W), ptr(sb.blk_order), sb.nblk,
             ptr(sb.gidx), ptr(dp), sb.dp_len, ptr(cb), ptr(bh), ptr(C2),
             ptr(C4), ptr(s1), ptr(u), ptr(z), m, ptr(inv_odd_p), ptr(p),
             ptr(sparse), float(shrink), int(bool(no_jump)),
-            *(ptr(t) for t in outs), NC, pl.nct, sb.Lmax, pl.threads,
-            pl.ring_len, pl.stage, sb.band.numel(),
+            *(ptr(t) for t in outs), NC, pl.nct, pl.threads, pl.ring_len,
+            pl.stage, sb.band.numel(),
             torch.cuda.current_stream(sb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gibbs_sweep launch failed: CUDA error {rc}")
-    launches["sweep_global" if pl.ring else "sweep"] += 1
+    launches["sweep_global" if sb.nblk == 1 else "sweep"] += 1
     return outs[:5] + (outs[5].sum(1), outs[6].sum(1))
 
 
@@ -586,7 +607,7 @@ def lassosum_sweep_plain(sb: SweepBands, dp, beta, bh, pf, lam, delta,
 def lassosum_sweep(sb: SweepBands, dp, beta, bh, pf, lam, delta, active):
     """One lassosum2 sweep over every block for NG grid points (see
     `lassosum_sweep_plain` for the arguments and outputs). CUDA tensors
-    launch `gibbs_sweep_kernel`'s lassosum mode; CPU tensors take
+    launch `gibbs_ring_kernel`'s lassosum mode; CPU tensors take
     `lassosum_sweep_plain`."""
     _check_lasso(sb, dp, beta, bh, pf, lam, delta, active)
     if sb.device.type == "cpu":
@@ -601,18 +622,17 @@ def lassosum_sweep(sb: SweepBands, dp, beta, bh, pf, lam, delta, active):
     ms = torch.zeros((NG, sb.nblk), dtype=sb.dtype, device=dev)
     if sb.nblk == 0 or NG == 0:
         return gap.sum(1), df.sum(1, dtype=torch.int32), ms.amax(1)
-    pl = _plan_for(sb, NG)
+    pl = _plan_for(sb, NG, lasso=True)
     fn = lib.lassosum_sweep_f64 if sb.dtype == torch.float64 else \
         lib.lassosum_sweep_f32
     ptr = lambda t: t.data_ptr()  # noqa: E731
     rc = fn(ptr(sb.band), ptr(sb.blk_band), ptr(sb.blk_dp), ptr(sb.blk_gidx),
-            ptr(sb.blk_rows), ptr(sb.blk_W), ptr(sb.blk_L), sb.nblk,
+            ptr(sb.blk_rows), ptr(sb.blk_W), ptr(sb.blk_order), sb.nblk,
             ptr(sb.gidx), ptr(dp), sb.dp_len, ptr(beta), ptr(bh), ptr(pf), m,
             ptr(lam), ptr(delta), ptr(active), ptr(gap), ptr(df), ptr(ms),
-            NG, pl.nct, sb.Lmax, pl.threads, pl.ring_len, pl.stage,
-            sb.band.numel(),
+            NG, pl.nct, pl.threads, pl.ring_len, pl.stage, sb.band.numel(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lassosum_sweep launch failed: CUDA error {rc}")
-    launches["lassosum_global" if pl.ring else "lassosum"] += 1
+    launches["lassosum_global" if sb.nblk == 1 else "lassosum"] += 1
     return gap.sum(1), df.sum(1, dtype=torch.int32), ms.amax(1)

@@ -12,9 +12,9 @@ The unblocked samplers (`gibbs_one`, `gibbs_one_sampling`, `gibbs_auto`,
 `lassosum_cd`, the JAX package's names) walk one band over every variant
 (`band.one_block_bands`): they are the drivers of `gibbs_blocked.py` on
 that one block, every chain or grid point of a call in one launch a
-sweep, where the JAX package `vmap`s its `lax.scan`s. On a card the block
-is too long for shared memory and the sweep kernel runs in its global-dp
-mode (`ops/gibbs_kernels.py`).
+sweep, where the JAX package `vmap`s its `lax.scan`s. On a card the sweep
+kernel (`ops/gibbs_kernels.py`) runs that one block as it runs the blocked
+bands; its launches count as "global" ones.
 """
 
 from __future__ import annotations

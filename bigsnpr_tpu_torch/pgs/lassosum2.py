@@ -7,7 +7,7 @@ Every grid point runs at once through the sweep kernel's lassosum mode:
 on the blocked bands (`blocks=`, `pgs/gibbs_blocked.py::
 lassosum_cd_blocked`) or, by default, on one band over every variant
 (`blocks=None`, the JAX package's unblocked `lassosum_cd`, `pgs/gibbs.py`;
-the kernel's global-dp mode on a card).
+the same kernel on a card).
 """
 
 from __future__ import annotations

@@ -45,8 +45,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the K3 shape (1 chain), a K4 shape (narrow bucket) and the two shapes
      the main path launches on the slice-2 bands (LDpred2-auto's 30 chains,
      and the grid's 9 cells with shrink 1 and sign jumps allowed), plus a
-     float64 case, each run twice for bit-equality, timed beside the twin
-     and its bound;
+     float64 case, each run twice for bit-equality, timed beside the twin,
+     its bound and the design's floors (the longest block's row floor, the
+     card's issue floor, the band read once a chain tile), with its plan;
   8. torch.profiler around a 20-sweep snp_ldpred2_auto call on the slice-2
      data: the device's busy share and the kernels that take it (and the
      same in slice 5, [16], on the unblocked sampler);
@@ -93,17 +94,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      other half;
  14. K7 timed at the slice's shapes and at 50,000 x 100,000 (l = 20, random
      bytes), its GEMM on prepared operands and the whole wrapper, beside
-     its twin, torch.matmul in bf16 on pre-decoded planes and its bound; the sweep kernel's lassosum mode at the slice's bands with
-     its 120 grid points, bit-equal to its twin, beside it and its bound;
+     its twin, torch.matmul in bf16 on pre-decoded planes and its bound;
+     the sweep kernel's lassosum mode at the slice's bands with its 120
+     grid points, bit-equal to its twin, beside it, its bound and its
+     floors;
  15. K8 (csrc/geno_i8.cu on int8 planes materialized once, int8m_planes)
      against its twin and K6 in its four instantiations at [9]'s shapes:
      raw int32 sums equal to both, outputs bit-equal to K6's; the masked
-     int8m operator bit-equal to the int8 one; the sweep kernel's ring
-     mode (dp in device memory, its live window in shared memory; the
-     "global-dp" launches) and its lassosum mode in it against their twins
-     on a float64 band too long for shared memory (--gdp-rows 29,100) and,
-     forced, on a short float32 one at 30 chains and 120 grid points, there
-     also bit-equal to the shared-memory mode;
+     int8m operator bit-equal to the int8 one; the sweep kernel and its
+     lassosum mode against their twins on a float64 band of one block
+     (--gdp-rows 29,100 rows; the "global" launches) and on 12 float32
+     blocks at 30 chains and 120 grid points, several a CTA, there also
+     bit-equal at one chain a CTA;
  16. slice 5 at 20,000 x 100,000 (slice 2's one-chromosome generator,
      15,000 training / 5,000 test): bed_scaleBinom ->
      GenoOperator(mxu="int8m") -> snp_randomSVD(op=) (K8 only, d / u / v
@@ -113,13 +115,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      chains, --burn-in5 300 + --num-iter5 200 sweeps, 5 timed first; the
      JAX default burn-in is 500) -> chain QC
      -> snp_ldpred2_grid(blocks=None, 3 x 3) and return_sampling_betas ->
-     snp_lassosum2(blocks=None, 4 x 30) -> snp_PRS, every sweep in the
-     ring mode; torch.profiler around 20 of the LDpred2-auto sweeps: the
+     snp_lassosum2(blocks=None, 4 x 30) -> snp_PRS, every sweep on the
+     one band; torch.profiler around 20 of the LDpred2-auto sweeps: the
      device's idle share, the driver's time a sweep beside the kernel's;
  17. (a, inside [11]) K8 timed on slice 3's 50,000 x 100,000 planes, l =
      12 and 20, NA and NA-free, beside its twin, torch._int_mm on the same
      planes and its bound, and the NA-free randomSVD on an int8m operator;
-     (b) the ring mode at slice 5's band, LDpred2-auto's 30 chains and
+     (b) the sweep kernel at slice 5's band, LDpred2-auto's 30 chains and
      lassosum2's 120 grid points: held against its twin and timed beside
      its bound and its row floor.
 
@@ -172,27 +174,29 @@ SPLIT_TOL = 1e-5     # K7 vs twin: f32 sums of exact products in two orders
 SPLIT_DENSE_TOL = 2e-5   # K7 and twin vs float64 (tests/test_pallas.py's bound)
 PEAK_BF16_FLOP_PER_S = 989e12
 LASSO_REPLACES = "bigsnpr_tpu/pgs/gibbs_blocked.py:1427"
-# the unblocked samplers' lax.scans, which the ring mode replaces
+# the unblocked samplers' lax.scans, which the sweep kernel also replaces
 GDP_REPLACES = {"sweep": "bigsnpr_tpu/pgs/gibbs.py:28",
                 "lassosum": "bigsnpr_tpu/pgs/gibbs.py:373"}
 K7 = tuple(SPLIT_REPLACES)
 K1K2 = ("cprod", "prod")
 K6 = tuple(I8_REPLACES)
 SWEEP_TOL = 1e-5   # sweep vs twin: max |diff| <= SWEEP_TOL * max |twin|
-# one sweep row's least latency (a floor of the kernel's design, printed
-# beside the bound): the dependent chain of a row (shared
-# load, ~15 dependent float ops, exp, a division, the AXPY's shared
-# read-modify-write, two barriers), ~300 cycles in float32 and ~600 in
-# float64, at the H100 SXM's 1.98 GHz boost clock
-STEP_CYCLES = {4: 300, 8: 600}
-# the ring mode's row floor: a row's dependent chain in the row warp (its
+# the sweep kernel's row floor: a row's dependent chain in the row warp (its
 # scalar step from dp[j + W], one shuffle of the diff, one multiply and add
 # into the next lane's entry; no barrier, no memory access). LDpred2:
 # ~12 dependent float ops, two IEEE divisions and an exp, ~200 cycles in
 # float32 and ~500 in float64; lassosum: ~8 ops and one division, ~100 and
-# ~250
+# ~250. Printed beside the bound: the longest block's rows x this
 RING_ROW_CYCLES = {("sweep", 4): 200, ("sweep", 8): 500,
                    ("lassosum", 4): 100, ("lassosum", 8): 250}
+# the card's issue floor: the instructions a row warp issues a row (every
+# lane runs the step: ~100 for the LDpred2 step in float32, about twice in
+# float64, half for lassosum; an estimate, not a count of the SASS), plus
+# one multiply-add instruction a band value and 32 chains, over 132 SMs x
+# 4 schedulers issuing one a cycle
+ROW_ISSUE = {("sweep", 4): 100, ("sweep", 8): 200,
+             ("lassosum", 4): 50, ("lassosum", 8): 100}
+SMS, SCHEDULERS = 132, 4
 CLOCK_HZ = 1.98e9
 N_CHAINS = 30     # LDpred2-auto chains: the vignette's vec_p_init length
 GRID_CELLS = 9    # LDpred2-grid: 3 p x 3 h2
@@ -945,6 +949,8 @@ def phase_slice2(bp, gsk, gk, torch, dev, args):
     if bad:
         fail(f"slice 2 checks failed: {bad}")
     no_floor_cost(torch, dev, bp, pack, train, size)
+    launches["auto_sweeps"] = sweeps["snp_ldpred2_auto"]
+    launches["grid_sweeps"] = sweeps["snp_ldpred2_grid"]
     return bb, launches, run_auto
 
 
@@ -1017,8 +1023,7 @@ def sweep_bound(sb, NC, nct):
     it must move (band once, per-variant inputs and outputs, dp in and
     out) over 3.35 TB/s and its float operations (2 (2W + 1) for the AXPY
     plus ~30 for the step, per chain and row) over 67 TFLOP/s. Beside it,
-    two floors of this design: the band read once per chain tile, and the
-    longest block's rows x one row's least latency."""
+    the band read once per chain tile (nct chains a CTA)."""
     sz = sb.band.element_size()
     rows = sb.blk_rows.cpu().numpy().astype(np.int64)
     wk = 2 * sb.blk_W.cpu().numpy().astype(np.int64) + 1
@@ -1035,9 +1040,42 @@ def sweep_bound(sb, NC, nct):
     t_ops = NC * float((rows * (2 * wk + 30)).sum()) / PEAK_F32_FLOP_PER_S \
         * 1e3
     t_tiles = (band * -(-NC // nct) + io) / PEAK_BYTES_PER_S * 1e3
-    t_lat = sb.max_rows * STEP_CYCLES[sz] / CLOCK_HZ * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, t_tiles, t_lat
+    return max(t_bytes, t_ops), by, t_tiles
+
+
+def ring_floor_ms(sb, kind):
+    """The kernel's row floor: the longest block's rows x one row's
+    dependent chain (RING_ROW_CYCLES) at CLOCK_HZ."""
+    return (sb.max_rows * RING_ROW_CYCLES[(kind, sb.band.element_size())]
+            / CLOCK_HZ * 1e3)
+
+
+def issue_floor_ms(sb, NC, kind):
+    """The card's issue floor of a sweep: every (chain, row)'s row-warp
+    instructions (ROW_ISSUE) and one multiply-add instruction a band value
+    and 32 chains, over SMS x SCHEDULERS issuing one a cycle."""
+    rows = sb.blk_rows.cpu().numpy().astype(np.int64)
+    wk = 2 * sb.blk_W.cpu().numpy().astype(np.int64) + 1
+    instr = NC * (float(rows.sum()) * ROW_ISSUE[(kind, sb.band.element_size())]
+                  + float((rows * wk).sum()) / 32)
+    return instr / (SMS * SCHEDULERS) / CLOCK_HZ * 1e3
+
+
+def sweep_plan_text(sb, pl, NC):
+    """The sweep's plan for NC chains: chains a CTA, CTAs, threads, ring,
+    band stages, shared memory and the block order."""
+    if pl is None:
+        return "no plan (not launched on the card)"
+    rows = sb.blk_rows.cpu().numpy()[sb.order]
+    order = ("one block" if sb.nblk == 1 else
+             f"blocks longest first ({rows[0]} .. {rows[-1]} rows), a "
+             f"block's chain tiles side by side")
+    return (f"{pl.nct} chains a CTA, {sb.nblk * -(-NC // pl.nct)} CTAs of "
+            f"{pl.threads} threads, ring of {pl.ring_len} slots, "
+            + (f"band stages of {pl.stage} values a row"
+               if pl.stage else "band read in place")
+            + f", {pl.smem} B of shared memory; {order}")
 
 
 def phase_sweep_kernels(bp, gsk, torch, dev, bb, launches, timer, seed):
@@ -1094,22 +1132,31 @@ def phase_sweep_kernels(bp, gsk, torch, dev, bb, launches, timer, seed):
                 v[0] > v[1] for k, v in errs.items() if k != "causal"):
             fail(f"sweep kernel {tag} disagrees with its twin or does not "
                  f"repeat")
-        if tag == "f64":
-            continue
         ms = timer(lambda: gsk.sweep(sb, st["dp"], st["cb"], st["bh"],
                                      st["C2"], st["C4"], st["s1"], st["u"],
                                      st["z"], st["inv_odd_p"], st["p"],
                                      st["sparse"], shrink, no_jump), reps=5)
-        nct = sb.plans.get(NC, (NC, 0))[0]
-        bound, by, t_tiles, t_lat = sweep_bound(sb, NC, nct)
+        pl = sb.plans.get(NC)
+        bound, by, t_tiles = sweep_bound(sb, NC, pl.nct if pl else NC)
+        t_row, t_issue = ring_floor_ms(sb, "sweep"), issue_floor_ms(
+            sb, NC, "sweep")
+        cyc = RING_ROW_CYCLES[("sweep", sb.band.element_size())]
+        log(f"    plan: {sweep_plan_text(sb, pl, NC)}")
         log(f"    kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms, bound "
-            f"{bound:.3f} ms ({by}); this design's floors: band once per "
-            f"chain tile {t_tiles:.3f} ms ({nct} chains a CTA), longest "
-            f"block's rows x step latency {t_lat:.3f} ms")
+            f"{bound:.3f} ms ({by}); this design's floors: the longest "
+            f"block's row floor {t_row:.3f} ms ({cyc} cycles a row), the "
+            f"card's issue floor {t_issue:.3f} ms, the band once per chain "
+            f"tile {t_tiles:.3f} ms; {ms / max(t_row, t_issue, 1e-9):.2f}x "
+            f"the larger floor")
+        if tag == "f64":
+            continue
         rows.append({
             "name": f"gibbs_sweep ({tag} shape: {what})", "route": "cuda",
             "source": SWEEP_SOURCE, "replaces": replaces,
-            "launches": launches["sweep"],
+            # slice 2's main path: LDpred2-auto's sweeps take the K5 shape,
+            # the grid's the grid shape; K3's and K4's run on no slice
+            "launches": {"K5": launches["auto_sweeps"],
+                         "grid": launches["grid_sweeps"]}.get(tag, 0),
             "max_abs_err": max(v[0] for k, v in errs.items()
                                if k != "causal"),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -1499,13 +1546,15 @@ def plane_ptxas_summary(lib_path):
 
 
 def sweep_ptxas_summary(lib_path):
-    """The sweep kernel: gibbs_ring_kernel<T, LASSO> (the ring mode) and
-    gibbs_sweep_kernel<T, LASSO> (dp in shared memory)."""
-    for name in ("gibbs_ring_kernel", "gibbs_sweep_kernel"):
-        ptxas_summary(
-            lib_path, f"{name}<T, LASSO>", name + r"I([fd])Lb(\d)E",
-            lambda t: (("float32 " if t[1] == "f" else "float64 ")
-                       + ("lassosum" if t[2] == "1" else "LDpred2")))
+    """The sweep kernel: gibbs_ring_kernel<T, LASSO, NCMAX> (NCMAX: the
+    chains a CTA the instantiation holds, whose launch bound caps its
+    registers)."""
+    ptxas_summary(
+        lib_path, "gibbs_ring_kernel<T, LASSO, NCMAX>",
+        r"gibbs_ring_kernelI([fd])Lb(\d)ELi(\d+)E",
+        lambda t: (("float32 " if t[1] == "f" else "float64 ")
+                   + ("lassosum" if t[2] == "1" else "LDpred2 ").ljust(9)
+                   + f" NCMAX {t[3]}"))
 
 
 def bound_i8(P, W_rows, l, rows_out, planes, nm):
@@ -2347,13 +2396,19 @@ def phase_lasso_timed(bp, torch, dev, s4, args):
     ms = timer(lambda: gsk.lassosum_sweep(sb, dp.clone(), beta.clone(), bh_t,
                                           pf_t, lam_t, del_t, active), reps=5)
     bound, by = lasso_bound(sb, NG)
-    nct = sb.plans.get(NG, (NG, 0))[0]
+    pl = sb.plans.get(gsk.plan_key(NG, True))
+    t_row, t_issue = ring_floor_ms(sb, "lassosum"), issue_floor_ms(
+        sb, int(active.sum()), "lassosum")
     log(f"  lassosum mode ({NG} grid points, {int(active.sum())} active; "
         f"{sb.nblk} blocks, {sb.max_rows} rows in the longest, width up to "
-        f"{sb.wkmax}; {nct} points a CTA): kernel {ms:.3f} ms a sweep, twin "
-        f"{plain_ms:.1f} ms, bound {bound:.3f} ms ({by}); bit-equal to the "
-        f"twin {bit} (max abs diff {err:.1e}); two launches bit-equal "
-        f"{repeat}")
+        f"{sb.wkmax}): kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms, "
+        f"bound {bound:.3f} ms ({by}); bit-equal to the twin {bit} (max abs "
+        f"diff {err:.1e}); two launches bit-equal {repeat}")
+    log(f"    plan: {sweep_plan_text(sb, pl, NG)}")
+    log(f"    floors: the longest block's row floor {t_row:.3f} ms "
+        f"({RING_ROW_CYCLES[('lassosum', sb.band.element_size())]} cycles a "
+        f"row), the card's issue floor {t_issue:.3f} ms (active points); "
+        f"{ms / max(t_row, t_issue, 1e-9):.2f}x the larger floor")
     if not (bit and repeat):
         fail("the lassosum mode disagrees with its twin or does not repeat")
     return {"name": "gibbs_sweep lassosum mode (lassosum2, 120 grid points)",
@@ -2366,7 +2421,7 @@ def phase_lasso_timed(bp, torch, dev, s4, args):
 
 # ---------------------------------------------------------------------------
 # slice 5: K8 (int8m) under randomSVD -> GWAS -> the unblocked LDpred2 and
-# lassosum2 on the sweep kernel's ring mode
+# lassosum2 on the sweep kernel, one band over every variant
 # ---------------------------------------------------------------------------
 
 def check_i8m(gk, torch, dev, packed, n, c, inv, V, U, nona, tag):
@@ -2412,7 +2467,7 @@ def band_ld(bp, rows, width, seed):
 
 def phase_i8m_small(bp, gk, torch, dev, rng):
     log("[15] K8 (materialized int8 planes) vs its twin and K6 at awkward "
-        "shapes; the sweep kernel's ring mode vs its twin")
+        "shapes; the sweep kernel on one band and on blocks vs its twin")
     for n, m, l in ((1000, 777, 1), (1001, 1500, 12), (1002, 3001, 20),
                     (1003, 513, 21), (20000, 2100, 20)):
         for na in (True, False):
@@ -2444,20 +2499,44 @@ def phase_i8m_small(bp, gk, torch, dev, rng):
              "one")
 
 
-def force_ring(gsk, torch, dev, sb, k):
-    """Plan the ring mode for k chains on `sb` whatever its dp's length."""
-    if dev.type == "cuda":
-        sb.plans[k] = gsk.plan(sb, k, gsk.max_smem(dev), ring=True)
+def plan_at(gsk, dev, sb, NC, nct, lasso=False):
+    """The sweep's (or with `lasso` the lassosum mode's) launch for NC
+    chains at nct chains a CTA (the plan's ring, its stages where they
+    still fit)."""
+    smem = gsk.max_smem(dev)
+    pl = gsk.plan(sb, NC, smem, lasso)
+    elem = sb.band.element_size()
+    stage = pl.stage if gsk.ring_smem_bytes(nct, pl.ring_len, elem,
+                                            pl.stage) <= smem else 0
+    return gsk.SweepPlan(nct, gsk.ring_threads(nct), pl.ring_len, stage,
+                         gsk.ring_smem_bytes(nct, pl.ring_len, elem, stage))
+
+
+def at_one_chain(gsk, torch, dev, sb, NC, fn, lasso=False):
+    """fn() with the sweep (the lassosum mode) planned at one chain a CTA
+    (the card only), the plan restored after."""
+    if dev.type != "cuda":
+        return fn()
+    key = gsk.plan_key(NC, lasso)
+    saved = sb.plans.get(key)
+    sb.plans[key] = plan_at(gsk, dev, sb, NC, 1, lasso)
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            del sb.plans[key]
+        else:
+            sb.plans[key] = saved
 
 
 def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer,
-                   force=False):
-    """The ring mode ("global-dp" launches) on one band against its twin
-    on the card (same pre-drawn u / z): SWEEP_TOL, causal equal, two
-    launches bit-equal; with `force`, on a band whose dp fits in shared
-    memory, first run in the shared-memory mode and then forced into the
-    ring mode, bit-equal to it. Returns (max abs err, kernel ms, twin ms)."""
+                   one_chain=False):
+    """The sweep on one band ("global" launches) or on blocks against its
+    twin on the card (same pre-drawn u / z): SWEEP_TOL, causal equal, two
+    launches bit-equal; with `one_chain`, also bit-equal when run at one
+    chain a CTA. Returns (max abs err, kernel ms, twin ms)."""
     st = sweep_inputs(torch, sb, NC, rng)
+    key = "sweep_global" if sb.nblk == 1 else "sweep"
 
     def run(fn):
         dp = st["dp"].clone()
@@ -2468,20 +2547,16 @@ def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer,
             torch.cuda.synchronize()
         return (dp,) + tuple(out)
 
-    shared = None
-    if force:
-        shared = run(gsk.sweep)
-        if dev.type == "cuda" and sb.plans[NC].ring:
-            fail(f"the band of [{tag}] does not fit the shared-memory mode")
-        force_ring(gsk, torch, dev, sb, NC)
-    before = gsk.launches["sweep_global"]
+    before = gsk.launches[key]
     got, again = run(gsk.sweep), run(gsk.sweep)
+    launched = gsk.launches[key] > before
+    one = (at_one_chain(gsk, torch, dev, sb, NC, lambda: run(gsk.sweep))
+           if one_chain else None)
     t = time.perf_counter()
     ref = run(gsk.sweep_plain)
     plain_ms = (time.perf_counter() - t) * 1e3
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-    same = shared is None or all(torch.equal(a, b)
-                                 for a, b in zip(got, shared))
+    same = one is None or all(torch.equal(a, b) for a, b in zip(got, one))
     causal_diff = int((got[2] != ref[2]).sum())
     errs = [(float((a - b).abs().max()),
              SWEEP_TOL * max(float(b.abs().max()), 1e-30))
@@ -2490,34 +2565,33 @@ def gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer,
                                  st["C2"], st["C4"], st["s1"], st["u"],
                                  st["z"], st["inv_odd_p"], st["p"],
                                  st["sparse"], 0.95, True), reps=3)
-    pl = sb.plans.get(NC)
-    gdp = bool(pl and pl.ring)
-    log(f"  ring-mode sweep, {tag}: {sb.max_rows} rows, width {sb.wkmax}, "
-        f"{NC} chains, ring mode {gdp} ({plan_ring_text(pl)}): max |kernel "
-        f"- twin| {max(e[0] for e in errs):.2e} (limit {SWEEP_TOL} x max "
+    log(f"  sweep, {tag}: {sb.nblk} blocks, {sb.max_rows} rows in the "
+        f"longest, width up to {sb.wkmax}, {NC} chains "
+        f"({sweep_plan_text(sb, sb.plans.get(NC), NC)}): max |kernel - "
+        f"twin| {max(e[0] for e in errs):.2e} (limit {SWEEP_TOL} x max "
         f"|twin|), causal {causal_diff} differ (0); two launches bit-equal "
-        f"{repeat}" + ("" if shared is None else
-                       f"; bit-equal to the shared-memory mode {same}")
+        f"{repeat}" + ("" if one is None else
+                       f"; bit-equal at one chain a CTA {same}")
         + f"; kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms")
-    if dev.type == "cuda" and not (
-            gdp and gsk.launches["sweep_global"] > before):
-        fail(f"the sweep ({tag}) did not run in the ring mode")
+    if dev.type == "cuda" and not launched:
+        fail(f"the sweep ({tag}) was not counted in launches[{key!r}]")
     if causal_diff or not repeat or not same or any(
             e[0] > e[1] for e in errs):
-        fail(f"the ring-mode sweep ({tag}) disagrees with its twin or the "
-             f"shared-memory mode, or does not repeat")
+        fail(f"the sweep ({tag}) disagrees with its twin, or does not "
+             f"repeat")
     return max(e[0] for e in errs), ms, plain_ms
 
 
 def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer,
-                   force=False):
-    """The lassosum mode in the ring mode on one band against its twin on
-    the card, from the state after 3 sweeps, one point in five frozen:
-    bit-equal, two launches bit-equal; with `force` also bit-equal to the
-    shared-memory mode, as in `gdp_sweep_case`. Returns (max abs err,
-    kernel ms, twin ms)."""
+                   one_chain=False):
+    """The lassosum mode on one band or on blocks against its twin on the
+    card, from the state after 3 sweeps, one point in five frozen:
+    bit-equal, two launches bit-equal; with `one_chain` also bit-equal at
+    one point a CTA, as in `gdp_sweep_case`. Returns (max abs err, kernel
+    ms, twin ms)."""
     f = lambda a: torch.as_tensor(a, dtype=sb.dtype, device=dev)  # noqa: E731
     m = sb.m
+    key = "lassosum_global" if sb.nblk == 1 else "lassosum"
     bh, pf = f(rng.normal(0, 0.02, m)), f(rng.uniform(0.8, 1.5, m))
     lam = f(np.geomspace(0.05, 5e-4, NG))
     delta = f(np.repeat([0.001, 0.01, 0.1, 1.0], -(-NG // 4))[:NG])
@@ -2534,85 +2608,67 @@ def gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer,
             torch.cuda.synchronize()
         return (d, b) + tuple(out)
 
-    shared = None
-    if force:
-        shared = run(gsk.lassosum_sweep)
-        if dev.type == "cuda" and sb.plans[NG].ring:
-            fail(f"the band of [{tag}] does not fit the shared-memory mode")
-        force_ring(gsk, torch, dev, sb, NG)
-    before = gsk.launches["lassosum_global"]
+    before = gsk.launches[key]
     got, again = run(gsk.lassosum_sweep), run(gsk.lassosum_sweep)
+    launched = gsk.launches[key] > before
+    one = (at_one_chain(gsk, torch, dev, sb, NG,
+                        lambda: run(gsk.lassosum_sweep), lasso=True)
+           if one_chain else None)
     t = time.perf_counter()
     ref = run(gsk.lassosum_sweep_plain)
     plain_ms = (time.perf_counter() - t) * 1e3
     bit = all(torch.equal(a, r) for a, r in zip(got, ref))
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-    same = shared is None or all(torch.equal(a, b)
-                                 for a, b in zip(got, shared))
+    same = one is None or all(torch.equal(a, b) for a, b in zip(got, one))
     err = max(float((a.double() - r.double()).abs().max())
               for a, r in zip(got, ref))
     ms = timer(lambda: gsk.lassosum_sweep(sb, dp.clone(), beta.clone(), bh,
                                           pf, lam, delta, active), reps=3)
-    pl = sb.plans.get(NG)
-    gdp = bool(pl and pl.ring)
-    log(f"  ring-mode lassosum, {tag}: {sb.max_rows} rows, width "
-        f"{sb.wkmax}, {NG} grid points ({int(active.sum())} active), ring "
-        f"mode {gdp} ({plan_ring_text(pl)}): bit-equal to the twin {bit} "
-        f"(max abs diff {err:.1e}); two launches bit-equal {repeat}"
-        + ("" if shared is None else
-           f"; bit-equal to the shared-memory mode {same}")
+    log(f"  lassosum, {tag}: {sb.nblk} blocks, {sb.max_rows} rows in the "
+        f"longest, width up to {sb.wkmax}, {NG} grid points "
+        f"({int(active.sum())} active; "
+        f"{sweep_plan_text(sb, sb.plans.get(gsk.plan_key(NG, True)), NG)}): "
+        f"bit-equal to the "
+        f"twin {bit} (max abs diff {err:.1e}); two launches bit-equal "
+        f"{repeat}" + ("" if one is None else
+                       f"; bit-equal at one point a CTA {same}")
         + f"; kernel {ms:.3f} ms a sweep, twin {plain_ms:.1f} ms")
-    if dev.type == "cuda" and not (
-            gdp and gsk.launches["lassosum_global"] > before):
-        fail(f"the lassosum mode ({tag}) did not run in the ring mode")
+    if dev.type == "cuda" and not launched:
+        fail(f"the lassosum mode ({tag}) was not counted in "
+             f"launches[{key!r}]")
     if not (bit and repeat and same):
-        fail(f"the ring-mode lassosum ({tag}) disagrees with its twin or "
-             f"the shared-memory mode, or does not repeat")
+        fail(f"the lassosum mode ({tag}) disagrees with its twin, or does "
+             f"not repeat")
     return err, ms, plain_ms
 
 
-def plan_ring_text(pl):
-    if pl is None or not pl.ring:
-        return "no ring plan"
-    return (f"{pl.nct} chains a CTA, {pl.threads} threads, ring of "
-            f"{pl.ring_len} slots, "
-            + (f"band stages of {pl.stage} values a row"
-               if pl.stage else "band read in place")
-            + f", {pl.smem} B of shared memory")
-
-
-def ring_floor_ms(sb, kind):
-    """The ring mode's row floor: the longest block's rows x one row's
-    dependent chain (RING_ROW_CYCLES) at CLOCK_HZ."""
-    return (sb.max_rows * RING_ROW_CYCLES[(kind, sb.band.element_size())]
-            / CLOCK_HZ * 1e3)
-
-
 def phase_gdp_small(bp, gsk, torch, dev, args):
-    """The ring mode against its twin: in float64 on a band of --gdp-rows
-    variants, one chain's dp past the 227 KB of shared memory a block may
-    use (so the plan takes the mode by itself), and in float32 on a short
-    band at slice 5's 30 chains and 120 grid points, first in the
-    shared-memory mode and then with the ring mode forced, bit-equal to
-    it. [17b] holds the float32 mode where the plan takes it by itself, at
-    slice 5's band."""
+    """The sweep and its lassosum mode against their twins: in float64 on
+    one band of --gdp-rows variants (a "global" launch, one chain's dp past
+    the 227 KB of shared memory a block may use), and in float32 on 12
+    blocks of 100-700 variants (half-width up to 64) at slice 5's 30
+    chains and 120 grid points, several chains a CTA, there also bit-equal
+    at one chain a CTA. [17b] holds the one-band launches at slice 5's
+    band."""
     from bigsnpr_tpu_torch.pgs.band import one_block_bands
 
     rng = np.random.default_rng(args.seed + 32)
     timer = Timer(torch, dev)
-    for dt, n_rows, NC, NG, forced in (
-            (np.float64, args.gdp_rows, 4, 6, False),
-            (np.float32, 3001, N_CHAINS, 120, True)):
-        corr = band_ld(bp, n_rows, 64, args.seed + 33)
-        sb = one_block_bands(corr, dtype=dt).device_put(dev, dtype=dt)
-        tag = f"{np.dtype(dt).name}" + (", forced" if forced else "")
+    cases = (("float64, one band", np.float64, 4, 6, lambda: one_block_bands(
+                 band_ld(bp, args.gdp_rows, 64, args.seed + 33),
+                 dtype=np.float64)),
+             ("float32, 12 blocks", np.float32, N_CHAINS, 120,
+              lambda: narrow_bands(bp, rng, rng.integers(100, 701, 12), 64)))
+    for tag, dt, NC, NG, bands in cases:
+        sb = bands().device_put(dev, dtype=dt)
+        several = sb.nblk > 1
         gdp_sweep_case(bp, gsk, torch, dev, sb, NC, rng, tag, timer,
-                       force=forced)
-        bound, by, t_tiles, t_lat = sweep_bound(sb, NC, 1)
+                       one_chain=several)
+        bound, by, _ = sweep_bound(sb, NC, 1)
         log(f"    bound {bound:.3f} ms ({by}); row floor "
             f"{ring_floor_ms(sb, 'sweep'):.3f} ms")
         gdp_lasso_case(bp, gsk, torch, dev, sb, NG, rng, tag, timer,
-                       force=forced)
+                       one_chain=several)
         bound, by = lasso_bound(sb, NG)
         log(f"    bound {bound:.3f} ms ({by}); row floor "
             f"{ring_floor_ms(sb, 'lassosum'):.3f} ms")
@@ -2777,9 +2833,9 @@ def phase_slice5(bp, gk, gsk, torch, dev, args):
         if not (svd_path["cprod_i8m"] and svd_path["prod_i8m"]):
             fail("K8 was not launched by the int8m randomSVD")
         if not (launches["sweep_global"] and launches["lassosum_global"]):
-            fail("the ring mode was not launched on slice 5")
+            fail("the sweep kernel was not launched on slice 5's one band")
         if launches["sweep"] or launches["lassosum"]:
-            fail("slice 5's unblocked samplers took the shared-memory mode")
+            fail("slice 5's unblocked samplers launched on blocked bands")
 
     log("  checks:")
     same = (svd.niter == svd8.niter and all(
@@ -2831,25 +2887,25 @@ def phase_slice5(bp, gk, gsk, torch, dev, args):
 
 
 def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
-    """[17b] the ring mode at slice 5's band and at the main path's launch
-    shapes (LDpred2-auto's 30 chains, lassosum2's grid), held against its
-    twin and timed beside its bound and row floor; the kernel table's rows,
-    with the launches of the slice-5 path."""
+    """[17b] the sweep kernel at slice 5's band and at the main path's
+    launch shapes (LDpred2-auto's 30 chains, lassosum2's grid), held
+    against its twin and timed beside its bound and row floor; the kernel
+    table's rows, with the launches of the slice-5 path."""
     from bigsnpr_tpu_torch.pgs.band import one_block_bands
 
-    log("[17b] the ring mode at the slice-5 band, against its twin and "
+    log("[17b] the sweep kernel at the slice-5 band, against its twin and "
         "timed")
     sb = one_block_bands(s5["corr"]).device_put(dev)
     rng = np.random.default_rng(args.seed + 34)
     timer = Timer(torch, dev)
     err, ms, plain_ms = gdp_sweep_case(bp, gsk, torch, dev, sb, N_CHAINS, rng,
                                        "slice-5 band", timer)
-    bound, by, t_tiles, t_lat = sweep_bound(sb, N_CHAINS, 1)
+    bound, by, _ = sweep_bound(sb, N_CHAINS, 1)
     floor = ring_floor_ms(sb, "sweep")
     log(f"    bound {bound:.3f} ms ({by}); row floor {floor:.3f} ms "
         f"({RING_ROW_CYCLES[('sweep', 4)]} cycles a row); "
         f"{ms / max(floor, 1e-9):.2f}x that floor")
-    rows = [{"name": f"gibbs_sweep ring mode (LDpred2, {sb.max_rows} "
+    rows = [{"name": f"gibbs_sweep one band (LDpred2, {sb.max_rows} "
                      f"rows, {N_CHAINS} chains)", "route": "cuda",
              "source": SWEEP_SOURCE, "replaces": GDP_REPLACES["sweep"],
              "launches": s5["launches"]["sweep_global"], "max_abs_err": err,
@@ -2863,7 +2919,7 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
     log(f"    bound {bound:.3f} ms ({by}); row floor {floor:.3f} ms "
         f"({RING_ROW_CYCLES[('lassosum', 4)]} cycles a row); "
         f"{ms / max(floor, 1e-9):.2f}x that floor")
-    rows.append({"name": f"gibbs_sweep lassosum mode, ring mode (lassosum2, "
+    rows.append({"name": f"gibbs_sweep lassosum mode, one band (lassosum2, "
                          f"{sb.max_rows} rows, {NG} grid points)",
                  "route": "cuda", "source": SWEEP_SOURCE,
                  "replaces": GDP_REPLACES["lassosum"],
@@ -2981,7 +3037,7 @@ def main(argv=None):
     bb, launches2, run_auto = phase_slice2(bp, gsk, gk, torch, dev, args)
     rows += phase_sweep_kernels(bp, gsk, torch, dev, bb, launches2, timer,
                                 args.seed)
-    phase_profile(torch, dev, run_auto)
+    phase_profile(torch, dev, run_auto, sweep_kernel="gibbs_ring_kernel")
     del bb, run_auto
     if dev.type == "cuda":
         torch.cuda.empty_cache()

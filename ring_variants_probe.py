@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where the ring mode's time goes, on one GPU (the sweep kernel's
-gibbs_ring_kernel<T, LASSO>, bigsnpr_tpu_torch/csrc/gibbs_sweep.cu).
+"""Where the sweep kernel's time goes, on one GPU (gibbs_ring_kernel<T,
+LASSO, NCMAX>, bigsnpr_tpu_torch/csrc/gibbs_sweep.cu).
 
-    python3 ring_variants_probe.py [--m M] [--W W] [--reps R]
+    python3 ring_variants_probe.py [--blocked] [--m M] [--W W] [--reps R]
                                    [--variants NAME ...]
 
 On gdp_probe.py's band (M variants, half-width W; slice 5's shape by
 default), times the LDpred2 sweep at 30 chains and the lassosum mode at
-120 grid points (ms a sweep, CUDA events over R sweeps after a warm-up),
-then builds variants of the kernel source, each a set of the changes
-below, and times them on the same state. A variant that only changes how
-the code is laid out keeps the outputs' hash; the others give wrong
-results and exist only to be timed.
+120 grid points (ms a sweep, CUDA events over R sweeps after a warm-up);
+with --blocked, on gdp_probe.py's blocked bands, the LDpred2 sweep at 30
+chains, 9 (the grid, shrink 1) and 1 (K3's shape) on slice 2's shape and
+the lassosum mode at 120 grid points on slice 4's. Then it builds
+variants of the kernel source, each a set of the changes below (with the
+plan's constants that mirror them), prints ptxas' registers and spills
+of each, and times them on the same state. A variant that only changes
+how the code is laid out or grouped keeps the outputs' hash; the others
+give wrong results and exist only to be timed.
 
   roll       the row warp's chain of 32 rows a tile is a loop, not unrolled
   no_update  the update threads skip the window's rank-32 update (they
@@ -24,7 +28,15 @@ results and exist only to be timed.
              (the step still runs): the chain without the step's latency
   no_div     the LDpred2 step's two divisions are multiplications
   no_exp     the LDpred2 step's exp is left out
-  clock      clock64() around the phases of a tile, for CTA 0 (the row
+  c8, c4, c3 eight, four or three chains a CTA at most (the wide
+             instantiation's launch bound: 96, 128 or 168 registers a
+             thread), not seven
+  s16        band stages of 16 rows, not 8 (four are then two tiles)
+  s3         three band stages, not four (a tile's rows)
+  late_nxt   the row warp loads the next tile's inputs after the tile's
+             rows, not before them
+  clock      (one band only) clock64() around the phases of a tile, for
+             CTA 0 (the row
              warps of chains 0 and 1 in the lassosum mode):
              the row warp's start of tile (strip copy issued, inputs
              loaded), chain of rows, wait for the update threads and end
@@ -78,7 +90,7 @@ CHANGES = {
         ("        ring::mbar_arrive(ready + (t & 1));\n"
          "        if (lane < nrow && in.g >= 0) {",
          "        const long long tc3 = clock64();\n"
-         "        if (lane == 0 && blockIdx.y == 0 && 4 * t + 3 < a.m) {\n"
+         "        if (lane == 0 && blockIdx.x == 0 && 4 * t + 3 < a.m) {\n"
          "          T* q = (LASSO ? a.out_beta : a.out_postp)\n"
          "                 + (int64_t)c * a.m + 4 * t;\n"
          "          q[0] = T(tc0 - tcs); q[1] = T(tc1 - tc0);\n"
@@ -98,7 +110,7 @@ CHANGES = {
          "      if (t >= 1) {  // entries j0 - RK .. j0 - 1: no later row touches them\n"),
         ("      ring::mbar_arrive(done + (t & 1));\n",
          "      const long long tu3 = clock64();\n"
-         "      if (ut == 0 && blockIdx.y == 0 && 4 * t + 3 < a.m &&\n"
+         "      if (ut == 0 && blockIdx.x == 0 && 4 * t + 3 < a.m &&\n"
          "          (!LASSO || nct > 1)) {\n"
          "        T* q = LASSO ? a.out_beta + (int64_t)(c0 + 1) * a.m + 4 * t\n"
          "                     : a.out_binc + (int64_t)c0 * a.m + 4 * t;\n"
@@ -107,9 +119,28 @@ CHANGES = {
          "      }\n"
          "      ring::mbar_arrive(done + (t & 1));\n")],
 }
+CHANGES.update({
+    "c8": [("constexpr int RMAXC = 7;", "constexpr int RMAXC = 8;")],
+    "c4": [("constexpr int RMAXC = 7;", "constexpr int RMAXC = 4;")],
+    "s16": [("constexpr int RSR = 8;", "constexpr int RSR = 16;")],
+    "s3": [("constexpr int RSTAGES = 4;", "constexpr int RSTAGES = 3;")],
+    "c3": [("constexpr int RMAXC = 7;", "constexpr int RMAXC = 3;")],
+    "late_nxt": [("""        const RingIn<T, LASSO> nxt = ring_load<T, LASSO>(a, g1, c);
+""", ""), ("""        // this tile's entries are complete for it: back to the ring
+""", """        const RingIn<T, LASSO> nxt = ring_load<T, LASSO>(a, g1, c);
+        // this tile's entries are complete for it: back to the ring
+""")],
+})
 VARIANTS = {"roll": ["roll"], "no_update": ["no_update"],
             "off_chain": ["off_chain"], "no_div": ["no_div"],
-            "no_exp": ["no_exp"], "clock": ["clock"]}
+            "no_exp": ["no_exp"], "clock": ["clock"], "c8": ["c8"],
+            "c4": ["c4"], "c3": ["c3"], "s16": ["s16"], "s3": ["s3"],
+            "late_nxt": ["late_nxt"]}
+# the plan's constants that a variant changes with the kernel's
+PLAN = {"c8": dict(RING_MAX_CHAINS=8), "c4": dict(RING_MAX_CHAINS=4),
+        "c3": dict(RING_MAX_CHAINS=3),
+        "s16": dict(RING_STAGE_ROWS=16),
+        "s3": dict(RING_STAGES=3)}
 
 
 def variant_source(src, name):
@@ -127,6 +158,7 @@ def main(argv=None):
     ap.add_argument("--W", type=int, default=458)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--blocked", action="store_true")
     ap.add_argument("--variants", nargs="*",
                     default=["direct", "one_chain", *VARIANTS])
     args = ap.parse_args(argv)
@@ -138,6 +170,7 @@ def main(argv=None):
         return 2
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
+    import chip_smoke
     import gdp_probe
     from bigsnpr_tpu_torch.ops import cuda_build
     from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
@@ -156,21 +189,54 @@ def main(argv=None):
         path.write_text(variant_source(src, name))
         return name, cuda_build.build(path, extra=gsk.EXTRA_FLAGS)
 
-    built = [v for v in args.variants if v in VARIANTS]
+    built = [v for v in args.variants if v in VARIANTS
+             and not (args.blocked and v == "clock")]
     with ThreadPoolExecutor(len(built) + 1) as pool:
         base = pool.submit(gsk.build)
         libs = dict(pool.map(build, built))
-        base.result()
-    case = gdp_probe.make_case(torch, gsk, args.m, args.W, args.seed)
-    print(f"plans: {[tuple(v) for v in case[0].plans.values()]}", flush=True)
+        base_lib = base.result()
+    for name, path in [("base", base_lib), *libs.items()]:
+        print(f"{name}:", flush=True)
+        chip_smoke.sweep_ptxas_summary(path)
+    if args.blocked:
+        sb2, st30, st9, sb4, ls = gdp_probe.make_blocked(torch, gsk,
+                                                         args.seed)
+        st1 = {k: v[:1] if v.dim() == 2 or k in ("inv_odd_p", "p", "sparse")
+               else v for k, v in st30.items()}
+    else:
+        case = gdp_probe.make_case(torch, gsk, args.m, args.W, args.seed)
 
     def show(name):
+        if args.blocked:
+            res = [(what, *gdp_probe.sweep_case(torch, gsk, sb2, st, args.reps,
+                                                *sh))
+                   for what, st, sh in (("auto30", st30, (0.95, True)),
+                                        ("grid9", st9, (1.0, False)),
+                                        ("K3", st1, (0.95, True)))]
+            res.append(("lasso120", *gdp_probe.lasso_case(torch, gsk, sb4, ls,
+                                                          args.reps)))
+            print(f"{name:16s} " + "  ".join(
+                f"{w} {ms:8.3f} ms ({h})" for w, ms, h in res), flush=True)
+            print(f"  plans {[tuple(v) for v in sb2.plans.values()]} "
+                  f"{[tuple(v) for v in sb4.plans.values()]}", flush=True)
+            return
         ms_s, h_s, ms_l, h_l = gdp_probe.time_case(torch, gsk, *case,
                                                    args.reps)
         print(f"{name:16s} LDpred2 {ms_s:9.3f} ms ({h_s})  lassosum "
               f"{ms_l:9.3f} ms ({h_l})", flush=True)
+        print(f"  plans {[tuple(v) for v in case[0].plans.values()]}",
+              flush=True)
         if name == "clock":
             clocks(*case)
+
+    bands = [sb2, sb4] if args.blocked else [case[0]]
+
+    def replan(**consts):
+        """Plan anew with the plan's constants set to `consts`."""
+        for k, v in consts.items():
+            setattr(gsk, k, v)
+        for sb in bands:
+            sb.plans.clear()
 
     def clocks(sb, st, ls):
         dp = st["dp"].clone()
@@ -178,7 +244,7 @@ def main(argv=None):
                         st["s1"], st["u"], st["z"], st["inv_odd_p"], st["p"],
                         st["sparse"], 0.95, True)
         beta = ls["beta"].clone()
-        gsk.lassosum_sweep(sb, ls["dp"].clone(), beta, st["bh"], ls["pf"],
+        gsk.lassosum_sweep(sb, ls["dp"].clone(), beta, ls["bh"], ls["pf"],
                            ls["lam"], ls["delta"], ls["active"])
         T = -(-sb.max_rows // gsk.RING_ROWS)
         row = ("start of tile", "chain of rows", "wait for update",
@@ -196,21 +262,29 @@ def main(argv=None):
                 f"{n} {q[0, k]:.0f} / {q[1, k]:.0f}"
                 for k, n in enumerate(names)), flush=True)
 
+    defaults = {k: getattr(gsk, k) for k in
+                ("RING_MAX_CHAINS", "RING_STAGE_ROWS", "RING_ENTRIES",
+                 "RING_STAGES")}
     show("base")
     for name, change in (("direct", dict(stage=0)),
                          ("one_chain", dict(nct=1, threads=gsk.ring_threads(1)))):
         if name in args.variants:
-            saved = dict(case[0].plans)
-            for k, v in saved.items():
-                case[0].plans[k] = v._replace(**change)
+            for sb in bands:
+                for k, v in list(sb.plans.items()):
+                    pl = v._replace(**change)
+                    sb.plans[k] = pl._replace(smem=gsk.ring_smem_bytes(
+                        pl.nct, pl.ring_len, sb.band.element_size(),
+                        pl.stage))
             show(name)
-            case[0].plans.update(saved)
+            replan()
     load = gsk._load
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         gsk._bind(lib)
         gsk._load = lambda lib=lib: lib
+        replan(**PLAN.get(name, {}))
         show(name)
+        replan(**defaults)
     gsk._load = load
     show("base")
     return 0

@@ -1,7 +1,7 @@
 """The CUDA kernels (K1 decode + GEMM, K2 and K7 on bf16 bit planes, K6 on
 int8 bit planes, K8 on materialized int8 planes, the Gibbs sweep and its
-lassosum mode, each with dp in shared memory or, where it does not fit,
-in the ring mode) against their plain-torch twins on a card.
+lassosum mode on blocked bands and on one band over every variant)
+against their plain-torch twins on a card.
 
 Imports only torch and the port, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -225,6 +225,21 @@ def sweep_case(sizes, NC, seed, dtype=torch.float32, width=None):
                        else np.float32)
     st["dp"] = f(rng.normal(0, 0.05, (NC, sb.dp_len)))
     return sb, st
+
+
+def plan_at(sb, NC, nct, lasso=False):
+    """Plan the sweep (the lassosum mode with `lasso`) for NC chains at nct
+    chains a CTA (the plan's ring, its stages where they still fit)."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+
+    smem = gsk.max_smem("cuda")
+    pl = gsk.plan(sb, NC, smem, lasso)
+    elem = sb.band.element_size()
+    stage = pl.stage if gsk.ring_smem_bytes(nct, pl.ring_len, elem,
+                                            pl.stage) <= smem else 0
+    sb.plans[gsk.plan_key(NC, lasso)] = gsk.SweepPlan(
+        nct, gsk.ring_threads(nct), pl.ring_len, stage,
+        gsk.ring_smem_bytes(nct, pl.ring_len, elem, stage))
 
 
 def run_sweep(fn, sb, st, shrink, no_jump):
@@ -563,27 +578,26 @@ def test_i8m_operator_equals_the_int8_one(cuda):
     ([257, 60], 5, torch.float64, 0.9, True)])
 def test_global_dp_sweep_matches_twin_and_shared_mode(cuda, sizes, NC, dtype,
                                                       shrink, no_jump):
-    """The global-dp launches' ring mode, forced on small blocks: against
-    the twin as the shared-memory mode is (1e-5 of max |twin|, causal
-    equal), bit-equal to the shared-memory mode (the same operations in the
-    same order; only where dp lives differs), two launches bit-equal,
-    counted as global-dp launches."""
+    """The sweep on small ragged blocks at the plan's chains a CTA and at
+    one chain a CTA (the grouping the one-band launches take): against the
+    twin (1e-5 of max |twin|, causal equal), the two groupings bit-equal
+    (the same operations in the same order; only which CTA runs a chain
+    differs), two launches bit-equal, counted as blocked launches."""
     from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
 
     sb, st = sweep_case(sizes, NC, 3, dtype)
-    shared = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
-    assert not sb.plans[NC][2]
-    sb.plans[NC] = gsk.plan(sb, NC, gsk.max_smem(cuda), ring=True)
-    before = gsk.launches["sweep_global"]
+    before = gsk.launches["sweep"]
     got = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
     again = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
-    assert gsk.launches["sweep_global"] == before + 2
+    plan_at(sb, NC, 1)
+    one = run_sweep(gsk.sweep, sb, st, shrink, no_jump)
+    assert gsk.launches["sweep"] == before + 3
     ref = run_sweep(gsk.sweep_plain, sb, st, shrink, no_jump)
     assert torch.equal(got[2], ref[2])
     for a, b in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
         assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)
-    assert all(torch.equal(a, b) and torch.equal(a, s)
-               for a, b, s in zip(got, again, shared))
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(got, again, one))
 
 
 @pytest.mark.cuda
@@ -592,10 +606,11 @@ def test_global_dp_sweep_matches_twin_and_shared_mode(cuda, sizes, NC, dtype,
     ([257, 60], 7, torch.float64)])
 def test_global_dp_lassosum_mode_matches_twin_bit_for_bit(cuda, sizes, NG,
                                                           dtype):
+    """The lassosum mode at one grid point a CTA: bit-equal to its twin
+    and to the plan's grouping, inactive grid points included."""
     from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
 
     sb, st = lasso_case(sizes, NG, 6, dtype)
-    sb.plans[NG] = gsk.plan(sb, NG, gsk.max_smem(cuda), ring=True)
 
     def run(fn):
         dp, beta = st["dp"].clone(), st["beta"].clone()
@@ -604,19 +619,70 @@ def test_global_dp_lassosum_mode_matches_twin_bit_for_bit(cuda, sizes, NG,
         torch.cuda.synchronize()
         return (dp, beta) + tuple(out)
 
-    before = gsk.launches["lassosum_global"]
+    planned = run(gsk.lassosum_sweep)
+    plan_at(sb, NG, 1, lasso=True)
+    before = gsk.launches["lassosum"]
     got, again = run(gsk.lassosum_sweep), run(gsk.lassosum_sweep)
     ref = run(gsk.lassosum_sweep_plain)
-    assert gsk.launches["lassosum_global"] == before + 2
-    for a, b, r in zip(got, again, ref):
-        assert torch.equal(a, b) and torch.equal(a, r)
+    assert gsk.launches["lassosum"] == before + 2
+    for a, b, r, q in zip(got, again, ref, planned):
+        assert torch.equal(a, b) and torch.equal(a, r) and torch.equal(a, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,NC,dtype,width", [
+    ([2926, 1400, 700, 204, 90, 31], 30, torch.float32, 511),
+    ([1500, 300, 120, 77] * 3, 9, torch.float32, 255),
+    ([900, 400, 33, 5], 12, torch.float64, None)])
+def test_blocked_sweep_at_several_chains_a_cta(cuda, sizes, NC, dtype, width):
+    """Ragged blocks (up to slice 2's longest and widest, some shorter than
+    a tile, pad slots in their buckets; the band in place at slice 2's
+    width and in float64, through stages at slice 4's) at the most chains
+    a CTA (RING_MAX_CHAINS), the
+    blocks longest first: the sweep against its twin (1e-5, causal equal)
+    and at one chain a CTA bit-equal; the lassosum mode, one grid point in
+    five frozen, bit-equal to its twin at its most (RING_NARROW) and at
+    one point a CTA."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+
+    sb, st = sweep_case(sizes, NC, 21, dtype, width=width)
+    rows = sb.blk_rows.cpu().numpy()
+    assert (np.diff(rows[sb.order]) <= 0).all()
+    nct = min(NC, gsk.RING_MAX_CHAINS)
+    plan_at(sb, NC, nct)
+    got = run_sweep(gsk.sweep, sb, st, 0.95, True)
+    ref = run_sweep(gsk.sweep_plain, sb, st, 0.95, True)
+    assert torch.equal(got[2], ref[2])
+    for a, b in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)
+    plan_at(sb, NC, 1)
+    one = run_sweep(gsk.sweep, sb, st, 0.95, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+    rng = np.random.default_rng(22)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+    m = sb.m
+    pf = f(rng.uniform(0.8, 1.5, m))
+    lam, delta = f(rng.uniform(0.001, 0.05, NC)), f(rng.uniform(0.01, 1, NC))
+    active = torch.as_tensor(np.arange(NC) % 5 != 3, device="cuda")
+    beta0 = f(rng.normal(0, 0.05, (NC, m)) * (rng.random((NC, m)) < 0.5))
+    res = []
+    for k, fn in ((min(NC, gsk.RING_NARROW), gsk.lassosum_sweep),
+                  (1, gsk.lassosum_sweep), (None, gsk.lassosum_sweep_plain)):
+        if k is not None:
+            plan_at(sb, NC, k, lasso=True)
+        dp, beta = st["dp"].clone(), beta0.clone()
+        out = fn(sb, dp, beta, st["bh"], pf, lam, delta, active)
+        torch.cuda.synchronize()
+        res.append((dp, beta) + tuple(out))
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(*res))
 
 
 @pytest.mark.cuda
 def test_unblocked_band_takes_the_global_dp_mode(cuda):
-    """A one-block band of 30,000 variants in float64 (dp past the 227 KB
-    of shared memory) picks the global-dp mode by itself; the sweep and
-    the lassosum mode match their twins (1e-5; bit for bit)."""
+    """A one-block band of 30,000 variants in float64 (the unblocked
+    samplers' band): its launches count as global ones; the sweep and the
+    lassosum mode match their twins (1e-5; bit for bit)."""
     import scipy.sparse as sp
 
     from bigsnpr_tpu_torch import interop
@@ -643,8 +709,9 @@ def test_unblocked_band_takes_the_global_dp_mode(cuda):
               p=f([0.3, 0.1]),
               sparse=torch.tensor([False, True], device="cuda"),
               dp=f(rng.normal(0, 0.05, (NC, sb.dp_len))))
+    before = gsk.launches["sweep_global"]
     got = run_sweep(gsk.sweep, sb, st, 0.95, False)
-    assert sb.plans[NC][2]
+    assert gsk.launches["sweep_global"] == before + 1
     ref = run_sweep(gsk.sweep_plain, sb, st, 0.95, False)
     assert torch.equal(got[2], ref[2])
     for a, b in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
@@ -668,17 +735,17 @@ def test_unblocked_band_takes_the_global_dp_mode(cuda):
     ([45, 33], 31, 2, torch.float64),        # W just under a tile
     ([700], None, 30, torch.float64)])       # float64 at 30 chains
 def test_ring_mode_edge_bands(cuda, sizes, width, NC, dtype):
-    """The ring mode on bands narrower than a tile, on rows that are not a
+    """The kernel on bands narrower than a tile, on rows that are not a
     multiple of 32, and in float64 at LDpred2-auto's 30 chains: the sweep
-    against the twin (1e-5, causal equal) and bit-equal to the
-    shared-memory mode; the lassosum mode bit-equal to its twin, inactive
-    grid points included; two launches bit-equal."""
+    against the twin (1e-5, causal equal) and bit-equal at two chains a
+    CTA; the lassosum mode bit-equal to its twin, inactive grid points
+    included; two launches bit-equal."""
     from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
 
     sb, st = sweep_case(sizes, NC, 12, dtype, width=width)
+    plan_at(sb, NC, min(2, NC))
     shared = run_sweep(gsk.sweep, sb, st, 0.95, True)
-    assert not sb.plans[NC].ring
-    sb.plans[NC] = gsk.plan(sb, NC, gsk.max_smem(cuda), ring=True)
+    sb.plans[NC] = gsk.plan(sb, NC, gsk.max_smem(cuda))
     got = run_sweep(gsk.sweep, sb, st, 0.95, True)
     again = run_sweep(gsk.sweep, sb, st, 0.95, True)
     ref = run_sweep(gsk.sweep_plain, sb, st, 0.95, True)
@@ -725,12 +792,12 @@ def test_ring_mode_on_the_widest_band_the_plan_takes(cuda, dtype, elem):
     sb = gsk.SweepBands([(band[None].astype(np.float32),
                           np.arange(rows, dtype=np.int32)[None])], rows,
                         cuda, dtype)
-    pl = gsk.plan(sb, NC, smem, ring=True)
+    pl = gsk.plan(sb, NC, smem)
     assert pl.ring_len == S
     with pytest.raises(ValueError):
         gsk.plan(gsk.SweepBands([(np.zeros((1, 4, 2 * W + 3), np.float32),
                                   np.arange(4, dtype=np.int32)[None])], 4,
-                                cuda, dtype), NC, smem, ring=True)
+                                cuda, dtype), NC, smem)
     sb.plans[NC] = pl
     f = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
     st = dict(bh=f(rng.normal(0, 0.05, rows)),

@@ -339,12 +339,11 @@ def test_sweep_checks_operands(case):
         gk.sweep(sb, t["dp"].clone(), t["cb"], t["bh"], t["C2"][:, :5],
                  t["C4"], t["s1"], t["u"], t["z"], t["inv_odd_p"], t["p"],
                  t["sparse"], 1.0, False)
-    nct, threads, ring = gk.plan(sb, 30, 227 << 10)[:3]
-    assert 1 <= nct <= 30 and threads % 32 == 0 and not ring
-    assert threads * gk.KMAX >= sb.wkmax and threads >= nct
-    # a chain's dp past the shared memory: the ring mode, which needs its
-    # own ~28 KB, so a device with 4 Lmax bytes cannot hold this band
+    pl = gk.plan(sb, 30, 227 << 10)
+    tiles = -(-30 // pl.nct)
+    assert 1 <= pl.nct <= gk.RING_MAX_CHAINS and -(-30 // tiles) == pl.nct
+    assert pl.threads == gk.ring_threads(pl.nct) and pl.smem <= 227 << 10
+    # the ring and the strips need their own ~28 KB, so a device with 4 KB
+    # of shared memory a block cannot hold this band
     with pytest.raises(ValueError, match="ring of"):
-        gk.plan(sb, 30, 4 * sb.Lmax)
-    pl = gk.plan(sb, 30, 227 << 10, ring=True)
-    assert pl.ring and pl.nct == 1 and pl.threads == gk.ring_threads(1)
+        gk.plan(sb, 30, 4096)

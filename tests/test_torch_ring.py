@@ -1,8 +1,11 @@
-"""The sweep kernel's ring mode on the CPU: its launch plan, and a plain
-torch emulation of its schedule held bit-equal to the twins.
+"""The sweep kernel on the CPU: its launch plan, and a plain torch
+emulation of its schedule held bit-equal to the twins.
 
-The ring mode (`gibbs_ring_kernel` in csrc/gibbs_sweep.cu) runs a sweep
-whose dp does not fit in shared memory. Each chain keeps its live dp
+The kernel (`gibbs_ring_kernel` in csrc/gibbs_sweep.cu) runs every band,
+cut into LD blocks or one block over every variant. A CTA runs one
+block's chain tile (the plan's chains a CTA; the chain tile is the
+fastest-varying CTA index, the blocks come longest first); the lassosum
+mode's frozen grid points are skipped. Each chain keeps its live dp
 entries in a ring of `ring_len` slots (entry e in slot e mod ring_len);
 rows go in tiles of 32. A chain's row warp holds entries j0 + W .. j0 + W
 + 31 of tile j0 (lane k: j0 + W + k), runs the tile's rows one a lane and
@@ -16,11 +19,14 @@ j0 + A + 31, A = W + 32 + max(W, 32). `ring_sweep` below does the same
 index arithmetic on the CPU, with the update steps as late as the
 kernel's barriers allow (step t - 1 just before the row warp's load at
 the end of tile t), the row warps' band values read from a strip and the
-update threads' from band stages, each laid out as the kernel's bulk
-copies write them; its per-row steps are the
-twins' own (`sweep_step`, `lasso_step`), so any difference from the twin
-is in the schedule. No card and no JAX are needed here; the card tests
-(tests/test_torch_cuda.py) hold the kernel itself against the twin."""
+update threads' from band stages or in place, each laid out as the
+kernel's bulk copies write them, and the chains each CTA of the plan's
+grid runs (`cta_grid`); its per-row steps are the twins' own
+(`sweep_step`, `lasso_step`), so any difference from the twin is in the
+schedule. Chains are independent, so the emulation runs a block's chains
+together, whichever CTA holds them. No card and no JAX are needed here;
+the card tests (tests/test_torch_cuda.py) hold the kernel itself against
+the twin."""
 
 import numpy as np
 import pytest
@@ -85,8 +91,8 @@ def block_diag(sizes, seed, dtype):
 class _Shape:
     """What `plan` reads of a SweepBands."""
 
-    def __init__(self, W, rows, dtype):
-        self.wkmax, self.Lmax, self.dtype = 2 * W + 1, rows + 2 * W, dtype
+    def __init__(self, W, rows, dtype, nblk=1):
+        self.wkmax, self.dtype, self.nblk = 2 * W + 1, dtype, nblk
 
 
 @pytest.mark.parametrize("W,rows", [(458, 100_000), (458, 29_100), (5, 700),
@@ -94,16 +100,16 @@ class _Shape:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("NC", [30, 120])
 def test_ring_plan_fits_and_covers_the_window(W, rows, dtype, NC):
-    """Slice 5's band (917 wide), W < 32, W = 0 and rows % 32 != 0, at
-    LDpred2-auto's 30 chains and lassosum2's 120 grid points: the ring
-    holds the live window (A + 64 entries) in a power of two of at least
-    256 slots, the shared memory fits the H100's 227 KB, the threads are
-    as `ring_threads` lays them out, and chains a CTA follow ceil(NC /
-    RING_CTAS): one at 30 and at 120."""
+    """Slice 5's band (917 wide), W < 32, W = 0 and rows % 32 != 0, one
+    block, at LDpred2-auto's 30 chains and lassosum2's 120 grid points: the
+    ring holds the live window (A + 64 entries) in a power of two of at
+    least 256 slots, the shared memory fits the H100's 227 KB, the threads
+    are as `ring_threads` lays them out, and chains a CTA follow ceil(NC x
+    nblk / RING_CTAS): one at 30 and at 120."""
     sb = _Shape(W, rows, dtype)
-    pl = gk.plan(sb, NC, H100_SMEM, ring=True)
+    pl = gk.plan(sb, NC, H100_SMEM)
     S = pl.ring_len
-    assert pl.ring and S >= 256 and S & (S - 1) == 0
+    assert S >= 256 and S & (S - 1) == 0
     assert S >= W + K + max(W, K) + 2 * K
     assert S < 2 * max(256, W + K + max(W, K) + 2 * K)
     assert pl.nct == -(-NC // gk.RING_CTAS) == 1
@@ -121,9 +127,6 @@ def test_ring_plan_fits_and_covers_the_window(W, rows, dtype, NC):
             and gk.ring_smem_bytes(pl.nct, S, elem, srw) <= H100_SMEM)
     assert pl.stage == (srw if fits else 0)
     assert fits == (W == 458 and elem == 4 or W < 458)
-    # a dp too long for shared memory takes the ring mode by itself
-    if (rows + 2 * W + 1) * elem > H100_SMEM:
-        assert gk.plan(sb, NC, H100_SMEM) == pl
 
 
 @pytest.mark.parametrize("dtype,elem", [(torch.float32, 4),
@@ -137,7 +140,7 @@ def test_ring_plan_raises_past_the_shared_memory(dtype, elem):
     S = 1 << ((H100_SMEM - fixed) // elem).bit_length() - 1
     W_max = (S - 3 * K) // 2           # A + 2K = 2W + 3K for W >= 32
     pl = gk.plan(_Shape(W_max, 10 * W_max, dtype), 120, H100_SMEM)
-    assert pl.ring and pl.ring_len == S and pl.nct == 1
+    assert pl.ring_len == S and pl.nct == 1
     with pytest.raises(ValueError, match="more than the"):
         gk.plan(_Shape(W_max + 1, 10 * W_max, dtype), 30, H100_SMEM)
     # 256 chains ask for two chains a CTA: the widest ring holds one, a
@@ -148,14 +151,49 @@ def test_ring_plan_raises_past_the_shared_memory(dtype, elem):
     assert pl2.ring_len == S // 2 and pl2.nct == 2
 
 
-def test_shared_mode_plan_is_unchanged():
-    """A band whose dp fits takes the shared-memory mode as before."""
-    sb = _Shape(458, 2000, torch.float32)
-    pl = gk.plan(sb, 30, H100_SMEM)
-    assert not pl.ring and pl.ring_len == 0
-    per_chain = (sb.Lmax + 1) * 4
-    assert pl.nct == min(30, max(gk.SMEM_TARGET, per_chain) // per_chain)
-    assert pl.threads * gk.KMAX >= sb.wkmax
+# (W, longest block's rows, blocks, chains, dtype, chains a CTA, staged):
+# slice 2's bands (67 blocks, 204-2,926 rows, up to 1,023 wide) at
+# LDpred2-auto's 30 chains, the grid's 9 cells and the float64 check's 4
+# chains; slice 4's (42 blocks, up to 3,999 rows and 511 wide) at
+# lassosum2's 120 grid points (the lassosum mode: RING_NARROW a CTA at
+# most); a narrow bucket (K4's shape)
+BLOCKED = {
+    "slice2_auto": (511, 2926, 67, 30, torch.float32, 6, False),
+    "slice2_grid": (511, 2926, 67, 9, torch.float32, 5, False),
+    "slice2_f64": (511, 2926, 67, 4, torch.float64, 2, False),
+    "slice4_lasso": (255, 3999, 42, 120, torch.float32, 3, True),
+    "narrow": (15, 128, 24, 9, torch.float32, 2, True),
+}
+
+
+@pytest.mark.parametrize("case", list(BLOCKED))
+def test_ring_plan_at_blocked_shapes(case):
+    """The blocked samplers' launches: several chains a CTA (spread evenly
+    over the chain tiles, about RING_CTAS CTAs a launch), within the
+    H100's 227 KB of shared memory and one CTA's threads an SM at the
+    register budget that the instantiation's launch bound sets (at least
+    128 registers a thread; ptxas' report, chip_smoke.py [2], shows what
+    the kernel takes); band stages where a tile's entries fit the update
+    threads and the shared memory (slice 4's, the narrow bucket's), else
+    in place (slice 2's, whose 2W + 32 = 1,054 entries exceed them)."""
+    W, rows, nblk, NC, dtype, nct, staged = BLOCKED[case]
+    lasso = case.endswith("lasso")
+    pl = gk.plan(_Shape(W, rows, dtype, nblk), NC, H100_SMEM, lasso)
+    assert pl.nct == nct
+    tiles = -(-NC // nct)
+    assert -(-NC // tiles) == nct                    # evenly spread
+    cap = gk.RING_NARROW if lasso else gk.RING_MAX_CHAINS
+    want = min(NC, cap, -(-NC * nblk // gk.RING_CTAS))
+    assert tiles == -(-NC // want)                   # about RING_CTAS CTAs
+    assert pl.smem <= H100_SMEM and pl.threads == gk.ring_threads(nct)
+    inst = gk.ring_capacity(nct)                    # the instantiation
+    assert nct <= inst and gk.ring_threads(inst) <= 1024
+    warps = gk.ring_threads(inst) // 32
+    assert -(-warps // 4) * 32 * gk.ring_regs(nct) <= gk.SCHED_REGS
+    assert gk.ring_regs(nct) >= 128
+    assert (pl.stage > 0) == staged
+    elem = 8 if dtype == torch.float64 else 4
+    assert pl.smem == gk.ring_smem_bytes(nct, pl.ring_len, elem, pl.stage)
 
 
 # ---------------------------------------------------------------------------
@@ -190,14 +228,42 @@ def _stage_line(band, f, wk, srw, elem):
     return out
 
 
-def ring_sweep(sb, pl, dp, step, fold, acc, madd):
-    """The ring mode's schedule over every block, blocks in lockstep by
-    row: step(j, dot, run) -> (diff, c1, c2), each (NC, nblk), for row j of
+def cta_grid(sb, pl, NC, live):
+    """The kernel's CTAs in launch order, each (block, its chains that
+    run): CTA x is chain tile x mod ceil(NC / nct) of block order[x //
+    ceil(NC / nct)], the tile's frozen chains (`live` False) skipped.
+    Checks that the blocks come longest first, a block's tiles side by
+    side, and that every (block, live chain) runs exactly once; returns the
+    (nblk, NC) mask of the chains that run."""
+    ntc = -(-NC // pl.nct)
+    rows = sb.blk_rows.tolist()
+    order = sb.order.tolist()
+    assert sorted(order) == list(range(sb.nblk))
+    assert order == sorted(range(sb.nblk), key=lambda b: -rows[b])
+    runs = torch.zeros((sb.nblk, NC), dtype=torch.bool)
+    for x in range(sb.nblk * ntc):
+        pos, ct = divmod(x, ntc)
+        b, c0 = order[pos], ct * pl.nct
+        chains = [c for c in range(c0, min(c0 + pl.nct, NC)) if live[c]]
+        assert not runs[b, chains].any()
+        runs[b, chains] = True
+    assert torch.equal(runs, live[None].expand(sb.nblk, NC))
+    return runs
+
+
+def ring_sweep(sb, pl, dp, step, fold, acc, madd, live=None):
+    """The kernel's schedule over every block, blocks in lockstep by row:
+    step(j, dot, run) -> (diff, c1, c2), each (NC, nblk), for row j of
     every block from dot = dp[j + W] (`run` marks the blocks that have a
     row j); fold(acc_b, diff, c1, c2) sums a row into block b's partials;
-    madd(d, b, x) = x + d b as the mode rounds it. Updates dp in place;
+    madd(d, b, x) = x + d b as the kernel rounds it; `live` (NC,) the chains
+    that run (all by default; the lassosum mode skips its frozen grid
+    points, whose dp the kernel leaves as it is). Updates dp in place;
     returns the per-block partials."""
     NC = dp.shape[0]
+    if live is None:
+        live = torch.ones(NC, dtype=torch.bool)
+    runs = cta_grid(sb, pl, NC, live)
     S = pl.ring_len
     S1 = S - 1
     elem = sb.band.element_size()
@@ -252,10 +318,14 @@ def ring_sweep(sb, pl, dp, step, fold, acc, madd):
         if t >= 1:                                     # final entries out
             e = torch.arange(j0 - K, j0)
             e = e[e < Lp]
-            dp[:, dpo_b[b] + e] = ring[:, e & S1]
+            put(b, e, ring[:, e & S1])
         e = torch.arange(j0 + B["A"], j0 + B["A"] + K)  # next entries in
         e = e[e < Lp]
         ring[:, e & S1] = dp[:, dpo_b[b] + e]
+
+    def put(b, e, vals):          # dp entries e of block b, chains that run
+        r = runs[b]
+        dp[r.nonzero()[:, 0][:, None], (dpo_b[b] + e)[None]] = vals[r]
 
     ntile = max((B["ntile"] for B in blk), default=0)
     for t in range(ntile):
@@ -310,7 +380,7 @@ def ring_sweep(sb, pl, dp, step, fold, acc, madd):
         if B["ntile"]:
             update_step(b, B["ntile"] - 1)
             e = torch.arange(K * (B["ntile"] - 1), B["Lp"])
-            dp[:, dpo_b[b] + e] = B["ring"][:, e & S1]
+            put(b, e, B["ring"][:, e & S1])
     return [B["acc"] for B in blk]
 
 
@@ -392,7 +462,7 @@ def lassosum_ring(sb, pl, dp, beta, bh, pf, lam, delta, active):
     zero = lambda: (torch.zeros(NG, dtype=dt),  # noqa: E731
                     torch.zeros(NG, dtype=torch.int32),
                     torch.zeros(NG, dtype=dt))
-    accs = ring_sweep(sb, pl, dp, step, fold, zero, gk._mul_add)
+    accs = ring_sweep(sb, pl, dp, step, fold, zero, gk._mul_add, active)
     gk._gather_set(beta, new_s, g)
     return (torch.stack([a[0] for a in accs], 1).sum(1),
             torch.stack([a[1] for a in accs], 1).sum(1, dtype=torch.int32),
@@ -418,25 +488,39 @@ def sweep_state(sb, NC, seed):
 
 
 CASES = {   # bands: slice 5's width at a short length, W < 32, W = 0,
-    # trailing pad slots, ragged dense blocks in buckets of other widths
+    # trailing pad slots, ragged dense blocks in buckets of other widths;
+    # blocks in a bucket of half-width 447 among short ones (stages at W >=
+    # 256 in float32, in place in float64), in one of slice 2's widest
+    # (511: in place); 36 blocks of 5-130 rows, most shorter than a tile
+    # or padded in their buckets
     "w458": lambda dt: one_block(700, 458, 1, dt),
     "w5": lambda dt: one_block(333, 5, 2, dt),
     "w0": lambda dt: one_block(77, 0, 3, dt),
     "w40_pad": lambda dt: one_block(300, 40, 4, dt, pad=45),
     "blocks": lambda dt: block_diag([300, 41, 7], 5, dt),
+    "blocks_wide": lambda dt: block_diag([31, 420, 5, 300], 6, dt),
+    "blocks_511": lambda dt: block_diag([460, 9], 8, dt),
+    "blocks_many": lambda dt: block_diag(
+        np.random.default_rng(7).integers(5, 131, 36).tolist(), 7, dt),
 }
+# chains (grid points) a case runs: LDpred2-auto's 30 (and 120 points)
+# where the plan then takes several chains a CTA
+NCHAINS = {"w458": (30, 120), "blocks_wide": (70, 120),
+           "blocks_511": (70, 64), "blocks_many": (30, 64)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_ring_schedule_matches_sweep_twin(case, dtype):
-    """The LDpred2 sweep on the ring schedule is bit-equal to
+    """The LDpred2 sweep on the kernel's schedule is bit-equal to
     `sweep_plain`: dp, the five outputs, h2 and gap (30 chains on slice
-    5's width, 4 on the others)."""
+    5's width in float32 and on the many blocks, 6 chains a CTA there; 70
+    on the wide blocks, 3 a CTA, and the widest, 2; 4 on the others)."""
     sb = CASES[case](dtype)
-    NC = 30 if case == "w458" and dtype == np.float32 else 4
+    NC = NCHAINS[case][0] if case in NCHAINS and (
+        case != "w458" or dtype == np.float32) else 4
     st = sweep_state(sb, NC, 7)
-    pl = gk.plan(sb, NC, H100_SMEM, ring=True)
+    pl = gk.plan(sb, NC, H100_SMEM)
     args = [st[k] for k in ("cb", "bh", "C2", "C4", "s1", "u", "z",
                             "inv_odd_p", "p", "sparse")] + [0.95, True]
     dp_ref, dp_ring = st["dp"].clone(), st["dp"].clone()
@@ -450,12 +534,15 @@ def test_ring_schedule_matches_sweep_twin(case, dtype):
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_ring_schedule_matches_lassosum_twin(case, dtype):
-    """The lassosum sweep on the ring schedule is bit-equal to
+    """The lassosum sweep on the kernel's schedule is bit-equal to
     `lassosum_sweep_plain` from the state after two sweeps, one grid point
     in five frozen: dp, betas, gap, df and maxshift (120 grid points on
-    slice 5's width, 7 on the others)."""
+    slice 5's width in float32 and on the wide blocks, 3 a CTA there, the
+    most the mode takes; 64 on the many blocks, 3 a CTA, and the widest,
+    1; 7 on the others)."""
     sb = CASES[case](dtype)
-    NG = 120 if case == "w458" and dtype == np.float32 else 7
+    NG = NCHAINS[case][1] if case in NCHAINS and (
+        case != "w458" or dtype == np.float32) else 7
     rng = np.random.default_rng(8)
     f = lambda a: torch.as_tensor(a, dtype=sb.dtype)  # noqa: E731
     m = sb.m
@@ -467,7 +554,7 @@ def test_ring_schedule_matches_lassosum_twin(case, dtype):
         gk.lassosum_sweep_plain(sb, dp, beta, bh, pf, lam, delta,
                                 torch.ones(NG, dtype=torch.bool))
     active = torch.as_tensor(np.arange(NG) % 5 != 3)
-    pl = gk.plan(sb, NG, H100_SMEM, ring=True)
+    pl = gk.plan(sb, NG, H100_SMEM, lasso=True)
     d_ref, b_ref = dp.clone(), beta.clone()
     ref = gk.lassosum_sweep_plain(sb, d_ref, b_ref, bh, pf, lam, delta,
                                   active)

@@ -427,8 +427,8 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "r(SCT prediction", "native greedy vs the fixed point",
                   "lassosum2: grid point", "[14]", "bf16 torch.matmul",
                   "lassosum mode", "[15]", "cprod_i8m_nona",
-                  "masked int8m operator", "ring-mode sweep, float64",
-                  "ring-mode lassosum, float32", "[16]",
+                  "masked int8m operator", "sweep, float64, one band",
+                  "lassosum, float32, 12 blocks", "[16]",
                   "snp_randomSVD on K8 vs on K6", "snp_ldpred2_auto "
                   "(unblocked)", "sampling betas", "[17a]",
                   "NA-free copy, int8m", "[17b]"):
