@@ -5,7 +5,8 @@ A second package beside the JAX one, ported slice by slice.
 - Slice 1, the genotype-operator path: PLINK .bed ingest -> scaling ->
   randomized SVD -> phenotype simulation -> GWAS -> C+T scores, with the
   fused 2-bit decode + GEMM as hand-written CUDA kernels
-  (`ops/geno_kernels.py`, `csrc/geno_gemm.cu`).
+  (`ops/geno_kernels.py`, `csrc/geno_split.cu`: K1 and K2 on exact bf16
+  bit planes).
 - Slice 2, LD and LDpred2: windowed LD (`snp_cor`, exact integer pair
   sums) -> LDSC h2 (`snp_ldsc2`) -> LD blocks (`auto_blocks`,
   `snp_ldsplit`, `build_block_bands`) -> LDpred2-auto and -grid on the

@@ -1,13 +1,16 @@
-// K2 and K7: the genotype operator on exact bf16 bit planes against the
-// float operand split into bf16 terms, with float32 tensor-core
+// K1, K2 and K7: the genotype operator on exact bf16 bit planes against
+// the float operand split into bf16 terms, with float32 tensor-core
 // accumulation, for Hopper (sm_90a). One kernel template,
 // plane_wgmma_kernel<PROD, TERMS, BNC>, serves
-//   K7 cprod  (PROD = false, TERMS = 2) bigsnpr_tpu/ops/pallas_kernels.py
-//       _cprod_kernel_split (entry pallas_cprod(mxu="split2")):  X~^T V
+//   K1        (PROD = false, TERMS = 3) bigsnpr_tpu/ops/pallas_kernels.py
+//       _cprod_kernel (entry pallas_cprod, mxu="highest", the port's
+//       default):                                                X~^T V
+//   K2        (PROD = true, TERMS = 3)  _prod_kernel
+//       (entry pallas_prod, mxu="highest"):                      X~ U
+//   K7 cprod  (PROD = false, TERMS = 2) _cprod_kernel_split
+//       (entry pallas_cprod(mxu="split2")):                      X~^T V
 //   K7 prod   (PROD = true, TERMS = 2)  _prod_kernel_split
 //       (entry pallas_prod(mxu="split2")):                       X~ U
-//   K2        (PROD = true, TERMS = 3)  _prod_kernel
-//       (entry pallas_prod, mxu="highest", the port's default):  X~ U
 //
 // The algebra (ops/geno_kernels.py has it in torch): the standardized value
 // of 2-bit code g with bits b0 (low), b1 is x~ = A - s t - A na, with
@@ -16,33 +19,42 @@
 // hi = bf16(x), then mid = bf16(x - hi) and lo = bf16((x - hi) - mid) (the
 // subtractions in f32, every cast round to nearest even): two terms keep
 // 16 of x's 24 mantissa bits (K7, the JAX package's split2), three all of
-// them (K2). Each product of a plane value and a term is exact in f32; the
-// tensor cores accumulate in f32. cprod's operand is V^T (one for both
+// them (K1, K2). Each product of a plane value and a term is exact in f32;
+// the tensor cores accumulate in f32. cprod's operand is V^T (one for both
 // planes); prod's are zB = U^T s for the T plane and zA = U^T A for the NA
-// plane. The result is (sum - pna) A - pt s (cprod) or (sum - pna) - pt
+// plane. K7's result is (sum - pna) A - pt s (cprod) or (sum - pna) - pt
 // (prod), per element in that order, with pt, pna the plane sums and sum
 // the row sums of V^T (cprod) or zA (prod), as `_split_epilogue_plain`
 // forms it. Built with --fmad=false, so the prep and the epilogue round as
 // the twins' separate torch ops do.
 //
-// K2 centres its operand. pt and sum each grow like m when U's columns do
-// not average zero (U = 1, all-positive weights), while the result grows
-// like sqrt(m): in f32 the difference loses the result (about 3e-4 of max
-// |float64| at m = 100,000). So K2's T-plane operand is zB - alpha and its
-// NA-plane operand zA - beta, alpha and beta per column, and every column
-// tile ends in a count column of ones whose plane sums are T_i = sum_j t_ij
-// and N_i = sum_j na_ij, exact integers in f32. Then
-//   out = ((sum - alpha T) - beta N) - pna' - pt'
-// in float64, pt', pna' the centred plane sums (about sqrt(m) in size).
-// alpha is the mean of zB weighted by E t = 2 - c, beta the mean of zA,
-// each rounded to bf16 so that zB - alpha rounds only where an entry is
-// 2^16 times alpha; a mean below 2^-10 of the mean |entry| is taken as 0
-// (its column has nothing to cancel). The sums are in float64.
+// Three terms (K1, K2) centre their operand. pt and sum each grow like the
+// depth when the operand's columns do not average zero (U = 1, all-positive
+// weights; K1's GWAS operand [yr | Q], whose intercept column is the
+// constant 1/sqrt(n)), while the result grows like its square root: in f32
+// the difference loses the result (K2: about 3e-4 of max |float64| at m =
+// 100,000). So the T-plane operand is shifted by alpha and the NA-plane
+// operand by beta, per column, and every column tile ends in a count
+// column of ones whose plane sums are T_i = sum_k t_ik and N_i = sum_k
+// na_ik over the depth k, exact integers in f32. In float64, in this order:
+//   K2: out = ((sum - alpha T) - beta N) - pna' - pt'
+//   K1: out = (((sum - beta N) A - (alpha T) s) - pna' A) - pt' s
+// pt', pna' the centred plane sums (about sqrt(depth) in size). K1 takes
+// A = (2 - c) s in float64, where the product of two f32 values is exact:
+// A rounded to f32 puts its rounding, times a sum that grows like n, in
+// the result (6.6e-5 of max |float64| at n = 40,003, V = |N(0,1)| + 1, in
+// the CPU twin; 6.8e-7 with A exact). K2 shifts zB - alpha and zA - beta,
+// alpha the mean of zB weighted by E t = 2 - c, beta the mean of zA; K1's
+// one operand V^T - gamma serves both planes, alpha = beta = gamma the
+// mean of V's column over the n samples. Each shift is rounded to bf16, so
+// that an entry minus it rounds only where the entry is 2^16 times the
+// shift; a mean below 2^-10 of the mean |entry| is taken as 0 (its column
+// has nothing to cancel). The sums are in float64.
 //
 // What bounds it on an H100, at n = 50,000, m = 100,000, l = 20: K7 does
 // 2 planes x 2 terms x 20 columns x 2nm = 8.0e11 bf16 operations, 0.81 ms
-// at the 989 TFLOP/s dense bf16 peak, K2 3 terms, 1.2e12 and 1.21 ms;
-// both read 1.25 GB of packed bytes, 0.37 ms at 3.35 TB/s. So both are
+// at the 989 TFLOP/s dense bf16 peak, K1 and K2 3 terms, 1.2e12 and 1.21
+// ms; all read 1.25 GB of packed bytes, 0.37 ms at 3.35 TB/s. So all are
 // bound by operations, and the work besides the tensor cores (the decode,
 // the pack's loads) has to hide under them.
 //
@@ -92,9 +104,9 @@
 //   registers while wgmmas run. The two warpgroups overlap each other's
 //   decode and tensor-core work.
 // - The decoded A of a sub-tile serves every term and plane of the item's
-//   column tile: an l of at most 31 (K2, whose tile of 32 ends in its count
-//   column) or 40 (K7) is one column tile, so
-//   the pack is decoded once. (Wider l takes more tiles, the pack decoded
+//   column tile: an l of at most 31 (K1, K2, whose tile of 32 ends in its
+//   count column) or 40 (K7) is one column tile, so the pack is decoded
+//   once. (Wider l takes more tiles, the pack decoded
 //   once a tile: the accumulators of all columns do not fit in registers;
 //   at the grid PRS's l = 650, 21 tiles, the decode of a sub-tile is ~1/5
 //   of its tensor-core work.)
@@ -104,10 +116,10 @@
 //   geno_plane_epilogue adds the slices in split order. No float atomics
 //   anywhere: two launches repeat bit for bit.
 // - The operand preparation (geno_plane_prep) is three small kernels: the
-//   float64 sums of each 64 depth rows, their sums in order (with K2's
-//   alpha and beta), then zB, zA or V^T, centred for K2, split into TERMS
-//   terms and written padded (zeros past l and past the depth) in the
-//   kernel's depth order, K2's count rows among them.
+//   float64 sums of each 64 depth rows, their sums in order (with the
+//   three-term shifts), then zB, zA or V^T, centred for three terms, split
+//   into TERMS terms and written padded (zeros past l and past the depth)
+//   in the kernel's depth order, the three-term count rows among them.
 // - The launch plan (tile width, stage depth, stages, grid, splits) is
 //   made in Python (ops/geno_kernels.py::plane_plan); geno_plane_gemm
 //   refuses what it cannot run.
@@ -209,9 +221,10 @@ struct Params {
   const float* center;    // (m,)
   const float* inv;       // (m,)
   const double* sumv;     // (l,)
-  const float* shift;     // (2, l): K2's alpha and beta
+  const float* shift;     // (2, l): three terms' alpha and beta, else 0
   float* out;             // (R, l), the depth unsplit
-  float* raw;             // (splits, 2, R, l + K2's count), the depth split
+  float* raw;             // (splits, 2, R, l + 1 for three terms' count),
+                          // the depth split
   int64_t items;          // m_tiles * n_tiles * splits
   int m_tiles, n_tiles;
   int ktiles, kps;        // stages of depth, and a split's share of them
@@ -224,7 +237,7 @@ struct Params {
 template <bool PROD, int TERMS, int BNC>
 __global__ void __launch_bounds__(THREADS, 1)
 plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
-  constexpr bool CENTRED = PROD && TERMS == 3;     // K2 (see the note)
+  constexpr bool CENTRED = TERMS == 3;             // K1, K2 (the note)
   constexpr int COLS = BNC - (CENTRED ? 1 : 0);    // l's columns a tile
   constexpr int N = TERMS * BNC;                   // wgmma columns
   constexpr int BP = b_planes(PROD);
@@ -446,12 +459,12 @@ plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
     // accumulator d[4j + 2h + e]: fragment row g + 8h, column 8j + 2tg + e
     // of this warp's 16 rows (prod's fragment row (g, h) is sample 2g + h);
     // term t of column c is column t BNC + c, in the same thread; mst holds
-    // the first term block's layout. K2's count column, BNC - 1, is lane
-    // tg = 3's, e = 1, j = BNC / 8 - 1.
+    // the first term block's layout. The three terms' count column, BNC -
+    // 1, is lane tg = 3's, e = 1, j = BNC / 8 - 1 (same g, so same row).
     const int64_t lr = p.l + (CENTRED ? 1 : 0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float cnt[2] = {0.f, 0.f};  // K2: T_i and N_i
+      float cnt[2] = {0.f, 0.f};  // three terms: T and N of the row
       if constexpr (CENTRED) {
 #pragma unroll
         for (int q = 0; q < 2; ++q)
@@ -461,9 +474,11 @@ plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
       const int64_t row = r0 + 64 * wg + 16 * w + (PROD ? 2 * g + h : g + 8 * h);
       if (row >= M) continue;
       float Ar = 0.f, sr = 0.f;
+      double Ad = 0.0;  // K1: A exact in float64
       if (!PROD && p.splits == 1) {
         sr = p.inv[row];
         Ar = (2.0f - p.center[row]) * sr;
+        Ad = (2.0 - static_cast<double>(p.center[row])) * sr;
       }
       float* slice = p.raw + sp * 2 * M * lr;
 #pragma unroll
@@ -479,10 +494,18 @@ plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
             slice[row * lr + col] = pt;
             slice[(M + row) * lr + col] = pna;
           } else if constexpr (CENTRED) {
-            p.out[row * p.l + col] = static_cast<float>(
-                ((p.sumv[col] - static_cast<double>(p.shift[col]) * cnt[0]) -
-                 static_cast<double>(p.shift[p.l + col]) * cnt[1]) -
-                static_cast<double>(pna) - static_cast<double>(pt));
+            const double ga = p.shift[col], gb = p.shift[p.l + col];
+            double v;
+            if constexpr (PROD) {
+              v = ((p.sumv[col] - ga * cnt[0]) - gb * cnt[1]) -
+                  static_cast<double>(pna) - static_cast<double>(pt);
+            } else {
+              const double sd = sr;
+              v = (((p.sumv[col] - gb * cnt[1]) * Ad - ga * cnt[0] * sd) -
+                   static_cast<double>(pna) * Ad) -
+                  static_cast<double>(pt) * sd;
+            }
+            p.out[row * p.l + col] = static_cast<float>(v);
           } else {
             const float sv = static_cast<float>(p.sumv[col]);
             p.out[row * p.l + col] =
@@ -498,7 +521,7 @@ plane_wgmma_kernel(const __grid_constant__ CUtensorMap mapB, const Params p) {
 }
 
 // out (R, l) from the raw plane sums of every depth split (splits, 2, R,
-// l + K2's count column), added in split order
+// l + three terms' count column), added in split order
 template <bool PROD, bool CENTRED>
 __global__ void plane_epilogue_kernel(const float* __restrict__ raw,
                                       int splits, int64_t R, int64_t l,
@@ -522,10 +545,19 @@ __global__ void plane_epilogue_kernel(const float* __restrict__ raw,
         T += raw[2 * sp * count + i * lr + l];
         N += raw[(2 * sp + 1) * count + i * lr + l];
       }
-      out[e] = static_cast<float>(
-          ((sumv[r] - static_cast<double>(shift[r]) * T) -
-           static_cast<double>(shift[l + r]) * N) -
-          static_cast<double>(pna) - static_cast<double>(pt));
+      const double ga = shift[r], gb = shift[l + r];
+      double v;
+      if (PROD) {
+        v = ((sumv[r] - ga * T) - gb * N) - static_cast<double>(pna) -
+            static_cast<double>(pt);
+      } else {
+        const double sd = inv[i];
+        const double Ad = (2.0 - static_cast<double>(center[i])) * sd;
+        v = (((sumv[r] - gb * N) * Ad - ga * T * sd) -
+             static_cast<double>(pna) * Ad) -
+            static_cast<double>(pt) * sd;
+      }
+      out[e] = static_cast<float>(v);
     } else if (PROD) {
       out[e] = (static_cast<float>(sumv[r]) - pna) - pt;
     } else {
@@ -539,8 +571,9 @@ __global__ void plane_epilogue_kernel(const float* __restrict__ raw,
 // The operand, in three steps over 64 depth rows d of W (depth, l) f32 a
 // block. prod scales row d by inv[d] (zB, the T plane's) and by A[d] =
 // (2 - c[d]) inv[d] (zA, the NA plane's).
-// 1. partial (4, l, blocks) float64: the block's sums of V (cprod) or zA,
-//    and (prod) of |zB|, |zA| and 2 - c.
+// 1. partial (4, l, blocks) float64: the block's sums of zA, |zB|, |zA|
+//    and 2 - c (prod), or of V, |V|, |V| and 1 (cprod: its alpha and beta
+//    are then both gamma, the mean of V's column).
 template <bool PROD>
 __global__ void plane_partial_kernel(const float* __restrict__ W,
                                      int64_t depth, int64_t l,
@@ -562,6 +595,9 @@ __global__ void plane_partial_kernel(const float* __restrict__ W,
       q[3] += 2.0f - center[d];
     } else {
       q[0] += x;
+      q[1] += fabsf(x);
+      q[2] += fabsf(x);
+      q[3] += 1.0;
     }
   }
 #pragma unroll
@@ -571,8 +607,8 @@ __global__ void plane_partial_kernel(const float* __restrict__ W,
 
 // 2. One block a column r: sumv[r] = the sum of its blocks' sums (each
 //    thread's share, blocks t, t + 256, ..., added in order, then the
-//    threads' in a fixed tree); K2's shift[r] = alpha and shift[l + r] =
-//    beta (see the note), else 0.
+//    threads' in a fixed tree); three terms' shift[r] = alpha and
+//    shift[l + r] = beta (see the note), else 0.
 template <bool CENTRED>
 __global__ void __launch_bounds__(256)
 plane_sum_kernel(const double* __restrict__ partial, int64_t blocks,
@@ -610,9 +646,9 @@ plane_sum_kernel(const double* __restrict__ partial, int64_t blocks,
 }
 
 // 3. Bop (planes, TERMS, l_pad, ldk) bf16: each operand row's terms in the
-//    kernel's depth order, zero past l and past the depth. K2's operand
-//    rows come in column tiles of bn: bn - 1 of l's columns, centred by
-//    shift, then the count row (1 on every variant).
+//    kernel's depth order, zero past l and past the depth. Three terms'
+//    operand rows come in column tiles of bn: bn - 1 of l's columns,
+//    centred by shift, then the count row (1 down the depth).
 template <bool PROD, int TERMS>
 __global__ void __launch_bounds__(256)
 plane_write_kernel(const float* __restrict__ W, int64_t depth, int64_t l,
@@ -622,7 +658,7 @@ plane_write_kernel(const float* __restrict__ W, int64_t depth, int64_t l,
                    const float* __restrict__ shift,
                    uint16_t* __restrict__ Bop) {
   constexpr int NB = PROD ? 2 : 1;
-  constexpr bool CENTRED = PROD && TERMS == 3;
+  constexpr bool CENTRED = TERMS == 3;
   __shared__ float tile[NB][64][65];
   const int64_t k0 = static_cast<int64_t>(blockIdx.x) * 64;
   const int r0 = blockIdx.y * 64;
@@ -646,7 +682,7 @@ plane_write_kernel(const float* __restrict__ W, int64_t depth, int64_t l,
           v1 = v1 - shift[l + col];
         }
       } else {
-        v0 = x;
+        v0 = CENTRED ? x - shift[col] : x;
       }
     }
     tile[0][dk][c] = v0;
@@ -706,18 +742,17 @@ bool compiled_width(int terms, int bnc) {
   return bnc % 8 == 0 && bnc >= 8 && bnc <= (terms == 2 ? 40 : 32);
 }
 
-// the compiled families: K7 cprod, K7 prod, K2
-bool compiled_family(int prod, int terms) {
-  return (!prod && terms == 2) || (prod && (terms == 2 || terms == 3));
-}
+// the compiled families: K7 (two terms) and K1, K2 (three), each in both
+// directions
+bool compiled_family(int terms) { return terms == 2 || terms == 3; }
 
-// l's columns in a column tile of bn operand rows (K2's last is its count)
-int64_t tile_cols(int prod, int terms, int bn) {
-  return bn - (prod && terms == 3 ? 1 : 0);
-}
+// l's columns in a column tile of bn operand rows (three terms: the last
+// is the count)
+int64_t tile_cols(int terms, int bn) { return bn - (terms == 3 ? 1 : 0); }
 
-// K2's plane sums of the count column are exact while below 2^24
-constexpr int64_t MAX_K2_DEPTH = int64_t{1} << 23;
+// the count column's plane sums (at most 2 x the depth) are exact while
+// below 2^24
+constexpr int64_t MAX_COUNT_DEPTH = int64_t{1} << 23;
 
 }  // namespace
 
@@ -725,16 +760,16 @@ extern "C" {
 
 // Bop (planes, terms, l_pad, ldk) bf16, sumv (l,) f64 and shift (2, l) f32
 // from W (depth, l) f32: cprod (prod = 0) W = V, one plane, sumv its column
-// sums; prod W = U scaled into zB and zA, sumv the column sums of zA; K2
-// (prod, 3 terms) centres them by shift and lays the operand rows out in
+// sums; prod W = U scaled into zB and zA, sumv the column sums of zA; three
+// terms (K1, K2) centre them by shift and lay the operand rows out in
 // column tiles of bn, each ending in its count row. partial: (4, l, ldk /
 // 64) f64 scratch.
 int geno_plane_prep(int prod, int terms, const void* W, int64_t depth,
                     int64_t l, int64_t l_pad, int bn, int64_t ldk,
                     const void* center, const void* inv, void* Bop,
                     void* partial, void* sumv, void* shift, void* stream) {
-  if (!compiled_family(prod, terms) || depth < 1 || l < 1 || bn < 2 ||
-      l_pad % bn != 0 || l_pad / bn * tile_cols(prod, terms, bn) < l ||
+  if (!compiled_family(terms) || depth < 1 || l < 1 || bn < 2 ||
+      l_pad % bn != 0 || l_pad / bn * tile_cols(terms, bn) < l ||
       ldk % SUB != 0 || ldk < depth || l_pad > (1 << 30) || l > (1 << 30))
     return -1;
   const auto* w = static_cast<const float*>(W);
@@ -751,15 +786,17 @@ int geno_plane_prep(int prod, int terms, const void* W, int64_t depth,
   if (prod) plane_partial_kernel<true><<<pgrid, 128, 0, st>>>(w, depth, l, c, s, pa);
   else plane_partial_kernel<false><<<pgrid, 128, 0, st>>>(w, depth, l, c, s, pa);
   const unsigned sgrid = static_cast<unsigned>(l);
-  if (prod && terms == 3)
+  if (terms == 3)
     plane_sum_kernel<true><<<sgrid, 256, 0, st>>>(pa, blocks, l, depth, sv, sh);
   else
     plane_sum_kernel<false><<<sgrid, 256, 0, st>>>(pa, blocks, l, depth, sv, sh);
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>(cdiv(l_pad, 64)));
   const int lp = static_cast<int>(l_pad);
-  if (!prod)
+  if (!prod && terms == 2)
     plane_write_kernel<false, 2><<<grid, 256, 0, st>>>(w, depth, l, lp, bn, ldk, c, s, sh, b);
+  else if (!prod)
+    plane_write_kernel<false, 3><<<grid, 256, 0, st>>>(w, depth, l, lp, bn, ldk, c, s, sh, b);
   else if (terms == 2)
     plane_write_kernel<true, 2><<<grid, 256, 0, st>>>(w, depth, l, lp, bn, ldk, c, s, sh, b);
   else
@@ -769,13 +806,13 @@ int geno_plane_prep(int prod, int terms, const void* W, int64_t depth,
 
 // The GEMM on the plan of ops/geno_kernels.py::plane_plan: column tile bn
 // (a compiled width: TERMS x bn wgmma columns, bn of them l's, bn - 1 for
-// K2) x n_tiles, l_pad = bn x n_tiles operand rows a term, `stages` ring
-// stages of ksub 64-deep sub-tiles, `grid` persistent CTAs, the depth in
-// `splits` runs of kps stages. splits = 1 writes out (R, l) through the
-// fused epilogue; splits > 1 the raw plane sums (splits, 2, R, l + 1 for
-// K2's count) for geno_plane_epilogue. Bop, sumv and shift as
-// geno_plane_prep writes them, Bop 16-byte aligned (the depth past ldk
-// reads as zeros).
+// three terms) x n_tiles, l_pad = bn x n_tiles operand rows a term,
+// `stages` ring stages of ksub 64-deep sub-tiles, `grid` persistent CTAs,
+// the depth in `splits` runs of kps stages. splits = 1 writes out (R, l)
+// through the fused epilogue; splits > 1 the raw plane sums (splits, 2, R,
+// l + 1 for three terms' count) for geno_plane_epilogue. Bop, sumv and
+// shift as geno_plane_prep writes them, Bop 16-byte aligned (the depth
+// past ldk reads as zeros).
 int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
                     int64_t nb, int64_t n, const void* Bop, int64_t ldk,
                     int64_t l, int64_t l_pad, const void* center,
@@ -785,13 +822,13 @@ int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
   const int64_t M = prod ? n : m, K = prod ? m : n;
   const int64_t ktiles = cdiv(K, SUB * static_cast<int64_t>(ksub));
   const int64_t m_tiles = cdiv(M, BM);
-  const int64_t cols = tile_cols(prod, terms, bn);
-  if (!compiled_family(prod, terms) || !compiled_width(terms, bn) || m < 1 ||
+  const int64_t cols = tile_cols(terms, bn);
+  if (!compiled_family(terms) || !compiled_width(terms, bn) || m < 1 ||
       n < 1 || l < 1 || nb != cdiv(n, 4) ||
       static_cast<int64_t>(n_tiles) * bn != l_pad ||
       static_cast<int64_t>(n_tiles) * cols < l ||
       static_cast<int64_t>(n_tiles - 1) * cols >= l ||
-      (prod && terms == 3 && m > MAX_K2_DEPTH) ||
+      (terms == 3 && K > MAX_COUNT_DEPTH) ||
       (ksub != 1 && ksub != 2 && ksub != 4) || stages < 2 ||
       stages > MAX_STAGES || kps < 1 || splits < 1 ||
       cdiv(ktiles, kps) != splits || grid < 1 || ktiles > (1 << 30) ||
@@ -827,14 +864,16 @@ int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
     return -2;
   const int g = static_cast<int>(p.items < grid ? p.items : grid);
   auto st = static_cast<cudaStream_t>(stream);
-  if (!prod) return dispatch_width<false, 2>(bn, map, p, g, st);
+  if (!prod)
+    return terms == 2 ? dispatch_width<false, 2>(bn, map, p, g, st)
+                      : dispatch_width<false, 3>(bn, map, p, g, st);
   return terms == 2 ? dispatch_width<true, 2>(bn, map, p, g, st)
                     : dispatch_width<true, 3>(bn, map, p, g, st);
 }
 
-// out (R, l) f32 from raw (splits, 2, R, l + 1 for K2) and the epilogue,
-// the splits added in order. cprod: center, inv are the (R,) variant
-// vectors.
+// out (R, l) f32 from raw (splits, 2, R, l + 1 for three terms) and the
+// epilogue, the splits added in order. cprod: center, inv are the (R,)
+// variant vectors.
 int geno_plane_epilogue(int prod, int terms, const void* raw, int splits,
                         int64_t R, int64_t l, const void* sumv,
                         const void* shift, const void* center,
@@ -850,6 +889,8 @@ int geno_plane_epilogue(int prod, int terms, const void* raw, int splits,
   const unsigned grid = static_cast<unsigned>(blocks < 8192 ? blocks : 8192);
   if (prod && terms == 3)
     plane_epilogue_kernel<true, true><<<grid, 256, 0, st>>>(r, splits, R, l, sv, sh, c, s, o);
+  else if (terms == 3)
+    plane_epilogue_kernel<false, true><<<grid, 256, 0, st>>>(r, splits, R, l, sv, sh, c, s, o);
   else if (prod)
     plane_epilogue_kernel<true, false><<<grid, 256, 0, st>>>(r, splits, R, l, sv, sh, c, s, o);
   else

@@ -6,9 +6,10 @@ Counterpart of `bigsnpr_tpu/ops/pallas_kernels.py` (`pallas_cprod` /
 (`config.pallas_mxu`):
 
   "highest", K1 `cprod`: X~^T V, V (n, l) -> (m, l)
-             K2 `prod` : X~ U,   U (m, l) -> (n, l), on exact bf16 bit
-             planes against the operand split into three bf16 terms (all
-             24 bits of its mantissa), float32 accumulation
+             K2 `prod` : X~ U,   U (m, l) -> (n, l), both on exact bf16
+             bit planes against the operand, centred per column, split
+             into three bf16 terms (all 24 bits of its mantissa), float32
+             accumulation
   "split2",  K7 `cprod_split` / `prod_split`: the same products on exact
              bf16 bit planes against the operand split into bf16 hi + lo,
              with float32 accumulation (`_cprod_kernel_split`,
@@ -24,9 +25,9 @@ Counterpart of `bigsnpr_tpu/ops/pallas_kernels.py` (`pallas_cprod` /
 with X~[i, j] = (d_ij - center_j) * inv_j for sample i of variant j, the
 dosage d = 2 - ((g + 1) >> 1) of 2-bit code g, and NA (g == 1) -> 0.
 
-The kernels live in `csrc/geno_gemm.cu` (K1), `csrc/geno_split.cu` (K2
-and K7: one template, `plane_wgmma_kernel<PROD, TERMS, BNC>`) and
-`csrc/geno_i8.cu` (K6 and K8), built with nvcc at first use
+The kernels live in `csrc/geno_split.cu` (K1, K2 and K7: one template,
+`plane_wgmma_kernel<PROD, TERMS, BNC>`) and `csrc/geno_i8.cu` (K6 and
+K8), built with nvcc at first use
 (keyed by the source's hash) into `_build/` and loaded with ctypes by
 `ops/cuda_build.py`. Each
 wrapper launches its kernel for CUDA tensors and counts the launch in
@@ -50,7 +51,6 @@ from bigsnpr_tpu_torch.ops import cuda_build
 from bigsnpr_tpu_torch.ops.blocks import pick_block
 from bigsnpr_tpu_torch.ops.corr import _pack_is_nona
 
-SOURCE = cuda_build.PKG / "csrc" / "geno_gemm.cu"
 I8_SOURCE = cuda_build.PKG / "csrc" / "geno_i8.cu"
 SPLIT_SOURCE = cuda_build.PKG / "csrc" / "geno_split.cu"
 # the int8 and bit-plane epilogues round as the twins' separate torch ops do
@@ -61,7 +61,7 @@ NPLANES = 4             # radix-128 int8 digits of the float operand
 # a raw int32 sum is at most 254 x (contraction length) in absolute value
 MAX_I8_DEPTH = 8_000_000
 _I8_BK = 128            # the kernel's depth tile: digit rows are padded to it
-_PLANE_SUB = 64         # K2 / K7's operand sub-tile depth: operands padded
+_PLANE_SUB = 64         # K1 / K2 / K7: operand sub-tile depth, operands padded
 
 # kernel launches made by the wrappers, by kernel
 launches = {"cprod": 0, "prod": 0, "cprod_split": 0, "prod_split": 0,
@@ -75,34 +75,15 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def build(verbose: bool = False):
-    """Compile `csrc/geno_gemm.cu` (K1) at first use (`cuda_build.build`);
-    returns the library's path."""
-    return cuda_build.build(SOURCE, verbose=verbose)
-
-
 def build_i8(verbose: bool = False):
     """Compile `csrc/geno_i8.cu` (K6, K8) at first use; returns its path."""
     return cuda_build.build(I8_SOURCE, verbose=verbose, extra=I8_FLAGS)
 
 
 def build_split(verbose: bool = False):
-    """Compile `csrc/geno_split.cu` (K2, K7) at first use; returns its
+    """Compile `csrc/geno_split.cu` (K1, K2, K7) at first use; returns its
     path."""
     return cuda_build.build(SPLIT_SOURCE, verbose=verbose, extra=SPLIT_FLAGS)
-
-
-def _bind(lib):
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.geno_plan.argtypes = [i64, i64, i64, i32]
-    lib.geno_plan.restype = i32
-    lib.geno_cprod.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr,
-                               ptr, i32, ptr]
-    lib.geno_cprod.restype = i32
-
-
-def _load():
-    return cuda_build.load(SOURCE, _bind)
 
 
 def _bind_i8(lib):
@@ -151,7 +132,9 @@ def standardized(packed: torch.Tensor, n: int, center: torch.Tensor,
 
 
 def cprod_plain(packed, n, V, center, inv, block=None):
-    """K1's function in torch ops: decode a variant block, f32 matmul."""
+    """K1's function in torch ops: decode a variant block, f32 matmul (the
+    direct product, as the JAX package's HIGHEST kernel computes it; the
+    kernel reaches it through the plane algebra)."""
     m = packed.shape[0]
     block = block or pick_block(n)
     out = torch.empty((m, V.shape[1]), dtype=torch.float32,
@@ -225,35 +208,16 @@ def _check(packed, n, W, w_rows, center, inv):
     _check_operands(packed, W, w_rows, center, inv)
 
 
-def _launch_cprod(packed, n, V, center, inv):
-    lib = _load()
-    m, nb = packed.shape
-    l = V.shape[1]
-    dev = packed.device
-    out = torch.empty((m, l), dtype=torch.float32, device=dev)
-    if min(m, n, l) == 0:
-        return out.zero_()
-    splits = lib.geno_plan(m, nb, l, _sm_count(dev))
-    part = (torch.empty((splits, m, l), dtype=torch.float32, device=dev)
-            if splits > 1 else out)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.geno_cprod(packed.data_ptr(), m, nb, n, V.data_ptr(), l,
-                        center.data_ptr(), inv.data_ptr(), out.data_ptr(),
-                        part.data_ptr(), splits, stream)
-    if rc != 0:
-        raise RuntimeError(f"geno_cprod launch failed: CUDA error {rc}")
-    launches["cprod"] += 1
-    return out
-
-
-def cprod(packed, n, V, center, inv):
+def cprod(packed, n, V, center, inv, splits=None):
     """K1: (m, nb) uint8 packed, V (n, l) f32, center/inv (m,) f32 ->
-    (m, l) f32 = X~^T V. CUDA tensors launch the kernel; CPU tensors take
-    `cprod_plain`."""
+    (m, l) f32 = X~^T V. CUDA tensors launch the bit-plane kernel on Vᵀ,
+    centred, split into three bf16 terms (`plane_wgmma_kernel<false, 3,
+    BN>`); CPU tensors take `cprod_plain`. `splits` overrides the planned
+    depth splits of the GEMM."""
     _check(packed, n, V, n, center, inv)
     if packed.device.type == "cpu":
         return cprod_plain(packed, n, V, center, inv)
-    return _launch_cprod(packed, n, V, center, inv)
+    return _launch_plane(False, 3, packed, n, V, center, inv, splits)
 
 
 def prod(packed, n, U, center, inv, splits=None):
@@ -268,8 +232,8 @@ def prod(packed, n, U, center, inv, splits=None):
 
 
 # ---------------------------------------------------------------------------
-# K2 and K7: exact bf16 bit planes against the operand split into bf16
-# terms ("highest" prod: three terms; "split2": hi + lo)
+# K1, K2 and K7: exact bf16 bit planes against the operand split into bf16
+# terms ("highest": three terms, centred; "split2": hi + lo)
 # ---------------------------------------------------------------------------
 
 def split_bf16(x: torch.Tensor, terms: int = 2):
@@ -277,7 +241,7 @@ def split_bf16(x: torch.Tensor, terms: int = 2):
     the bf16 of what is left, the subtractions in f32 and every cast round
     to nearest even. Two terms (hi, lo) are `_split_bf16` op for op, so the
     two are bit-equal to the JAX package's; three (hi, mid, lo) hold all 24
-    bits of x's mantissa (K2's operand)."""
+    bits of x's mantissa (K1's and K2's operands)."""
     out = []
     r = x
     for t in range(terms):
@@ -288,32 +252,51 @@ def split_bf16(x: torch.Tensor, terms: int = 2):
     return tuple(out)
 
 
+def _bf16_shift(x0, entries):
+    """A column's centring constant: its float64 mean x0 rounded to bf16,
+    or 0 where |x0| is below 2^-10 of the mean |entry| of `entries` (l,
+    depth) (`csrc/geno_split.cu` says why)."""
+    depth = entries.shape[1]
+    keep = x0.abs() * (1024.0 * depth) >= entries.double().abs().sum(1)
+    return torch.where(keep, x0.float().to(torch.bfloat16).float(),
+                       torch.zeros_like(x0, dtype=torch.float32))
+
+
+def _count_row(like):
+    """The three-term operand's count row: one bf16 row of ones (1, depth)
+    below its term blocks, whose plane sums are T and N."""
+    return torch.ones((1, like.shape[1]), dtype=torch.bfloat16,
+                      device=like.device)
+
+
 def _cprod_split_operands(V, center, inv, terms=2):
     """Host-side parts of the bit-plane cprod's twin: Vᵀ split into
     `terms` bf16 row blocks stacked (terms * l, n), its row sums, and
-    A = (2 - c) * inv."""
+    A = (2 - c) * inv; for three terms (K1) Vᵀ - gamma before the split,
+    gamma the mean of each column of V (`_bf16_shift`), a count row of
+    ones below the blocks, and the sums and A in float64 (A exact there,
+    `csrc/geno_split.cu` says why). Returns (terms, sums, A, shift =
+    (gamma, gamma) or None)."""
     Qt = V.T.contiguous()
-    return (torch.cat(split_bf16(Qt, terms)), Qt.sum(dim=1),
-            (2.0 - center) * inv)
+    if terms != 3:
+        return (torch.cat(split_bf16(Qt, terms)), Qt.sum(dim=1),
+                (2.0 - center) * inv, None)
+    sumv = Qt.double().sum(dim=1)
+    gamma = _bf16_shift(sumv / Qt.shape[1], Qt)
+    return (torch.cat(split_bf16(Qt - gamma[:, None], 3) + (_count_row(Qt),)),
+            sumv, (2.0 - center.double()) * inv.double(), (gamma, gamma))
 
 
 def _plane_shift(zB, zA, center):
-    """K2's centring constants (`csrc/geno_split.cu` says why): per column
-    of zB, zA (l, m), alpha = the mean of zB weighted by E t = 2 - c and
-    beta = the mean of zA, each rounded to bf16, or 0 where it is below
-    2^-10 of the mean |entry|; with the float64 sums of zA. Returns
-    (sumv (l,) f64, alpha (l,) f32, beta (l,) f32)."""
+    """K2's centring constants: per column of zB, zA (l, m), alpha = the
+    mean of zB weighted by E t = 2 - c and beta = the mean of zA
+    (`_bf16_shift`); with the float64 sums of zA. Returns (sumv (l,) f64,
+    alpha (l,) f32, beta (l,) f32)."""
     depth = zA.shape[1]
     sumv = zA.double().sum(dim=1)
     w = (2.0 - center).double().sum()
     a0 = sumv / w if float(w) > 0 else torch.zeros_like(sumv)
-    b0 = sumv / depth
-
-    def pick(x0, entries):
-        keep = x0.abs() * (1024.0 * depth) >= entries.double().abs().sum(1)
-        return torch.where(keep, x0.float().to(torch.bfloat16).float(),
-                           torch.zeros_like(x0, dtype=torch.float32))
-    return sumv, pick(a0, zB), pick(b0, zA)
+    return sumv, _bf16_shift(a0, zB), _bf16_shift(sumv / depth, zA)
 
 
 def _prod_split_operands(U, center, inv, terms=2):
@@ -332,8 +315,7 @@ def _prod_split_operands(U, center, inv, terms=2):
                 torch.cat(split_bf16(zA.contiguous(), terms)), zA.sum(dim=1),
                 None)
     sumv, alpha, beta = _plane_shift(zB, zA, center)
-    ones = torch.ones((1, zB.shape[1]), dtype=torch.bfloat16,
-                      device=zB.device)
+    ones = _count_row(zB)
     return (torch.cat(split_bf16((zB - alpha[:, None]).contiguous(), 3)
                       + (ones,)),
             torch.cat(split_bf16((zA - beta[:, None]).contiguous(), 3)
@@ -373,9 +355,11 @@ def _split_epilogue_plain(raw, l, sumv, A=None, s=None, terms=2,
     """raw (2, R, terms * l [+ 1]) -> (R, l) f32: pt = the T plane's sums
     of the terms added in order (hi + lo, or (hi + mid) + lo), pna the NA
     plane's; cprod (A, s given) (sum - pna) * A - pt * s, prod
-    (sum - pna) - pt (the JAX kernels' epilogue); K2 (shift = (alpha,
-    beta) given, raw's last column the count rows' sums T, N)
-    ((sum - alpha T) - beta N) - pna - pt in float64."""
+    (sum - pna) - pt (the JAX kernels' epilogue). Three terms (shift =
+    (alpha, beta) given, raw's last column the count rows' sums T, N), in
+    float64: K2 (prod) ((sum - alpha T) - beta N) - pna - pt, K1 (cprod)
+    (((sum - beta N) A - (alpha T) s) - pna A) - pt s, the kernel's order
+    (`csrc/geno_split.cu`)."""
     def add(r):
         out = r[:, :l]
         for t in range(1, terms):
@@ -385,10 +369,14 @@ def _split_epilogue_plain(raw, l, sumv, A=None, s=None, terms=2,
     pt, pna = add(raw[0]), add(raw[1])
     if shift is not None:
         T, N = raw[0][:, terms * l].double(), raw[1][:, terms * l].double()
-        alpha, beta = (x.double() for x in shift)
-        return ((((sumv[None, :] - alpha[None, :] * T[:, None])
-                  - beta[None, :] * N[:, None]) - pna.double())
-                - pt.double()).float()
+        alpha, beta = (x.double()[None, :] for x in shift)
+        T, N = T[:, None], N[:, None]
+        if A is None:
+            return ((((sumv[None, :] - alpha * T) - beta * N) - pna.double())
+                    - pt.double()).float()
+        Ad, sd = A.double()[:, None], s.double()[:, None]
+        return (((((sumv[None, :] - beta * N) * Ad) - (alpha * T) * sd)
+                 - pna.double() * Ad) - pt.double() * sd).float()
     if A is None:
         return (sumv[None, :] - pna) - pt
     return (sumv[None, :] - pna) * A[:, None] - pt * s[:, None]
@@ -397,10 +385,12 @@ def _split_epilogue_plain(raw, l, sumv, A=None, s=None, terms=2,
 def cprod_split_plain(packed, n, V, center, inv, terms=2):
     """K7 cprod's function in torch ops: the same bf16 operand, exact
     products accumulated in float32, and the same epilogue as the
-    kernel. `terms=3` is the three-term plane algebra."""
-    qs, qsum, A = _cprod_split_operands(V, center, inv, terms)
+    kernel. `terms=3` is the centred three-term plane algebra that K1
+    runs."""
+    qs, qsum, A, shift = _cprod_split_operands(V, center, inv, terms)
     raw = _split_raw_plain(packed, n, [qs], prod=False)
-    return _split_epilogue_plain(raw, V.shape[1], qsum, A, inv, terms)
+    return _split_epilogue_plain(raw, V.shape[1], qsum, A, inv, terms,
+                                 shift)
 
 
 def prod_split_plain(packed, n, U, center, inv, terms=2):
@@ -449,8 +439,8 @@ def plane_ring(prod, terms, bn, ksub, K):
 def plane_plan(prod, terms, m, n, l, sms, splits=None):
     """The launch plan of the bit-plane GEMM for rows M (cprod m, prod n),
     depth K (cprod n, prod m) and the operand's l columns: column tiles of
-    `bn` operand rows, `cols` of them l's (K2 keeps the last for its count
-    column: bn - 1); n_tiles = ceil(l / the widest tile's cols), and `bn`
+    `bn` operand rows, `cols` of them l's (three terms keep the last for
+    the count column: bn - 1); n_tiles = ceil(l / the widest tile's cols), and `bn`
     the least compiled width for `terms` whose cols hold ceil(l /
     n_tiles) (a wgmma then spans terms x bn columns); l_pad = bn * n_tiles
     operand rows a term; 128-row M tiles; ring stages of `ksub` 64-deep
@@ -463,7 +453,7 @@ def plane_plan(prod, terms, m, n, l, sms, splits=None):
     split run writes its raw sums as a slice that the epilogue kernel adds
     in order."""
     widths = PLANE_BNC[terms]
-    ones = 1 if prod and terms == 3 else 0
+    ones = 1 if terms == 3 else 0
     n_tiles = -(-l // (widths[-1] - ones))
     bn = min(w for w in widths if w - ones >= -(-l // n_tiles))
     M, K = (n, m) if prod else (m, n)
@@ -493,8 +483,9 @@ def _plane_operands(prod, terms, W, center, inv, plan):
     """The bit-plane GEMM's operand (planes, terms, l_pad, ldk) bf16 in
     the kernel's depth order and its sums, made on the card by
     `geno_plane_prep` from W (depth, l): cprod V, prod U (scaled there
-    into zB and zA; K2 centres them and adds its count rows). The sums are
-    (sumv (l,) f64, shift (2, l) f32: K2's alpha and beta, else 0).
+    into zB and zA); three terms centre them and add the count rows. The
+    sums are (sumv (l,) f64, shift (2, l) f32: three terms' alpha and
+    beta, else 0).
     Returns (operand, sums, rc)."""
     lib = _load_split()
     depth, l = W.shape
@@ -525,7 +516,7 @@ def _plane_gemm(prod, terms, packed, n, op, sums, l, center, inv, plan):
     R = n if prod else m
     sumv, shift = sums
     out = torch.empty((R, l), dtype=torch.float32, device=dev)
-    lr = l + plan["bn"] - plan["cols"]       # K2's raw sums: its count too
+    lr = l + plan["bn"] - plan["cols"]       # three terms: the count too
     raw = (torch.empty((plan["splits"], 2, R, lr), dtype=torch.float32,
                        device=dev) if plan["splits"] > 1 else out)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -544,9 +535,9 @@ def _plane_gemm(prod, terms, packed, n, op, sums, l, center, inv, plan):
 
 
 def _launch_plane(prod, terms, packed, n, W, center, inv, splits=None):
-    """Prepare the operand and run the bit-plane GEMM (K2: prod, 3 terms,
-    counted as "prod"; K7: 2 terms); returns out (R, l). `splits`
-    overrides the plan's."""
+    """Prepare the operand and run the bit-plane GEMM (3 terms: K1 and K2,
+    counted as "cprod" and "prod"; 2 terms: K7); returns out (R, l).
+    `splits` overrides the plan's."""
     m = packed.shape[0]
     l = W.shape[1]
     dev = packed.device
@@ -558,8 +549,7 @@ def _launch_plane(prod, terms, packed, n, W, center, inv, splits=None):
     if rc == 0:
         out, rc = _plane_gemm(prod, terms, packed, n, op, sums, l, center,
                               inv, plan)
-    kind = ("prod" if terms == 3 else
-            "prod_split" if prod else "cprod_split")
+    kind = ("prod" if prod else "cprod") + ("" if terms == 3 else "_split")
     if rc != 0:
         why = {-1: "the library refused the plan",
                -2: "the CUDA driver would not encode a TMA tensor map"}.get(

@@ -10,9 +10,9 @@
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. build the CUDA kernels from bigsnpr_tpu_torch/csrc/ (one nvcc a
-     source, the four started together);
-  3. hold K1 (decode + f32 GEMM) and K2 (bf16 bit planes against the
-     operand split into three bf16 terms) against their plain-torch twins
+     source, the three started together);
+  3. hold K1 and K2 (bf16 bit planes against the operand, centred, split
+     into three bf16 terms) against their plain-torch twins
      on the card at awkward shapes (n = 1, 2, 3 mod 4, ragged m, NA, monomorphic and
      scale-0 variants, l in {1, 12, 20, 50}), then on the first 4,096
      variants of the slice-1 cohort;
@@ -23,11 +23,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      with no JAX (PCA residuals, GWAS against a dense float64 regression,
      r(PRS, y) on the test set);
   5. K1/K2 timed at every shape slice 1 gives them, beside the plain twin,
-     one torch.matmul on the pre-decoded f32 matrix, and the bound (K2:
-     its GEMM on prepared operands and the whole wrapper; the bound of its
-     bf16 plane algebra beside that of the f32 product; K2 and its twin
-     held within 1e-5 of a float64 product, also on operands of mean far
-     from zero: |N(0,1)| + 1 at l = 20 and 1 at l = 1);
+     one torch.matmul on the pre-decoded f32 matrix, and the bound: the
+     GEMM on prepared operands and the whole wrapper, the bound of the
+     bf16 plane algebra beside that of the f32 product; each held with
+     its twin within 1e-5 of a float64 product, also on operands of mean
+     far from zero (K2: |N(0,1)| + 1 at l = 20 and 1 at l = 1; K1:
+     |N(0,1)| + 1 at l = 20 and the GWAS operand [yr | 1 | 10 PCs] within
+     1e-5, V = 1, whose exact product is near 0, within 4x the twin's
+     error), K1's two launches bit-equal and its depth splits 1, 2, 5 and
+     16 within 1e-5 of each other;
   6. slice 2 at full size: a 20,000 x 100,000 cohort made on the card with
      latent-Gaussian AR(1) LD inside blocks of 200-3,000 variants (1% NA on
      5% of the variants), then snp_simuPheno(h2 0.4, 1,000 causal) ->
@@ -150,11 +154,11 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 TOL = 1e-4   # kernel vs twin: max |diff| <= TOL * max |twin|, f32 sums in two orders
-SOURCES = {"cprod": "bigsnpr_tpu_torch/csrc/geno_gemm.cu",
+SOURCES = {"cprod": "bigsnpr_tpu_torch/csrc/geno_split.cu",
            "prod": "bigsnpr_tpu_torch/csrc/geno_split.cu"}
 REPLACES = {"cprod": "bigsnpr_tpu/ops/pallas_kernels.py:583",
             "prod": "bigsnpr_tpu/ops/pallas_kernels.py:636"}
-K2_DENSE_TOL = 1e-5   # K2 and its twin vs float64: max |diff| / max |f64|
+DENSE_TOL = 1e-5   # K1 / K2 and their twins vs float64: max |diff| / max |f64|
 SWEEP_SOURCE = "bigsnpr_tpu_torch/csrc/gibbs_sweep.cu"
 I8_SOURCE = "bigsnpr_tpu_torch/csrc/geno_i8.cu"
 I8_REPLACES = {"cprod_i8": "bigsnpr_tpu/ops/pallas_kernels.py:255",
@@ -498,8 +502,8 @@ def plane_launch_only(gk, prod, terms, P, n, W, c, inv):
     plan = gk.plane_plan(prod, terms, m, n, l,
                          gk._sm_count(W.device) if W.is_cuda else 132)
     if not W.is_cuda:     # CPU rehearsal: the wrapper runs its twin
-        kern = (gk.prod if terms == 3 else
-                gk.prod_split if prod else gk.cprod_split)
+        kern = ({True: gk.prod, False: gk.cprod} if terms == 3 else
+                {True: gk.prod_split, False: gk.cprod_split})[prod]
         return (lambda: kern(P, n, W, c, inv)), plan
     op, sums, rc = gk._plane_operands(prod, terms, W, c, inv, plan)
     if rc != 0:
@@ -537,25 +541,25 @@ def rel64(y, ref64):
         float(ref64.abs().max()), 1e-300)
 
 
-def check_k2_dense(torch, P, n, c, inv, W, out, ref, what):
-    """K2 and its twin against a float64 product: both within
-    K2_DENSE_TOL of max |float64|; returns the two relative errors."""
-    ref64 = product64(torch, P, n, c, inv, W, True)
+def check_dense(torch, P, n, c, inv, W, out, ref, what, prod=True):
+    """K2 (prod) or K1 and its twin against a float64 product: both within
+    DENSE_TOL of max |float64|; returns the two relative errors."""
+    ref64 = product64(torch, P, n, c, inv, W, prod)
     d_k, d_t = rel64(out, ref64), rel64(ref, ref64)
-    if max(d_k, d_t) > K2_DENSE_TOL:
-        fail(f"K2 ({what}) or its twin is off the float64 product: "
-             f"{d_k:.2e} / {d_t:.2e} > {K2_DENSE_TOL}")
+    if max(d_k, d_t) > DENSE_TOL:
+        fail(f"{'K2' if prod else 'K1'} ({what}) or its twin is off the "
+             f"float64 product: {d_k:.2e} / {d_t:.2e} > {DENSE_TOL}")
     return d_k, d_t
 
 
 def kernel_rows(gk, torch, dev, pack, sc, launches, n_test, reps=10):
     """Time K1/K2 at each shape the main path gives them, beside the twin
-    and one torch.matmul on the pre-decoded f32 matrix. K1's bound is the
-    larger of bytes / 3.35 TB/s and 2nml f32 FLOP / 67 TFLOP/s; K2's that
-    of its bf16 plane algebra (2 planes x 3 terms x 2nml / 989 TFLOP/s),
-    with the f32 product's beside it. K2 is timed as its GEMM on an
-    operand prepared once and as the whole wrapper, and held with its twin
-    within 1e-5 of a float64 product."""
+    and one torch.matmul on the pre-decoded f32 matrix. The bound is that
+    of the bf16 plane algebra (2 planes x 3 terms x 2nml / 989 TFLOP/s),
+    with the f32 product's beside it. Each kernel is timed as its GEMM on
+    an operand prepared once and as the whole wrapper, and held with its
+    twin within 1e-5 of a float64 product; then on operands of mean far
+    from zero (`k1_checks` for K1)."""
     from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator
 
     op = GenoOperator(pack, sc["center"], sc["scale"], device=dev)
@@ -570,60 +574,48 @@ def kernel_rows(gk, torch, dev, pack, sc, launches, n_test, reps=10):
     timer = Timer(torch, dev)
     rows = []
     for name, l, samples, what in SHAPES:
+        prod = name == "prod"
         ns = n if samples == "all" else n_test
         P = packed if ns == n else packed[:, :(ns + 3) // 4].contiguous()
         Xs = X if ns == n else X[:, :ns]
-        kern, plain = ((gk.cprod, gk.cprod_plain) if name == "cprod"
-                       else (gk.prod, gk.prod_plain))
-        W = torch.as_tensor(rng.standard_normal((ns if name == "cprod" else m,
-                                                 l)),
+        kern, plain = ((gk.prod, gk.prod_plain) if prod
+                       else (gk.cprod, gk.cprod_plain))
+        W = torch.as_tensor(rng.standard_normal((m if prod else ns, l)),
                             dtype=torch.float32, device=dev)
         out, ref = kern(P, ns, W, c, inv), plain(P, ns, W, c, inv)
         err, rel = rel_err(out, ref)
         if rel > TOL:
             fail(f"full-size {name} l={l}: rel max err {rel:.3e} > {TOL}")
-        if name == "prod":
-            d64 = check_k2_dense(torch, P, ns, c, inv, W, out, ref, what)
+        d64 = check_dense(torch, P, ns, c, inv, W, out, ref, what, prod)
         del out, ref
-        ms = timer(lambda: kern(P, ns, W, c, inv), reps=reps)
+        wrapper_ms = timer(lambda: kern(P, ns, W, c, inv), reps=reps)
         plain_ms = timer(lambda: plain(P, ns, W, c, inv), reps=3)
-        lib = (lambda: Xs @ W) if name == "cprod" else (lambda: Xs.T @ W)
+        lib = (lambda: Xs.T @ W) if prod else (lambda: Xs @ W)
         library_ms = timer(lib, reps=reps)
-        rows_out = m if name == "cprod" else ns
-        nbytes = P.numel() + 4 * (W.numel() + 2 * m + rows_out * l)
-        flops = 2.0 * ns * m * l
+        rows_out = ns if prod else m
+        t_f32 = 2.0 * ns * m * l / PEAK_F32_FLOP_PER_S * 1e3
+        run, plan = plane_launch_only(gk, prod, 3, P, ns, W, c, inv)
+        ms = timer(run, reps=reps)
+        del run
+        bound, bound_by, nbytes, ops = bound_planes(
+            P, m if prod else ns, l, rows_out, ns * m, 3)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_f32 = flops / PEAK_F32_FLOP_PER_S * 1e3
-        wrapper_ms = ms
-        if name == "cprod":
-            bound, bound_by = max(t_bytes, t_f32), (
-                "operations" if t_f32 >= t_bytes else "bytes")
-            log(f"  {name:5s} l={l:2d} n={ns}: kernel {ms:.3f} ms, twin "
-                f"{plain_ms:.3f} ms, torch.matmul on decoded {library_ms:.3f}"
-                f" ms, bound {bound:.3f} ms ({bound_by}: "
-                f"{flops / 1e9:.1f} GFLOP f32, {nbytes / 1e9:.3f} GB); max "
-                f"abs err {err:.3e} (rel {rel:.2e}) [{what}]")
-        else:
-            run, plan = plane_launch_only(gk, True, 3, P, ns, W, c, inv)
-            ms = timer(run, reps=reps)
-            del run
-            bound, bound_by, _, ops = bound_planes(P, m, l, ns, ns * m, 3)
-            log(f"  {name:5s} l={l:2d} n={ns}: kernel {ms:.3f} ms (GEMM + "
-                f"epilogue on an operand prepared once; the whole wrapper "
-                f"{wrapper_ms:.3f} ms; {ops / ms / 1e9:.1f} TFLOP/s bf16), "
-                f"twin {plain_ms:.3f} ms, torch.matmul on decoded "
-                f"{library_ms:.3f} ms, {plan_text(plan)}; bound "
-                f"{bound:.3f} ms ({bound_by}: {ops / 1e12:.3f} TFLOP bf16 "
-                f"over 989 TFLOP/s = "
-                f"{ops / PEAK_BF16_FLOP_PER_S * 1e3:.3f} ms; "
-                f"{nbytes / 1e9:.3f} GB over 3.35 TB/s = {t_bytes:.3f} ms; "
-                f"the f32 product's bound {max(t_f32, t_bytes):.3f} ms); max "
-                f"abs err {err:.3e} (rel {rel:.2e}, limit {TOL}); vs "
-                f"float64: kernel {d64[0]:.2e}, twin {d64[1]:.2e} (limit "
-                f"{K2_DENSE_TOL}) [{what}]")
+        log(f"  {name:5s} l={l:2d} n={ns}: kernel {ms:.3f} ms (GEMM + "
+            f"epilogue on an operand prepared once; the whole wrapper "
+            f"{wrapper_ms:.3f} ms; {ops / ms / 1e9:.1f} TFLOP/s bf16), "
+            f"twin {plain_ms:.3f} ms, torch.matmul on decoded "
+            f"{library_ms:.3f} ms, {plan_text(plan)}; bound "
+            f"{bound:.3f} ms ({bound_by}: {ops / 1e12:.3f} TFLOP bf16 "
+            f"over 989 TFLOP/s = "
+            f"{ops / PEAK_BF16_FLOP_PER_S * 1e3:.3f} ms; "
+            f"{nbytes / 1e9:.3f} GB over 3.35 TB/s = {t_bytes:.3f} ms; "
+            f"the f32 product's bound {max(t_f32, t_bytes):.3f} ms); max "
+            f"abs err {err:.3e} (rel {rel:.2e}, limit {TOL}); vs "
+            f"float64: kernel {d64[0]:.2e}, twin {d64[1]:.2e} (limit "
+            f"{DENSE_TOL}) [{what}]")
         if l == 20:
             rows.append({
-                "name": f"geno_{name} ({'K1' if name == 'cprod' else 'K2'})",
+                "name": f"geno_{name} ({'K2' if prod else 'K1'})",
                 "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
@@ -639,16 +631,76 @@ def kernel_rows(gk, torch, dev, pack, sc, launches, n_test, reps=10):
         out = gk.prod(packed, n, W, c, inv)
         ref = gk.prod_plain(packed, n, W, c, inv)
         err, rel = rel_err(out, ref)
-        d64 = check_k2_dense(torch, packed, n, c, inv, W, out, ref,
-                             f"operand {kind}")
+        d64 = check_dense(torch, packed, n, c, inv, W, out, ref,
+                          f"operand {kind}")
         log(f"  prod  l={l:2d} n={n}, operand {kind} (mean far from 0): "
             f"rel max err {rel:.2e} against the twin (limit {TOL}); vs "
             f"float64: kernel {d64[0]:.2e}, twin {d64[1]:.2e} (limit "
-            f"{K2_DENSE_TOL})")
+            f"{DENSE_TOL})")
         if rel > TOL:
             fail(f"K2 on operand {kind}: rel max err {rel:.3e} > {TOL}")
         del out, ref
+    k1_checks(gk, torch, dev, pack, sc, op, rng)
     return rows
+
+
+def k1_checks(gk, torch, dev, pack, sc, op, rng, splits=(1, 2, 5, 16)):
+    """K1 on operands whose columns do not average zero, against a float64
+    product: |N(0,1)| + 1 at l = 20, and the GWAS operand [yr | Q] at
+    l = 12 (Q from the QR of [1 | 10 covariates], as big_univLinReg builds
+    it, on its operator: the variant means, scale 1), within DENSE_TOL of
+    max |float64|; V = 1, whose exact product is near 0, within 4x the
+    twin's max abs error. The twin (f32 on decoded values: each (d - c)
+    rounds the same way in every sample) is printed beside, not held, on
+    these operands. Then two launches bit-equal and the depth split in
+    `splits` runs, each within DENSE_TOL of max |unsplit|."""
+    from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator
+
+    n, m = pack.n, pack.m
+    gop = GenoOperator(pack, sc["center"], np.ones(m), device=dev)
+    Q, _ = np.linalg.qr(np.column_stack([np.ones(n),
+                                         rng.standard_normal((n, 10))]))
+    y = rng.standard_normal(n)
+    cases = (("|N(0,1)| + 1", op, np.abs(rng.standard_normal((n, 20))) + 1),
+             ("[yr | 1 | 10 PCs], GWAS", gop,
+              np.column_stack([y - Q @ (Q.T @ y), Q])),
+             ("1", op, np.ones((n, 1))))
+    for kind, o, Vn in cases:
+        V = torch.as_tensor(Vn, dtype=torch.float32, device=dev)
+        args = (o.packed, n, V, o.center, o.inv)
+        out, ref = gk.cprod(*args), gk.cprod_plain(*args)
+        ref64 = product64(torch, o.packed, n, o.center, o.inv, V, False)
+        e_k = float((out.double() - ref64).abs().max())
+        e_t = float((ref.double() - ref64).abs().max())
+        s64 = max(float(ref64.abs().max()), 1e-300)
+        log(f"  cprod l={V.shape[1]:2d} n={n}, operand {kind}: vs float64 "
+            f"(max |f64| {s64:.3e}): kernel {e_k:.3e} abs ({e_k / s64:.2e}), "
+            f"twin {e_t:.3e} abs ({e_t / s64:.2e}); limit "
+            + ("4x the twin's abs error" if kind == "1" else
+               f"{DENSE_TOL} of max |f64| for the kernel"))
+        if not torch.isfinite(out).all():
+            fail(f"K1 on operand {kind}: non-finite output")
+        if kind == "1" and e_k > 4 * e_t:
+            fail(f"K1 on V = 1: abs err {e_k:.3e} > 4 x the twin's {e_t:.3e}")
+        if kind != "1" and e_k > DENSE_TOL * s64:
+            fail(f"K1 on operand {kind}: {e_k / s64:.2e} of max |float64| "
+                 f"> {DENSE_TOL}")
+        del out, ref, ref64
+    V = torch.as_tensor(rng.standard_normal((n, 20)), dtype=torch.float32,
+                        device=dev)
+    args = (op.packed, n, V, op.center, op.inv)
+    a, b = gk.cprod(*args), gk.cprod(*args)
+    if not torch.equal(a, b):
+        fail("K1: two launches differ")
+    worst = 0.0
+    for sp in splits:
+        got = gk.cprod(*args, splits=sp)
+        worst = max(worst, rel_err(got, a)[1])
+    log(f"  cprod l=20 n={n}: two launches bit-equal; depth splits "
+        f"{list(splits)} within {worst:.2e} of max |unsplit| (limit "
+        f"{DENSE_TOL})")
+    if worst > DENSE_TOL:
+        fail(f"K1's depth splits differ by {worst:.2e} > {DENSE_TOL}")
 
 
 def phase_slice(gk, torch, dev, packed_np, n, rng, timer, l=20, k=4096):
@@ -1536,13 +1588,13 @@ def i8_ptxas_summary(lib_path):
 
 
 def plane_ptxas_summary(lib_path):
-    """K2 / K7: plane_wgmma_kernel<PROD, TERMS, BNC>."""
+    """K1 / K2 / K7: plane_wgmma_kernel<PROD, TERMS, BNC>."""
     ptxas_summary(
         lib_path, "plane_wgmma_kernel<PROD, TERMS, BNC>",
         r"plane_wgmma_kernelILb(\d)ELi(\d)ELi(\d+)E",
-        lambda t: (("K2 prod" if t[2] == "3" else
-                    "K7 " + ("prod" if t[1] == "1" else "cprod")).ljust(9)
-                   + f" BNC {t[3]:>3s}"))
+        lambda t: ((("K2 " if t[1] == "1" else "K1 ") if t[2] == "3" else
+                    "K7 ") + ("prod" if t[1] == "1" else "cprod")).ljust(9)
+                  + f" BNC {t[3]:>3s}")
 
 
 def sweep_ptxas_summary(lib_path):
@@ -2058,7 +2110,7 @@ def check_k2_slice4(bp, gk, torch, dev, pack, train, test, multi, final,
             f"the whole wrapper {ms:.3f} ms")
         if i:
             continue
-        d64 = check_k2_dense(torch, packed, sub.n, c, inv, W, got, ref, what)
+        d64 = check_dense(torch, packed, sub.n, c, inv, W, got, ref, what)
         del got, ref
         run, plan = plane_launch_only(gk, True, 3, packed, sub.n, W, c, inv)
         gemm_ms = timer(run, reps=3)
@@ -2075,7 +2127,7 @@ def check_k2_slice4(bp, gk, torch, dev, pack, train, test, multi, final,
                                               sub.n * sub.m, 3)
         t_f32 = 2.0 * sub.n * sub.m * l / PEAK_F32_FLOP_PER_S * 1e3
         log(f"      vs float64: kernel {d64[0]:.2e}, twin {d64[1]:.2e} "
-            f"(limit {K2_DENSE_TOL}); GEMM + epilogue on a prepared operand "
+            f"(limit {DENSE_TOL}); GEMM + epilogue on a prepared operand "
             f"{gemm_ms:.3f} ms ({ops / gemm_ms / 1e9:.1f} TFLOP/s bf16), "
             f"torch.matmul on the decoded f32 matrix {library_ms:.3f} ms, "
             f"{plan_text(plan)}; bound {bound:.3f} ms ({by}: "
@@ -3001,15 +3053,15 @@ def main(argv=None):
     if dev.type == "cuda":
         log("[2] build (one nvcc a source, in parallel)")
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(4) as pool:  # K6 and K8 share geno_i8.cu
+        # K6 and K8 share geno_i8.cu; K1, K2 and K7 geno_split.cu
+        with ThreadPoolExecutor(3) as pool:
             libs = list(pool.map(lambda b: b(verbose=True),
-                                 (gk.build, gk.build_i8, gk.build_split,
-                                  gsk.build)))
+                                 (gk.build_i8, gk.build_split, gsk.build)))
         log(f"  built {', '.join(os.path.relpath(p, here) for p in libs)} "
             f"in {time.perf_counter() - t0:.1f} s")
-        i8_ptxas_summary(libs[1])
-        plane_ptxas_summary(libs[2])
-        sweep_ptxas_summary(libs[3])
+        i8_ptxas_summary(libs[0])
+        plane_ptxas_summary(libs[1])
+        sweep_ptxas_summary(libs[2])
 
     rng = np.random.default_rng(args.seed)
     timer = Timer(torch, dev)

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Where the bit-plane GEMM's time goes, on one GPU (K2 and K7,
+"""Where the bit-plane GEMM's time goes, on one GPU (K1, K2 and K7,
 bigsnpr_tpu_torch/csrc/geno_split.cu: plane_wgmma_kernel<PROD, TERMS, BNC>).
 
     python3 plane_variants_probe.py [--n N] [--m M] [--l L ...]
                                     [--variants NAME ...]
 
 On random packed bytes (n samples x m variants) and random operands, times
-K2 (prod, three terms) and K7 (prod and cprod, two terms) as GEMM +
+K2 and K1 (prod and cprod, three terms) and K7 (prod and cprod, two
+terms) as GEMM +
 epilogue on an operand prepared once, with CUDA events over 5 launches
 after a warm-up. Then builds variants of the kernel source that leave one
-piece of work out or change one step, and times the three again on each.
+piece of work out or change one step, and times the four again on each.
 The variants give wrong sums: they exist only to be timed.
 
   no_decode  the A fragments are constants: the packed bytes are neither
@@ -79,6 +80,12 @@ VARIANTS = {
                      "          for (int pl = 0; pl < (p.m < 0 ? BP : 0); "
                      "++pl)")],
 }
+
+
+def families(U, V):
+    """The timed instantiation families: (name, prod, terms, operand)."""
+    return (("K2 prod", True, 3, U), ("K1 cprod", False, 3, V),
+            ("K7 prod", True, 2, U), ("K7 cprod", False, 2, V))
 
 
 def variant_source(src, name):
@@ -162,9 +169,7 @@ def main(argv=None):
         V = torch.randn(n, l, device="cuda", generator=gen)
         U = torch.randn(m, l, device="cuda", generator=gen)
         cases = []
-        for name, prod, terms, W in (("K2 prod", True, 3, U),
-                                     ("K7 prod", True, 2, U),
-                                     ("K7 cprod", False, 2, V)):
+        for name, prod, terms, W in families(U, V):
             plan = gk.plane_plan(prod, terms, m, n, l, sms)
             op, sums, rc = gk._plane_operands(prod, terms, W, c, inv, plan)
             if rc != 0:
@@ -183,9 +188,7 @@ def main(argv=None):
                   f"{plan['splits']})", flush=True)
         for ksub in args.ksub:
             times = []
-            for name, prod, terms, W in (("K2 prod", True, 3, U),
-                                         ("K7 prod", True, 2, U),
-                                         ("K7 cprod", False, 2, V)):
+            for name, prod, terms, W in families(U, V):
                 plan = at_depth(gk, gk.plane_plan(prod, terms, m, n, l, sms),
                                 prod, terms, m, n, ksub)
                 op, sums, rc = gk._plane_operands(prod, terms, W, c, inv,

@@ -1,5 +1,4 @@
-"""The CUDA kernels (K1 decode + GEMM, K2 and K7 on bf16 bit planes, K6 on
-int8 bit planes, K8 on materialized int8 planes, the Gibbs sweep and its
+"""The CUDA kernels (K1, K2 and K7 on bf16 bit planes, K6 on int8 bit planes, K8 on materialized int8 planes, the Gibbs sweep and its
 lassosum mode on blocked bands and on one band over every variant)
 against their plain-torch twins on a card.
 
@@ -37,8 +36,8 @@ def dense64(packed, n, c, inv):
                                    (1003, 3001, 20), (4097, 513, 50),
                                    (2003, 1500, 650)])
 def test_kernels_match_twins(cuda, n, m, l):
-    """K1 and K2 against their twins (1e-4 of max |twin|); K2 (the
-    three-term bit-plane kernel) and its twin also within 1e-5 of max
+    """K1 and K2 against their twins (1e-4 of max |twin|); both (the
+    three-term bit-plane kernels) and their twins also within 1e-5 of max
     |float64 product|."""
     pp = pt.snp_fake(n, m, seed=l, na_prob=0.05)
     packed = pp.device_packed(cuda)
@@ -50,14 +49,17 @@ def test_kernels_match_twins(cuda, n, m, l):
     V = torch.randn(n, l, device=cuda)
     U = torch.randn(m, l, device=cuda)
     before = dict(gk.launches)
-    for kern, plain, W in ((gk.cprod, gk.cprod_plain, V),
-                           (gk.prod, gk.prod_plain, U)):
+    X = dense64(packed, n, c, inv)
+    for kern, plain, W, ref64 in ((gk.cprod, gk.cprod_plain, V,
+                                   X @ V.double()),
+                                  (gk.prod, gk.prod_plain, U,
+                                   X.T @ U.double())):
         out, ref = kern(packed, n, W, c, inv), plain(packed, n, W, c, inv)
         torch.cuda.synchronize()
         assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
-    ref64 = dense64(packed, n, c, inv).T @ U.double()
-    for y in (out, ref):
-        assert (y.double() - ref64).abs().max() <= 1e-5 * ref64.abs().max()
+        for y in (out, ref):
+            assert ((y.double() - ref64).abs().max()
+                    <= 1e-5 * ref64.abs().max())
     assert gk.launches["cprod"] == before["cprod"] + 1
     assert gk.launches["prod"] == before["prod"] + 1
 
@@ -347,13 +349,14 @@ def test_split_kernels_match_twins(cuda, n, m, l, na_prob):
 @pytest.mark.cuda
 def test_split_depth_splits_repeat(cuda):
     """Any depth split (1-16) gives the twin's result within 1e-5 of its
-    max (K2: 1e-4 of its direct twin), and each split count repeats bit
-    for bit (no float atomics)."""
+    max (K1, K2: 1e-4 of the direct twin), and each split count repeats
+    bit for bit (no float atomics)."""
     packed, c, inv, V, U = i8_case(3001, 2049, 20, 9, 0.05)
     for kern, plain, W, tol in (
             (gk.cprod_split, gk.cprod_split_plain, V, 1e-5),
             (gk.prod_split, gk.prod_split_plain, U, 1e-5),
-            (gk.prod, gk.prod_plain, U, 1e-4)):
+            (gk.prod, gk.prod_plain, U, 1e-4),
+            (gk.cprod, gk.cprod_plain, V, 1e-4)):
         ref = plain(packed, 3001, W, c, inv)
         for sp_ in range(1, 17):
             a = kern(packed, 3001, W, c, inv, splits=sp_)
@@ -421,6 +424,82 @@ def test_k2_holds_operands_of_nonzero_mean(cuda, kind):
         assert (out - alg).abs().max() <= 1e-5 * alg.abs().max()
         assert ((out.double() - ref64).abs().max()
                 <= 1e-5 * ref64.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,l", [(1000, 777, 1), (1001, 1500, 12),
+                                   (1002, 3001, 20), (1003, 513, 21),
+                                   (4099, 2049, 50), (20_011, 2100, 20)])
+@pytest.mark.parametrize("na_prob", [0.05, 0.0])
+def test_k1_planes_match_twins_and_float64(cuda, n, m, l, na_prob):
+    """K1 on three-term bit planes at awkward shapes (n = 0..3 mod 4,
+    ragged m, monomorphic and scale-0 variants, NA and NA-free packs):
+    within 1e-4 of max |direct twin|, within 1e-5 of max |float64| as its
+    twin is, within 1e-5 of the plain three-term plane algebra
+    (`cprod_split_plain(terms=3)`: f32 sums in another order); two
+    launches bit-equal, one count a launch."""
+    packed, c, inv, V, U = i8_case(n, m, l, l + 2, na_prob)
+    ref64 = dense64(packed, n, c, inv) @ V.double()
+    before = gk.launches["cprod"]
+    out, again = gk.cprod(packed, n, V, c, inv), gk.cprod(packed, n, V, c, inv)
+    ref = gk.cprod_plain(packed, n, V, c, inv)
+    alg = gk.cprod_split_plain(packed, n, V, c, inv, terms=3)
+    torch.cuda.synchronize()
+    assert gk.launches["cprod"] == before + 2
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert (out - alg).abs().max() <= 1e-5 * alg.abs().max()
+    for y in (out, ref):
+        assert (y.double() - ref64).abs().max() <= 1e-5 * ref64.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["|N|+1", "ones", "-|N|-1", "[yr | Q]"])
+def test_k1_holds_operands_of_nonzero_mean(cuda, kind):
+    """K1 on an operand whose columns do not average zero (all-positive or
+    all-negative weights, V = 1, the GWAS operand [yr | 1 | 10 covariates]
+    on big_univLinReg's operator: the variant means, scale 1), at 100,003
+    samples of a cohort scaled by its own means: the plane sums grow like
+    n and the result like sqrt(n), so K1 centres its operand. Within 1e-5
+    of max |float64| and of the plain three-term algebra (V = 1, whose
+    exact product is near 0: its max abs error at most 4x the direct
+    twin's); unsplit and with the depth split in 1, 2, 5 and 16, each
+    within 1e-5 of max |unsplit|; two launches bit-equal."""
+    n, m = 100_003, 2003
+    pp = pt.snp_fake(n, m, seed=19, na_prob=0.01)
+    sc = pt.bed_scaleBinom(pp, device=cuda)
+    rng = np.random.default_rng(19)
+    if kind == "[yr | Q]":
+        scale = np.ones(m)
+        Q, _ = np.linalg.qr(np.column_stack([np.ones(n),
+                                             rng.standard_normal((n, 10))]))
+        y = rng.standard_normal(n)
+        V = np.column_stack([y - Q @ (Q.T @ y), Q])
+    else:
+        scale = sc["scale"]
+        V = {"|N|+1": np.abs(rng.standard_normal((n, 20))) + 1,
+             "ones": np.ones((n, 1)),
+             "-|N|-1": -np.abs(rng.standard_normal((n, 20))) - 1}[kind]
+    op = pt.GenoOperator(pp, sc["center"], scale, device=cuda)
+    packed, c, inv = op.packed, op.center, op.inv
+    V = torch.as_tensor(V, dtype=torch.float32, device=cuda)
+    ref64 = dense64(packed, n, c, inv) @ V.double()
+    twin = gk.cprod_plain(packed, n, V, c, inv)
+    alg = gk.cprod_split_plain(packed, n, V, c, inv, terms=3)
+    out = gk.cprod(packed, n, V, c, inv)
+    again = gk.cprod(packed, n, V, c, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    err = (out.double() - ref64).abs().max()
+    if kind == "ones":
+        assert err <= 4 * (twin.double() - ref64).abs().max()
+        assert (out - alg).abs().max() <= 4 * (twin - alg).abs().max()
+    else:
+        assert err <= 1e-5 * ref64.abs().max()
+        assert (out - alg).abs().max() <= 1e-5 * alg.abs().max()
+    for splits in (1, 2, 5, 16):
+        got = gk.cprod(packed, n, V, c, inv, splits=splits)
+        assert (got - out).abs().max() <= 1e-5 * out.abs().max()
 
 
 @pytest.mark.cuda

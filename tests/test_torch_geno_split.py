@@ -7,11 +7,13 @@ mxu="split2")`) within 1e-5 of max |ref| (both float32; the sums run in
 another order, per sample tile there, whole here), and against a float64
 dense oracle within 2e-5 of max |oracle| (tests/test_pallas.py's bound for
 split2). `split_bf16` is bit-equal to `_split_bf16`. The same plane
-algebra with the operand split into three bf16 terms, which K2 (the
-"highest" prod) runs on the card, centred, is held against the JAX
-package's f32-HIGHEST kernels and float64 within 1e-5, also on operands
-of mean far from zero, and `plane_plan`, the two
-kernels' launch plan, against the C side's checks.
+algebra with the operand split into three bf16 terms, which K2 and K1
+(the "highest" prod and cprod) run on the card, centred, is held against
+the JAX package's f32-HIGHEST kernels and float64 within 1e-5, also on
+operands of mean far from zero and on the GWAS operand [yr | Q]; K1's
+operand preparation is emulated as the C side writes it and held equal to
+the twin's; and `plane_plan`, the kernels' launch plan, against the C
+side's checks.
 tests/test_torch_cuda.py holds the CUDA kernels against the twins on a
 card."""
 
@@ -28,6 +30,7 @@ from bigsnpr_tpu_torch import interop
 from bigsnpr_tpu_torch.linalg import randomsvd as prsvd
 from bigsnpr_tpu_torch.ops import geno_kernels as gk
 
+from bigsnpr_tpu.core import unpack as junpack
 from test_torch_geno_i8 import close, dense
 
 torch.set_num_threads(2)
@@ -153,7 +156,8 @@ def test_randomsvd_and_gwas_under_split2_match_jax():
 
 
 # ---------------------------------------------------------------------------
-# the three-term plane algebra of K2 (the "highest" prod on bit planes)
+# the three-term plane algebra of K2 and K1 (the "highest" prod and cprod on
+# bit planes)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("l", [1, 12, 21])
@@ -180,12 +184,13 @@ def test_split_bf16_three_terms_hold_every_bit(l):
                                  (1003, 200)])
 @pytest.mark.parametrize("na_prob", [0.05, 0.0])
 def test_three_term_algebra_matches_pallas_highest_and_oracle(n, m, na_prob):
-    """The plain three-term plane algebra (`prod_split_plain(terms=3)`,
-    the function K2 computes on the card; and its cprod) against the JAX
-    package's f32-HIGHEST Pallas kernels in interpret mode on the same
-    numpy inputs, within 1e-5 of max |ref| (f32 sums in other orders), and
-    against float64 within 1e-5 of max |oracle|; monomorphic and scale-0
-    variants, n = 0..3 (mod 4)."""
+    """The plain three-term plane algebra (`prod_split_plain(terms=3)` and
+    `cprod_split_plain(terms=3)`, the functions K2 and K1 compute on the
+    card, centred) against the JAX package's f32-HIGHEST Pallas kernels in
+    interpret mode on the same numpy inputs, within 1e-5 of max |ref| (f32
+    sums in other orders), and against float64 within 1e-5 of max
+    |oracle|; monomorphic and scale-0 variants, n = 0..3 (mod 4); cprod
+    also on V = |N(0,1)| + 1, where its centring shifts every column."""
     jp = bt.snp_fake(n, m, seed=n + 7, na_prob=na_prob)
     packed = np.asarray(jp.packed).copy()
     packed[5] = 0                                    # monomorphic
@@ -208,6 +213,14 @@ def test_three_term_algebra_matches_pallas_highest_and_oracle(n, m, na_prob):
                              terms=3).numpy()
     close(B, jop.cprod(V), JAX_TOL)
     close(B, Xt.T @ V.astype(np.float64), 1e-5)
+    assert np.all(B[::17] == 0.0)
+    Vm = np.abs(V) + 1
+    gamma = gk._cprod_split_operands(torch.as_tensor(Vm), c, inv, 3)[3][0]
+    assert (gamma > 1).all()
+    B = gk.cprod_split_plain(P, n, torch.as_tensor(Vm), c, inv,
+                             terms=3).numpy()
+    close(B, jop.cprod(Vm), JAX_TOL)
+    close(B, dense_f32(packed, n, c, inv).T @ Vm.astype(np.float64), 1e-5)
     assert np.all(B[::17] == 0.0)
 
 
@@ -241,9 +254,195 @@ def test_three_term_algebra_holds_operands_of_nonzero_mean(kind, na_prob):
     assert np.abs(ref64[0]).max() > 0
 
 
+def dense_f32(packed, n, c, inv):
+    """float64 oracle (n, m) of the operator's own f32 center and inv
+    tensors, NA -> 0: the function the port computes (`dense` takes the
+    float64 center and scale, which differ from those by their f32
+    rounding)."""
+    X = junpack.np_unpack_codes(packed, n).astype(int)
+    d = np.where(X == 1, np.nan, 2 - ((X + 1) >> 1)).T.astype(float)
+    return np.nan_to_num((d - c.double().numpy()) * inv.double().numpy(),
+                         nan=0.0)
+
+
+def gwas_operand(rng, n, covariates):
+    """big_univLinReg's cprod operand [yr | Q] (`assoc/gwas.py`): Q from the
+    QR of [1 | covariates], yr the phenotype's residual, in float32."""
+    Q, _ = np.linalg.qr(np.column_stack([np.ones(n),
+                                         rng.standard_normal((n, covariates))]))
+    y = rng.standard_normal(n)
+    return np.column_stack([y - Q @ (Q.T @ y), Q]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["|N|+1", "ones", "-|N|-1", "[yr | Q]"])
+@pytest.mark.parametrize("na_prob", [0.05, 0.0])
+def test_three_term_cprod_holds_operands_of_nonzero_mean(kind, na_prob):
+    """K1's algebra (`cprod_split_plain(terms=3)`) on operands whose
+    columns do not average zero, at 40,003 samples: the plane sums grow
+    like n and the result like sqrt(n) (the uncentred algebra misses
+    float64 by 2.2e-4 of max |ref| on |N|+1 here, the direct f32 twin by
+    7.6e-6). Centred, it is within 1e-5 of max |ref| of JAX's interpret
+    HIGHEST cprod and of float64 (of the operator's f32 center and inv);
+    on V = 1, whose exact product is near 0, its max abs error is at most
+    4x the direct twin's. The GWAS operand [yr | 1 | 10 covariates] runs
+    on big_univLinReg's operator (the variant means, scale 1).
+    Monomorphic and scale-0 variants; NA and NA-free packs."""
+    n, m = 40_003, 203
+    jp = bt.snp_fake(n, m, seed=13, na_prob=na_prob)
+    packed = np.asarray(jp.packed).copy()
+    packed[5] = 0                                    # monomorphic
+    jp = bt.GenoPack(packed=packed, n=n)
+    sc = bt.bed_scaleBinom(jp)
+    rng = np.random.default_rng(5)
+    if kind == "[yr | Q]":
+        scale = np.ones(m)
+        V = gwas_operand(rng, n, 10)
+    else:
+        scale = scale_with_zeros(sc)
+        V = {"|N|+1": np.abs(rng.standard_normal((n, 12))) + 1,
+             "ones": np.ones((n, 1)),
+             "-|N|-1": -np.abs(rng.standard_normal((n, 12))) - 1}[kind]
+        V = V.astype(np.float32)
+    jop = pk.PallasOperator(jp, sc["center"], scale, interpret=True,
+                            mxu="highest")
+    pop = pt.GenoOperator(interop.pack_from_numpy(packed, n), sc["center"],
+                          scale)
+    P, c, inv = pop.packed, pop.center, pop.inv
+    Vt = torch.as_tensor(V)
+    gamma = gk._cprod_split_operands(Vt, c, inv, 3)[3][0]
+    # the centring is on: every column, or the GWAS operand's intercept
+    assert (gamma[1 if kind == "[yr | Q]" else slice(None)] != 0).all()
+    B = gk.cprod_split_plain(P, n, Vt, c, inv, terms=3).numpy()
+    ref64 = dense_f32(packed, n, c, inv).T @ V.astype(np.float64)
+    if kind == "ones":
+        twin = gk.cprod_plain(P, n, Vt, c, inv).numpy()
+        assert (np.abs(B - ref64).max()
+                <= 4 * np.abs(twin - ref64).max())
+    else:
+        close(B, jop.cprod(V), JAX_TOL)
+        close(B, ref64, 1e-5)
+    if kind != "[yr | Q]":
+        assert np.all(B[::17] == 0.0)
+
+
 # ---------------------------------------------------------------------------
-# the launch plan of the K2 / K7 GEMM (`plane_plan`), at the card tests'
-# shapes and the chip's
+# K1's operand preparation (`geno_plane_prep`, cprod, three terms) emulated
+# as `csrc/geno_split.cu` writes it
+# ---------------------------------------------------------------------------
+
+def sigma64(kk):
+    """The depth order of cprod's operand within 64 samples."""
+    return (16 * ((kk & 7) >> 1) + 4 * (kk >> 4) + 2 * ((kk >> 3) & 1)
+            + (kk & 1))
+
+
+def bf16(x):
+    """float32 -> bf16 round to nearest even, as float32."""
+    return torch.as_tensor(np.asarray(x, np.float32)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+
+
+def emulate_k1_prep(V, plan):
+    """`geno_plane_prep(prod=0, terms=3)` in numpy: plane_partial_kernel's
+    float64 sums of each 64 samples (V, |V|, |V|, 1), plane_sum_kernel's
+    order (thread t adds blocks t, t + 256, ... in order, then a tree over
+    the 256 threads), gamma = the mean rounded to bf16 or 0, then
+    plane_write_kernel: per column tile of bn rows, bn - 1 of V's columns
+    minus gamma and the count row of ones, each split into three bf16
+    terms in f32, written in the sigma64 depth order, zeros past l and
+    past n. Returns (Bop (3, l_pad, ldk) f32, sumv (l,) f64, gamma (l,)
+    f32)."""
+    n, l = V.shape
+    ldk = -(-n // 64) * 64
+    blocks = ldk // 64
+    bn, l_pad = plan["bn"], plan["l_pad"]
+    q = np.zeros((4, l, blocks))
+    for b in range(blocks):
+        for d in range(64 * b, min(n, 64 * b + 64)):
+            x = V[d].astype(np.float64)
+            q[0, :, b] += x
+            q[1, :, b] += np.abs(x)
+            q[2, :, b] += np.abs(x)
+            q[3, :, b] += 1.0
+    red = np.zeros((4, l, 256))
+    for t in range(256):
+        for b in range(t, blocks, 256):
+            red[:, :, t] += q[:, :, b]
+    h = 128
+    while h:
+        red[:, :, :h] = red[:, :, :h] + red[:, :, h:2 * h]
+        h //= 2
+    tot = red[:, :, 0]
+    sumv = tot[0]
+    a0 = np.where(tot[3] > 0, tot[0] / np.where(tot[3] > 0, tot[3], 1), 0.0)
+    keep = np.abs(a0) * 1024.0 * n >= tot[1]
+    gamma = np.where(keep, bf16(a0.astype(np.float32)), 0.0).astype(np.float32)
+    Bop = np.zeros((3, l_pad, ldk), np.float32)
+    perm = np.array([sigma64(kk) for kk in range(64)])
+    for r in range(l_pad):
+        count = r % bn == bn - 1
+        col = (r // bn) * (bn - 1) + r % bn
+        x = np.zeros(ldk, np.float32)
+        if count:
+            x[:n] = 1.0
+        elif col < l:
+            x[:n] = V[:, col] - gamma[col]
+        x = x.reshape(-1, 64)[:, perm].reshape(-1)
+        for t in range(3):
+            b = bf16(x)
+            Bop[t, r] = b
+            x = (x - b).astype(np.float32)
+    return Bop, sumv, gamma
+
+
+@pytest.mark.parametrize("n,l", [(1001, 1), (1003, 12), (130, 20),
+                                 (4099, 31), (200, 45)])
+def test_k1_prep_emulation_equals_the_twin_operand(n, l):
+    """The operand the C side writes for K1, emulated (`emulate_k1_prep`),
+    is the twin's (`_cprod_split_operands(terms=3)`) once its tiles and
+    depth order are undone: gamma bit-equal, every term bit-equal, the
+    count row 1 on the n samples and 0 in the lower terms, zeros past l
+    and past n; the float64 sums to round-off. Columns of mean far from
+    zero, near zero (gamma 0) and of a tiny constant."""
+    rng = np.random.default_rng(n + l)
+    V = rng.standard_normal((n, l)).astype(np.float32)
+    cols = np.arange(l)
+    far = (cols % 3 == 0) & (cols < l - 1)
+    near = (cols % 3 == 1) & (cols < l - 1)
+    V[:, far] = np.abs(V[:, far]) + 1
+    V[:, near] -= V[:, near].mean(0)
+    V[:, -1] = 1e-3
+    plan = gk.plane_plan(False, 3, 777, n, l, 132)
+    Bop, sumv, gamma = emulate_k1_prep(V, plan)
+    qs, qsum, A, shift = gk._cprod_split_operands(
+        torch.as_tensor(V), torch.ones(777), torch.ones(777), 3)
+    np.testing.assert_array_equal(gamma, shift[0].numpy())
+    assert torch.equal(shift[0], shift[1])
+    assert (gamma[near] == 0).all() and (gamma[far] > 1).all()
+    assert gamma[-1] == bf16(1e-3)
+    np.testing.assert_allclose(sumv, qsum.numpy(), rtol=1e-12, atol=1e-9)
+    ldk = Bop.shape[-1]
+    inv_perm = np.argsort([sigma64(kk) for kk in range(64)])
+    true = Bop.reshape(3, -1, ldk // 64, 64)[..., inv_perm].reshape(3, -1, ldk)
+    bn, cols = plan["bn"], plan["cols"]
+    rows = np.array([(c // cols) * bn + c % cols for c in range(l)])
+    qs = qs.to(torch.float32).numpy()
+    for t in range(3):
+        np.testing.assert_array_equal(true[t, rows, :n], qs[t * l:(t + 1) * l])
+    counts = np.arange(bn - 1, plan["l_pad"], bn)
+    np.testing.assert_array_equal(true[0, counts, :n],
+                                  np.broadcast_to(qs[3 * l], (len(counts), n)))
+    assert (true[1:, counts] == 0).all()
+    assert (true[:, :, n:] == 0).all()
+    live = np.zeros(plan["l_pad"], bool)
+    live[rows] = True
+    live[counts] = True
+    assert (true[:, ~live] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the launch plan of the K1 / K2 / K7 GEMM (`plane_plan`), at the card
+# tests' shapes and the chip's
 # ---------------------------------------------------------------------------
 
 # the N widths of wgmma .f32.bf16.bf16 (PTX ISA: m64nNk16, N a multiple of
@@ -265,7 +464,7 @@ def plane_refused(plan, prod, terms, m, n, l):
     return (bn not in gk.PLANE_BNC[terms] or bn % 8 or terms * bn > 96
             or nt * bn != plan["l_pad"]
             or nt * plan["cols"] < l or (nt - 1) * plan["cols"] >= l
-            or plan["cols"] != bn - (1 if prod and terms == 3 else 0)
+            or plan["cols"] != bn - (1 if terms == 3 else 0)
             or ks not in (1, 2, 4) or not 2 <= plan["stages"] <= 8
             or plan["kps"] < 1
             or -(-ktiles // plan["kps"]) != plan["splits"]
@@ -275,7 +474,8 @@ def plane_refused(plan, prod, terms, m, n, l):
 
 @pytest.mark.parametrize("l", [1, 12, 20, 50, 120, 650])
 @pytest.mark.parametrize("n", [1001, 1009, 4099, 15_000, 20_000, 50_000])
-@pytest.mark.parametrize("prod,terms", [(False, 2), (True, 2), (True, 3)])
+@pytest.mark.parametrize("prod,terms", [(False, 2), (True, 2), (True, 3),
+                                        (False, 3)])
 def test_plane_plan_covers_the_product_once(l, n, prod, terms):
     """Every tile of M x l is covered by one item a depth split and its
     depth tiles once; the width is compiled and a bf16 wgmma width; the
@@ -313,11 +513,13 @@ def test_plane_plan_covers_the_product_once(l, n, prod, terms):
 
 
 def test_plane_plan_at_the_main_path_shapes():
-    """The plans the chip's shapes get: l <= 31 (K2, whose tile of 32
+    """The plans the chip's shapes get: l <= 31 (K1, K2, whose tile of 32
     ends in its count column) or 40 (K7) is one column tile (the pack
-    decoded once an item); slice 1's 50,000-sample prod fills the card
-    unsplit; the grid PRS's l = 650 takes 21 tiles of 32 (31 columns
-    each) under K2."""
+    decoded once an item); slice 1's 50,000-sample prod and its
+    100,000-variant cprod (the power step's l = 20, the GWAS's 12) fill
+    the card unsplit; the GWAS of slices 2 and 5 (15,000 training
+    samples, [yr | 1]) is one tile of 8; the grid PRS's l = 650 takes 21
+    tiles of 32 (31 columns each) under K2."""
     p = gk.plane_plan(True, 3, 100_000, 50_000, 20, 132)
     assert (p["bn"], p["n_tiles"], p["splits"]) == (24, 1, 1)
     assert p["ksub"] == 4 and p["stages"] >= 2
@@ -331,8 +533,17 @@ def test_plane_plan_at_the_main_path_shapes():
     assert p["stages"] >= 2
     p = gk.plane_plan(False, 2, 100_000, 50_000, 20, 132)
     assert (p["bn"], p["n_tiles"], p["splits"], p["ksub"]) == (24, 1, 1, 4)
+    for l, bn in ((20, 24), (12, 16)):
+        p = gk.plane_plan(False, 3, 100_000, 50_000, l, 132)
+        assert (p["bn"], p["cols"], p["n_tiles"], p["splits"]) == (bn, bn - 1,
+                                                                   1, 1)
+        assert p["ksub"] == 4 and p["stages"] >= 2
+        assert not plane_refused(p, False, 3, 100_000, 50_000, l)
+    p = gk.plane_plan(False, 3, 100_000, 15_000, 2, 132)
+    assert (p["bn"], p["n_tiles"], p["splits"]) == (8, 1, 1)
     for terms, widest in ((2, 40), (3, 31)):
         for l in range(1, widest + 1):
-            assert gk.plane_plan(True, terms, 100_000, 20_000, l,
-                                 132)["n_tiles"] == 1
+            for prod in (True, False):
+                assert gk.plane_plan(prod, terms, 100_000, 20_000, l,
+                                     132)["n_tiles"] == 1
 
