@@ -29,10 +29,20 @@ A second package beside the JAX one, ported slice by slice.
   under `snp_randomSVD(op=)` -> GWAS -> `snp_cor` -> `snp_ldsc2` -> the
   unblocked LDpred2-auto, -grid, sampling betas and lassosum2 on the
   sweep kernel, one band over every variant.
-- Slices 6a-6c (matching, the store, `.rds`; the remaining statistics;
-  byte-coded dosages, BGEN, imputation) and 7 (several cards) are still
-  to come (ROADMAP): the entry points that would take a `DosagePack`
-  raise `NotImplementedError`.
+- Slice 6a-6b, data in and the remaining statistics: allele matching
+  (`snp_match`, `same_ref`, `snp_asGeneticPos(2)`), `bed_projectPCA`
+  (matching, autoSVD of the reference on K1 / K2, OADP projection), the
+  `.gpk` store (`GenoPack.save`, `snp_save`, `snp_attach`,
+  `snp_readBed(backingfile=)`), reference `.rds` + `.bk` pairs
+  (`snp_attach_rds`), the GRM (`bed_tcrossprodSelf`, `bed_GRM`: device
+  decode + a float32 GEMM update), `snp_MAX3`, `snp_fst`,
+  `snp_ancestry_summary`, `snp_scaleAlpha`, the plots (`snp_qq`,
+  `snp_manhattan`), `trace` (torch.profiler) and the small helpers of
+  `utils/misc`.
+- Still to come (ROADMAP queue 1): slice 6c (byte-coded dosages,
+  `DosagePack`, BGEN, imputation; the entry points that would take a
+  `DosagePack` raise `NotImplementedError`), the external-tool wrappers,
+  `warmup` and slice 7 (several cards).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`config.set_device("cpu")` or `device="cpu"`). The package imports
@@ -40,13 +50,21 @@ torch, numpy and scipy, and nothing of the JAX package.
 """
 
 from bigsnpr_tpu_torch import config
-from bigsnpr_tpu_torch.core.genotypes import GenoPack, snp_fake, snp_subset
+from bigsnpr_tpu_torch.core.genotypes import (
+    GenoPack,
+    snp_fake,
+    snp_subset,
+    snp_attach,
+    snp_attach_rds,
+    snp_save,
+)
 from bigsnpr_tpu_torch.io.bed import (
     read_bed,
     bed,
     snp_readBed,
     snp_readBed2,
     snp_writeBed,
+    snp_attachExtdata,
 )
 from bigsnpr_tpu_torch.ops.stats import (
     snp_colstats,
@@ -56,6 +74,7 @@ from bigsnpr_tpu_torch.ops.stats import (
     bed_MAF,
     snp_scaleBinom,
     bed_scaleBinom,
+    snp_scaleAlpha,
     as_scaling_fun,
 )
 from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator
@@ -76,8 +95,33 @@ from bigsnpr_tpu_torch.pca.project import (
     pca_OADP_proj,
 )
 from bigsnpr_tpu_torch.assoc.pcadapt import snp_pcadapt, bed_pcadapt
-from bigsnpr_tpu_torch.assoc.mhtest import MHTest, snp_gc, mhtest_from_gwas
-from bigsnpr_tpu_torch.utils.profiling import StageTimer
+from bigsnpr_tpu_torch.assoc.mhtest import (
+    MHTest,
+    snp_gc,
+    mhtest_from_gwas,
+    snp_qq,
+    snp_manhattan,
+)
+from bigsnpr_tpu_torch.assoc.max3 import snp_MAX3
+from bigsnpr_tpu_torch.assoc.fst import snp_fst
+from bigsnpr_tpu_torch.utils.profiling import StageTimer, trace
+from bigsnpr_tpu_torch.utils.match import (
+    snp_match,
+    same_ref,
+    snp_asGeneticPos,
+    snp_asGeneticPos2,
+)
+from bigsnpr_tpu_torch.ops.grm import bed_tcrossprodSelf, bed_GRM
+from bigsnpr_tpu_torch.pca.ancestry import snp_ancestry_summary
+from bigsnpr_tpu_torch.utils.misc import (
+    sub_bed,
+    as_SFBM,
+    snp_getSampleInfos,
+    snp_split,
+    snp_pruning,
+    download_1000G,
+    download_genetic_map,
+)
 from bigsnpr_tpu_torch.assoc.simu import snp_simuPheno
 from bigsnpr_tpu_torch.assoc.gwas import big_univLinReg, big_univLogReg, gwas_pvalues
 from bigsnpr_tpu_torch.pgs.prs import snp_PRS, snp_thr_correct

@@ -5,8 +5,8 @@ Reference: R/man-qq-gc.R. The mhtest contract: `transfo(score)` maps raw
 scores to the test scale; `predict(transfo(score))` returns log10
 p-values (reference getLambdaGC, R/man-qq-gc.R:97-108).
 
-A copy of `bigsnpr_tpu/assoc/mhtest.py` (host numpy / scipy) without its
-plots, `snp_qq` and `snp_manhattan` (not ported yet).
+A copy of `bigsnpr_tpu/assoc/mhtest.py` (host numpy / scipy), with its
+plots `snp_qq` and `snp_manhattan`, which import matplotlib when called.
 """
 
 from __future__ import annotations
@@ -62,6 +62,73 @@ def snp_gc(gwas: MHTest) -> MHTest:
     return MHTest(score=gwas.score,
                   transfo=lambda x, _f=old_transfo, _l=lam: _f(x) / _l,
                   predict=gwas.predict)
+
+
+def snp_qq(gwas: MHTest, lambdaGC: bool = True, ax=None):
+    """QQ plot of -log10 p-values (reference snp_qq)."""
+    import matplotlib.pyplot as plt
+
+    lp = -gwas.lpval()
+    lp = lp[~np.isnan(lp)]
+    n = len(lp)
+    expected = -np.log10((np.arange(1, n + 1) - 0.5) / n)
+    if ax is None:
+        _, ax = plt.subplots()
+    ax.plot(expected, np.sort(lp)[::-1], ".", ms=3)
+    lim = max(expected.max(), 1)
+    ax.plot([0, lim], [0, lim], "r--")
+    ax.set_xlabel("Expected $-\\log_{10}(p)$")
+    ax.set_ylabel("Observed $-\\log_{10}(p)$")
+    title = "Q-Q plot"
+    if lambdaGC:
+        title += f"  ($\\lambda_{{GC}}$ = {get_lambda_gc(gwas):.4g})"
+    ax.set_title(title)
+    return ax
+
+
+def snp_manhattan(gwas: MHTest, infos_chr, infos_pos,
+                  colors=("black", "grey"), dist_sep_chrs: float = 1e7,
+                  ind_highlight=(), col_highlight="red", npoints=None,
+                  ax=None):
+    """Manhattan plot (reference snp_manhattan, R/man-qq-gc.R:38-93)."""
+    import matplotlib.pyplot as plt
+
+    infos_chr = np.asarray(infos_chr)
+    infos_pos = np.asarray(infos_pos)
+    ord_ = np.lexsort((infos_pos, infos_chr))
+    chrs, pos = infos_chr[ord_], infos_pos[ord_]
+    lp = -gwas.lpval()[ord_]
+
+    all_chr = np.unique(chrs)
+    offset = 0.0
+    all_pos = np.empty(len(pos))
+    label_pos = []
+    for c in all_chr:
+        sel = chrs == c
+        p = pos[sel] + offset + dist_sep_chrs
+        all_pos[sel] = p
+        label_pos.append((p.min() + p.max()) / 2)
+        offset = p[-1]
+
+    col_cycle = np.resize(np.asarray(colors, dtype=object), len(all_chr))
+    point_colors = col_cycle[np.searchsorted(all_chr, chrs)]
+    hl = np.zeros(len(pos), dtype=bool)
+    hl[np.asarray(ind_highlight, dtype=int)] = True
+    point_colors = np.where(hl[ord_], col_highlight, point_colors)
+
+    if npoints is not None:
+        keep = np.argsort(-lp)[:npoints]
+    else:
+        keep = np.arange(len(lp))
+    if ax is None:
+        _, ax = plt.subplots(figsize=(10, 4))
+    ax.scatter(all_pos[keep], lp[keep], c=point_colors[keep], s=4)
+    ax.set_xticks(label_pos)
+    ax.set_xticklabels(all_chr)
+    ax.set_xlabel("Chromosome")
+    ax.set_ylabel("$-\\log_{10}(p)$")
+    ax.set_title("Manhattan Plot")
+    return ax
 
 
 def mhtest_from_gwas(gwas, n: int, n_covar: int = 0,

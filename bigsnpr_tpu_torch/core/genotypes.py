@@ -9,11 +9,20 @@ with column contracts from reference R/utils.R:49-53.
 `fam` and `map` are dicts of numpy columns under the same column names as
 the JAX package's DataFrames (`FAM_COLS`, `MAP_COLS`); `to_frame` turns
 one into a pandas DataFrame for callers that want it.
+
+The `.gpk` store (`GenoPack.save`, `snp_attach`) is the JAX package's:
+`packed.bin` (the packed bytes) and `meta.json` byte for byte, and `fam` /
+`map` as `fam.parquet` / `map.parquet`, written and read with pyarrow,
+imported only when a pack carries them (port DEVIATIONS #9). `snp_attach`
+also attaches a reference bigsnpr `.rds` + `.bk` pair.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -116,6 +125,155 @@ class GenoPack:
                        fam=take_rows(self.fam, ind_row), map=new_map)
         sub._device_cache[str(dev)] = out
         return sub
+
+    # -- persistence ---------------------------------------------------------
+    def save(self, path: str | os.PathLike) -> str:
+        """The `.gpk` store (see the module note): packed.bin in row chunks
+        (a memory-mapped pack is never read whole), meta.json, and fam /
+        map as parquet where the pack has them; returns its path."""
+        path = Path(path)
+        if path.suffix != ".gpk":
+            path = path.with_suffix(".gpk")
+        path.mkdir(parents=True, exist_ok=True)
+        src = self.packed
+        step = max(1, _CHUNK_BYTES // max(src.shape[1], 1))
+        with open(path / "packed.bin", "wb") as f:
+            for r0 in range(0, src.shape[0], step):
+                np.ascontiguousarray(src[r0:r0 + step]).tofile(f)
+        meta = {"n": int(self.n), "m": int(self.m), "version": 1}
+        (path / "meta.json").write_text(json.dumps(meta))
+        if self.fam is not None:
+            _write_parquet(path / "fam.parquet", self.fam)
+        if self.map is not None:
+            _write_parquet(path / "map.parquet", self.map)
+        return str(path)
+
+
+def _write_parquet(path, cols: dict) -> None:
+    """A dict of columns as a parquet file (pyarrow, imported here)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    pq.write_table(pa.table({k: np.asarray(v) for k, v in cols.items()}),
+                   path)
+
+
+def _read_parquet(path) -> dict:
+    """A parquet file (the port's or one pandas wrote) as a dict of numpy
+    columns, strings as str arrays; a stored pandas index is dropped."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    table = pq.read_table(path)
+    out = {}
+    for name, col in zip(table.column_names, table.columns):
+        if name.startswith("__index_level_"):
+            continue
+        if pa.types.is_string(col.type) or pa.types.is_large_string(col.type):
+            vals = col.to_pylist()
+            out[name] = (np.array(vals, dtype=str) if None not in vals
+                         else np.array(vals, dtype=object))
+        else:
+            out[name] = col.to_numpy()
+    return out
+
+
+def snp_attach(path: str | os.PathLike, mmap: bool = True) -> "GenoPack":
+    """Re-attach a saved GenoPack (reference snp_attach,
+    R/read-plink.R:128-139): a `.gpk` store, the port's or the JAX
+    package's, or a reference bigsnpr `.rds` + `.bk` pair
+    (`snp_attach_rds`)."""
+    path = Path(path)
+    if path.suffix == ".rds":
+        return snp_attach_rds(path, mmap=mmap)
+    meta = json.loads((path / "meta.json").read_text())
+    n, m = meta["n"], meta["m"]
+    nb = (n + 3) // 4
+    if mmap:
+        packed = np.memmap(path / "packed.bin", dtype=np.uint8, mode="r",
+                           shape=(m, nb))
+    else:
+        packed = np.fromfile(path / "packed.bin",
+                             dtype=np.uint8).reshape(m, nb)
+    fam = (_read_parquet(path / "fam.parquet")
+           if (path / "fam.parquet").exists() else None)
+    map_ = (_read_parquet(path / "map.parquet")
+            if (path / "map.parquet").exists() else None)
+    return GenoPack(packed=packed, n=n, fam=fam, map=map_)
+
+
+def snp_save(pack: "GenoPack", path: str | os.PathLike) -> str:
+    return pack.save(path)
+
+
+def snp_attach_rds(rds_path, bk_path=None, mmap: bool = True) -> "GenoPack":
+    """Attach a reference bigsnpr/bigstatsr `.rds` + `.bk` pair
+    (reference snp_attach, R/read-plink.R:128-139), including the
+    relocatable backingfile fix-up (:135-137): the stored absolute path
+    is replaced by the `.bk` of the same basename next to the `.rds`.
+
+    The `.bk` is the FBM byte matrix, column-major (nrow x ncol) on disk,
+    i.e. variant-major rows when viewed as (ncol, nrow). Hard-call code
+    tables (all values in {0, 1, 2, NA}) repack to a 2-bit GenoPack; any
+    other code256 (a DosagePack in the JAX package) raises
+    NotImplementedError (ROADMAP slice 6c)."""
+    from bigsnpr_tpu_torch.utils.rds import REnv, read_rds, to_frame, unwrap
+
+    rds_path = Path(rds_path)
+    obj = read_rds(rds_path)
+    cls = unwrap(getattr(obj, "attrs", {}).get("class"))
+    cls = [cls] if isinstance(cls, str) else list(cls or [])
+    fam = map_ = None
+    if "bigSNP" in cls:
+        names = list(unwrap(obj.attrs["names"]))
+        parts = dict(zip(names, obj.value))
+        fbm = parts["genotypes"]
+        if parts.get("fam") is not None:
+            fam = to_frame(parts["fam"])
+        if parts.get("map") is not None:
+            map_ = to_frame(parts["map"])
+    else:
+        fbm = obj  # bare FBM.code256
+
+    env = fbm.attrs[".xData"]
+    assert isinstance(env, REnv), "not a RefClass FBM object"
+
+    def field_of(name):
+        return unwrap(env.frame[f".->{name}"])
+
+    nrow = int(np.asarray(field_of("nrow"))[0])
+    ncol = int(np.asarray(field_of("ncol"))[0])
+    code256 = np.asarray(field_of("code256"), dtype=np.float64)
+    stored_bk = field_of("backingfile")
+    stored_bk = stored_bk[0] if isinstance(stored_bk, list) else stored_bk
+
+    if bk_path is None:
+        # basename may carry Windows separators from the creator machine
+        base = str(stored_bk).replace("\\", "/").rsplit("/", 1)[-1]
+        cand = rds_path.parent / base
+        bk_path = cand if cand.exists() else Path(str(stored_bk))
+    bk_path = Path(bk_path)
+    if not bk_path.exists():
+        raise FileNotFoundError(f"backingfile not found: {bk_path}")
+    expect = nrow * ncol
+    actual = bk_path.stat().st_size
+    if actual < expect:
+        raise ValueError(f"backingfile too small: {actual} < {expect}")
+
+    finite = code256[np.isfinite(code256)]
+    if not np.isin(finite, (0.0, 1.0, 2.0)).all():
+        raise NotImplementedError(
+            "snp_attach_rds: a code256 table other than hard calls attaches "
+            "as a DosagePack, ROADMAP slice 6c")
+    codes = np.memmap(bk_path, dtype=np.uint8, mode="r", shape=(ncol, nrow))
+    if not mmap:
+        codes = np.asarray(codes)
+    lut = unpack.np_dosage_to_codes(code256[None, :])[0]  # byte -> 2 bits
+    out = np.empty((ncol, (nrow + 3) // 4), dtype=np.uint8)
+    step = max(1, (1 << 24) // max(nrow, 1))   # ~16 MB chunks
+    for j0 in range(0, ncol, step):
+        out[j0:j0 + step] = unpack.np_pack_codes(lut[codes[j0:j0 + step]])
+    return GenoPack(packed=out, n=nrow, fam=fam, map=map_)
 
 
 def subset_packed(src: torch.Tensor, rows: torch.Tensor,

@@ -112,8 +112,10 @@
 //   of its tensor-core work.)
 // - The epilogue is fused when the depth is not split: out is written from
 //   the f32 sums. Where the plan splits the depth (too few M tiles for
-//   the card), each split writes its raw plane sums as its own slice and
-//   geno_plane_epilogue adds the slices in split order. No float atomics
+//   the card, or, three terms, a depth past MAX_COUNT_DEPTH = 2^23, whose
+//   count column's f32 sums would no longer be exact), each split writes
+//   its raw plane sums as its own slice and geno_plane_epilogue adds the
+//   slices in split order, the counts in float64. No float atomics
 //   anywhere: two launches repeat bit for bit.
 // - The operand preparation (geno_plane_prep) is three small kernels: the
 //   float64 sums of each 64 depth rows, their sums in order (with the
@@ -540,10 +542,12 @@ __global__ void plane_epilogue_kernel(const float* __restrict__ raw,
       pna = pna + raw[(2 * sp + 1) * count + x];
     }
     if (CENTRED) {
-      float T = 0.f, N = 0.f;  // integers: exact in any order
+      // integers, exact in each split (a run of at most MAX_COUNT_DEPTH)
+      // and in float64 over the splits, past 2^24
+      double T = 0.0, N = 0.0;
       for (int sp = 0; sp < splits; ++sp) {
-        T += raw[2 * sp * count + i * lr + l];
-        N += raw[(2 * sp + 1) * count + i * lr + l];
+        T += static_cast<double>(raw[2 * sp * count + i * lr + l]);
+        N += static_cast<double>(raw[(2 * sp + 1) * count + i * lr + l]);
       }
       const double ga = shift[r], gb = shift[l + r];
       double v;
@@ -750,8 +754,10 @@ bool compiled_family(int terms) { return terms == 2 || terms == 3; }
 // is the count)
 int64_t tile_cols(int terms, int bn) { return bn - (terms == 3 ? 1 : 0); }
 
-// the count column's plane sums (at most 2 x the depth) are exact while
-// below 2^24
+// the count column's plane sums (at most 2 x the depth of a split run) are
+// exact while below 2^24: three terms split a deeper depth into runs of at
+// most this (ops/geno_kernels.py::plane_plan), and the epilogue adds the
+// runs' counts in float64
 constexpr int64_t MAX_COUNT_DEPTH = int64_t{1} << 23;
 
 }  // namespace
@@ -808,9 +814,10 @@ int geno_plane_prep(int prod, int terms, const void* W, int64_t depth,
 // (a compiled width: TERMS x bn wgmma columns, bn of them l's, bn - 1 for
 // three terms) x n_tiles, l_pad = bn x n_tiles operand rows a term,
 // `stages` ring stages of ksub 64-deep sub-tiles, `grid` persistent CTAs,
-// the depth in `splits` runs of kps stages. splits = 1 writes out (R, l)
-// through the fused epilogue; splits > 1 the raw plane sums (splits, 2, R,
-// l + 1 for three terms' count) for geno_plane_epilogue. Bop, sumv and
+// the depth in `splits` runs of kps stages (three terms: each run at most
+// MAX_COUNT_DEPTH deep). splits = 1 writes out (R, l) through the fused
+// epilogue; splits > 1 the raw plane sums (splits, 2, R, l + 1 for three
+// terms' count) for geno_plane_epilogue. Bop, sumv and
 // shift as geno_plane_prep writes them, Bop 16-byte aligned (the depth
 // past ldk reads as zeros).
 int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
@@ -828,7 +835,8 @@ int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
       static_cast<int64_t>(n_tiles) * bn != l_pad ||
       static_cast<int64_t>(n_tiles) * cols < l ||
       static_cast<int64_t>(n_tiles - 1) * cols >= l ||
-      (terms == 3 && K > MAX_COUNT_DEPTH) ||
+      (terms == 3 &&
+       static_cast<int64_t>(kps) * SUB * ksub > MAX_COUNT_DEPTH) ||
       (ksub != 1 && ksub != 2 && ksub != 4) || stages < 2 ||
       stages > MAX_STAGES || kps < 1 || splits < 1 ||
       cdiv(ktiles, kps) != splits || grid < 1 || ktiles > (1 << 30) ||
@@ -872,8 +880,8 @@ int geno_plane_gemm(int prod, int terms, const void* packed, int64_t m,
 }
 
 // out (R, l) f32 from raw (splits, 2, R, l + 1 for three terms) and the
-// epilogue, the splits added in order. cprod: center, inv are the (R,)
-// variant vectors.
+// epilogue, the splits added in order (pt, pna in f32; three terms' counts
+// T, N in float64). cprod: center, inv are the (R,) variant vectors.
 int geno_plane_epilogue(int prod, int terms, const void* raw, int splits,
                         int64_t R, int64_t l, const void* sumv,
                         const void* shift, const void* center,

@@ -85,12 +85,12 @@ def read_bed(bedfile, mmap: bool = True) -> GenoPack:
 
 @check_args()
 def snp_readBed(bedfile, backingfile=None, mmap: bool = True) -> GenoPack:
-    """Read a .bed (reference snp_readBed). The `.gpk` store that the JAX
-    package writes for `backingfile` is not part of this package."""
+    """Read and (optionally) persist as a `.gpk` store (reference
+    snp_readBed)."""
+    pack = read_bed(bedfile, mmap=mmap)
     if backingfile is not None:
-        raise NotImplementedError("snp_readBed: backingfile (.gpk store) "
-                                  "is not supported by bigsnpr_tpu_torch")
-    return read_bed(bedfile, mmap=mmap)
+        pack.save(backingfile)
+    return pack
 
 
 def snp_writeBed(pack: GenoPack, bedfile) -> str:
@@ -115,14 +115,30 @@ def snp_writeBed(pack: GenoPack, bedfile) -> str:
 def snp_readBed2(bedfile, backingfile=None, ind_row=None, ind_col=None,
                  mmap: bool = True, device=None) -> GenoPack:
     """Read a row/col subset of a .bed (reference snp_readBed2,
-    R/read-plink.R:72-111); the repack runs with torch on `device`."""
-    if backingfile is not None:
-        raise NotImplementedError("snp_readBed2: backingfile (.gpk store) "
-                                  "is not supported by bigsnpr_tpu_torch")
+    R/read-plink.R:72-111); the repack runs with torch on `device`; with
+    `backingfile`, persisted as a `.gpk` store."""
     pack = read_bed(bedfile, mmap=mmap)
     if ind_row is not None or ind_col is not None:
         pack = pack.subset(ind_row=ind_row, ind_col=ind_col, device=device)
+    if backingfile is not None:
+        pack.save(backingfile)
     return pack
 
 
 bed = read_bed  # the reference's bed() constructor maps a bedfile
+
+
+def snp_attachExtdata(name: str = "example.bed") -> GenoPack:
+    """Attach the reference's bundled test dataset if available.
+
+    Reference: snp_attachExtdata (R/read-plink.R:152-158), data at
+    inst/extdata/example{,-missing}.bed (517 x 4,542) of the reference
+    checkout that the BIGSNPR_REFERENCE environment variable names."""
+    base = os.environ.get("BIGSNPR_REFERENCE", "")
+    if base:
+        p = Path(base) / "inst" / "extdata" / name
+        if p.exists():
+            return read_bed(p)
+    raise FileNotFoundError(
+        f"reference extdata {name} not found; set BIGSNPR_REFERENCE or use "
+        "snp_fake().")

@@ -62,6 +62,9 @@ NPLANES = 4             # radix-128 int8 digits of the float operand
 MAX_I8_DEPTH = 8_000_000
 _I8_BK = 128            # the kernel's depth tile: digit rows are padded to it
 _PLANE_SUB = 64         # K1 / K2 / K7: operand sub-tile depth, operands padded
+# K1 / K2: the deepest run of the depth whose count column's f32 plane sums
+# (at most 2 x the run) stay exact integers, below 2^24
+MAX_COUNT_DEPTH = 1 << 23
 
 # kernel launches made by the wrappers, by kernel
 launches = {"cprod": 0, "prod": 0, "cprod_split": 0, "prod_split": 0,
@@ -322,43 +325,51 @@ def _prod_split_operands(U, center, inv, terms=2):
                       + (ones,)), sumv, (alpha, beta))
 
 
-def _split_raw_plain(packed, n, ops, prod, block=None):
-    """The raw sums of the bit-plane products in torch ops: (2, R, N)
-    float32 for the planes [T, NA], R = m (cprod) or n (prod), N the
-    operand's stacked term rows. The planes' values {0, 1, 2} and the bf16
-    operand are exact in float32, so each product is exact and only the
-    float32 accumulation rounds; prod accumulates over variant blocks.
-    cprod gives one operand for both planes, prod one a plane."""
+def _split_raw_plain(packed, n, ops, prod, block=None, run=None):
+    """The raw sums of the bit-plane products in torch ops: (S, 2, R, N)
+    float32 for the planes [T, NA] of S depth runs of at most `run` (all of
+    it when None), R = m (cprod) or n (prod), N the operand's stacked term
+    rows. The planes' values {0, 1, 2} and the bf16 operand are exact in
+    float32, so each product is exact and only the float32 accumulation
+    rounds; prod accumulates over variant blocks. cprod gives one operand
+    for both planes, prod one a plane. A run of at most 2^23 keeps the
+    three-term count rows' sums exact integers (`MAX_COUNT_DEPTH`)."""
     m = packed.shape[0]
     block = block or pick_block(n)
     N = ops[0].shape[0]
     dev = packed.device
     W = [o.to(torch.float32) for o in ops]
-    if prod:
-        acc = torch.zeros((2, n, N), dtype=torch.float32, device=dev)
-    else:
-        acc = torch.empty((2, m, N), dtype=torch.float32, device=dev)
+    K = m if prod else n
+    run = run or K
+    runs = [(k0, min(K, k0 + run)) for k0 in range(0, K, run)]
+    acc = torch.zeros((len(runs), 2, n if prod else m, N),
+                      dtype=torch.float32, device=dev)
     for j0 in range(0, m, block):
         j1 = min(m, j0 + block)
         for p, x in enumerate(int_planes(packed[j0:j1], n)):
             x = x.to(torch.float32)
             w = W[min(p, len(W) - 1)]
-            if prod:
-                acc[p] += x.T @ w[:, j0:j1].T
-            else:
-                acc[p, j0:j1] = x @ w.T
+            for r, (k0, k1) in enumerate(runs):
+                if prod:
+                    a, b = max(j0, k0), min(j1, k1)
+                    if a < b:
+                        acc[r, p] += x[a - j0:b - j0].T @ w[:, a:b].T
+                else:
+                    acc[r, p, j0:j1] = x[:, k0:k1] @ w[:, k0:k1].T
     return acc
 
 
 def _split_epilogue_plain(raw, l, sumv, A=None, s=None, terms=2,
                           shift=None):
-    """raw (2, R, terms * l [+ 1]) -> (R, l) f32: pt = the T plane's sums
-    of the terms added in order (hi + lo, or (hi + mid) + lo), pna the NA
-    plane's; cprod (A, s given) (sum - pna) * A - pt * s, prod
-    (sum - pna) - pt (the JAX kernels' epilogue). Three terms (shift =
-    (alpha, beta) given, raw's last column the count rows' sums T, N), in
-    float64: K2 (prod) ((sum - alpha T) - beta N) - pna - pt, K1 (cprod)
-    (((sum - beta N) A - (alpha T) s) - pna A) - pt s, the kernel's order
+    """raw (S, 2, R, terms * l [+ 1]) of S depth runs -> (R, l) f32: pt =
+    the T plane's sums of the terms added in order (hi + lo, or (hi + mid)
+    + lo), then over the runs in order, pna the NA plane's; cprod (A, s
+    given) (sum - pna) * A - pt * s, prod (sum - pna) - pt (the JAX
+    kernels' epilogue). Three terms (shift = (alpha, beta) given, raw's
+    last column the count rows' sums T, N, added over the runs in
+    float64, where they stay exact past 2^24), in float64: K2 (prod)
+    ((sum - alpha T) - beta N) - pna - pt, K1 (cprod) (((sum - beta N) A
+    - (alpha T) s) - pna A) - pt s, the kernel's order
     (`csrc/geno_split.cu`)."""
     def add(r):
         out = r[:, :l]
@@ -366,11 +377,13 @@ def _split_epilogue_plain(raw, l, sumv, A=None, s=None, terms=2,
             out = out + r[:, t * l:(t + 1) * l]
         return out
 
-    pt, pna = add(raw[0]), add(raw[1])
+    pt, pna = add(raw[0, 0]), add(raw[0, 1])
+    for r in raw[1:]:
+        pt, pna = pt + add(r[0]), pna + add(r[1])
     if shift is not None:
-        T, N = raw[0][:, terms * l].double(), raw[1][:, terms * l].double()
+        T = raw[:, 0, :, terms * l].double().sum(0)[:, None]
+        N = raw[:, 1, :, terms * l].double().sum(0)[:, None]
         alpha, beta = (x.double()[None, :] for x in shift)
-        T, N = T[:, None], N[:, None]
         if A is None:
             return ((((sumv[None, :] - alpha * T) - beta * N) - pna.double())
                     - pt.double()).float()
@@ -386,18 +399,21 @@ def cprod_split_plain(packed, n, V, center, inv, terms=2):
     """K7 cprod's function in torch ops: the same bf16 operand, exact
     products accumulated in float32, and the same epilogue as the
     kernel. `terms=3` is the centred three-term plane algebra that K1
-    runs."""
+    runs, over depth runs of at most MAX_COUNT_DEPTH samples."""
     qs, qsum, A, shift = _cprod_split_operands(V, center, inv, terms)
-    raw = _split_raw_plain(packed, n, [qs], prod=False)
+    raw = _split_raw_plain(packed, n, [qs], prod=False,
+                           run=MAX_COUNT_DEPTH if terms == 3 else None)
     return _split_epilogue_plain(raw, V.shape[1], qsum, A, inv, terms,
                                  shift)
 
 
 def prod_split_plain(packed, n, U, center, inv, terms=2):
     """K7 prod's function in torch ops (see `cprod_split_plain`); with
-    `terms=3`, the centred plane algebra that K2 runs."""
+    `terms=3`, the centred plane algebra that K2 runs, over depth runs of
+    at most MAX_COUNT_DEPTH variants."""
     zbs, zas, zsum, shift = _prod_split_operands(U, center, inv, terms)
-    raw = _split_raw_plain(packed, n, [zbs, zas], prod=True)
+    raw = _split_raw_plain(packed, n, [zbs, zas], prod=True,
+                           run=MAX_COUNT_DEPTH if terms == 3 else None)
     return _split_epilogue_plain(raw, U.shape[1], zsum, terms=terms,
                                  shift=shift)
 
@@ -449,9 +465,13 @@ def plane_plan(prod, terms, m, n, l, sms, splits=None):
     share of ring traffic), and as many stages as it holds (`plane_ring`);
     a persistent grid of at most one CTA an SM; and the depth in `splits`
     runs of `kps` stages. Unless `splits` is given, the depth is split
-    only when the tiles fill the last wave of CTAs to less than 90%; a
-    split run writes its raw sums as a slice that the epilogue kernel adds
-    in order."""
+    only when the tiles fill the last wave of CTAs to less than 90%, at
+    most `_PLANE_MAX_SPLITS` times; a split run writes its raw sums as a
+    slice that the epilogue kernel adds in order. Three terms split a
+    depth past MAX_COUNT_DEPTH into at least ceil(K / 2^23) runs of at
+    most 2^23 each, whatever the cap (the count column's sums stay exact
+    in a run; the epilogue adds them over the runs in float64); an explicit
+    `splits` that leaves a deeper run raises ValueError."""
     widths = PLANE_BNC[terms]
     ones = 1 if terms == 3 else 0
     n_tiles = -(-l // (widths[-1] - ones))
@@ -464,15 +484,24 @@ def plane_plan(prod, terms, m, n, l, sms, splits=None):
         if ring["stages"] >= _PLANE_MIN_STAGES:
             break
     ktiles = ring["ktiles"]
+    # three terms: a run deeper than MAX_COUNT_DEPTH loses its counts
+    max_kps = (MAX_COUNT_DEPTH // (_PLANE_SUB * ring["ksub"]) if terms == 3
+               else ktiles)
+    least = -(-ktiles // max_kps)
     if splits is None:
-        cap = min(ktiles, _PLANE_MAX_SPLITS)
-        splits = 1
+        cap = max(least, min(ktiles, _PLANE_MAX_SPLITS))
+        splits = least
         while splits < cap:
             items = tiles * splits
             if items >= 0.9 * -(-items // sms) * sms:
                 break
             splits += 1
     kps = -(-ktiles // max(1, min(splits, ktiles)))
+    if kps > max_kps:
+        raise ValueError(
+            f"plane_plan: {splits} depth split(s) of a depth of {K} leave a "
+            f"run of {kps * _PLANE_SUB * ring['ksub']}, past the three-term "
+            f"limit of MAX_COUNT_DEPTH = 2^23 a run; give at least {least}")
     splits = -(-ktiles // kps)
     return {**ring, "bn": bn, "cols": bn - ones, "n_tiles": n_tiles,
             "l_pad": bn * n_tiles, "m_tiles": m_tiles,

@@ -105,6 +105,18 @@ def bed_scaleBinom(pack, ind_row=None, device=None):
     return snp_scaleBinom(2)(pack, ind_row=ind_row, device=device)
 
 
+def snp_scaleAlpha(alpha: float = -1.0):
+    """center = 2p, scale = (2p(1-p))^(-alpha/2)
+    (reference snp_scaleAlpha, R/binom-scaling.R:12-27)."""
+
+    def fun(pack, ind_row=None, device=None):
+        s = snp_colstats(pack, ind_row=ind_row, device=device)
+        af = s["sumX"] / np.maximum(2 * s["nona"], 1)
+        return {"center": 2 * af, "scale": (2 * af * (1 - af)) ** (-alpha / 2)}
+
+    return fun
+
+
 def as_scaling_fun(center, scale, ind_col=None):
     """Wrap explicit center/scale vectors as a fun_scaling
     (bigstatsr::as_scaling_fun)."""

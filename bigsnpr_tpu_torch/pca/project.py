@@ -9,8 +9,7 @@ Online Augmentation, Decomposition, and Procrustes (Zhang, Dey & Lee 2020).
 `prod_and_row_sums_sq` is the JAX package's XLA scan as torch ops: one
 pass over blocks of the variants, each decoded and standardized once for
 both X̃ V and the row sums of X̃². `pca_OADP_proj` is a copy of the host
-numpy code. `bed_projectPCA` needs variant matching (`utils/match`,
-ROADMAP slice 6) and raises.
+numpy code. `bed_projectPCA` matches the two maps with `utils/match`.
 """
 
 from __future__ import annotations
@@ -104,9 +103,61 @@ def bed_projectSelfPCA(obj_svd, pack, ind_row=None, ind_col=None,
 snp_projectSelfPCA = bed_projectSelfPCA
 
 
-def bed_projectPCA(pack_ref, pack_new, k: int = 10, **kw) -> dict:
-    """Reference bed_projectPCA (R/bed-projectPCA.R:100-172): not ported
-    yet, it needs the variant matching of `utils/match` (ROADMAP slice 6)."""
-    raise NotImplementedError(
-        "bed_projectPCA needs utils/match (snp_match), ROADMAP queue 1, "
-        "slice 6; bed_projectSelfPCA is ported")
+def bed_projectPCA(pack_ref, pack_new, k: int = 10, ind_row_new=None,
+                   ind_row_ref=None, ind_col_ref=None, strand_flip=True,
+                   join_by_pos=True, match_min_prop=0.5, verbose=False,
+                   device=None, **autosvd_kw) -> dict:
+    """Match variants, autoSVD the reference, project the target
+    (reference bed_projectPCA, R/bed-projectPCA.R:100-172). The matching
+    is `utils/match.snp_match` on the two maps; the reference's SVD runs
+    on the operator of the configured scheme (K1 / K2 by default)."""
+    from bigsnpr_tpu_torch.pca.autosvd import bed_autoSVD
+    from bigsnpr_tpu_torch.utils.match import snp_match
+
+    dev = config.resolve_device(device)
+    if pack_ref.map is None or pack_new.map is None:
+        raise ValueError("bed_projectPCA matches the variants of the two "
+                         "packs by their maps: both packs need a map")
+
+    def remap(map_):
+        return {"chr": np.asarray(map_["chromosome"]),
+                "rsid": np.asarray(map_["marker.ID"]),
+                "pos": np.asarray(map_["physical.pos"]),
+                "a1": np.asarray(map_["allele1"]),
+                "a0": np.asarray(map_["allele2"])}
+
+    map_ref = remap(pack_ref.map)
+    map_ref["beta"] = np.ones(pack_ref.m)
+    info_snp = snp_match(map_ref, remap(pack_new.map),
+                         strand_flip=strand_flip, join_by_pos=join_by_pos,
+                         match_min_prop=match_min_prop, verbose=verbose)
+
+    num_ref = info_snp["_NUM_ID_.ss"] - 1
+    num_new = info_snp["_NUM_ID_"] - 1
+    ind_col = num_ref if ind_col_ref is None else np.intersect1d(
+        np.asarray(ind_col_ref), num_ref)
+
+    obj_svd = bed_autoSVD(pack_ref, ind_row=ind_row_ref, ind_col=ind_col,
+                          k=k, verbose=verbose, device=dev, **autosvd_kw)
+
+    # keep = match(subset, num_ref); num_ref is not necessarily sorted
+    order = np.argsort(num_ref)
+    at = np.searchsorted(num_ref[order], obj_svd.subset)
+    keep = order[np.minimum(at, len(order) - 1)]
+    if not np.array_equal(num_ref[keep], obj_svd.subset):
+        raise ValueError("bed_projectPCA: the SVD's subset is not among "
+                         "the matched variants")
+    beta = info_snp["beta"][keep]
+    center = (obj_svd.center - 1) * beta + 1
+    scale = obj_svd.scale * beta
+
+    sub_new = (pack_new if ind_row_new is None
+               else pack_new.subset(ind_row=np.asarray(ind_row_new),
+                                    device=dev))
+    XV, X_norm = prod_and_row_sums_sq(sub_new, obj_svd.v, center, scale,
+                                      ind_col=num_new[keep], device=dev)
+    return {
+        "obj.svd.ref": obj_svd,
+        "simple_proj": XV,
+        "OADP_proj": pca_OADP_proj(XV, X_norm, obj_svd.d),
+    }

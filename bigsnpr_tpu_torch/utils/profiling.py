@@ -1,14 +1,41 @@
-"""Wall-time stage timer for long pipelines (`StageTimer` of
-`bigsnpr_tpu/utils/profiling.py`; its `trace`, a wrapper of the JAX
-profiler, has no counterpart here yet).
+"""Profiling / tracing helpers (the reference has none, SURVEY.md §5).
 
-Stages end where their results reach the host, so on CUDA the host clock
-around a stage includes the device work it waited for."""
+`trace` wraps torch.profiler, as the JAX package's wraps jax.profiler:
+
+    with trace("traces/autosvd"):
+        snp_autoSVD(pack)
+
+writes the host activity and, on CUDA, the device's as a Chrome trace
+(`trace.json`, viewable in Perfetto or chrome://tracing). `StageTimer`
+is a wall-time stage timer for long pipelines: stages end where their
+results reach the host, so on CUDA the host clock around a stage includes
+the device work it waited for."""
 
 from __future__ import annotations
 
 import contextlib
 import time
+from pathlib import Path
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """torch.profiler trace context; yields the profiler, whose
+    `key_averages()` tabulates the ops, and writes `logdir/trace.json`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    Path(logdir).mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
 
 
 class StageTimer:

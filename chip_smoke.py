@@ -5,7 +5,9 @@
                           [--burn-in B] [--num-iter I] [--n3 N3] [--m3 M3]
                           [--region R] [--n4 N4] [--m4 M4] [--n-thr T]
                           [--n-stack S] [--n5 N5] [--m5 M5] [--burn-in5 B]
-                          [--num-iter5 I] [--gdp-rows R]
+                          [--num-iter5 I] [--gdp-rows R] [--n6 N6]
+                          [--n6-ref R6] [--m6 M6] [--n-sumstats S]
+                          [--n-grm G] [--lasso-points P]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -31,7 +33,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      |N(0,1)| + 1 at l = 20 and the GWAS operand [yr | 1 | 10 PCs] within
      1e-5, V = 1, whose exact product is near 0, within 4x the twin's
      error), K1's two launches bit-equal and its depth splits 1, 2, 5 and
-     16 within 1e-5 of each other;
+     16 within 1e-5 of each other; then K2 at 2^23 + 4,097 variants and K1
+     at 2^23 + 4,097 samples (64 on the other side, random bytes), where
+     the plan splits the depth into runs of at most 2^23 (the three-term
+     count column stays exact in each): against the twin and float64 as
+     above, and an explicit splits=1 refused;
   6. slice 2 at full size: a 20,000 x 100,000 cohort made on the card with
      latent-Gaussian AR(1) LD inside blocks of 200-3,000 variants (1% NA on
      5% of the variants), then snp_simuPheno(h2 0.4, 1,000 causal) ->
@@ -127,13 +133,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
      planes and its bound, and the NA-free randomSVD on an int8m operator;
      (b) the sweep kernel at slice 5's band, LDpred2-auto's 30 chains and
      lassosum2's 120 grid points: held against its twin and timed beside
-     its bound and its row floor.
+     its bound and its row floor;
+ 18. slice 6 on one cohort made on the card (slice 3's generator, 3
+     populations, 22 chromosomes) of 2,504 reference samples (the 1000G
+     panel's size) and 20,000 target samples over 200,000 variants, the
+     target's map with 5% of the variants dropped, 10% reversed (genotypes
+     2 - x), 5% strand-flipped and 1% ambiguous: the target's 0.95 GB
+     through GenoPack.save -> snp_attach (bytes and snp_counts equal,
+     GB/s); snp_match of 1,000,000 sumstats rows (the target's map and
+     rows at absent positions) against the reference map (the planted
+     matches, flips, reversals, removals and every beta's sign);
+     bed_projectPCA(reference, reversed target, k = 10) on K1 / K2 (the
+     projection equal to the unreversed target's on the same SVD within
+     1e-3, PC1-2 separating the populations); bed_GRM on 10,000 target
+     samples (64 rows against float64 within 1e-5, symmetric, its time
+     beside 2 n^2 m over the f32 peak); snp_MAX3 (a planted causal
+     variant first), snp_fst (near the generator's), snp_ancestry_summary
+     (a 60/30/10 mix within 0.05) and snp_asGeneticPos (monotone); each
+     stage timed on the host clock to a torch.cuda.synchronize().
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
 `--rehearse-cpu` runs the same phases on the CPU through the twins at the
 given small size, to check the script itself (the statistical checks of
-slice 2 are printed but only enforced on the card); it too ends non-zero.
+slices 2, 3 and 6 are printed but only enforced on the card;
+--lasso-points cuts the lassosum twin's grid in [14] and [15], --n6 to
+--n-grm slice 6); it too ends non-zero.
 """
 
 from __future__ import annotations
@@ -641,7 +666,82 @@ def kernel_rows(gk, torch, dev, pack, sc, launches, n_test, reps=10):
             fail(f"K2 on operand {kind}: rel max err {rel:.3e} > {TOL}")
         del out, ref
     k1_checks(gk, torch, dev, pack, sc, op, rng)
+    depth_checks(gk, torch, dev)
     return rows
+
+
+def depth_product64(torch, packed, n, c, inv, W, prod, chunk=1 << 20):
+    """`product64` with the depth in chunks: variants (prod) or samples
+    (cprod, whole bytes of the pack), so that no float64 tile of the
+    decoded matrix is larger than chunk x its other side."""
+    if prod:
+        return product64(torch, packed, n, c, inv, W, True, chunk)
+    out = torch.zeros((packed.shape[0], W.shape[1]), dtype=torch.float64,
+                      device=W.device)
+    for s0 in range(0, n, chunk):
+        s1 = min(n, s0 + chunk)
+        out += dense64(torch, packed[:, s0 // 4:(s1 + 3) // 4], s1 - s0, c,
+                       inv) @ W[s0:s1].double()
+    return out
+
+
+def depth_checks(gk, torch, dev, extra=4097):
+    """K2 at 2^23 + 4,097 variants and K1 at 2^23 + 4,097 samples (the
+    depth past which one run's count column would not stay exact in f32;
+    64 on the other side, l = 20; a CPU rehearsal 8 and l = 2, for the
+    twin's sake), on random bytes: the plan's depth runs, each at most
+    2^23; the kernel against its twin (TOL) and both against a float64
+    product (DENSE_TOL); an explicit splits=1 raises ValueError."""
+    K = gk.MAX_COUNT_DEPTH + extra
+    side, l = (64, 20) if dev.type == "cuda" else (8, 2)
+    sms = gk._sm_count(dev) if dev.type == "cuda" else 132
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    for prod in (True, False):
+        m, n = (K, side) if prod else (side, K)
+        name, tag = ("prod", "K2") if prod else ("cprod", "K1")
+        P = torch.randint(0, 256, (m, (n + 3) // 4), dtype=torch.uint8,
+                          device=dev, generator=g)
+        p = torch.rand(m, device=dev, generator=g) * 0.45 + 0.05
+        c = 2 * p
+        inv = torch.rsqrt(2 * p * (1 - p))
+        W = torch.randn((m if prod else n, l), device=dev, generator=g)
+        plan = gk.plane_plan(prod, 3, m, n, l, sms)
+        run = plan["kps"] * 64 * plan["ksub"]
+        kern, plain = ((gk.prod, gk.prod_plain) if prod
+                       else (gk.cprod, gk.cprod_plain))
+        out, ref = kern(P, n, W, c, inv), plain(P, n, W, c, inv)
+        err, rel = rel_err(out, ref)
+        ms = Timer(torch, dev)(lambda: kern(P, n, W, c, inv), reps=3)
+        ref64 = depth_product64(torch, P, n, c, inv, W, prod)
+        d_k, d_t = rel64(out, ref64), rel64(ref, ref64)
+        try:    # the wrapper on the card; a rehearsal's runs the twin
+            if dev.type == "cuda":
+                kern(P, n, W, c, inv, splits=1)
+            else:
+                gk.plane_plan(prod, 3, m, n, l, sms, splits=1)
+            refused = False
+        except ValueError:
+            refused = True
+        log(f"  depth past 2^23: {tag} ({name}) at depth {K} (m={m}, n={n}, "
+            f"l={l}): the plan runs {plan['splits']} depth splits of at most "
+            f"{run} (<= 2^23 = {gk.MAX_COUNT_DEPTH}); the wrapper {ms:.3f} "
+            f"ms; vs the twin rel max "
+            f"err {rel:.2e} (limit {TOL}); vs float64: kernel {d_k:.2e}, "
+            f"twin {d_t:.2e} (limit {DENSE_TOL}); explicit splits=1 raises "
+            f"ValueError: {refused}")
+        if not torch.isfinite(out).all():
+            fail(f"{tag} past 2^23: non-finite output")
+        if run > gk.MAX_COUNT_DEPTH or plan["splits"] < 2:
+            fail(f"{tag} past 2^23: a depth run of {run}")
+        if rel > TOL:
+            fail(f"{tag} past 2^23: rel max err {rel:.3e} > {TOL}")
+        if max(d_k, d_t) > DENSE_TOL:
+            fail(f"{tag} past 2^23 or its twin is off the float64 product: "
+                 f"{d_k:.2e} / {d_t:.2e} > {DENSE_TOL}")
+        if not refused:
+            fail(f"{tag} past 2^23: an explicit splits=1 was not refused")
+        del P, W, out, ref, ref64
 
 
 def k1_checks(gk, torch, dev, pack, sc, op, rng, splits=(1, 2, 5, 16)):
@@ -2409,7 +2509,8 @@ def lasso_bound(sb, NG):
 
 def phase_lasso_timed(bp, torch, dev, s4, args):
     """The lassosum mode at the slice's bands and grid (4 deltas x 30
-    lambdas), from the state after 5 sweeps: kernel and twin bit-equal."""
+    lambdas; --lasso-points / 4 lambdas in a CPU rehearsal), from the
+    state after 5 sweeps: kernel and twin bit-equal."""
     from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
     from bigsnpr_tpu_torch.pgs import ldpred2 as pld
 
@@ -2417,8 +2518,9 @@ def phase_lasso_timed(bp, torch, dev, s4, args):
     bh, N, _ = pld._df_beta_arrays(s4["df_beta"])
     pf = np.sqrt(np.max(N) / N)
     lam0 = np.max(np.abs(bh / pf))
-    lam = np.tile(bp.seq_log(lam0, 0.01 * lam0, 31)[1:], 4)
-    delta = np.repeat([0.001, 0.01, 0.1, 1.0], 30)
+    per = args.lasso_points // 4
+    lam = np.tile(bp.seq_log(lam0, 0.01 * lam0, per + 1)[1:], 4)
+    delta = np.repeat([0.001, 0.01, 0.1, 1.0], per)
     NG = len(lam)
     f = lambda a: torch.as_tensor(a, dtype=sb.dtype, device=dev)  # noqa: E731
     bh_t, pf_t, lam_t, del_t = f(bh), f(pf), f(lam), f(delta)
@@ -2463,7 +2565,8 @@ def phase_lasso_timed(bp, torch, dev, s4, args):
         f"{ms / max(t_row, t_issue, 1e-9):.2f}x the larger floor")
     if not (bit and repeat):
         fail("the lassosum mode disagrees with its twin or does not repeat")
-    return {"name": "gibbs_sweep lassosum mode (lassosum2, 120 grid points)",
+    return {"name": f"gibbs_sweep lassosum mode (lassosum2, {NG} grid "
+                    "points)",
             "route": "cuda", "source": SWEEP_SOURCE,
             "replaces": LASSO_REPLACES,
             "launches": s4["launches"]["lassosum"], "max_abs_err": err,
@@ -2709,7 +2812,7 @@ def phase_gdp_small(bp, gsk, torch, dev, args):
     cases = (("float64, one band", np.float64, 4, 6, lambda: one_block_bands(
                  band_ld(bp, args.gdp_rows, 64, args.seed + 33),
                  dtype=np.float64)),
-             ("float32, 12 blocks", np.float32, N_CHAINS, 120,
+             ("float32, 12 blocks", np.float32, N_CHAINS, args.lasso_points,
               lambda: narrow_bands(bp, rng, rng.integers(100, 701, 12), 64)))
     for tag, dt, NC, NG, bands in cases:
         sb = bands().device_put(dev, dtype=dt)
@@ -2981,6 +3084,334 @@ def phase_gdp_timed(bp, gsk, torch, dev, s5, args):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 6: data in (the .gpk store, snp_match, bed_projectPCA) and the
+# remaining statistics (the GRM, MAX3, Fst, ancestry, genetic positions)
+# ---------------------------------------------------------------------------
+
+PAIRS = np.array([("A", "C"), ("A", "G"), ("C", "A"), ("G", "A"),
+                  ("C", "T"), ("T", "C"), ("G", "T"), ("T", "G")])
+AMBIGUOUS = np.array([("A", "T"), ("T", "A"), ("C", "G"), ("G", "C")])
+COMPLEMENT = {"A": "T", "T": "A", "C": "G", "G": "C"}
+
+
+def reverse_rows(torch, packed, rows, n):
+    """Dosage x -> 2 - x on the variant rows `rows` of a packed tensor, in
+    place: codes 0 and 3 swap (NA and het stay), the pad bits stay 0."""
+    lut = torch.tensor([sum((3 - ((b >> s) & 3) if (b >> s) & 3 in (0, 3)
+                             else (b >> s) & 3) << s for s in (0, 2, 4, 6))
+                        for b in range(256)], dtype=torch.uint8,
+                       device=packed.device)
+    rows = torch.as_tensor(rows, dtype=torch.long, device=packed.device)
+    new = lut[packed[rows].long()]
+    if n % 4:
+        new[:, -1] &= (1 << (2 * (n % 4))) - 1
+    packed[rows] = new
+
+
+def make_slice6(bp, torch, dev, args):
+    """One cohort made on the device (slice 3's generator, 3 populations,
+    22 chromosomes, no planted region) of --n6-ref reference samples and
+    --n6 target samples over --m6 variants; a reference map (alleles drawn
+    from the non-ambiguous pairs, 1% ambiguous A/T or C/G), and a target
+    that drops 5% of the variants, reverses the alleles of 10% (genotypes
+    2 - x) and strand-flips 5% (non-ambiguous ones only)."""
+    n_ref, n_t, m = args.n6_ref, args.n6, args.m6
+    n = n_ref + n_t
+    t0 = time.perf_counter()
+    packed, sizes, info = make_ld_cohort(torch, dev, n, m, args.seed + 60,
+                                         args.bmin, args.bmax, pops=3)
+    bounds = chromosome_bounds(sizes, m)
+    chrs = np.repeat(np.arange(1, 23), np.diff(bounds))
+    rng = np.random.default_rng(args.seed + 61)
+    gaps = 1 + rng.exponential(3000.0, m).astype(np.int64)
+    pos = np.empty(m, np.int64)
+    for c0, c1 in zip(bounds[:-1], bounds[1:]):
+        pos[c0:c1] = np.cumsum(gaps[c0:c1])
+    al = PAIRS[rng.integers(0, len(PAIRS), m)]
+    amb = rng.random(m) < 0.01
+    al[amb] = AMBIGUOUS[rng.integers(0, 4, int(amb.sum()))]
+    ref_map = {"chromosome": chrs,
+               "marker.ID": np.array([f"rs{j}" for j in range(m)]),
+               "genetic.dist": np.zeros(m), "physical.pos": pos,
+               "allele1": al[:, 0].copy(), "allele2": al[:, 1].copy()}
+    cohort = bp.GenoPack(packed=packed.cpu().numpy(), n=n)
+    cohort._device_cache[str(dev)] = packed
+    pop = info["pop"]
+    ref_rows, tgt_rows = np.arange(n_ref), np.arange(n_ref, n)
+    ref = cohort.subset(ind_row=ref_rows, device=dev)
+    ref.map = ref_map
+    kept = np.flatnonzero(rng.random(m) >= 0.05)
+    rev = rng.random(len(kept)) < 0.10
+    flip = (~rev) & (~amb[kept]) & (rng.random(len(kept)) < 0.05 / 0.9)
+    target = cohort.subset(ind_row=tgt_rows, ind_col=kept, device=dev)
+    t_rev = bp.GenoPack(packed=target.packed.copy(), n=n_t)
+    dp = target.device_packed(dev).clone()
+    reverse_rows(torch, dp, np.flatnonzero(rev), n_t)
+    t_rev.packed = dp.cpu().numpy()
+    t_rev._device_cache[str(dev)] = dp
+    a1, a2 = al[kept, 0].copy(), al[kept, 1].copy()
+    a1[rev], a2[rev] = al[kept, 1][rev], al[kept, 0][rev]
+    for a in (a1, a2):
+        a[flip] = [COMPLEMENT[x] for x in a[flip]]
+    t_rev.map = {"chromosome": chrs[kept],
+                 "marker.ID": ref_map["marker.ID"][kept],
+                 "genetic.dist": np.zeros(len(kept)),
+                 "physical.pos": pos[kept], "allele1": a1, "allele2": a2}
+    del cohort, packed
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"  cohort made on the {dev.type} in {time.perf_counter() - t0:.1f} "
+        f"s: {len(sizes)} LD blocks of {sizes.min()}-{sizes.max()} variants, "
+        f"3 populations (Fst {FST}), 22 chromosomes; reference {n_ref} x "
+        f"{m} ({ref.packed.nbytes / 1e9:.3f} GB), target {n_t} x "
+        f"{len(kept)} ({target.packed.nbytes / 1e9:.3f} GB): {m - len(kept)} "
+        f"variants dropped, {int(rev.sum())} reversed, {int(flip.sum())} "
+        f"strand-flipped, {int(amb[kept].sum())} ambiguous kept")
+    return {"ref": ref, "target": target, "t_rev": t_rev, "kept": kept,
+            "rev": rev, "flip": flip, "amb": amb, "pop_ref": pop[ref_rows],
+            "pop_t": pop[tgt_rows], "chrs": chrs, "pos": pos,
+            "ref_map": ref_map}
+
+
+def slice6_store(bp, torch, dev, s6, stage):
+    """The target's packed bytes through the .gpk store and back."""
+    target = s6["target"]
+    nbytes = target.packed.nbytes
+    with tempfile.TemporaryDirectory() as tmp:
+        bare = bp.GenoPack(packed=target.packed, n=target.n)
+        path, t_save = stage("store: save",
+                             lambda: bare.save(os.path.join(tmp, "target")))
+        att, t_load = stage("store: attach",
+                            lambda: bp.snp_attach(path, mmap=False))
+        same = np.array_equal(att.packed, target.packed)
+        c0 = bp.snp_counts(att, device=dev)
+        c1 = bp.snp_counts(target, device=dev)
+        counts = np.array_equal(c0, c1)
+        files = sorted(os.listdir(path))
+    log(f"  store: {nbytes / 1e9:.3f} GB saved at "
+        f"{nbytes / t_save / 1e9:.2f} GB/s, attached (read whole, "
+        f"mmap=False) at {nbytes / t_load / 1e9:.2f} GB/s; files {files}; "
+        f"bytes equal {same}, snp_counts equal {counts}")
+    if not (same and counts) or files != ["meta.json", "packed.bin"]:
+        fail("the .gpk store does not give back the target's bytes")
+
+
+def slice6_match(bp, s6, args, rng, stage):
+    """snp_match of --n-sumstats rows (the target's map, betas signed by
+    its alleles, and rows at positions absent from the reference) against
+    the reference map: the planted matches, flips, reversals and removals,
+    every beta's sign."""
+    kept, rev, flip, amb = s6["kept"], s6["rev"], s6["flip"], s6["amb"]
+    ref_map, t_map = s6["ref_map"], s6["t_rev"].map
+    m = len(ref_map["chromosome"])
+    beta_true = rng.standard_normal(m)
+    n_fill = max(0, args.n_sumstats - len(kept))
+    fc = rng.integers(1, 23, n_fill)
+    top = np.zeros(23, np.int64)
+    np.maximum.at(top, ref_map["chromosome"], ref_map["physical.pos"])
+    fpos = top[fc] + 1 + rng.permutation(n_fill)
+    fal = PAIRS[rng.integers(0, len(PAIRS), n_fill)]
+    perm = rng.permutation(len(kept) + n_fill)
+    ss = {"chr": np.r_[t_map["chromosome"], fc][perm],
+          "pos": np.r_[t_map["physical.pos"], fpos][perm],
+          "a0": np.r_[t_map["allele2"], fal[:, 1]][perm],
+          "a1": np.r_[t_map["allele1"], fal[:, 0]][perm],
+          "beta": np.r_[np.where(rev, -1, 1) * beta_true[kept],
+                        rng.standard_normal(n_fill)][perm]}
+    info = {"chr": ref_map["chromosome"], "pos": ref_map["physical.pos"],
+            "a0": ref_map["allele2"], "a1": ref_map["allele1"],
+            "rsid": ref_map["marker.ID"]}
+    out, _ = stage("snp_match", lambda: bp.snp_match(
+        ss, info, return_flip_and_rev=True, verbose=False))
+    ok = ~amb[kept]
+    want = (int(ok.sum()), int(flip.sum()), int((rev & ok).sum()))
+    got = (len(out["beta"]), int(out["_FLIP_"].sum()),
+           int(out["_REV_"].sum()))
+    signs = np.array_equal(out["beta"], beta_true[out["_NUM_ID_"] - 1])
+    flips = np.array_equal(np.sort(out["_NUM_ID_"][out["_FLIP_"]] - 1),
+                           kept[flip])
+    log(f"  snp_match: {len(perm)} sumstats rows ({n_fill} at positions "
+        f"absent from the reference) against the reference's {m}: matched "
+        f"/ flipped / reversed {got}, planted {want}; removed "
+        f"{len(perm) - got[0]} (planted {len(perm) - want[0]}); every "
+        f"beta's sign right {signs}, the flipped variants the planted ones "
+        f"{flips}")
+    if got != want or not (signs and flips):
+        fail("snp_match does not recover what was planted")
+
+
+def slice6_project(bp, gk, torch, dev, s6, stage):
+    """bed_projectPCA(reference, reversed target, k=10) on K1 / K2, held
+    against the projection of the unreversed target on the same SVD."""
+    from bigsnpr_tpu_torch.pca.project import (pca_OADP_proj,
+                                               prod_and_row_sums_sq)
+
+    gk.reset_launches()
+    with bp.config.options(pallas_mxu="highest"):
+        res, _ = stage("bed_projectPCA", lambda: bp.bed_projectPCA(
+            s6["ref"], s6["t_rev"], k=10, device=dev))
+    used = {k: gk.launches[k] for k in ("cprod", "prod")}
+    obj = res["obj.svd.ref"]
+    at = np.full(s6["ref"].m, -1)
+    at[s6["kept"]] = np.arange(len(s6["kept"]))
+    cols = at[obj.subset]
+    XV, Xn = prod_and_row_sums_sq(s6["target"], obj.v, obj.center,
+                                  obj.scale, ind_col=cols, device=dev)
+    oadp0 = pca_OADP_proj(XV, Xn, obj.d)
+    rel = float(np.abs(res["OADP_proj"] - oadp0).max()
+                / np.abs(oadp0).max())
+    r2 = pop_r2(res["OADP_proj"][:, :2], s6["pop_t"])
+    log(f"  bed_projectPCA: autoSVD of the reference kept {len(obj.subset)} "
+        f"variants (K1 / K2 launches {used}); OADP projection of the "
+        f"reversed target vs the unreversed one on the same SVD: rel max "
+        f"err {rel:.2e} (limit 1e-3); population r2 of PC1-2 on the target "
+        f"{r2:.3f} (floor 0.9)")
+    if dev.type == "cuda" and min(used.values()) == 0:
+        fail(f"bed_projectPCA's autoSVD did not launch K1 and K2: {used}")
+    if rel > 1e-3 or not np.isfinite(res["OADP_proj"]).all():
+        fail("bed_projectPCA's projection of the reversed target is off")
+    if dev.type == "cuda" and not r2 > 0.9:
+        fail("the projected target's PCs do not separate the populations")
+    return obj, cols
+
+
+def slice6_grm(bp, torch, dev, s6, args, rng, stage):
+    """bed_GRM on --n-grm target samples over every variant: 64 rows
+    against float64, symmetry, and its time against 2 n^2 m over the f32
+    peak."""
+    from bigsnpr_tpu_torch.ops.blocks import pick_block
+    from bigsnpr_tpu_torch.ops.grm import grm_blocked
+
+    n_g = min(args.n_grm, s6["target"].n)
+    tgt = s6["target"].subset(ind_row=np.arange(n_g), device=dev)
+    m = tgt.m
+    G, t_grm = stage("bed_GRM", lambda: bp.bed_GRM(tgt, device=dev))
+    sc = bp.bed_scaleBinom(tgt, device=dev)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    c, s = f32(sc["center"]), f32(np.where(sc["scale"] > 0, sc["scale"], 1))
+    P = tgt.device_packed(dev)
+    timer = Timer(torch, dev)
+    gemm_ms = timer(lambda: grm_blocked(P, n_g, c, s, pick_block(n_g)),
+                    reps=1, warmup=0)
+    pick = np.sort(rng.choice(n_g, min(64, n_g), replace=False))
+    acc = torch.zeros((len(pick), n_g), dtype=torch.float64, device=dev)
+    inv = 1.0 / s
+    for j0 in range(0, m, 4096):
+        X = dense64(torch, P[j0:j0 + 4096], n_g, c[j0:j0 + 4096],
+                    inv[j0:j0 + 4096])
+        acc += X[:, pick].T @ X
+    ref = acc.cpu().numpy() / m
+    rel = float(np.abs(G[pick] - ref).max() / np.abs(ref).max())
+    asym = float(np.abs(G - G.T).max() / np.abs(G).max())
+    bound = 2.0 * n_g * n_g * m / PEAK_F32_FLOP_PER_S
+    log(f"  bed_GRM: {n_g} x {n_g} over {m} variants in {t_grm:.3f} s (the "
+        f"accumulation on the device {gemm_ms / 1e3:.3f} s; 2 n^2 m = "
+        f"{2.0 * n_g * n_g * m / 1e12:.2f} TFLOP over 67 TFLOP/s f32 = "
+        f"{bound:.3f} s); 64 rows vs float64: rel max err {rel:.2e} (limit "
+        f"1e-5); max |G - G^T| / max |G| {asym:.1e} (bit-symmetric "
+        f"{asym == 0.0})")
+    if rel > 1e-5 or asym > 1e-6 or not np.isfinite(G).all():
+        fail("bed_GRM is off the float64 product or not symmetric")
+
+
+def slice6_stats(bp, torch, dev, s6, obj, cols, rng, stage):
+    """snp_MAX3 on a planted case/control split, snp_fst over the three
+    populations, snp_ancestry_summary of a 60/30/10 mix, and
+    snp_asGeneticPos on a synthetic genetic map."""
+    import warnings
+
+    from bigsnpr_tpu_torch.core.unpack import np_unpack_codes
+
+    target, pop_t, pop_r = s6["target"], s6["pop_t"], s6["pop_ref"]
+    t0 = time.perf_counter()
+    maf = bp.bed_MAF(target, device=dev)
+    good = np.flatnonzero((maf["maf"] > 0.3) & (maf["N"] == target.n))
+    j = int(good[rng.integers(0, len(good))])
+    codes = np_unpack_codes(np.asarray(target.packed[j:j + 1]), target.n)[0]
+    d = 2.0 - ((codes.astype(np.int64) + 1) >> 1)
+    y01 = (rng.random(target.n) < 1 / (1 + np.exp(-(d - d.mean())))).astype(
+        int)
+    res = bp.snp_MAX3(target, y01, device=dev)
+    top = int(np.argmax(res.score))
+    tabs = [bp.bed_MAF(target, ind_row=np.flatnonzero(pop_t == k),
+                       device=dev) for k in range(3)]
+    fst = bp.snp_fst(tabs, overall=True)
+    w = np.array([0.6, 0.3, 0.1])
+    X0 = np.column_stack([bp.bed_MAF(s6["ref"], ind_row=np.flatnonzero(
+        pop_r == k), device=dev)["af"][obj.subset] for k in range(3)])
+    freq = np.column_stack([t["af"][cols] for t in tabs]) @ w
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sol, info = bp.snp_ancestry_summary(freq, X0, obj.v,
+                                            np.ones(obj.v.shape[1]))
+    rng_map = np.random.default_rng(7)
+    chrs, pos = s6["chrs"], s6["pos"]
+    gmap = {"chr": [], "pos": [], "pos_cM": []}
+    for c in range(1, 23):
+        top_c = int(pos[chrs == c].max()) + 10 ** 5
+        gp = np.sort(rng_map.choice(top_c, 2000, replace=False))
+        gmap["chr"].append(np.full(2000, c))
+        gmap["pos"].append(gp)
+        gmap["pos_cM"].append(np.cumsum(rng_map.uniform(0, 0.05, 2000)))
+    gmap = {k: np.concatenate(v) for k, v in gmap.items()}
+    cm = bp.snp_asGeneticPos(chrs, pos, gmap)
+    cm2 = bp.snp_asGeneticPos2(chrs, pos, gmap)
+    mono = all((np.diff(x[chrs == c]) >= 0).all() for x in (cm, cm2)
+               for c in range(1, 23))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"  statistics in {time.perf_counter() - t0:.3f} s: snp_MAX3 on "
+        f"{int(y01.sum())} cases / {int((1 - y01).sum())} controls, the "
+        f"planted variant {j} ranks {int((res.score > res.score[j]).sum()) + 1}"
+        f" (top {top}); snp_fst over 3 populations {fst:.4f} (generator "
+        f"{FST}); snp_ancestry_summary of a 60/30/10 mix "
+        f"{np.round(sol, 4).tolist()} (cor_pred {info['cor_pred']:.4f}; "
+        f"limit 0.05 a population); snp_asGeneticPos (nn and linear) "
+        f"monotone on every chromosome {mono}")
+    if dev.type == "cuda":
+        if top != j:
+            fail("snp_MAX3 does not rank the planted variant first")
+        if not (fst > 0 and abs(fst / FST - 1) < 0.25):
+            fail(f"snp_fst {fst:.4f} is not near the generator's {FST}")
+        if np.abs(sol - w).max() > 0.05:
+            fail(f"snp_ancestry_summary {sol} is not the 60/30/10 mix")
+    if not mono:
+        fail("snp_asGeneticPos is not monotone on a chromosome")
+
+
+def phase_slice6(bp, gk, torch, dev, args):
+    """[18] slice 6: the store, matching, projection, the GRM and the
+    small statistics, each stage timed on the host clock to a
+    torch.cuda.synchronize()."""
+    log(f"[18] slice 6 at {args.n6} target + {args.n6_ref} reference "
+        f"samples x {args.m6} variants")
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 62)
+    times = {}
+
+    def stage(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out, times[name]
+
+    s6, _ = stage("cohort", lambda: make_slice6(bp, torch, dev, args))
+    slice6_store(bp, torch, dev, s6, stage)
+    slice6_match(bp, s6, args, rng, stage)
+    obj, cols = slice6_project(bp, gk, torch, dev, s6, stage)
+    slice6_grm(bp, torch, dev, s6, args, rng, stage)
+    slice6_stats(bp, torch, dev, s6, obj, cols, rng, stage)
+    log("  stage times (s, host clock to a synchronize): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; [18] in all {time.perf_counter() - t_all:.1f} s")
+
+
 def arg_parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -3009,10 +3440,22 @@ def arg_parser():
     ap.add_argument("--gdp-rows", type=int, default=29_100,
                     help="rows of [15]'s float64 band, past the shared "
                     "memory of one block")
+    ap.add_argument("--n6", type=int, default=20_000,
+                    help="target samples of slice 6")
+    ap.add_argument("--n6-ref", type=int, default=2_504,
+                    help="reference samples of slice 6 (the 1000G panel's)")
+    ap.add_argument("--m6", type=int, default=200_000)
+    ap.add_argument("--n-sumstats", type=int, default=1_000_000,
+                    help="rows of slice 6's summary statistics")
+    ap.add_argument("--n-grm", type=int, default=10_000,
+                    help="target samples of slice 6's GRM")
     # cut only by a CPU rehearsal, whose twins are slow
     ap.add_argument("--n-thr", type=int, default=50)
     ap.add_argument("--nlambda", type=int, default=30)
     ap.add_argument("--lasso-maxiter", type=int, default=1000)
+    ap.add_argument("--lasso-points", type=int, default=120,
+                    help="grid points (a multiple of 4) of the lassosum "
+                    "mode held against its twin in [14] and [15]")
     ap.add_argument("--rehearse-cpu", action="store_true")
     return ap
 
@@ -3117,6 +3560,11 @@ def main(argv=None):
         if key in ("cprod_i8m", "prod_i8m"):
             r["launches"] = s5["svd_path"][key]
     rows += phase_gdp_timed(bp, gsk, torch, dev, s5, args)
+    del s5
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    phase_slice6(bp, gk, torch, dev, args)
     log(f"  wall time {time.perf_counter() - t_start:.1f} s")
 
     if dev.type != "cuda":

@@ -903,3 +903,39 @@ def test_ring_mode_on_the_widest_band_the_plan_takes(cuda, dtype, elem):
         torch.cuda.synchronize()
         res.append((dp, beta) + tuple(out))
     assert all(torch.equal(a, b) for a, b in zip(*res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prod", [True, False])
+def test_k1_k2_past_2_23(cuda, prod):
+    """K2 at 2^23 + 4,097 variants (64 samples) and K1 at 2^23 + 4,097
+    samples (64 variants): the plan splits the depth into runs of at most
+    2^23, the result is within 1e-4 of max |twin| of the direct twin and
+    within 1e-5 of max |float64 product|; an explicit splits=1 raises."""
+    K = 2 ** 23 + 4097
+    m, n = (K, 64) if prod else (64, K)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    packed = torch.randint(0, 256, (m, (n + 3) // 4), dtype=torch.uint8,
+                           device=cuda, generator=g)
+    c = torch.rand(m, device=cuda, generator=g) * 2
+    inv = torch.rand(m, device=cuda, generator=g) * 3
+    W = torch.randn((m if prod else n, 20), device=cuda, generator=g)
+    plan = gk.plane_plan(prod, 3, m, n, 20, gk._sm_count(cuda))
+    assert plan["splits"] >= 2
+    assert plan["kps"] * 64 * plan["ksub"] <= 2 ** 23
+    kern, plain = (gk.prod, gk.prod_plain) if prod else (gk.cprod,
+                                                         gk.cprod_plain)
+    out, ref = kern(packed, n, W, c, inv), plain(packed, n, W, c, inv)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    if prod:
+        ref64 = torch.zeros((n, 20), dtype=torch.float64, device=cuda)
+        for j0 in range(0, m, 1 << 20):
+            j1 = min(m, j0 + (1 << 20))
+            ref64 += (dense64(packed[j0:j1], n, c[j0:j1], inv[j0:j1]).T
+                      @ W[j0:j1].double())
+    else:
+        ref64 = dense64(packed, n, c, inv) @ W.double()
+    assert (out.double() - ref64).abs().max() <= 1e-5 * ref64.abs().max()
+    with pytest.raises(ValueError, match=r"2\^23"):
+        kern(packed, n, W, c, inv, splits=1)

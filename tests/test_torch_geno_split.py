@@ -469,7 +469,8 @@ def plane_refused(plan, prod, terms, m, n, l):
             or plan["kps"] < 1
             or -(-ktiles // plan["kps"]) != plan["splits"]
             or plan["grid"] < 1 or smem > PLANE_SMEM
-            or smem != plan["smem"])
+            or smem != plan["smem"]
+            or (terms == 3 and plan["kps"] * 64 * ks > 2 ** 23))
 
 
 @pytest.mark.parametrize("l", [1, 12, 20, 50, 120, 650])
@@ -547,3 +548,100 @@ def test_plane_plan_at_the_main_path_shapes():
                 assert gk.plane_plan(prod, terms, 100_000, 20_000, l,
                                      132)["n_tiles"] == 1
 
+
+
+# ---------------------------------------------------------------------------
+# depths past 2^23: three terms split the depth into runs of at most 2^23
+# (the count column's f32 sums stay exact in a run) and add the runs'
+# counts in float64
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K", [2 ** 23 + 1, 2 ** 24 + 3])
+@pytest.mark.parametrize("prod", [True, False])
+@pytest.mark.parametrize("l,M", [(20, 64), (1, 20_000), (650, 64)])
+def test_plane_plan_splits_a_depth_past_2_23(K, prod, l, M):
+    """K2 (prod, depth = variants) and K1 (cprod, depth = samples) at a
+    depth past 2^23: every run is at most 2^23 deep, the C side's checks
+    (with the per-run limit) pass, and the runs cover the depth once a
+    tile; K7 (two terms) keeps its plan; an explicit splits=1 raises."""
+    from test_torch_geno_i8 import walk
+
+    m, n = (K, M) if prod else (M, K)
+    plan = gk.plane_plan(prod, 3, m, n, l, 132)
+    ksub = plan["ksub"]
+    assert plan["kps"] * 64 * ksub <= gk.MAX_COUNT_DEPTH == 2 ** 23
+    assert plan["splits"] >= -(-K // 2 ** 23)
+    assert plan["splits"] * plan["kps"] * 64 * ksub >= K
+    assert not plane_refused(plan, prod, 3, m, n, l)
+    seen = walk(plan, M, K)
+    for tile in {(mt, t) for mt, t, _, _ in seen}:
+        runs = sorted((k0, k1) for mt, t, k0, k1 in seen if (mt, t) == tile)
+        assert runs[0][0] == 0 and runs[-1][1] == plan["ktiles"]
+        assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    with pytest.raises(ValueError, match=r"2\^23"):
+        gk.plane_plan(prod, 3, m, n, l, 132, splits=1)
+    two = gk.plane_plan(prod, 2, m, n, l, 132, splits=1)
+    assert two["splits"] == 1 and not plane_refused(two, prod, 2, m, n, l)
+
+
+def test_split_epilogue_adds_counts_past_2_24_in_float64():
+    """The three-term epilogue on synthetic raw sums of three runs whose
+    counts T, N are odd integers just below 2^24 each: their totals pass
+    2^24, where float32 has no odd integers. Summed in float64 (the twin,
+    as `geno_plane_epilogue` does) the result is exact; in float32 it is
+    not."""
+    S, R, l, terms = 3, 4, 2, 3
+    raw = torch.zeros((S, 2, R, terms * l + 1), dtype=torch.float32)
+    t = [2 ** 24 - 1, 2 ** 24 - 3, 2 ** 24 - 5]
+    step = np.arange(R)
+    for r in range(S):
+        raw[r, 0, :, -1] = torch.as_tensor(t[r] - 2 * step)
+        raw[r, 1, :, -1] = torch.as_tensor(t[S - 1 - r] - 4 * step)
+    T = sum(t) - 6 * step
+    N = sum(t) - 12 * step
+    alpha = torch.tensor([1.0, 0.5])
+    beta = torch.tensor([0.25, 2.0])
+    small = torch.tensor([0.125, -0.375], dtype=torch.float64)
+    for i in range(R):     # sumv is per column: one row at a time
+        sv = alpha.double() * int(T[i]) + beta.double() * int(N[i]) + small
+        out = gk._split_epilogue_plain(raw[:, :, i:i + 1], l, sv,
+                                       terms=terms, shift=(alpha, beta))
+        assert torch.equal(out[0], small.float())
+    # the same counts summed in float32, the old order: not exact
+    assert sum(t) > 2 ** 24 and sum(t) % 2 == 1
+    assert (raw[:, 0, :, -1].sum(0).double().numpy() != T).all()
+    assert (raw[:, 1, :, -1].sum(0).double().numpy() != N).all()
+
+
+@pytest.mark.parametrize("prod", [True, False])
+def test_three_term_twin_runs_equal_one_run(prod):
+    """`_split_raw_plain` over depth runs (here of 100 and 64, where the
+    twin takes 2^23): the runs' raw sums add up to the one-run sums, and
+    the epilogue over the runs equals the one-run result to f32
+    round-off."""
+    pp = bt.snp_fake(301, 523, seed=5, na_prob=0.05)
+    packed = torch.as_tensor(np.asarray(pp.packed))
+    rng = np.random.default_rng(5)
+    c = torch.as_tensor(rng.uniform(0, 2, 523), dtype=torch.float32)
+    inv = torch.as_tensor(rng.uniform(0, 3, 523), dtype=torch.float32)
+    n, l = 301, 7
+    if prod:
+        U = torch.as_tensor(np.abs(rng.standard_normal((523, l))) + 1,
+                            dtype=torch.float32)
+        zbs, zas, sumv, shift = gk._prod_split_operands(U, c, inv, 3)
+        ops, kw = [zbs, zas], {}
+    else:
+        V = torch.as_tensor(np.abs(rng.standard_normal((n, l))) + 1,
+                            dtype=torch.float32)
+        qs, sumv, A, shift = gk._cprod_split_operands(V, c, inv, 3)
+        ops, kw = [qs], {"A": A, "s": inv}
+    one = gk._split_raw_plain(packed, n, ops, prod)
+    ref = gk._split_epilogue_plain(one, l, sumv, terms=3, shift=shift, **kw)
+    for run in (100, 64):
+        raw = gk._split_raw_plain(packed, n, ops, prod, run=run)
+        K = 523 if prod else n
+        assert raw.shape[0] == -(-K // run)
+        assert torch.equal(raw[:, :, :, -1].sum(0), one[0, :, :, -1])
+        out = gk._split_epilogue_plain(raw, l, sumv, terms=3, shift=shift,
+                                       **kw)
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()

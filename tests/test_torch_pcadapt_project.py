@@ -94,5 +94,54 @@ def test_project_self_pca_matches_jax():
     for key in ("simple_proj", "OADP_proj"):
         close(p[key], j[key])
     assert p["obj.svd.ref"] is psvd
-    with pytest.raises(NotImplementedError, match="utils/match"):
+    # bed_projectPCA (ported since slice 6) matches the packs' maps
+    with pytest.raises(ValueError, match="need a map"):
         pt.bed_projectPCA(pp, pp)
+
+
+def cross_dataset_packs():
+    """tests/test_impute_project.py::test_project_pca_cross_dataset's
+    packs: a reference of 200 samples, and the other 100 as a target,
+    as they are and with every fifth variant's alleles reversed (map and
+    genotypes)."""
+    from bigsnpr_tpu.core import unpack as up
+    from bigsnpr_tpu.core.genotypes import GenoPack
+
+    pack = bt.snp_fake(300, 260, seed=44)
+    ref = pack.subset(ind_row=np.arange(0, 200))
+    new = pack.subset(ind_row=np.arange(200, 300))
+    X = new.to_dosage()
+    rev = np.zeros(260, dtype=bool)
+    rev[::5] = True
+    Xr = np.where(rev[None, :], 2 - X, X)
+    new_map = new.map.copy()
+    a1 = new_map["allele1"].to_numpy().copy()
+    a2 = new_map["allele2"].to_numpy().copy()
+    a1[rev], a2[rev] = a2[rev], a1[rev]
+    new_map["allele1"], new_map["allele2"] = a1, a2
+    new_rev = GenoPack(packed=up.np_pack_codes(up.np_dosage_to_codes(Xr.T)),
+                       n=new.n, fam=new.fam, map=new_map)
+    return ref, new, new_rev
+
+
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_project_pca_matches_jax(reversed_):
+    """bed_projectPCA of the port against the JAX package's on the same
+    packs: the autoSVD subsets equal, the simple and OADP projections
+    within 1e-4; the reversed target's projection within 1e-3 of the
+    unreversed one (the JAX test's bound)."""
+    ref, new, new_rev = cross_dataset_packs()
+    target = new_rev if reversed_ else new
+    kw = dict(k=4, thr_r2=0.95, min_mac=2, min_maf=0.01, max_iter=1)
+    jres = jproj.bed_projectPCA(ref, target, **kw)
+    port = lambda p: interop.pack_from_numpy(  # noqa: E731
+        np.asarray(p.packed), p.n, fam=p.fam, map=p.map)
+    pres = pproj.bed_projectPCA(port(ref), port(target), **kw)
+    assert np.array_equal(pres["obj.svd.ref"].subset,
+                          jres["obj.svd.ref"].subset)
+    for key in ("simple_proj", "OADP_proj"):
+        close(pres[key], np.asarray(jres[key]))
+    if reversed_:
+        p0 = pproj.bed_projectPCA(port(ref), port(new), **kw)
+        np.testing.assert_allclose(pres["simple_proj"], p0["simple_proj"],
+                                   rtol=1e-3, atol=1e-3)

@@ -410,7 +410,10 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                           "--m4", "4000", "--n-thr", "2", "--nlambda", "3",
                           "--lasso-maxiter", "20", "--n-stack", "600",
                           "--n5", "803", "--m5", "1200", "--burn-in5", "4",
-                          "--num-iter5", "4", "--gdp-rows", "600"],
+                          "--num-iter5", "4", "--gdp-rows", "600",
+                          "--lasso-points", "8", "--n6", "600",
+                          "--n6-ref", "300", "--m6", "3000",
+                          "--n-sumstats", "6000", "--n-grm", "200"],
                          cwd=REPO,
                          capture_output=True, text=True, timeout=300, env=ENV2)
     assert out.returncode == 3, out.stdout[-2000:] + out.stderr[-2000:]
@@ -431,5 +434,7 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "lassosum, float32, 12 blocks", "[16]",
                   "snp_randomSVD on K8 vs on K6", "snp_ldpred2_auto "
                   "(unblocked)", "sampling betas", "[17a]",
-                  "NA-free copy, int8m", "[17b]"):
+                  "NA-free copy, int8m", "[17b]", "depth past 2^23",
+                  "[18]", "store", "snp_match", "bed_projectPCA",
+                  "bed_GRM"):
         assert phase in out.stdout
