@@ -39,10 +39,21 @@ A second package beside the JAX one, ported slice by slice.
   `snp_ancestry_summary`, `snp_scaleAlpha`, the plots (`snp_qq`,
   `snp_manhattan`), `trace` (torch.profiler) and the small helpers of
   `utils/misc`.
-- Still to come (ROADMAP queue 1): slice 6c (byte-coded dosages,
-  `DosagePack`, BGEN, imputation; the entry points that would take a
-  `DosagePack` raise `NotImplementedError`), the external-tool wrappers,
-  `warmup` and slice 7 (several cards).
+- Slice 6c, imputed dosages and the host tools: byte-coded dosages
+  (`DosagePack`, the FBM.code256 analog, with the tables `CODE_012`,
+  `CODE_DOSAGE`, `CODE_IMPUTE_PRED`; its `.dpk` store; `snp_attach_rds`
+  of a dosage table) through statistics, products, randomSVD, `snp_cor`,
+  LD scores, clumping and the SCT grid on the byte path (a code256 gather
+  and a float32 GEMM in torch, as the JAX package's byte path is XLA);
+  BGEN v1.2 in (`snp_readBGI` on sqlite3, `snp_readBGEN` on a native
+  zlib decode, `snp_prodBGEN`); the external-tool wrappers
+  (`snp_plinkQC`, `snp_plinkRmSamples`, `snp_plinkIBDQC`,
+  `snp_plinkKINGQC`, `snp_beagleImpute`, `snp_modifyBuild`; the
+  `download_*` helpers raise: no network); and `warmup` / `warmup_svd` /
+  `warmup_gibbs` (build every source, launch each kernel once).
+- Still to come (ROADMAP queue 1): `snp_fastImpute` and
+  `snp_fastImputeSimple` (slice 6c, item 13), then slice 7 (several
+  cards).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`config.set_device("cpu")` or `device="cpu"`). The package imports
@@ -157,5 +168,21 @@ from bigsnpr_tpu_torch.pgs.sct import (
     snp_grid_PRS,
     snp_grid_stacking,
 )
+
+from bigsnpr_tpu_torch.core.dosage import DosagePack
+from bigsnpr_tpu_torch.core.codes import CODE_012, CODE_DOSAGE, CODE_IMPUTE_PRED
+from bigsnpr_tpu_torch.io.bgen import snp_readBGEN, snp_readBGI, snp_prodBGEN
+from bigsnpr_tpu_torch.utils.external import (
+    snp_plinkQC,
+    snp_plinkRmSamples,
+    snp_plinkIBDQC,
+    snp_plinkKINGQC,
+    snp_beagleImpute,
+    snp_modifyBuild,
+    download_plink,
+    download_plink2,
+    download_beagle,
+)
+from bigsnpr_tpu_torch.warmup import warmup, warmup_svd, warmup_gibbs
 
 __version__ = "0.1.0"

@@ -39,6 +39,28 @@ MAP_COLS = ["chromosome", "marker.ID", "genetic.dist", "physical.pos", "allele1"
 _CHUNK_BYTES = 256 << 20
 
 
+def upload_rows(src, dev) -> torch.Tensor:
+    """A (rows, width) uint8 host array (numpy or a memmap) as a tensor on
+    `dev`, copied in row chunks into one preallocated tensor, so a
+    memory-mapped array is never copied whole on the host."""
+    m, w = src.shape
+    out = torch.empty((m, w), dtype=torch.uint8, device=dev)
+    step = max(1, _CHUNK_BYTES // max(w, 1))
+    for r0 in range(0, m, step):
+        # a read-only memmap slice is copied to a writable buffer
+        part = np.require(src[r0:r0 + step], requirements=["C", "W"])
+        out[r0:r0 + len(part)].copy_(torch.from_numpy(part))
+    return out
+
+
+def write_rows(src, path) -> None:
+    """A (rows, width) host array written to `path` in row chunks."""
+    step = max(1, _CHUNK_BYTES // max(src.shape[1], 1))
+    with open(path, "wb") as f:
+        for r0 in range(0, src.shape[0], step):
+            np.ascontiguousarray(src[r0:r0 + step]).tofile(f)
+
+
 def take_rows(cols: Optional[dict], idx) -> Optional[dict]:
     """Row subset of a dict of columns (None stays None)."""
     if cols is None:
@@ -87,15 +109,7 @@ class GenoPack:
         dev = config.resolve_device(device)
         key = str(dev)
         if key not in self._device_cache:
-            src = self.packed
-            m, nb = src.shape
-            out = torch.empty((m, nb), dtype=torch.uint8, device=dev)
-            step = max(1, _CHUNK_BYTES // max(nb, 1))
-            for r0 in range(0, m, step):
-                # a read-only memmap slice is copied to a writable buffer
-                part = np.require(src[r0:r0 + step], requirements=["C", "W"])
-                out[r0:r0 + len(part)].copy_(torch.from_numpy(part))
-            self._device_cache[key] = out
+            self._device_cache[key] = upload_rows(self.packed, dev)
         return self._device_cache[key]
 
     # -- dense views (host, for oracles/small data) --------------------------
@@ -135,11 +149,7 @@ class GenoPack:
         if path.suffix != ".gpk":
             path = path.with_suffix(".gpk")
         path.mkdir(parents=True, exist_ok=True)
-        src = self.packed
-        step = max(1, _CHUNK_BYTES // max(src.shape[1], 1))
-        with open(path / "packed.bin", "wb") as f:
-            for r0 in range(0, src.shape[0], step):
-                np.ascontiguousarray(src[r0:r0 + step]).tofile(f)
+        write_rows(self.packed, path / "packed.bin")
         meta = {"n": int(self.n), "m": int(self.m), "version": 1}
         (path / "meta.json").write_text(json.dumps(meta))
         if self.fam is not None:
@@ -206,7 +216,7 @@ def snp_save(pack: "GenoPack", path: str | os.PathLike) -> str:
     return pack.save(path)
 
 
-def snp_attach_rds(rds_path, bk_path=None, mmap: bool = True) -> "GenoPack":
+def snp_attach_rds(rds_path, bk_path=None, mmap: bool = True):
     """Attach a reference bigsnpr/bigstatsr `.rds` + `.bk` pair
     (reference snp_attach, R/read-plink.R:128-139), including the
     relocatable backingfile fix-up (:135-137): the stored absolute path
@@ -215,8 +225,8 @@ def snp_attach_rds(rds_path, bk_path=None, mmap: bool = True) -> "GenoPack":
     The `.bk` is the FBM byte matrix, column-major (nrow x ncol) on disk,
     i.e. variant-major rows when viewed as (ncol, nrow). Hard-call code
     tables (all values in {0, 1, 2, NA}) repack to a 2-bit GenoPack; any
-    other code256 (a DosagePack in the JAX package) raises
-    NotImplementedError (ROADMAP slice 6c)."""
+    other code256 (e.g. CODE_DOSAGE) attaches as a `DosagePack` on the
+    `.bk` bytes with the original table, as in the JAX package."""
     from bigsnpr_tpu_torch.utils.rds import REnv, read_rds, to_frame, unwrap
 
     rds_path = Path(rds_path)
@@ -260,14 +270,15 @@ def snp_attach_rds(rds_path, bk_path=None, mmap: bool = True) -> "GenoPack":
     if actual < expect:
         raise ValueError(f"backingfile too small: {actual} < {expect}")
 
-    finite = code256[np.isfinite(code256)]
-    if not np.isin(finite, (0.0, 1.0, 2.0)).all():
-        raise NotImplementedError(
-            "snp_attach_rds: a code256 table other than hard calls attaches "
-            "as a DosagePack, ROADMAP slice 6c")
     codes = np.memmap(bk_path, dtype=np.uint8, mode="r", shape=(ncol, nrow))
     if not mmap:
         codes = np.asarray(codes)
+    finite = code256[np.isfinite(code256)]
+    if not np.isin(finite, (0.0, 1.0, 2.0)).all():
+        from bigsnpr_tpu_torch.core.dosage import DosagePack
+
+        return DosagePack(codes=codes, n=nrow, code256=code256, fam=fam,
+                          map=map_)
     lut = unpack.np_dosage_to_codes(code256[None, :])[0]  # byte -> 2 bits
     out = np.empty((ncol, (nrow + 3) // 4), dtype=np.uint8)
     step = max(1, (1 << 24) // max(nrow, 1))   # ~16 MB chunks
@@ -286,21 +297,14 @@ def subset_packed(src: torch.Tensor, rows: torch.Tensor,
     cols = cols.long()
     byte = cols >> 2
     shift = ((cols & 3) * 2).to(torch.uint8)
-    # pad the sample gather to whole bytes; pad positions get code 0
-    pad = nb_out * 4 - n_out
-    out_shift = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
-                             device=src.device)
     out = torch.empty((len(rows), nb_out), dtype=torch.uint8,
                       device=src.device)
     step = max(1, _CHUNK_BYTES // max(4 * n_out, 1))
     for r0 in range(0, len(rows), step):
         r = rows[r0:r0 + step].long()
-        codes = (src[r][:, byte] >> shift) & 3              # (k, n_out)
-        if pad:
-            codes = torch.nn.functional.pad(codes, (0, pad))
-        quads = codes.reshape(len(r), nb_out, 4) << out_shift
-        out[r0:r0 + len(r)] = (quads[..., 0] | quads[..., 1]
-                               | quads[..., 2] | quads[..., 3])
+        # (k, n_out) codes; the pad positions of the last byte get code 0
+        out[r0:r0 + len(r)] = unpack.pack_codes((src[r][:, byte] >> shift)
+                                                & 3)
     return out
 
 

@@ -60,6 +60,18 @@ def unpack_standardized(packed: torch.Tensor, n: int, center: torch.Tensor,
                        xt)
 
 
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """(m, n) 2-bit codes -> (m, ceil(n/4)) packed bytes (PLINK layout,
+    zero pad bits), on the codes' device."""
+    m, n = codes.shape
+    nb = (n + 3) // 4
+    if nb * 4 > n:
+        codes = torch.nn.functional.pad(codes, (0, nb * 4 - n))
+    quads = codes.reshape(m, nb, 4)
+    return (quads[..., 0] | (quads[..., 1] << 2) | (quads[..., 2] << 4)
+            | (quads[..., 3] << 6))
+
+
 # ---------------------------------------------------------------------------
 # numpy host-side versions (for I/O paths and oracles)
 # ---------------------------------------------------------------------------

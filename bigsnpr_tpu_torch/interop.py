@@ -1,10 +1,10 @@
 """Carry state across from the JAX package, given as numpy arrays only.
 
 Nothing here imports the JAX package: callers hand over its packed bytes,
-sample count, metadata columns, scaling and SVD factors (and an autoSVD
-subset), sparse LD (CSC arrays) and block bands (host buckets) as numpy
-arrays (or anything
-`np.asarray` and column access can read), and get the port's `GenoPack`,
+sample count, metadata columns, a DosagePack's byte codes and code256,
+scaling and SVD factors (and an autoSVD subset), sparse LD (CSC arrays)
+and block bands (host buckets) as numpy arrays (or anything `np.asarray`
+and column access can read), and get the port's `GenoPack`, `DosagePack`,
 `BigSVD`, `SparseLD` / `BlockBands` / `GridPRS` holding the same values.
 """
 
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from bigsnpr_tpu_torch.core.dosage import DosagePack
 from bigsnpr_tpu_torch.core.genotypes import FAM_COLS, MAP_COLS, GenoPack
 from bigsnpr_tpu_torch.linalg.randomsvd import BigSVD
 from bigsnpr_tpu_torch.ops.corr import SparseLD
@@ -39,6 +40,20 @@ def pack_from_numpy(packed, n, fam=None, map=None) -> GenoPack:
                                 [c for c in FAM_COLS if c in fam]),
                     map=columns(map, None if map is None else
                                 [c for c in MAP_COLS if c in map]))
+
+
+def dosage_from_numpy(codes, n, code256=None, fam=None,
+                      map=None) -> DosagePack:
+    """A port `DosagePack` on a copy of the (m, n) byte codes, its code256
+    (CODE_DOSAGE when None) and every column of its metadata tables (a
+    BGEN map carries freq and info beside the usual ones)."""
+    codes = np.ascontiguousarray(np.asarray(codes, dtype=np.uint8))
+    if codes.ndim != 2 or codes.shape[1] != int(n):
+        raise ValueError(f"codes {codes.shape} do not hold n={n} samples")
+    return DosagePack(codes=codes.copy(), n=int(n),
+                      code256=(None if code256 is None
+                               else np.array(code256, dtype=np.float64)),
+                      fam=columns(fam), map=columns(map))
 
 
 def svd_from_numpy(d, u, v, center, scale, niter: int = 0,

@@ -22,7 +22,7 @@ import torch
 
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator
-from bigsnpr_tpu_torch.ops.matvec import TorchOperator
+from bigsnpr_tpu_torch.ops.matvec import DosageOperator, TorchOperator
 from bigsnpr_tpu_torch.ops.stats import bed_scaleBinom
 from bigsnpr_tpu_torch.utils.assertions import check_args
 
@@ -206,13 +206,26 @@ def snp_randomSVD(
 
     The scaling is computed over all variants on the row subset and taken
     at ind_col (identical values to scaling the physical subset); the
-    operator masks ind_row/ind_col on the device."""
+    operator masks ind_row/ind_col on the device. A DosagePack is subset
+    physically (on the device), scaled, and run on the byte path
+    (`DosageOperator`), as the JAX package runs it through
+    `snp_cprodVec` / `snp_prodVec` on the subset."""
     if engine not in ("auto", "torch"):
         raise ValueError(f"engine must be 'auto' or 'torch', not {engine!r}")
     if op is not None:
         sc = fun_scaling(op) if callable(fun_scaling) else fun_scaling
         center = np.asarray(sc["center"], dtype=np.float64)
         scale = np.asarray(sc["scale"], dtype=np.float64)
+    elif hasattr(pack, "code256"):
+        device = config.resolve_device(device)
+        sub = (pack if ind_row is None and ind_col is None
+               else pack.subset(ind_row=ind_row, ind_col=ind_col,
+                                device=device))
+        sc = (call_scaling(fun_scaling, sub, None, device)
+              if callable(fun_scaling) else fun_scaling)
+        center = np.asarray(sc["center"], dtype=np.float64)
+        scale = np.asarray(sc["scale"], dtype=np.float64)
+        op = DosageOperator(sub, center, scale, device=device)
     else:
         device = config.resolve_device(device)
         sc = (call_scaling(fun_scaling, pack, ind_row, device)

@@ -28,28 +28,23 @@ import torch
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.ops import cuda_build
 from bigsnpr_tpu_torch.ops.corr import (
-    _iter_band_blocks,
-    _pack_is_nona,
     _window_geometry,
     _window_r2,
+    band_blocks,
 )
 from bigsnpr_tpu_torch.ops.stats import snp_colstats, snp_counts
 from bigsnpr_tpu_torch.utils.assertions import check_args
 
 
 def _conflict_edges(sub, pos, size_scaled, thr_r2, block=512, device=None):
-    """(i, j) pairs (i < j) within the window with r^2 > thr_r2."""
-    if hasattr(sub, "code256"):
-        raise NotImplementedError("clumping a DosagePack: ROADMAP slice 6")
+    """(i, j) pairs (i < j) within the window with r^2 > thr_r2 (a
+    DosagePack's from its float64 byte-path sums)."""
     dev = config.resolve_device(device)
-    n, m = sub.n, sub.m
     left_start = _window_geometry(pos, size_scaled)
-    dev_packed = sub.device_packed(dev)
-    nona = _pack_is_nona(sub, dev_packed, n)
+    blocks, _ = band_blocks(sub, dev, left_start, block)
     ls_dev = torch.as_tensor(left_start, device=dev)
     ei, ej = [], []
-    for t0, t1, b0, sums in _iter_band_blocks(dev_packed, n, m, left_start,
-                                              block, nona):
+    for t0, t1, b0, sums in blocks:
         i, j, _ = _window_r2(sums, t0, t1, b0, ls_dev, thr_r2)
         if len(i):
             ei.append(i)

@@ -19,6 +19,18 @@ package's bit for bit; `finalize="host"` computes r in float64 on the host
 exactly as it does, `finalize="device"` computes the same float64 formula
 on the device and rounds the kept values to float32 (the JAX package's
 device values are float32 too).
+
+A byte-coded `DosagePack` takes the JAX package's byte path
+(`_pair_sums_block_bytes`): the six sums of dosages decoded through
+code256 (NaN = missing) are one product of the same stacked planes. The
+dosages are not small integers, so the sums are not exact: the JAX package
+forms them in float32 (HIGHEST), the port in float64 (on an H100 the
+float64 tensor-core GEMM runs at the float32 rate), since float32 sums of
+tens of thousands of samples lose r to ~2e-5 on low-variance variants
+(port DEVIATIONS #30). r then agrees with float64 to round-off and with
+the JAX package's to its float32 error (~1e-5), not bit for bit. On a
+DosagePack `finalize="device"` becomes the host finalize, as in the JAX
+package (its device finalize assumes integer sums).
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import torch
 from scipy import stats as scipy_stats
 
 from bigsnpr_tpu_torch import config
+from bigsnpr_tpu_torch.ops.blocks import byte_rows, decode_bytes, present_bytes
 from bigsnpr_tpu_torch.core.unpack import unpack_codes
 from bigsnpr_tpu_torch.utils.assertions import check_args
 
@@ -225,6 +238,34 @@ def _pair_sums_block(packed_t, packed_b, n, nona=False):
     return Sxy, Sx, Sy, Sxx, Syy, Np
 
 
+def _pair_sums_block_bytes(codes_t, codes_b, table):
+    """Targets (B, n) x band (Wb, n) byte codes -> the six (B, Wb) NA-aware
+    pair sums as float64: the JAX package's stacked product of dosages
+    decoded through `table` (float64, NaN = missing), [x; x^2; mask] @
+    [y; y^2; mask]^T, summed over chunks of samples (`byte_rows` of the
+    B + Wb variants)."""
+    B, Wb = codes_t.shape[0], codes_b.shape[0]
+    n = codes_t.shape[1]
+    G = torch.zeros((3 * B, 3 * Wb), dtype=torch.float64,
+                    device=codes_t.device)
+    step = byte_rows(B + Wb)
+    for s0 in range(0, n, step):
+        planes = []
+        for c in (codes_t, codes_b):
+            c = c[:, s0:s0 + step]
+            x = decode_bytes(c, table)
+            planes.append(torch.cat([x, x * x,
+                                     present_bytes(c, table).double()]))
+        G.addmm_(planes[0], planes[1].T)
+    Sxy = G[0:B, 0:Wb]
+    Sx = G[0:B, 2 * Wb:3 * Wb]
+    Sy = G[2 * B:3 * B, 0:Wb]
+    Sxx = G[B:2 * B, 2 * Wb:3 * Wb]
+    Syy = G[2 * B:3 * B, Wb:2 * Wb]
+    Np = G[2 * B:3 * B, 2 * Wb:3 * Wb]
+    return Sxy, Sx, Sy, Sxx, Syy, Np
+
+
 def _pack_is_nona(pack, dev_packed, n) -> bool:
     """True when the pack holds no NA code among its n samples (imputed
     data); cached on the pack. NA code 0b01 is found per 2-bit field with
@@ -258,6 +299,30 @@ def _iter_band_blocks(dev_packed, n, m, left_start, block, nona):
         b0 = int(left_start[t0:t1].min())
         yield t0, t1, b0, _pair_sums_block(dev_packed[t0:t1],
                                            dev_packed[b0:t1], n, nona=nona)
+
+
+def _iter_band_blocks_bytes(dev_codes, table, m, left_start, block):
+    """`_iter_band_blocks` on byte codes: the six float64 planes."""
+    for t0 in range(0, m, block):
+        t1 = min(t0 + block, m)
+        b0 = int(left_start[t0:t1].min())
+        yield t0, t1, b0, _pair_sums_block_bytes(dev_codes[t0:t1],
+                                                 dev_codes[b0:t1], table)
+
+
+def band_blocks(sub, dev, left_start, block):
+    """The band blocks of a pack on `dev` and whether they come in the
+    NA-free form: exact integer sums of a GenoPack, float64 sums of a
+    DosagePack (never NA-free)."""
+    if hasattr(sub, "code256"):
+        table = torch.as_tensor(np.asarray(sub.code256), dtype=torch.float64,
+                                device=dev)
+        return _iter_band_blocks_bytes(sub.device_codes(dev), table, sub.m,
+                                       left_start, block), False
+    dev_packed = sub.device_packed(dev)
+    nona = _pack_is_nona(sub, dev_packed, sub.n)
+    return _iter_band_blocks(dev_packed, sub.n, sub.m, left_start, block,
+                             nona), nona
 
 
 def _pair_r_device(sums):
@@ -371,12 +436,15 @@ def snp_cor(pack, ind_row=None, ind_col=None, size: float = 500,
     finalize: "host" computes r in float64 on the host from the exact
     integer sums (bit-equal to the JAX package); "device" computes the
     same float64 r on the device and ships only the kept pairs, rounded
-    to float32."""
+    to float32. On a DosagePack the sums are float64 products of decoded
+    dosages (the JAX package's are float32: r within its ~1e-5 float32
+    error of the JAX package's) and "device" becomes "host", as in the
+    JAX package."""
     if finalize not in ("host", "device"):
         raise ValueError(f"finalize must be 'host' or 'device', not "
                          f"{finalize!r}")
     if hasattr(pack, "code256"):
-        raise NotImplementedError("snp_cor on a DosagePack: ROADMAP slice 6")
+        finalize = "host"   # the device finalize assumes integer sums
     dev = config.resolve_device(device)
     sub = pack
     if ind_col is not None or ind_row is not None:
@@ -393,14 +461,12 @@ def snp_cor(pack, ind_row=None, ind_col=None, size: float = 500,
     THR = cor_thresholds(n, alpha)
     thr_floor = float(np.sqrt(thr_r2))
 
-    dev_packed = sub.device_packed(dev)
-    nona = _pack_is_nona(sub, dev_packed, n)
+    blocks, nona = band_blocks(sub, dev, left_start, block)
     if finalize == "device":
         ls_dev = torch.as_tensor(left_start, device=dev)
         THR_dev = torch.as_tensor(THR, dtype=torch.float64, device=dev)
     cols_i, cols_j, cols_x = [], [], []
-    for t0, t1, b0, sums in _iter_band_blocks(dev_packed, n, m, left_start,
-                                              block, nona):
+    for t0, t1, b0, sums in blocks:
         if finalize == "device":
             j, i, x = _kept_device(sums, t0, t1, b0, ls_dev, THR_dev,
                                    thr_floor, n)

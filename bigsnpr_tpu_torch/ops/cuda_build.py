@@ -48,10 +48,12 @@ def _compiler(source: Path):
     return gxx, GXX_FLAGS
 
 
-def build(source, verbose: bool = False, extra=()) -> Path:
+def build(source, verbose: bool = False, extra=(), libs=()) -> Path:
     """Compile `source` (a path under the package) with the default flags
-    plus `extra` into `_build/` unless the library for this source, its
-    headers and these flags is there already; returns the library's path. With
+    plus `extra`, linked against `libs` (given after the source, e.g.
+    "-l:libz.so.1"), into `_build/` unless the library for this source,
+    its headers and these flags is there already; returns the library's
+    path. With
     verbose, prints the compiler's report (for nvcc: ptxas' registers,
     shared memory and spills per kernel)."""
     source = Path(source)
@@ -61,7 +63,7 @@ def build(source, verbose: bool = False, extra=()) -> Path:
     for header in sorted((*source.parent.glob("*.cuh"),
                           *source.parent.glob("*.h"))):
         h.update(header.read_bytes())
-    h.update(" ".join(flags).encode())
+    h.update(" ".join((*flags, *libs)).encode())
     digest = h.hexdigest()[:16]
     lib_path = BUILD_DIR / f"{source.stem}_{digest}.so"
     if lib_path.exists():
@@ -69,7 +71,7 @@ def build(source, verbose: bool = False, extra=()) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / (f".{lib_path.name}.{os.getpid()}."
                        f"{threading.get_ident()}.tmp")
-    proc = subprocess.run([cc, *flags, "-o", str(tmp), str(source)],
+    proc = subprocess.run([cc, *flags, "-o", str(tmp), str(source), *libs],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{Path(cc).name} failed on {source.name} "
@@ -87,13 +89,14 @@ def report(lib_path) -> Path:
     return Path(lib_path).with_suffix(".log")
 
 
-def load(source, bind, extra=()) -> ctypes.CDLL:
+def load(source, bind, extra=(), libs=()) -> ctypes.CDLL:
     """The loaded library of `source`, built at first use (with `extra`
-    flags); `bind(lib)` sets its functions' argument and return types."""
+    flags and `libs`); `bind(lib)` sets its functions' argument and return
+    types."""
     key = str(source)
     with _lock:
         if key not in _libs:
-            lib = ctypes.CDLL(str(build(source, extra=extra)))
+            lib = ctypes.CDLL(str(build(source, extra=extra, libs=libs)))
             bind(lib)
             _libs[key] = lib
         return _libs[key]

@@ -985,7 +985,67 @@ def prod_i8m(planes, n, U, center, inv, return_raw=False, splits=None):
 # the operator
 # ---------------------------------------------------------------------------
 
-class GenoOperator:
+class StdOperator:
+    """The surface {n, m, cprod, prod, power, cprod_dev, prod_dev,
+    power_dev} of a standardized operator over its full-matrix products
+    `_cprod_full` / `_prod_full`. A subclass sets `device`, `n_full`,
+    `m_full`, `n`, `m` and the optional row / column subsets `row_idx` /
+    `col_idx` (long tensors on the device, or None): inputs are scattered
+    to the full matrix and outputs gathered from it on the device."""
+
+    def _as_2d(self, arr):
+        t = torch.as_tensor(arr, dtype=torch.float32, device=self.device)
+        squeeze = t.dim() == 1
+        return (t[:, None] if squeeze else t).contiguous(), squeeze
+
+    def _scatter(self, W, idx, rows):
+        if idx is None:
+            return W.contiguous()
+        full = torch.zeros((rows, W.shape[1]), dtype=torch.float32,
+                           device=self.device)
+        full[idx] = W
+        return full
+
+    @staticmethod
+    def _gather(W, idx):
+        return W if idx is None else W[idx]
+
+    def cprod_dev(self, V: torch.Tensor) -> torch.Tensor:
+        """X~^T V on the device: V (n, l) -> (m, l)."""
+        out = self._cprod_full(self._scatter(V, self.row_idx, self.n_full))
+        return self._gather(out, self.col_idx)
+
+    def prod_dev(self, U: torch.Tensor) -> torch.Tensor:
+        """X~ U on the device: U (m, l) -> (n, l)."""
+        out = self._prod_full(self._scatter(U, self.col_idx, self.m_full))
+        return self._gather(out, self.row_idx)
+
+    def cprod(self, V):
+        """X~^T V: V (n, l) -> (m, l) numpy float32."""
+        V, squeeze = self._as_2d(V)
+        out = self.cprod_dev(V).cpu().numpy()
+        return out[:, 0] if squeeze else out
+
+    def prod(self, U):
+        """X~ U: U (m, l) -> (n, l) numpy float32."""
+        U, squeeze = self._as_2d(U)
+        out = self.prod_dev(U).cpu().numpy()
+        return out[:, 0] if squeeze else out
+
+    def power(self, V):
+        """One Krylov step, (X~^T V, X~ X~^T V), as numpy arrays."""
+        B, Y = self.power_dev(self._as_2d(V)[0])
+        return B.cpu().numpy(), Y.cpu().numpy()
+
+    def power_dev(self, V: torch.Tensor):
+        """Power step on the device, cprod then prod (on a GenoOperator K1
+        then K2, K7, K6 or K8 twice) on one stream with no host round-trip:
+        V (n, l) -> (B = X~^T V (m, l), Y = X~ B (n, l))."""
+        B = self.cprod_dev(V)
+        return B, self.prod_dev(B)
+
+
+class GenoOperator(StdOperator):
     """Device-resident standardized genotype operator on K1/K2 (scheme
     "highest"), K7 ("split2"), K6 ("int8") or K8 ("int8m"), with the
     surface {n, m, cprod, prod, power, power_dev} of the JAX package's
@@ -1057,54 +1117,3 @@ class GenoOperator:
             return prod_split(self.packed, self.n_full, U, self.center,
                               self.inv)
         return prod(self.packed, self.n_full, U, self.center, self.inv)
-
-    def _as_2d(self, arr):
-        t = torch.as_tensor(arr, dtype=torch.float32, device=self.device)
-        squeeze = t.dim() == 1
-        return (t[:, None] if squeeze else t).contiguous(), squeeze
-
-    def _scatter(self, W, idx, rows):
-        if idx is None:
-            return W.contiguous()
-        full = torch.zeros((rows, W.shape[1]), dtype=torch.float32,
-                           device=self.device)
-        full[idx] = W
-        return full
-
-    @staticmethod
-    def _gather(W, idx):
-        return W if idx is None else W[idx]
-
-    def cprod_dev(self, V: torch.Tensor) -> torch.Tensor:
-        """X~^T V on the device: V (n, l) -> (m, l)."""
-        out = self._cprod_full(self._scatter(V, self.row_idx, self.n_full))
-        return self._gather(out, self.col_idx)
-
-    def prod_dev(self, U: torch.Tensor) -> torch.Tensor:
-        """X~ U on the device: U (m, l) -> (n, l)."""
-        out = self._prod_full(self._scatter(U, self.col_idx, self.m_full))
-        return self._gather(out, self.row_idx)
-
-    def cprod(self, V):
-        """X~^T V: V (n, l) -> (m, l) numpy float32."""
-        V, squeeze = self._as_2d(V)
-        out = self.cprod_dev(V).cpu().numpy()
-        return out[:, 0] if squeeze else out
-
-    def prod(self, U):
-        """X~ U: U (m, l) -> (n, l) numpy float32."""
-        U, squeeze = self._as_2d(U)
-        out = self.prod_dev(U).cpu().numpy()
-        return out[:, 0] if squeeze else out
-
-    def power(self, V):
-        """One Krylov step, (X~^T V, X~ X~^T V), as numpy arrays."""
-        B, Y = self.power_dev(self._as_2d(V)[0])
-        return B.cpu().numpy(), Y.cpu().numpy()
-
-    def power_dev(self, V: torch.Tensor):
-        """Power step on the device, cprod then prod (K1 then K2, K7, K6 or
-        K8 twice) on one stream with no host round-trip: V (n, l) ->
-        (B = X~^T V (m, l), Y = X~ B (n, l))."""
-        B = self.cprod_dev(V)
-        return B, self.prod_dev(B)

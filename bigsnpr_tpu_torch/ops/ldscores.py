@@ -2,8 +2,8 @@
 
 Reference: ld_scores0 (src/ld-scores.cpp:12-78): for each variant j0,
 score = 1 + sum of pairwise-complete r^2 against all window neighbours,
-accumulated symmetrically; NaN r^2 skipped. Same exact pair sums as
-`snp_cor`.
+accumulated symmetrically; NaN r^2 skipped. Same pair sums as `snp_cor`
+(exact integers, or float64 on a DosagePack's byte path).
 """
 
 from __future__ import annotations
@@ -12,8 +12,7 @@ import numpy as np
 
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.ops.corr import (
-    SparseLD, _host_sums, _iter_band_blocks, _pack_is_nona, _pair_r,
-    _window_geometry,
+    SparseLD, _host_sums, _pair_r, _window_geometry, band_blocks,
 )
 
 
@@ -21,9 +20,6 @@ def snp_ld_scores(pack, ind_row=None, ind_col=None, size: float = 500,
                   infos_pos=None, block: int = 512,
                   device=None) -> np.ndarray:
     """Reference snp_ld_scores / bed_ld_scores (R/ld-scores.R:41-72)."""
-    if hasattr(pack, "code256"):
-        raise NotImplementedError(
-            "snp_ld_scores on a DosagePack: ROADMAP slice 6c")
     dev = config.resolve_device(device)
     sub = pack
     if ind_col is not None or ind_row is not None:
@@ -34,11 +30,9 @@ def snp_ld_scores(pack, ind_row=None, ind_col=None, size: float = 500,
     else:
         pos = np.asarray(infos_pos, dtype=np.float64)
     left_start = _window_geometry(pos, size * 1000.0)
-    dev_packed = sub.device_packed(dev)
-    nona = _pack_is_nona(sub, dev_packed, n)
+    blocks, nona = band_blocks(sub, dev, left_start, block)
     res = np.ones(m)
-    for t0, t1, b0, sums in _iter_band_blocks(dev_packed, n, m, left_start,
-                                              block, nona):
+    for t0, t1, b0, sums in blocks:
         r, _ = _pair_r(_host_sums(sums, nona))
         jj0 = np.arange(t0, t1)[:, None]
         jj = np.arange(b0, t1)[None, :]

@@ -24,8 +24,8 @@ import torch
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.linalg.penalized import big_spReg
 from bigsnpr_tpu_torch.ops.clumping import _greedy_fixed_point
-from bigsnpr_tpu_torch.ops.corr import (_iter_band_blocks, _pack_is_nona,
-                                        _window_geometry, _window_r2)
+from bigsnpr_tpu_torch.ops.corr import (_window_geometry, _window_r2,
+                                        band_blocks)
 from bigsnpr_tpu_torch.ops.matvec import snp_prodVec
 from bigsnpr_tpu_torch.pgs.lassosum2 import seq_log
 
@@ -54,19 +54,16 @@ def _banded_r2(sub, pos, max_size, block=512, thr_r2_floor=0.0,
                device=None):
     """All window pairs (i < j, |pos_i - pos_j| <= max_size) with r^2 >
     thr_r2_floor, as numpy (i, j, r^2): the pairs below the grid's
-    smallest threshold are used by no cell, and never leave the device."""
-    if hasattr(sub, "code256"):
-        raise NotImplementedError("grid clumping a DosagePack: ROADMAP "
-                                  "slice 6")
+    smallest threshold are used by no cell, and never leave the device.
+    A DosagePack's r^2 come from its float64 byte-path sums (the JAX
+    package's host-finalize path, which on a DosagePack raises there:
+    port DEVIATIONS #27)."""
     dev = config.resolve_device(device)
-    n, m = sub.n, sub.m
     left_start = _window_geometry(pos, max_size)
-    dev_packed = sub.device_packed(dev)
-    nona = _pack_is_nona(sub, dev_packed, n)
+    blocks, _ = band_blocks(sub, dev, left_start, block)
     ls_dev = torch.as_tensor(left_start, device=dev)
     ei, ej, r2 = [], [], []
-    for t0, t1, b0, sums in _iter_band_blocks(dev_packed, n, m, left_start,
-                                              block, nona):
+    for t0, t1, b0, sums in blocks:
         i, j, v = _window_r2(sums, t0, t1, b0, ls_dev, thr_r2_floor)
         if len(i):
             ei.append(i)

@@ -41,9 +41,12 @@ def as_SFBM(corr) -> SparseLD:
 
 def _read_header_table(path) -> dict:
     """A whitespace table with a header line as a dict of typed numpy
-    columns (int64, else float64, else str)."""
+    columns (int64, else float64, else str); a file without a header line
+    raises ValueError (pandas: EmptyDataError, a ValueError)."""
     with open(path) as f:
         lines = [line.split() for line in f if line.strip()]
+    if not lines:
+        raise ValueError(f"No columns to parse from file {path}")
     names, rows = lines[0], lines[1:]
     for i, r in enumerate(rows):
         if len(r) != len(names):

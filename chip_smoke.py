@@ -7,7 +7,8 @@
                           [--n-stack S] [--n5 N5] [--m5 M5] [--burn-in5 B]
                           [--num-iter5 I] [--gdp-rows R] [--n6 N6]
                           [--n6-ref R6] [--m6 M6] [--n-sumstats S]
-                          [--n-grm G] [--lasso-points P]
+                          [--n-grm G] [--n7 N7] [--m7 M7]
+                          [--lasso-points P]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -150,15 +151,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
      beside 2 n^2 m over the f32 peak); snp_MAX3 (a planted causal
      variant first), snp_fst (near the generator's), snp_ancestry_summary
      (a 60/30/10 mix within 0.05) and snp_asGeneticPos (monotone); each
-     stage timed on the host clock to a torch.cuda.synchronize().
+     stage timed on the host clock to a torch.cuda.synchronize();
+ 19. slice 6c, imputed dosages: slice 2's generator at 20,000 x 100,000
+     (--n7, --m7) turned into 8-bit probability pairs (70% of the variants
+     certain, the rest mixed with the HWE prior, an INFO spread) and
+     written as a BGEN v1.2 layout-2 zlib file with its .bgi (`write_bgen`,
+     compressed in a thread pool); snp_readBGI -> snp_readBGEN (GB/s; the
+     native decode bit-equal to the per-variant Python decode on 1,000
+     variants, info / freq within 1e-12; read_as="random" on 2,000, whose
+     hard calls equal the certain dosages) -> snp_MAF and QC (MAF > 0.01,
+     INFO > 0.3) -> snp_scaleBinom -> snp_randomSVD(k = 10) on the byte
+     path (residual) -> a phenotype through snp_prodVec (h2 0.4, 1,000
+     causal) -> marginal statistics through snp_cprodVec on 15,000
+     training samples -> snp_cor (r within 1e-5 of float64 on a
+     1,000-variant slab) -> snp_ldsc2 -> auto_blocks + bands ->
+     snp_ldpred2_grid (3 x 3, the sweep kernel) -> snp_PRS on the 5,000
+     test samples -> snp_clumping(S = |z|) -> snp_PRS at 50 thresholds ->
+     snp_ld_scores -> snp_prodBGEN (device engine within 5e-6 of the host
+     engine, r > 0.9999 against the pack's snp_prodVec) ->
+     round_to_hardcalls -> snp_PRS on K2 (r > 0.99 against the dosage
+     PRS) -> DosagePack.save / load; each stage timed; the sweep kernel and
+     K2 must launch on the path; then the byte path timed at l = 20 beside
+     its bound and torch.matmul, and warmup (every source built, K1, K2
+     and the sweep kernel launched once each).
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
 `--rehearse-cpu` runs the same phases on the CPU through the twins at the
 given small size, to check the script itself (the statistical checks of
-slices 2, 3 and 6 are printed but only enforced on the card;
+slices 2, 3, 6 and 6c are printed but only enforced on the card;
 --lasso-points cuts the lassosum twin's grid in [14] and [15], --n6 to
---n-grm slice 6); it too ends non-zero.
+--n-grm slice 6, --n7 / --m7 slice 6c); it too ends non-zero.
 """
 
 from __future__ import annotations
@@ -167,10 +190,13 @@ import argparse
 import dataclasses
 import json
 import os
+import sqlite3
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -3412,6 +3438,521 @@ def phase_slice6(bp, gk, torch, dev, args):
         + f"; [18] in all {time.perf_counter() - t_all:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# slice 6c: imputed dosages from BGEN -> QC, PCA, LD, LDpred2, C+T, scoring
+# ---------------------------------------------------------------------------
+
+BGEN_FLAGS = 1 | (2 << 2)      # zlib-compressed, layout 2, no sample ids
+BGI_SCHEMA = (
+    "CREATE TABLE Variant (chromosome TEXT NOT NULL, position INT NOT NULL,"
+    " rsid TEXT NOT NULL, number_of_alleles INT NOT NULL, allele1 TEXT NOT"
+    " NULL, allele2 TEXT NULL, file_start_position INT NOT NULL,"
+    " size_in_bytes INT NOT NULL, PRIMARY KEY (chromosome, position, rsid,"
+    " allele1, allele2, file_start_position)) WITHOUT ROWID")
+
+
+def bgen_blocks(torch, p0, p1, miss):
+    """(k, N) 8-bit probabilities of genotypes 0 and 1 (uint8 tensors) and
+    the missing mask -> (k, 10 + 3 N) uint8 uncompressed layout-2
+    probability blocks on their device: N, 2 alleles, ploidy 2..2, a
+    ploidy byte a sample (0x80 set when missing), unphased, 8 bits, then
+    the pairs (0 where missing)."""
+    k, N = p0.shape
+    dev = p0.device
+    head = torch.tensor(list(struct.pack("<IHBB", N, 2, 2, 2)),
+                        dtype=torch.uint8, device=dev)
+    zero = torch.zeros((), dtype=torch.uint8, device=dev)
+    ploidy = torch.where(miss, torch.full((), 0x82, dtype=torch.uint8,
+                                          device=dev),
+                         torch.full((), 2, dtype=torch.uint8, device=dev))
+    flags = torch.tensor([0, 8], dtype=torch.uint8, device=dev)
+    pairs = torch.stack([torch.where(miss, zero, p0),
+                         torch.where(miss, zero, p1)], dim=2).reshape(k, -1)
+    return torch.cat([head.expand(k, 8), ploidy, flags.expand(k, 2), pairs],
+                     dim=1)
+
+
+def _string(s, lenbytes=2):
+    b = s.encode()
+    return struct.pack("<I" if lenbytes == 4 else "<H", len(b)) + b
+
+
+def write_bgen(path, variants, N, chunks, level=1, workers=None):
+    """Write a BGEN v1.2 file (layout 2, zlib, 8-bit probabilities) and
+    its bgenix-style .bgi index (SQLite, the `Variant` table) beside it.
+
+    variants: dict of columns chromosome (str), position, rsid, varid,
+    allele1, allele2, one row a variant; chunks: an iterable of (k, 10 +
+    3 N) uint8 uncompressed probability blocks (`bgen_blocks`) of
+    successive variants. The blocks of a chunk are compressed in a thread
+    pool (zlib releases the GIL). Returns (bytes before compression, bytes
+    written)."""
+    m = len(variants["position"])
+    raw = 0
+    rows = []
+    with open(path, "wb") as f, \
+            ThreadPoolExecutor(workers or os.cpu_count() or 1) as pool:
+        f.write(struct.pack("<IIII4sI", 20, 20, m, N, b"bgen", BGEN_FLAGS))
+        j = 0
+        for blocks in chunks:
+            blocks = np.ascontiguousarray(blocks, dtype=np.uint8)
+            if blocks.shape[1] != 10 + 3 * N:
+                raise ValueError("write_bgen: a block is not 10 + 3 N bytes")
+            raw += blocks.nbytes
+            comp = list(pool.map(lambda r: zlib.compress(r, level),
+                                 list(blocks)))
+            for c in comp:
+                head = (_string(str(variants["varid"][j]))
+                        + _string(str(variants["rsid"][j]))
+                        + _string(str(variants["chromosome"][j]))
+                        + struct.pack("<IH", int(variants["position"][j]), 2)
+                        + _string(str(variants["allele1"][j]), 4)
+                        + _string(str(variants["allele2"][j]), 4)
+                        + struct.pack("<II", len(c) + 4, blocks.shape[1]))
+                start = f.tell()
+                f.write(head)
+                f.write(c)
+                rows.append((str(variants["chromosome"][j]),
+                             int(variants["position"][j]),
+                             str(variants["rsid"][j]), 2,
+                             str(variants["allele1"][j]),
+                             str(variants["allele2"][j]), start,
+                             len(head) + len(c)))
+                j += 1
+        written = f.tell()
+    if j != m:
+        raise ValueError(f"write_bgen: {j} variants written, {m} declared")
+    bgi = f"{path}.bgi"
+    if os.path.exists(bgi):
+        os.unlink(bgi)
+    con = sqlite3.connect(bgi)
+    try:
+        con.execute(BGI_SCHEMA)
+        con.executemany("INSERT INTO Variant VALUES (?, ?, ?, ?, ?, ?, ?, ?)",
+                        rows)
+        con.commit()
+    finally:
+        con.close()
+    return raw, written
+
+
+def bgen_cohort(torch, dev, args, path):
+    """[19]'s cohort: slice 2's generator (AR(1) LD blocks, 1% NA on 5% of
+    the variants) at --n7 x --m7, turned into imputation-like 8-bit
+    probability pairs and written as a BGEN file with its .bgi. 70% of the
+    variants are certain (the genotype's probability 255); on the rest
+    each genotype's probabilities are mixed with the HWE prior of the
+    variant's frequency at a weight w ~ U(0.2, 0.95) (the INFO spread).
+    Returns the variant table, their IDs, the certain mask and the write
+    time."""
+    from bigsnpr_tpu_torch.core.unpack import unpack_dosage
+
+    n, m = args.n7, args.m7
+    t0 = time.perf_counter()
+    packed, sizes, _ = make_ld_cohort(torch, dev, n, m, args.seed + 70,
+                                      args.bmin, args.bmax)
+    rng = np.random.default_rng(args.seed + 71)
+    certain = rng.random(m) < 0.7
+    w_all = torch.as_tensor(np.where(certain, 1.0,
+                                     rng.uniform(0.2, 0.95, m)),
+                            dtype=torch.float32, device=dev)
+    pos = 10_000 + np.cumsum(1 + rng.integers(0, 2_000, m))
+    al = PAIRS[rng.integers(0, len(PAIRS), m)]
+    variants = {"chromosome": np.full(m, "01"), "position": pos,
+                "rsid": np.array([f"rs{j}" for j in range(m)]),
+                "varid": np.array([f"snp{j}" for j in range(m)]),
+                "allele1": al[:, 0], "allele2": al[:, 1]}
+    ids = [f"1_{p}_{a}_{b}" for p, a, b in zip(pos, al[:, 0], al[:, 1])]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_cohort = time.perf_counter() - t0
+
+    def chunks(step=2048):
+        for j0 in range(0, m, step):
+            x, na = unpack_dosage(packed[j0:j0 + step], n)
+            ok = (~na).float()
+            f = (x * ok).sum(1) / (2 * ok.sum(1)).clamp(min=1)
+            w = w_all[j0:j0 + step, None]
+            P0 = w * (x == 0) + (1 - w) * ((1 - f) ** 2)[:, None]
+            P1 = w * (x == 1) + (1 - w) * (2 * f * (1 - f))[:, None]
+            p0 = torch.round(255 * P0)
+            p1 = torch.minimum(torch.round(255 * P1), 255 - p0)
+            yield bgen_blocks(torch, p0.to(torch.uint8), p1.to(torch.uint8),
+                              na).cpu().numpy()
+
+    t0 = time.perf_counter()
+    raw, written = write_bgen(path, variants, n, chunks())
+    t_write = time.perf_counter() - t0
+    del packed
+    log(f"  cohort made on the {dev.type} in {t_cohort:.1f} s: {len(sizes)} "
+        f"LD blocks of {sizes.min()}-{sizes.max()} variants; BGEN written "
+        f"in {t_write:.1f} s: {raw / 1e9:.3f} GB of probability blocks, "
+        f"{written / 1e9:.3f} GB compressed (zlib level 1, "
+        f"{os.cpu_count()} threads), {int(certain.sum())} certain variants")
+    return variants, ids, certain, t_write, raw, written
+
+
+def check_plain_decode(bp, pack, path, ids, k=1000):
+    """The native decode against the per-variant Python decode (the JAX
+    package's algorithm) on a slab of k variants: codes bit-equal, info
+    and freq within 1e-12."""
+    import mmap as mmap_mod
+
+    from bigsnpr_tpu_torch.io import bgen as pbgen
+
+    k = min(k, pack.m)
+    j0 = (pack.m - k) // 2
+    info = bp.snp_readBGI(path + ".bgi", ids[j0:j0 + k])
+    N = pbgen.check_bgen_format(path)
+    rows = np.arange(N)
+    bad, e_info, e_freq = 0, 0.0, 0.0
+    with open(path, "rb") as f:
+        buf = mmap_mod.mmap(f.fileno(), 0, access=mmap_mod.ACCESS_READ)
+        try:
+            for i, st in enumerate(info["file_start_position"]):
+                _, goff, csize = pbgen._parse_variant_header(buf, int(st), N)
+                codes, inf, frq = pbgen.read_variant_plain(
+                    buf, goff, csize, rows, True, N, None)
+                bad += int((codes != pack.codes[j0 + i]).sum())
+                e_info = max(e_info, abs(inf - pack.map["info"][j0 + i]))
+                e_freq = max(e_freq, abs(frq - pack.map["freq"][j0 + i]))
+        finally:
+            buf.close()
+    log(f"    native decode vs the per-variant Python decode on {k} "
+        f"variants: {bad} codes differ (limit 0), info max |d| {e_info:.2e},"
+        f" freq {e_freq:.2e} (limit 1e-12)")
+    if bad or e_info > 1e-12 or e_freq > 1e-12:
+        fail("the native BGEN decode disagrees with the plain decode")
+
+
+def check_random_calls(bp, torch, dev, pack, path, ids, certain, seed, stage,
+                       k=2000):
+    """read_as="random" on a slab of k variants: where a genotype's
+    probability is certain (every genotype of a certain variant) the hard
+    call equals the dosage. (A dosage of 0 or 2 is not enough: e = 509 or
+    1 rounds to it.)"""
+    k = min(k, pack.m)
+    rnd = stage("snp_readBGEN(random)", lambda: bp.snp_readBGEN(
+        path, [ids[:k]], read_as="random", seed=seed))[0]
+    hard = rnd.to_dosage()                       # (n, k)
+    dos = pack.code256[pack.codes[:k]].T
+    sure = certain[None, :k] & ~np.isnan(dos)
+    bad = int((hard[sure] != dos[sure]).sum())
+    na = bool(np.array_equal(np.isnan(hard), np.isnan(dos)))
+    share = float(np.mean(hard[~np.isnan(hard)] == np.rint(
+        dos[~np.isnan(hard)])))
+    log(f"    read_as='random' on {k} variants: {bad} of {int(sure.sum())} "
+        f"certain genotypes differ from the dosage (limit 0), NA the same "
+        f"{na}; {share:.4f} of all hard calls equal the rounded dosage")
+    if bad or not na:
+        fail("random hard calls disagree with certain dosages")
+
+
+def check_dosage_r(torch, dev, pack, corr, train, size, k=1000):
+    """snp_cor's r on a slab of k variants against float64 pairwise-
+    complete r of the decoded dosages (training rows)."""
+    k = min(k, pack.m)
+    codes = torch.as_tensor(np.ascontiguousarray(pack.codes[:k][:, train]),
+                            device=dev)
+    table = torch.as_tensor(pack.code256, dtype=torch.float64, device=dev)
+    d = table[codes.long()]
+    mk = (~torch.isnan(d)).double()
+    x = torch.nan_to_num(d)
+    A = torch.cat([x, x * x, mk])
+    G = A @ A.T
+    Sxy, Sx, Sy = G[:k, :k], G[:k, 2 * k:], G[2 * k:, :k]
+    Sxx, Syy, Np = G[k:2 * k, 2 * k:], G[2 * k:, k:2 * k], G[2 * k:, 2 * k:]
+    r = ((Sxy - Sx * Sy / Np) / torch.sqrt((Sxx - Sx * Sx / Np)
+                                           * (Syy - Sy * Sy / Np)))
+    r = r.cpu().numpy()
+    D = corr.upper[:k, :k].toarray()
+    ii, jj = np.nonzero(np.triu(D, 1))
+    err = float(np.abs(D[ii, jj] - np.clip(r[ii, jj], -1, 1)).max()) \
+        if len(ii) else 0.0
+    log(f"    snp_cor on the byte path vs float64 on the decoded dosages, "
+        f"{len(ii)} kept pairs of a {k}-variant slab: max |d r| {err:.2e} "
+        f"(limit 1e-5)")
+    if err > 1e-5:
+        fail("dosage LD disagrees with float64")
+
+
+def byte_path_timed(bp, torch, dev, pack, timer, l=20):
+    """snp_cprodVec / snp_prodVec's byte path at l = 20 over the whole pack
+    (device operands), beside its bound and one torch.matmul on a
+    pre-decoded float32 block scaled to the whole."""
+    from bigsnpr_tpu_torch.ops import blocks as pbl
+    from bigsnpr_tpu_torch.ops import matvec as pmv
+
+    sc = bp.snp_scaleBinom()(pack)
+    op = pmv.DosageOperator(pack, sc["center"],
+                            np.where(sc["scale"] > 0, sc["scale"], 1.0))
+    n, m = pack.n, pack.m
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    V = torch.randn((n, l), generator=g, device=dev)
+    U = torch.randn((m, l), generator=g, device=dev)
+    blk = pbl.byte_rows(n)
+    X = pbl.decode_bytes(op.codes[:blk], op.table, op.center[:blk],
+                         op.scale[:blk])
+    t_mm_c = timer(lambda: X @ V, reps=5) * m / X.shape[0]
+    t_mm_p = timer(lambda: X.T @ U[:blk], reps=5) * m / X.shape[0]
+    del X
+    rows = []
+    for name, fn, t_mm, out_bytes in (
+            ("snp_cprodVec", lambda: op.cprod_dev(V), t_mm_c, m * l * 4),
+            ("snp_prodVec", lambda: op.prod_dev(U), t_mm_p, n * l * 4)):
+        ms = timer(fn, reps=3)
+        nbytes = m * n + (n if name == "snp_cprodVec" else m) * l * 4 \
+            + out_bytes + 2 * m * 4 + 256 * 4
+        bound = max(nbytes / PEAK_BYTES_PER_S,
+                    2.0 * n * m * l / PEAK_F32_FLOP_PER_S) * 1e3
+        by = ("bytes" if nbytes / PEAK_BYTES_PER_S
+              > 2.0 * n * m * l / PEAK_F32_FLOP_PER_S else "operations")
+        log(f"    {name} byte path, {n} x {m} codes ({m * n / 1e9:.3f} GB), "
+            f"l = {l}: {ms:.3f} ms; bound {bound:.3f} ms ({by}); "
+            f"torch.matmul on a pre-decoded f32 block of {blk} variants, "
+            f"scaled to the whole: {t_mm:.3f} ms")
+        rows.append({"name": name, "ms": ms, "bound_ms": bound,
+                     "matmul_ms": t_mm})
+    return rows
+
+
+def marginal_stats(bp, pack, y, train):
+    """Marginal regression of y on each standardized variant over the
+    training rows, through snp_cprodVec: (beta, se) on the allele scale and
+    z."""
+    sub = pack.subset(ind_row=train)
+    st = bp.snp_colstats(sub)
+    nona = np.maximum(st["nona"], 1)
+    center = st["sumX"] / nona
+    scale = np.sqrt(st["denoX"] / nona)
+    scale = np.where(scale > 0, scale, 1.0)
+    yc = y[train] - y[train].mean()
+    xty = np.asarray(bp.snp_cprodVec(sub, yc, center, scale), np.float64)
+    xtx = st["denoX"] / scale ** 2
+    b_std = xty / xtx
+    se_std = np.sqrt(np.var(yc) / xtx)
+    return b_std / scale, se_std / scale, b_std / se_std
+
+
+def phase_slice6c(bp, gk, gsk, torch, dev, args, timer):
+    """[19] slice 6c: imputed dosages from a BGEN file through QC, PCA,
+    LD, LDpred2-grid, C+T and scoring, each stage timed on the host clock
+    to a torch.cuda.synchronize(); then the byte path against its bound
+    and the warmup."""
+    from scipy.stats import norm
+
+    from bigsnpr_tpu_torch.ops.matvec import DosageOperator
+
+    n, m = args.n7, args.m7
+    log(f"[19] slice 6c at {n} samples x {m} variants (BGEN v1.2, 8-bit)")
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 72)
+    times = {}
+
+    def stage(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out, times[name]
+
+    tmp = tempfile.mkdtemp(prefix="slice6c_")
+    try:
+        path = os.path.join(tmp, "cohort.bgen")
+        variants, ids, certain, t_write, raw, written = bgen_cohort(
+            torch, dev, args, path)
+        times["BGEN write"] = t_write
+        gk.reset_launches()
+        gsk.reset_launches()
+        info, _ = stage("snp_readBGI", lambda: bp.snp_readBGI(path + ".bgi"))
+        if len(info["position"]) != m:
+            fail("snp_readBGI does not list every variant")
+        pack, t_read = stage("snp_readBGEN", lambda: bp.snp_readBGEN(
+            path, [ids]))
+        log(f"  snp_readBGEN: {pack.m} x {pack.n} codes "
+            f"({pack.codes.nbytes / 1e9:.3f} GB) from {raw / 1e9:.3f} GB of "
+            f"probability blocks in {t_read:.3f} s: {raw / t_read / 1e9:.2f} "
+            f"GB/s decoded ({written / t_read / 1e9:.2f} GB/s of file); "
+            f"write + read {t_write + t_read:.1f} s")
+        log("  checks:")
+        check_plain_decode(bp, pack, path, ids)
+        check_random_calls(bp, torch, dev, pack, path, ids, certain,
+                           args.seed, stage)
+
+        maf, _ = stage("snp_MAF", lambda: bp.snp_MAF(pack))
+        keep = np.flatnonzero((maf > 0.01) & (pack.map["info"] > 0.3))
+        packq, _ = stage("QC subset", lambda: pack.subset(ind_col=keep,
+                                                          device=dev))
+        mq = packq.m
+        log(f"    QC (MAF > 0.01, INFO > 0.3) keeps {mq} of {m}; INFO "
+            f"quantiles 1/50/99%: "
+            f"{np.round(np.quantile(pack.map['info'], [.01, .5, .99]), 3)}")
+        sc, _ = stage("snp_scaleBinom", lambda: bp.snp_scaleBinom()(packq))
+        svd, _ = stage("snp_randomSVD", lambda: bp.snp_randomSVD(
+            packq, fun_scaling=sc, k=10))
+        op = DosageOperator(packq, sc["center"], sc["scale"])
+        U = torch.as_tensor(svd.u, dtype=torch.float32, device=dev)
+        Vv = torch.as_tensor(svd.v, dtype=torch.float32, device=dev)
+        d = torch.as_tensor(svd.d, dtype=torch.float32, device=dev)
+        res_v = float(((op.cprod_dev(U) - Vv * d).norm(dim=0) / d).max())
+        log(f"    PCA on the byte path: d = {np.round(svd.d, 3).tolist()}, "
+            f"{svd.niter} depths; |X~'u - d v|/d max {res_v:.2e} (limit "
+            f"1e-3)")
+        if not np.isfinite(svd.d).all() or res_v > 1e-3:
+            fail("randomSVD on the byte path: residual above 1e-3")
+
+        # phenotype y = X~ beta + e, h2 0.4 over 1,000 causal variants
+        causal = rng.choice(mq, min(1000, mq // 10), replace=False)
+        beta = np.zeros(mq)
+        beta[causal] = rng.standard_normal(len(causal))
+        g, _ = stage("phenotype (snp_prodVec)", lambda: np.asarray(
+            bp.snp_prodVec(packq, beta, sc["center"], sc["scale"]),
+            np.float64))
+        g *= np.sqrt(0.4 / g.var())
+        y = g + rng.normal(0, np.sqrt(0.6), n)
+        perm = rng.permutation(n)
+        n_train = n * 3 // 4
+        train, test = np.sort(perm[:n_train]), np.sort(perm[n_train:])
+        (b, se, z), _ = stage("marginal stats (snp_cprodVec)",
+                              lambda: marginal_stats(bp, packq, y, train))
+        df_beta = {"beta": b, "beta_se": se,
+                   "n_eff": np.full(mq, float(n_train))}
+        corr, _ = stage("snp_cor", lambda: bp.snp_cor(
+            packq, ind_row=train, size=500, thr_r2=0.01))
+        check_dosage_r(torch, dev, packq, corr, train, 500)
+        ldsc, _ = stage("snp_ldsc2", lambda: bp.snp_ldsc2(corr, df_beta))
+        h2 = max(float(ldsc["h2"]), 1e-3)
+        bb, _ = stage("auto_blocks + bands", lambda: bp.build_block_bands(
+            corr, bp.auto_blocks(corr)))
+        h2s = np.asarray([0.7, 1.0, 1.4]) * h2
+        grid = {"p": np.repeat([1e-3, 1e-2, 1e-1], 3), "h2": np.tile(h2s, 3),
+                "sparse": np.zeros(GRID_CELLS, bool)}
+        sweeps0 = gsk.launches["sweep"]
+        beta_grid, _ = stage("snp_ldpred2_grid", lambda: bp.snp_ldpred2_grid(
+            corr, df_beta, grid, burn_in=min(50, args.burn_in),
+            num_iter=min(100, args.num_iter), blocks=bb))
+        sweeps = gsk.launches["sweep"] - sweeps0
+        cell = 4                                   # p 1e-2, h2 the LDSC h2
+        b_cell = np.nan_to_num(beta_grid[:, cell])
+        prs, _ = stage("snp_PRS (grid cell)", lambda: bp.snp_PRS(
+            packq, b_cell, ind_test=test))
+        r_grid = float(np.corrcoef(prs[:, 0], y[test])[0, 1])
+        log(f"    LDSC h2 {h2:.4f}; grid cells finite "
+            f"{int(np.isfinite(beta_grid).all(0).sum())}/9 ({sweeps} sweep "
+            f"launches); r(PRS, y_test) of the cell p 0.01, h2 {h2:.3f}: "
+            f"{r_grid:.4f} (floor 0.1)")
+
+        lpS = -(np.log(2) + norm.logsf(np.abs(z))) / np.log(10)
+        kept, _ = stage("snp_clumping", lambda: bp.snp_clumping(
+            packq, ind_row=train, S=np.abs(z), thr_r2=0.2))
+        thr = np.linspace(0, np.quantile(lpS[kept], 0.999), 50)
+        prs_ct, _ = stage("snp_PRS (C+T, 50 thresholds)", lambda: bp.snp_PRS(
+            packq, b[kept], ind_test=test, ind_keep=kept,
+            lpS_keep=lpS[kept], thr_list=thr))
+        r_ct = np.array([np.corrcoef(prs_ct[:, i], y[test])[0, 1]
+                         if prs_ct[:, i].std() > 0 else 0.0
+                         for i in range(50)])
+        ld, _ = stage("snp_ld_scores", lambda: bp.snp_ld_scores(
+            packq, ind_row=train))
+        log(f"    clumping keeps {len(kept)} of {mq}; C+T best r "
+            f"{np.nanmax(r_ct):.4f} at threshold "
+            f"{thr[int(np.nanargmax(r_ct))]:.2f}; LD scores finite "
+            f"{bool(np.isfinite(ld).all())}, min {ld.min():.3f} (floor 1), "
+            f"median {np.median(ld):.2f}")
+
+        # snp_prodBGEN on the NA-free QC'd variants
+        nafree = keep[np.flatnonzero(np.asarray(
+            bp.snp_colstats(packq)["nona"]) == n)]
+        beta_pb = np.nan_to_num(beta_grid[np.searchsorted(keep, nafree),
+                                          cell])
+        ids_pb = [ids[j] for j in nafree]
+        pb_dev, _ = stage("snp_prodBGEN (device)", lambda: bp.snp_prodBGEN(
+            path, beta_pb, ids_pb, engine="device"))
+        pb_host, _ = stage("snp_prodBGEN (host)", lambda: bp.snp_prodBGEN(
+            path, beta_pb, ids_pb, engine="host"))
+        e_pb = float(np.abs(pb_dev - pb_host).max()
+                     / np.abs(pb_host).max())
+        pv = np.asarray(bp.snp_prodVec(pack.subset(ind_col=nafree,
+                                                   device=dev), beta_pb),
+                        np.float64)
+        r_pv = float(np.corrcoef(pv, pb_host)[0, 1])
+        log(f"    snp_prodBGEN over {len(nafree)} NA-free variants: device "
+            f"engine vs host engine max |d| / max |host| {e_pb:.2e} (limit "
+            f"5e-6); vs the pack's dosage-scale snp_prodVec (dosages "
+            f"rounded to 0.01): r {r_pv:.7f} (floor 0.9999), largest gap "
+            f"{np.abs(pv - pb_host).max():.4f} of max |score| "
+            f"{np.abs(pb_host).max():.3f}")
+
+        hard, _ = stage("round_to_hardcalls", lambda: packq.round_to_hardcalls())
+        prs_hard, _ = stage("snp_PRS (hard calls, K2)", lambda: bp.snp_PRS(
+            hard, b_cell, ind_test=test))
+        r_hard = float(np.corrcoef(prs_hard[:, 0], prs[:, 0])[0, 1])
+        log(f"    r(PRS on hard calls, PRS on dosages) {r_hard:.5f} (floor "
+            f"0.99)")
+        launches = {"sweep": gsk.launches["sweep"], **gk.launches}
+
+        bare = bp.DosagePack(codes=pack.codes, n=pack.n)
+        (store, _), _ = stage("DosagePack.save", lambda: (bare.save(
+            os.path.join(tmp, "cohort")), None))
+        back, t_load = stage("DosagePack.load", lambda: bp.DosagePack.load(
+            store, mmap=False))
+        same = np.array_equal(back.codes, pack.codes)
+        log(f"    .dpk store: {pack.codes.nbytes / 1e9:.3f} GB saved in "
+            f"{times['DosagePack.save']:.3f} s, loaded in {t_load:.3f} s; "
+            f"codes equal {same}, files {sorted(os.listdir(store))}")
+        del back, bare
+
+        enforce = dev.type == "cuda"
+        bad = [what for what, ok in (
+            ("sweep kernel launched", launches["sweep"] > 0),
+            ("K2 launched", launches["prod"] > 0),
+            ("r(PRS grid, y)", r_grid > 0.1),
+            ("C+T r", np.nanmax(r_ct) > 0.1),
+            ("LD scores", np.isfinite(ld).all() and ld.min() >= 1 - 1e-6),
+            ("prodBGEN engines", e_pb <= 5e-6),
+            ("prodBGEN vs prodVec", r_pv > 0.9999),
+            ("hard-call PRS", r_hard > 0.99),
+            ("the .dpk store", same)) if not ok]
+        log(f"  launches on the path {launches}")
+        if enforce and bad:
+            fail(f"slice 6c checks failed: {bad}")
+        if not enforce and bad:
+            log(f"  (rehearsal: not enforced: {bad})")
+
+        log("  the byte path against its bound:")
+        byte_path_timed(bp, torch, dev, pack, timer)
+        del pack, packq, hard, op
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        gk.reset_launches()
+        gsk.reset_launches()
+        # small shapes: four blocks of the sampler's (the blocked "sweep"
+        # launch, not the one-band one)
+        gm = min(16_384, m)
+        secs = bp.warmup(m=min(4096, m), n=min(2048, n), k=10, gibbs_m=gm,
+                         gibbs_block=gm // 4, gibbs_W=250, chains=N_CHAINS,
+                         grid_cells=0, verbose=False)
+        moved = {"cprod": gk.launches["cprod"], "prod": gk.launches["prod"],
+                 "sweep": gsk.launches["sweep"]}
+        log(f"  warmup sections (s) {secs}; launches {moved} (each 1)")
+        if (sorted(secs) != ["build", "gibbs", "svd"]
+                or not all(v >= 0 for v in secs.values())
+                or (enforce and any(v != 1 for v in moved.values()))):
+            fail("warmup did not launch each kernel once")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  stage times (s, host clock to a synchronize): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; [19] in all {time.perf_counter() - t_all:.1f} s")
+
+
 def arg_parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -3449,6 +3990,10 @@ def arg_parser():
                     help="rows of slice 6's summary statistics")
     ap.add_argument("--n-grm", type=int, default=10_000,
                     help="target samples of slice 6's GRM")
+    ap.add_argument("--n7", type=int, default=20_000,
+                    help="samples of slice 6c's BGEN cohort")
+    ap.add_argument("--m7", type=int, default=100_000,
+                    help="variants of slice 6c's BGEN cohort")
     # cut only by a CPU rehearsal, whose twins are slow
     ap.add_argument("--n-thr", type=int, default=50)
     ap.add_argument("--nlambda", type=int, default=30)
@@ -3565,6 +4110,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     phase_slice6(bp, gk, torch, dev, args)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_slice6c(bp, gk, gsk, torch, dev, args, timer)
     log(f"  wall time {time.perf_counter() - t_start:.1f} s")
 
     if dev.type != "cuda":

@@ -939,3 +939,103 @@ def test_k1_k2_past_2_23(cuda, prod):
     assert (out.double() - ref64).abs().max() <= 1e-5 * ref64.abs().max()
     with pytest.raises(ValueError, match=r"2\^23"):
         kern(packed, n, W, c, inv, splits=1)
+
+
+# --- slice 6c: the byte path of a DosagePack and snp_prodBGEN -------------
+
+def _dosage_pack(n, m, seed):
+    """A DosagePack of dosage codes 7..207 with 5% NA and 2% of the imputed
+    hard-call codes 4..6."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(7, 208, (m, n)).astype(np.uint8)
+    codes[rng.random((m, n)) < 0.05] = 3
+    hard = rng.random((m, n)) < 0.02
+    codes[hard] = rng.integers(4, 7, int(hard.sum()))
+    return pt.DosagePack(codes=codes, n=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,l", [(1001, 3001, 1), (20003, 2000, 20)])
+def test_byte_path_products_match_float64(cuda, n, m, l):
+    """snp_cprodVec / snp_prodVec on a DosagePack (code256 gather + float32
+    GEMM on the card) within 1e-5 of max |float64 product|, standardized
+    and on the dosage scale."""
+    from bigsnpr_tpu_torch.ops import matvec as pmv
+
+    pack = _dosage_pack(n, m, l)
+    sc = pt.snp_scaleBinom()(pack, device=cuda)
+    d = torch.as_tensor(pack.code256, dtype=torch.float64,
+                        device=cuda)[pack.device_codes(cuda).long()]
+    rng = np.random.default_rng(l)
+    V = rng.standard_normal((n, l))
+    U = rng.standard_normal((m, l))
+    for c, s in ((sc["center"], sc["scale"]), (np.zeros(m), np.ones(m))):
+        c64 = torch.as_tensor(c, device=cuda)[:, None]
+        s64 = torch.as_tensor(s, device=cuda)[:, None]
+        X = torch.nan_to_num((d - c64) / s64, nan=0.0)
+        for fn, W, ref in ((pmv.snp_cprodVec, V, X @ torch.as_tensor(
+                V, device=cuda)), (pmv.snp_prodVec, U, X.T @ torch.as_tensor(
+                    U, device=cuda))):
+            out = torch.as_tensor(fn(pack, W, c, s, device=cuda),
+                                  device=cuda).double().reshape(ref.shape)
+            assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_byte_path_cor_matches_float64(cuda):
+    """snp_cor on a DosagePack on the card (float64 pair sums) within 1e-9
+    of float64 r on the decoded dosages."""
+    pack = _dosage_pack(3001, 700, 3)
+    corr = pt.snp_cor(pack, size=40, device=cuda)
+    d = torch.as_tensor(pack.to_dosage().T, device=cuda)
+    mk = (~torch.isnan(d)).double()
+    x = torch.nan_to_num(d)
+    A = torch.cat([x, x * x, mk])
+    G = A @ A.T
+    k = pack.m
+    Sxy, Sx, Sy = G[:k, :k], G[:k, 2 * k:], G[2 * k:, :k]
+    Sxx, Syy, Np = G[k:2 * k, 2 * k:], G[2 * k:, k:2 * k], G[2 * k:, 2 * k:]
+    r = ((Sxy - Sx * Sy / Np) / torch.sqrt((Sxx - Sx * Sx / Np)
+                                           * (Syy - Sy * Sy / Np)))
+    D = corr.upper.toarray()
+    ii, jj = np.nonzero(np.triu(D, 1))
+    ref = np.clip(r.cpu().numpy()[ii, jj], -1, 1)
+    assert len(ii) and np.abs(D[ii, jj] - ref).max() <= 1e-9
+
+
+@pytest.mark.cuda
+def test_prod_bgen_device_engine_matches_host(cuda, tmp_path):
+    """snp_prodBGEN's device engine (float32 GEMM of exact pair sums, beta
+    split hi + lo) within 5e-6 of the float64 host engine; NA propagates."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    rng = np.random.default_rng(4)
+    m, N = 300, 5003
+    x = rng.integers(0, 3, (m, N))
+    p0 = np.where(x == 0, 255, rng.integers(0, 40, (m, N)) * (x == 1))
+    p1 = np.minimum(np.where(x == 1, 200, 0), 255 - p0)
+    miss = rng.random((m, N)) < 0.001
+    blocks = chip_smoke.bgen_blocks(
+        torch, torch.as_tensor(p0.astype(np.uint8)),
+        torch.as_tensor(p1.astype(np.uint8)), torch.as_tensor(miss)).numpy()
+    pos = np.arange(1, m + 1) * 10
+    variants = {"chromosome": np.full(m, "01"), "position": pos,
+                "rsid": np.array([f"rs{j}" for j in range(m)]),
+                "varid": np.array([f"v{j}" for j in range(m)]),
+                "allele1": np.full(m, "A"), "allele2": np.full(m, "G")}
+    path = str(tmp_path / "t.bgen")
+    chip_smoke.write_bgen(path, variants, N, [blocks])
+    ids = [f"1_{p}_A_G" for p in pos]
+    beta = rng.standard_normal((m, 2))
+    host = pt.snp_prodBGEN(path, beta, ids, engine="host")
+    for engine in ("device", "auto"):
+        dev = pt.snp_prodBGEN(path, beta, ids, engine=engine, block_size=64,
+                              device=cuda)
+        assert np.array_equal(np.isnan(dev), np.isnan(host))
+        ok = ~np.isnan(host)
+        assert np.abs(dev - host)[ok].max() <= 5e-6 * np.abs(host[ok]).max()

@@ -413,7 +413,8 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                           "--num-iter5", "4", "--gdp-rows", "600",
                           "--lasso-points", "8", "--n6", "600",
                           "--n6-ref", "300", "--m6", "3000",
-                          "--n-sumstats", "6000", "--n-grm", "200"],
+                          "--n-sumstats", "6000", "--n-grm", "200",
+                          "--n7", "300", "--m7", "1500"],
                          cwd=REPO,
                          capture_output=True, text=True, timeout=300, env=ENV2)
     assert out.returncode == 3, out.stdout[-2000:] + out.stderr[-2000:]
@@ -436,5 +437,9 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "(unblocked)", "sampling betas", "[17a]",
                   "NA-free copy, int8m", "[17b]", "depth past 2^23",
                   "[18]", "store", "snp_match", "bed_projectPCA",
-                  "bed_GRM"):
+                  "bed_GRM", "[19]", "snp_readBGEN", "per-variant Python "
+                  "decode", "read_as='random'", "PCA on the byte path",
+                  "snp_cor on the byte path", "snp_prodBGEN over",
+                  "r(PRS on hard calls", ".dpk store", "byte path, ",
+                  "warmup sections"):
         assert phase in out.stdout

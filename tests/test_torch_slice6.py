@@ -2,9 +2,10 @@
 through both packages (snp_match -> bed_projectPCA -> the .gpk store ->
 bed_GRM -> MAX3 / Fst / ancestry / genetic positions), each stage held
 against the JAX package's at the tolerance of its parity test; and the
-same chain in a subprocess with jax, pandas, pyarrow and bigsnpr_tpu
-blocked. Kept apart from test_torch_slice.py so that `--dist loadfile`
-gives it another worker."""
+same chain, then slice 6c's (chip_smoke.py [19] at a small size), in a
+subprocess with jax, pandas, pyarrow and bigsnpr_tpu blocked. Kept apart
+from test_torch_slice.py so that `--dist loadfile` gives it another
+worker."""
 
 import os
 import subprocess
@@ -216,6 +217,18 @@ SCRIPT6 = textwrap.dedent("""
     both = pt.snp_split(mp["chromosome"], lambda ind_chr, chr: {
         "i": ind_chr}, combine="rbind")
     assert len(both["i"]) == m
+    # slice 6c: chip_smoke.py [19] at a small size (BGEN written and read,
+    # the byte path through QC, PCA, LD, LDpred2-grid, C+T, snp_prodBGEN,
+    # hard calls, the .dpk store and warmup)
+    import chip_smoke as cs
+    from bigsnpr_tpu_torch.ops import geno_kernels as gk
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+
+    args = cs.arg_parser().parse_args(
+        ["--n7", "300", "--m7", "1500", "--bmin", "60", "--bmax", "150",
+         "--burn-in", "3", "--num-iter", "3"])
+    dev = torch.device("cpu")
+    cs.phase_slice6c(pt, gk, gsk, torch, dev, args, cs.Timer(torch, dev))
     bad = [x for x in sys.modules if x.split(".")[0] in BLOCKED]
     assert not bad, bad
     print("SLICE6-PORT-ONLY-OK")

@@ -7,7 +7,8 @@ the test serializes small R objects to XDR bytes itself (vectors, a list
 with attributes, an environment, a data.frame with a factor, a bigSNP
 with an FBM.code256 and its `.bk`), compressed each way R compresses, and
 runs both packages' readers on them: the same values, the same pack; a
-code256 table other than hard calls raises in the port (slice 6c)."""
+code256 table other than hard calls attaches as a DosagePack, as in the
+JAX package."""
 
 import bz2
 import gzip
@@ -261,10 +262,21 @@ def test_bigsnp_rds_attaches_as_in_jax(tmp_path, n, m):
 
 
 def test_non_hard_call_code256_raises(tmp_path):
+    """A code256 table other than hard calls attaches as a DosagePack on
+    the .bk bytes with its table, as in the JAX package (the test keeps its
+    name from before slice 6c, when the port raised here); a missing .bk
+    still raises."""
     code = list(np.arange(256) / 100.0)
-    f, _ = big_snp(tmp_path, 8, 4, code)
-    assert type(jg.snp_attach(f)).__name__ == "DosagePack"
-    with pytest.raises(NotImplementedError, match="slice 6c"):
-        pt.snp_attach(f)
+    f, codes = big_snp(tmp_path, 8, 4, code)
+    jp = jg.snp_attach(f)
+    assert type(jp).__name__ == "DosagePack"
+    for pp in (pt.snp_attach(f), pt.snp_attach_rds(f, mmap=False)):
+        assert isinstance(pp, pt.DosagePack) and pp.shape == (8, 4)
+        assert np.array_equal(np.asarray(pp.codes), np.asarray(jp.codes))
+        assert np.array_equal(np.asarray(pp.codes), codes)
+        assert np.array_equal(pp.code256, jp.code256, equal_nan=True)
+        same_columns(pp.fam, jp.fam)
+        same_columns(pp.map, jp.map)
+        assert np.array_equal(pp.to_dosage(), jp.to_dosage(), equal_nan=True)
     with pytest.raises(FileNotFoundError):
         pt.snp_attach_rds(f, bk_path=tmp_path / "missing.bk")
