@@ -51,9 +51,13 @@ A second package beside the JAX one, ported slice by slice.
   `snp_plinkKINGQC`, `snp_beagleImpute`, `snp_modifyBuild`; the
   `download_*` helpers raise: no network); and `warmup` / `warmup_svd` /
   `warmup_gibbs` (build every source, launch each kernel once).
-- Still to come (ROADMAP queue 1): `snp_fastImpute` and
-  `snp_fastImputeSimple` (slice 6c, item 13), then slice 7 (several
-  cards).
+- Slice 6d, imputation: `snp_fastImputeSimple` (mode, mean0, random;
+  mean2 as a DosagePack) and `snp_fastImpute` (a per-variant ridge or
+  boosted stumps on the variants `snp_cor` finds correlated, each block
+  of variants decoded and fitted on the device; torch ops, as the JAX
+  package's are XLA). With it the port exports every public name of the
+  JAX package.
+- Still to come (ROADMAP queue 1): slice 7 (several cards).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`config.set_device("cpu")` or `device="cpu"`). The package imports
@@ -184,5 +188,6 @@ from bigsnpr_tpu_torch.utils.external import (
     download_beagle,
 )
 from bigsnpr_tpu_torch.warmup import warmup, warmup_svd, warmup_gibbs
+from bigsnpr_tpu_torch.utils.impute import snp_fastImpute, snp_fastImputeSimple
 
 __version__ = "0.1.0"

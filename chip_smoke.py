@@ -7,8 +7,8 @@
                           [--n-stack S] [--n5 N5] [--m5 M5] [--burn-in5 B]
                           [--num-iter5 I] [--gdp-rows R] [--n6 N6]
                           [--n6-ref R6] [--m6 M6] [--n-sumstats S]
-                          [--n-grm G] [--n7 N7] [--m7 M7]
-                          [--lasso-points P]
+                          [--n-grm G] [--n7 N7] [--m7 M7] [--n8 N8]
+                          [--m8 M8] [--lasso-points P]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -152,7 +152,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      variant first), snp_fst (near the generator's), snp_ancestry_summary
      (a 60/30/10 mix within 0.05) and snp_asGeneticPos (monotone); each
      stage timed on the host clock to a torch.cuda.synchronize();
- 19. slice 6c, imputed dosages: slice 2's generator at 20,000 x 100,000
+ 19. slice 6c, imputed dosages: slice 2's generator at 20,000 x 50,000
      (--n7, --m7) turned into 8-bit probability pairs (70% of the variants
      certain, the rest mixed with the HWE prior, an INFO spread) and
      written as a BGEN v1.2 layout-2 zlib file with its .bgi (`write_bgen`,
@@ -167,21 +167,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
      1,000-variant slab) -> snp_ldsc2 -> auto_blocks + bands ->
      snp_ldpred2_grid (3 x 3, the sweep kernel) -> snp_PRS on the 5,000
      test samples -> snp_clumping(S = |z|) -> snp_PRS at 50 thresholds ->
-     snp_ld_scores -> snp_prodBGEN (device engine within 5e-6 of the host
-     engine, r > 0.9999 against the pack's snp_prodVec) ->
+     snp_ld_scores -> snp_prodBGEN (the device engine over the NA-free
+     variants; the host engine over every 8th of them, the device engine
+     within 5e-6 of it there; r > 0.9999 against the pack's snp_prodVec
+     on both lists) ->
      round_to_hardcalls -> snp_PRS on K2 (r > 0.99 against the dosage
      PRS) -> DosagePack.save / load; each stage timed; the sweep kernel and
      K2 must launch on the path; then the byte path timed at l = 20 beside
      its bound and torch.matmul, and warmup (every source built, K1, K2
-     and the sweep kernel launched once each).
+     and the sweep kernel launched once each);
+ 20. slice 6d, imputation: a 20,000 x 100,000 cohort (--n8, --m8) made on
+     the card, 2 chromosomes of haplotypes that copy the previous variant
+     with probability 0.9 (allele frequencies 0.05-0.5), 1% of the calls
+     missing plus 10% on 5% of the variants and every call of one variant
+     a chromosome; snp_fastImputeSimple "mode", "mean0", "mean2" (->
+     snp_MAF on its DosagePack) and "random" on the first 2,000 variants
+     (its replayed host stream) -> snp_fastImpute "ridge" (under
+     torch.profiler: the device's idle share) and again with its info=
+     (the same bytes) -> snp_fastImpute "boost" -> snp_autoSVD(k = 10) ->
+     big_univLinReg(covar = PCs) on a phenotype simulated from the true
+     genotypes; checks: discordance on the missing calls against the truth
+     (ridge and boost below 0.7 x mode), info[0] = the planted NA rate,
+     NA left only in the all-missing variants (none by the boost), two
+     ridge blocks and one boost block on the card against the CPU path
+     (1e-3, also float64; 1e-4 and the same splits) timed beside their
+     bounds, K1 / K2 launched on the imputed pack and held against their
+     twins there, the GWAS against dense float64; each stage timed.
 
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
 `--rehearse-cpu` runs the same phases on the CPU through the twins at the
 given small size, to check the script itself (the statistical checks of
-slices 2, 3, 6 and 6c are printed but only enforced on the card;
+slices 2, 3, 6, 6c and 6d are printed but only enforced on the card;
 --lasso-points cuts the lassosum twin's grid in [14] and [15], --n6 to
---n-grm slice 6, --n7 / --m7 slice 6c); it too ends non-zero.
+--n-grm slice 6, --n7 / --m7 slice 6c, --n8 / --m8 slice 6d); it too
+ends non-zero.
 """
 
 from __future__ import annotations
@@ -3872,18 +3892,30 @@ def phase_slice6c(bp, gk, gsk, torch, dev, args, timer):
         ids_pb = [ids[j] for j in nafree]
         pb_dev, _ = stage("snp_prodBGEN (device)", lambda: bp.snp_prodBGEN(
             path, beta_pb, ids_pb, engine="device"))
-        pb_host, _ = stage("snp_prodBGEN (host)", lambda: bp.snp_prodBGEN(
-            path, beta_pb, ids_pb, engine="host"))
-        e_pb = float(np.abs(pb_dev - pb_host).max()
+        # the host engine (host-bound) on every 8th variant of the list,
+        # against the device engine on the same sub-list
+        k8 = slice(None, None, 8)
+        pb_host, _ = stage("snp_prodBGEN (host, 1/8 of the list)",
+                           lambda: bp.snp_prodBGEN(path, beta_pb[k8],
+                                                   ids_pb[k8], engine="host"))
+        pb_sub = bp.snp_prodBGEN(path, beta_pb[k8], ids_pb[k8],
+                                 engine="device")
+        e_pb = float(np.abs(pb_sub - pb_host).max()
                      / np.abs(pb_host).max())
-        pv = np.asarray(bp.snp_prodVec(pack.subset(ind_col=nafree,
-                                                   device=dev), beta_pb),
-                        np.float64)
+        pv = np.asarray(bp.snp_prodVec(pack.subset(ind_col=nafree[k8],
+                                                   device=dev),
+                                       beta_pb[k8]), np.float64)
         r_pv = float(np.corrcoef(pv, pb_host)[0, 1])
-        log(f"    snp_prodBGEN over {len(nafree)} NA-free variants: device "
-            f"engine vs host engine max |d| / max |host| {e_pb:.2e} (limit "
+        pv_all = np.asarray(bp.snp_prodVec(pack.subset(ind_col=nafree,
+                                                       device=dev), beta_pb),
+                            np.float64)
+        r_pv_all = float(np.corrcoef(pv_all, pb_dev)[0, 1])
+        log(f"    snp_prodBGEN over {len(nafree)} NA-free variants, the "
+            f"host engine over {len(ids_pb[k8])} of them: device engine vs "
+            f"host engine there max |d| / max |host| {e_pb:.2e} (limit "
             f"5e-6); vs the pack's dosage-scale snp_prodVec (dosages "
-            f"rounded to 0.01): r {r_pv:.7f} (floor 0.9999), largest gap "
+            f"rounded to 0.01): r {r_pv:.7f} on the sub-list, {r_pv_all:.7f}"
+            f" (device) on the whole list (floor 0.9999), largest gap "
             f"{np.abs(pv - pb_host).max():.4f} of max |score| "
             f"{np.abs(pb_host).max():.3f}")
 
@@ -3914,7 +3946,7 @@ def phase_slice6c(bp, gk, gsk, torch, dev, args, timer):
             ("C+T r", np.nanmax(r_ct) > 0.1),
             ("LD scores", np.isfinite(ld).all() and ld.min() >= 1 - 1e-6),
             ("prodBGEN engines", e_pb <= 5e-6),
-            ("prodBGEN vs prodVec", r_pv > 0.9999),
+            ("prodBGEN vs prodVec", r_pv > 0.9999 and r_pv_all > 0.9999),
             ("hard-call PRS", r_hard > 0.99),
             ("the .dpk store", same)) if not ok]
         log(f"  launches on the path {launches}")
@@ -3951,6 +3983,438 @@ def phase_slice6c(bp, gk, gsk, torch, dev, args, timer):
     log("  stage times (s, host clock to a synchronize): "
         + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
         + f"; [19] in all {time.perf_counter() - t_all:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# slice 6d: imputation -> autoSVD -> GWAS on the imputed pack
+# ---------------------------------------------------------------------------
+
+IMPUTE_SIZE, IMPUTE_K, IMPUTE_B = 200, 32, 512   # snp_fastImpute's defaults
+
+
+def impute_cohort(torch, dev, n, m, seed, chunk=2048):
+    """[20]'s cohort, made on the device in variant chunks: two
+    chromosomes of m / 2 variants; each haplotype copies the previous
+    variant with probability 0.9 and draws it anew otherwise, at allele
+    frequencies U(0.05, 0.5) (tests/test_impute_project.py:51-58 at
+    scale; a chromosome starts anew). 1% of the calls are missing at
+    random, plus 10% on 5% of the variants, and every call of one variant
+    a chromosome (m / 4, 3 m / 4: no training row, so the ridge leaves
+    them missing). Returns the true and observed packed bytes on the
+    device, the planted NA count of each variant and the all-NA
+    variants."""
+    from bigsnpr_tpu_torch.core.unpack import pack_codes
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    nb = (n + 3) // 4
+    p = 0.05 + 0.45 * torch.rand(m, generator=g, device=dev)
+    heavy = torch.rand(m, generator=g, device=dev) < 0.05
+    empty = np.array([m // 4, 3 * m // 4])
+    lut = torch.tensor([3, 2, 0], dtype=torch.uint8, device=dev)
+    true_p = torch.empty((m, nb), dtype=torch.uint8, device=dev)
+    obs_p = torch.empty_like(true_p)
+    na_count = torch.empty(m, dtype=torch.int64, device=dev)
+    carry = None
+    for j0 in range(0, m, chunk):
+        j1 = min(m, j0 + chunk)
+        c = j1 - j0
+        fresh = torch.rand((c, 2 * n), generator=g, device=dev) < p[j0:j1,
+                                                                    None]
+        redraw = torch.rand((c, 2 * n), generator=g, device=dev) >= 0.9
+        for s in (0, m // 2):                       # a chromosome's start
+            if j0 <= s < j1:
+                redraw[s - j0] = True
+        ar = torch.arange(c, dtype=torch.int32, device=dev)[:, None]
+        last = torch.cummax(torch.where(redraw, ar, -1), 0).values
+        hap = torch.gather(fresh, 0, last.clamp(min=0).long())
+        if carry is not None:
+            hap = torch.where(last < 0, carry[None], hap)
+        carry = hap[-1]
+        codes = lut[(hap[:, :n].long() + hap[:, n:].long())]
+        na = ((torch.rand((c, n), generator=g, device=dev) < 0.01)
+              | (heavy[j0:j1, None]
+                 & (torch.rand((c, n), generator=g, device=dev) < 0.1)))
+        for e in empty:
+            if j0 <= e < j1:
+                na[e - j0] = True
+        na_count[j0:j1] = na.sum(1)
+        true_p[j0:j1] = pack_codes(codes)
+        obs_p[j0:j1] = pack_codes(torch.where(na, 1, codes))
+    return true_p, obs_p, na_count.cpu().numpy(), empty
+
+
+def discordance(torch, imp, true, obs, n, skip, chunk=4096):
+    """Share of the planted missing calls (outside the variants `skip`)
+    whose imputed call differs from the true genotype (a call left
+    missing counts as wrong)."""
+    from bigsnpr_tpu_torch.core.unpack import unpack_codes
+
+    keep = torch.ones(imp.shape[0], dtype=torch.bool, device=imp.device)
+    keep[torch.as_tensor(skip, device=imp.device)] = False
+    wrong = total = 0
+    for j0 in range(0, imp.shape[0], chunk):
+        sl = slice(j0, j0 + chunk)
+        na = (unpack_codes(obs[sl], n) == 1) & keep[sl, None]
+        wrong += int(((unpack_codes(imp[sl], n) != unpack_codes(true[sl], n))
+                      & na).sum())
+        total += int(na.sum())
+    return wrong / total
+
+
+def impute_block_arrays(bp, torch, dev, pack, j0, rng):
+    """The arrays of the block of snp_fastImpute that starts at variant j0
+    of the first chromosome (window, targets, neighbours, train mask), with
+    the neighbour table taken from snp_cor on the block's window."""
+    from bigsnpr_tpu_torch.utils.impute import _neighbour_table
+
+    n, len_chr = pack.n, pack.m // 2
+    B = min(IMPUTE_B, len_chr)
+    W = min(len_chr, B + 2 * IMPUTE_SIZE)
+    win_lo = min(max(0, j0 - IMPUTE_SIZE), len_chr - W)
+    rows = np.sort(rng.choice(n, min(n, 5000), replace=False))
+    corr = bp.snp_cor(pack, ind_row=rows,
+                      ind_col=np.arange(win_lo, win_lo + W),
+                      size=IMPUTE_SIZE, alpha=1e-4, fill_diag=False)
+    nb_tab, nb_val = _neighbour_table(corr.sym().tocsc(), W, IMPUTE_SIZE,
+                                      IMPUTE_K)
+    tgt = np.resize(np.arange(j0, min(j0 + B, len_chr)), B) - win_lo
+    train = (rng.random((B, n)).astype(np.float32) < 0.8).astype(np.float32)
+    packed = pack.device_packed(dev)[win_lo:win_lo + W]
+    return (packed, n, torch.as_tensor(nb_tab[tgt], device=dev).long(),
+            torch.as_tensor(nb_val[tgt], device=dev),
+            torch.as_tensor(tgt, device=dev).long(),
+            torch.as_tensor(train, device=dev))
+
+
+def ridge_preds64(torch, args, ridge=1e-3):
+    """The ridge block in float64: normal equations on the device, solved
+    with numpy."""
+    from bigsnpr_tpu_torch.core.unpack import unpack_dosage
+
+    packed, n, nb, valid, y_idx, train = args
+    d, na = unpack_dosage(packed, n, dtype=torch.float64)
+    mean = d.sum(1) / (~na).sum(1).clamp(min=1)
+    F = torch.where(na, mean[:, None], d)
+    t = train.double() * (~na[y_idx]).double()
+    A = torch.cat([torch.ones_like(F[nb[:, :1]]),
+                   F[nb] * valid.double()[:, :, None]], 1)
+    Aw = A * t[:, None, :]
+    G = (Aw @ A.transpose(1, 2) + (ridge * t.sum(1))[:, None, None]
+         * torch.eye(A.shape[1], dtype=A.dtype, device=A.device)).cpu()
+    b = (Aw @ d[y_idx][:, :, None]).cpu()
+    w = torch.full(b.shape, float("nan"), dtype=b.dtype)
+    fit = (t.sum(1) > 0).cpu()                # no training row: NaN
+    w[fit] = torch.as_tensor(np.linalg.solve(G[fit].numpy(),
+                                             b[fit].numpy()))
+    return (w.to(A.device).transpose(1, 2) @ A)[:, 0]
+
+
+def block_bound(kind, B, K, n, W, rounds=10):
+    """The least time of a block: its float32 operations (ridge: the Gram
+    matrices, right-hand sides and predictions; boost: the per-class sums
+    of each round and the counts, as the JAX package's einsums count them)
+    over 67 TFLOP/s, or its bytes (the window, the train mask, the
+    predictions, dosages and NA mask out) over 3.35 TB/s, the larger."""
+    if kind == "ridge":
+        ops = 2.0 * B * n * ((K + 1) ** 2 + 2 * (K + 1))
+    else:
+        ops = 2.0 * B * n * 4 * K * (rounds + 1)
+    nbytes = W * ((n + 3) // 4) + B * n * 4 + B * n * (4 + 4 + 1)
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_impute_blocks(bp, torch, dev, pack, rng, timer):
+    """Two ridge blocks and one boost block of the first chromosome on the
+    device against the port's CPU path of the same function on the same
+    arrays (ridge 1e-3 absolute, also against float64; boost 1e-4 and the
+    same splits), timed beside their bounds."""
+    from bigsnpr_tpu_torch.utils.impute import (_impute_block_boost,
+                                                _impute_block_ridge)
+
+    len_chr = pack.m // 2
+    starts = np.sort(rng.choice(np.arange(0, len_chr, IMPUTE_B), 3,
+                                replace=len_chr < 3 * IMPUTE_B))
+    out = {}
+    for kind, j0 in (("ridge", starts[0]), ("ridge", starts[1]),
+                     ("boost", starts[2])):
+        args = impute_block_arrays(bp, torch, dev, pack, int(j0), rng)
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        B, K = args[2].shape
+        if kind == "ridge":
+            p = _impute_block_ridge(*args, 1e-3)[0]
+            ref = _impute_block_ridge(*cpu, 1e-3)[0]
+            p64 = ridge_preds64(torch, args)
+            nan = torch.isnan(p)
+            e = float((p.cpu() - ref)[~nan.cpu()].abs().max())
+            e64 = float((p - p64)[~nan].abs().max())
+            ok = (e <= 1e-3 and e64 <= 1e-3
+                  and torch.equal(nan, torch.isnan(p64))
+                  and torch.equal(nan.cpu(), torch.isnan(ref)))
+            what = (f"vs CPU path {e:.2e}, vs float64 {e64:.2e} (limit "
+                    f"1e-3)")
+            fn = lambda: _impute_block_ridge(*args, 1e-3)  # noqa: E731
+        else:
+            p, _, _, sp = _impute_block_boost(*args, return_splits=True)
+            ref, _, _, sp_ref = _impute_block_boost(*cpu, return_splits=True)
+            e = float((p.cpu() - ref).abs().max())
+            same = bool(torch.equal(sp.cpu(), sp_ref))
+            ok = e <= 1e-4 and same
+            what = f"vs CPU path {e:.2e} (limit 1e-4), splits equal {same}"
+            fn = lambda: _impute_block_boost(*args)  # noqa: E731
+        ms = timer(fn, reps=5)
+        bound, by = block_bound(kind, B, K, pack.n, args[0].shape[0])
+        log(f"    {kind} block at variant {j0} (B {B}, K {K}, W "
+            f"{args[0].shape[0]}): {what}; {ms:.3f} ms, bound {bound:.3f} "
+            f"ms ({by}), {ms / bound:.1f}x")
+        out.setdefault(kind, []).append((ms, bound))
+        if not ok and dev.type == "cuda":
+            fail(f"[20] {kind} block at {j0} disagrees with the CPU path")
+    return out
+
+
+def profiled(torch, dev, fn):
+    """fn() under torch.profiler: (its result, wall ms, device busy ms or
+    None where the trace holds no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(a.self_device_time_total for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA) / 1e3
+    return out, wall, (busy if busy > 0 else None)
+
+
+class HostSplit:
+    """Host seconds spent inside the given functions (a module's, or a
+    class's methods) while active: each is wrapped to add its wall time to
+    `secs`, and restored on exit. A function that only queues device work
+    counts its queueing time."""
+
+    def __init__(self, targets):
+        self.targets = targets          # [(owner, attribute name), ...]
+        self.secs = {name: 0.0 for _, name in targets}
+
+    def __enter__(self):
+        self.saved = [getattr(o, k) for o, k in self.targets]
+        for (owner, name), fn in zip(self.targets, self.saved):
+            setattr(owner, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.secs[name] += time.perf_counter() - t0
+        return timed
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in zip(self.targets, self.saved):
+            setattr(owner, name, fn)
+
+
+def draw_ms(torch, dev, n, reps=10):
+    """Host ms of one block's train / validation draw and its upload, as
+    snp_fastImpute makes it (rng.random((512, n)) in float32, < 0.8)."""
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        u = rng.random((IMPUTE_B, n)).astype(np.float32)
+        torch.from_numpy(u < 0.8).to(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_slice6d(bp, gk, torch, dev, args, smi, rows):
+    """[20] slice 6d: imputation on the device, then autoSVD and the GWAS
+    on the imputed pack; each stage timed on the host clock to a
+    torch.cuda.synchronize(). Adds the K1 / K2 launches of the imputed
+    pack's path to their `rows`."""
+    from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator
+
+    n, m = args.n8, args.m8
+    log(f"[20] slice 6d at {n} samples x {m} variants (2 chromosomes); "
+        f"{smi}")
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 82)
+    times, checks = {}, {}
+
+    def timed(into, name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def stage(name, fn):
+        return timed(times, name, fn)
+
+    def check(name, fn):
+        return timed(checks, name, fn)
+
+    true_p, obs_p, na_count, empty = stage("cohort", lambda: impute_cohort(
+        torch, dev, n, m, args.seed + 80))
+    chrom = np.repeat([1, 2], [m // 2, m - m // 2])
+    pack = bp.GenoPack(packed=obs_p.cpu().numpy(), n=n,
+                       map={"chromosome": chrom})
+    pack._device_cache[str(dev)] = obs_p
+    truth = bp.GenoPack(packed=true_p.cpu().numpy(), n=n)
+    truth._device_cache[str(dev)] = true_p
+    log(f"  planted {int(na_count.sum())} missing calls "
+        f"({na_count.sum() / (n * m):.4f}); variants {empty.tolist()} all "
+        f"missing")
+
+    def disc(p):
+        return check("discordance", lambda: discordance(
+            torch, p.device_packed(dev), true_p, obs_p, n, empty))
+
+    mode = stage("snp_fastImputeSimple mode",
+                 lambda: bp.snp_fastImputeSimple(pack, "mode"))
+    mean0 = stage("snp_fastImputeSimple mean0",
+                  lambda: bp.snp_fastImputeSimple(pack, "mean0"))
+    mean2 = stage("snp_fastImputeSimple mean2",
+                  lambda: bp.snp_fastImputeSimple(pack, "mean2"))
+    maf2 = stage("snp_MAF (mean2 pack)", lambda: bp.snp_MAF(mean2))
+    d_mode, d_mean0 = disc(mode), disc(mean0)
+    del mean2, mean0
+    m_rand = min(m, 2000)
+    sub = pack.subset(ind_col=np.arange(m_rand))
+    rand = stage(f"snp_fastImputeSimple random ({m_rand} variants)",
+                 lambda: bp.snp_fastImputeSimple(sub, "random", seed=1))
+    na_rand = int(bp.snp_counts(rand)[3].sum())
+    log(f"  simple: discordance on the missing calls mode {d_mode:.4f}, "
+        f"mean0 {d_mean0:.4f}; mean2 MAF finite "
+        f"{bool(np.isfinite(maf2).all())}; random on the first {m_rand} "
+        f"variants (host-bound: the replayed binomial stream draws "
+        f"{m_rand * n} entries), NA left {na_rand}")
+    del sub, rand
+
+    from bigsnpr_tpu_torch.ops.corr import SparseLD
+    from bigsnpr_tpu_torch.utils import impute
+
+    split = HostSplit([(impute, "snp_cor"), (SparseLD, "sym"),
+                       (impute, "_neighbour_table"),
+                       (impute, "_impute_block_ridge"),
+                       (impute, "_write_back")])
+    t0 = time.perf_counter()
+    with split:
+        (ridge, info), wall, busy = profiled(torch, dev, lambda: stage(
+            "snp_fastImpute ridge", lambda: bp.snp_fastImpute(pack, seed=1)))
+    checks["the profiler's start and read-out"] = (
+        time.perf_counter() - t0 - times["snp_fastImpute ridge"])
+    idle = ("not measured (no device time in the trace)" if busy is None
+            else f"{100 * (1 - busy / wall):.1f}% (busy {busy:.0f} of "
+            f"{wall:.0f} ms, under the profiler)")
+    n_blocks = sum(-(-k // IMPUTE_B) for k in (m // 2, m - m // 2))
+    d_ms = check("the draw's time", lambda: draw_ms(torch, dev, n))
+    draws = d_ms * n_blocks / 1e3
+    rest = times["snp_fastImpute ridge"] - sum(split.secs.values()) - draws
+    log("  ridge stage on the host clock: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in split.secs.items())
+        + f" (the block functions and the write-back: their queueing); "
+        f"one block's draw + upload {d_ms:.1f} ms x {n_blocks} blocks = "
+        f"{draws:.3f} s; the rest {rest:.3f} s")
+    d_ridge = disc(ridge)
+    left = bp.snp_counts(ridge)[3]
+    again, info2 = stage("snp_fastImpute ridge again (info=)",
+                         lambda: bp.snp_fastImpute(ridge, info=info.copy(),
+                                                   seed=2))
+    same = (np.array_equal(again.packed, ridge.packed)
+            and np.array_equal(info2, info, equal_nan=True))
+    del again
+    boost, binfo = stage("snp_fastImpute boost", lambda: bp.snp_fastImpute(
+        pack, seed=1, method="boost"))
+    d_boost = disc(boost)
+    bleft = int(bp.snp_counts(boost)[3].sum())
+    del boost
+    log(f"  snp_fastImpute: discordance ridge {d_ridge:.4f}, boost "
+        f"{d_boost:.4f} (limit 0.7 x mode = {0.7 * d_mode:.4f}); the "
+        f"device idle over the ridge stage {idle}; validation error median "
+        f"ridge {np.nanmedian(info[1]):.4f}, boost "
+        f"{np.nanmedian(binfo[1]):.4f}; NA left: ridge in variants "
+        f"{np.flatnonzero(left).tolist()}, boost {bleft}; info= again "
+        f"returns the same bytes {same}")
+
+    log("  blocks against the CPU path:")
+    blocks = check("the blocks against the CPU path", lambda:
+                   check_impute_blocks(bp, torch, dev, pack, rng,
+                                       Timer(torch, dev)))
+
+    # autoSVD and the GWAS on the ridge-imputed pack; the phenotype from
+    # the true genotypes (its K2 launches are not on the imputed pack)
+    y = check("the phenotype", lambda: bp.snp_simuPheno(
+        truth, h2=0.4, M=min(1000, m // 10), seed=args.seed)["pheno"])
+    gk.reset_launches()
+    svd = stage("snp_autoSVD (imputed)", lambda: bp.snp_autoSVD(ridge, k=10))
+    gwas = stage("big_univLinReg (imputed, PCs)", lambda: bp.big_univLinReg(
+        ridge, y, covar=svd.u))
+    moved = {"cprod": gk.launches["cprod"], "prod": gk.launches["prod"]}
+    sc = bp.bed_scaleBinom(ridge)
+    op = GenoOperator(ridge, sc["center"], sc["scale"], device=dev)
+    check("K1 / K2 against their twins", lambda: check_kernel_pair(
+        gk, torch, dev, op.packed, n, op.center, op.inv, 10, rng,
+        "[20] imputed pack"))
+    poly = np.flatnonzero(np.asarray(sc["scale"]) > 0)
+    cols = np.sort(rng.choice(poly, min(1000, len(poly)), replace=False))
+    b_ref, se_ref = check("the dense GWAS", lambda: dense_linreg(
+        torch, dev, ridge, y, svd.u, np.arange(n), cols))
+    b, se = gwas["estim"][cols], gwas["std.err"][cols]
+    e_b = float((np.abs(b - b_ref) / (np.abs(b_ref) + se_ref)).max())
+    e_se = float((np.abs(se - se_ref) / se_ref).max())
+    log(f"  snp_autoSVD kept {len(svd.subset)} variants, d "
+        f"{np.round(svd.d, 2).tolist()}; GWAS vs dense f64 on {len(cols)} "
+        f"variants: estim max |d|/(|b|+se) {e_b:.2e}, std.err max rel "
+        f"{e_se:.2e} (limit 1e-4); launches on the imputed pack {moved}")
+    for r in rows:
+        key = {"geno_cprod (K1)": "cprod", "geno_prod (K2)": "prod"}.get(
+            r["name"])
+        if key:
+            r["launches"] += moved[key]
+
+    planted = na_count / n
+    bad = [what for what, ok in (
+        ("ridge discordance < 0.7 x mode", d_ridge < 0.7 * d_mode),
+        ("boost discordance < 0.7 x mode", d_boost < 0.7 * d_mode),
+        ("info[0] = the planted NA rate", np.array_equal(info[0], planted)
+         and np.array_equal(binfo[0], planted)),
+        ("NA left only where no training row",
+         np.array_equal(np.flatnonzero(left), empty)
+         and np.isnan(info[1, empty]).all() and bleft == 0),
+        ("info= returns the same bytes", same),
+        ("simple modes", na_rand == 0 and np.isfinite(maf2).all()),
+        ("K1 and K2 launched on the imputed pack",
+         moved["cprod"] > 0 and moved["prod"] > 0),
+        ("GWAS against dense float64", e_b <= 1e-4 and e_se <= 1e-4))
+        if not ok]
+    if bad and dev.type == "cuda":
+        fail(f"slice 6d checks failed: {bad}")
+    if bad:
+        log(f"  (rehearsal: not enforced: {bad})")
+    total = time.perf_counter() - t_all
+    other = total - sum(times.values()) - sum(checks.values())
+    log("  stage times (s, host clock to a synchronize): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + "; checks: " + ", ".join(f"{k} {v:.3f}" for k, v in checks.items())
+        + f"; the rest {other:.1f}"
+        + "; block ms / bound: "
+        + ", ".join(f"{k} {ms:.3f} / {bd:.3f}" for k, v in blocks.items()
+                    for ms, bd in v)
+        + f"; [20] in all {total:.1f} s ({smi})")
 
 
 def arg_parser():
@@ -3992,8 +4456,12 @@ def arg_parser():
                     help="target samples of slice 6's GRM")
     ap.add_argument("--n7", type=int, default=20_000,
                     help="samples of slice 6c's BGEN cohort")
-    ap.add_argument("--m7", type=int, default=100_000,
+    ap.add_argument("--m7", type=int, default=50_000,
                     help="variants of slice 6c's BGEN cohort")
+    ap.add_argument("--n8", type=int, default=20_000,
+                    help="samples of slice 6d's imputation cohort")
+    ap.add_argument("--m8", type=int, default=100_000,
+                    help="variants of slice 6d's imputation cohort")
     # cut only by a CPU rehearsal, whose twins are slow
     ap.add_argument("--n-thr", type=int, default=50)
     ap.add_argument("--nlambda", type=int, default=30)
@@ -4113,6 +4581,9 @@ def main(argv=None):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     phase_slice6c(bp, gk, gsk, torch, dev, args, timer)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_slice6d(bp, gk, torch, dev, args, smi, rows)
     log(f"  wall time {time.perf_counter() - t_start:.1f} s")
 
     if dev.type != "cuda":

@@ -1039,3 +1039,83 @@ def test_prod_bgen_device_engine_matches_host(cuda, tmp_path):
         assert np.array_equal(np.isnan(dev), np.isnan(host))
         ok = ~np.isnan(host)
         assert np.abs(dev - host)[ok].max() <= 5e-6 * np.abs(host[ok]).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ridge", "boost"])
+def test_impute_blocks_match_cpu_path(cuda, kind):
+    """The ridge and boost blocks on the card against the same functions
+    on the CPU on the same arrays: ridge within 1e-3 absolute (the same
+    NaN rows), boost within 1e-4 with the same splits."""
+    from bigsnpr_tpu_torch.core.unpack import pack_codes
+    from bigsnpr_tpu_torch.utils import impute as pimp
+
+    rng = np.random.default_rng(3)
+    n, W, B, K = 4001, 300, 128, 16
+    hap = np.empty((W, 2 * n), dtype=np.int64)
+    hap[0] = rng.random(2 * n) < 0.3
+    for j in range(1, W):
+        hap[j] = np.where(rng.random(2 * n) < 0.9, hap[j - 1],
+                          rng.random(2 * n) < 0.3)
+    codes = np.array([3, 2, 0], np.uint8)[hap[:, :n] + hap[:, n:]]
+    codes[rng.random((W, n)) < 0.05] = 1
+    codes[7] = 1                                  # no training row
+    packed = pack_codes(torch.as_tensor(codes))
+    y_idx = np.resize(np.arange(W)[::2], B)
+    y_idx[0] = 7
+    nb = (y_idx[:, None] + rng.integers(-20, 21, (B, K))) % W
+    args = [packed, n, torch.as_tensor(nb), torch.as_tensor(
+        (rng.random((B, K)) < 0.95).astype(np.float32)),
+        torch.as_tensor(y_idx), torch.as_tensor(
+            (rng.random((B, n)) < 0.8).astype(np.float32))]
+    dev = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    if kind == "ridge":
+        out = pimp._impute_block_ridge(*dev, 1e-3)[0].cpu()
+        ref = pimp._impute_block_ridge(*args, 1e-3)[0]
+        nan = torch.isnan(ref)
+        assert nan[0].all() and torch.equal(torch.isnan(out), nan)
+        assert (out - ref)[~nan].abs().max() <= 1e-3
+    else:
+        out, _, _, sp = pimp._impute_block_boost(*dev, return_splits=True)
+        ref, _, _, sp_ref = pimp._impute_block_boost(*args,
+                                                     return_splits=True)
+        assert (out.cpu() - ref).abs().max() <= 1e-4
+        assert torch.equal(sp.cpu(), sp_ref)
+
+
+@pytest.mark.cuda
+def test_fast_impute_on_card_matches_cpu(cuda):
+    """snp_fastImpute and the simple modes on the card against the CPU:
+    info[0] and the simple modes bit-equal, imputed calls equal but for
+    rounding flips (at most 0.1%)."""
+    rng = np.random.default_rng(5)
+    n, m = 2000, 1200
+    hap = np.empty((m, 2 * n), dtype=np.int64)
+    hap[0] = rng.random(2 * n) < 0.4
+    for j in range(1, m):
+        hap[j] = np.where(rng.random(2 * n) < 0.9, hap[j - 1],
+                          rng.random(2 * n) < 0.4)
+    X = (hap[:, :n] + hap[:, n:]).astype(float)
+    X[rng.random((m, n)) < 0.05] = np.nan
+    from bigsnpr_tpu_torch import interop
+    from bigsnpr_tpu_torch.core import unpack
+
+    packed = unpack.np_pack_codes(unpack.np_dosage_to_codes(X))
+    chrom = {"chromosome": np.repeat([1, 2], m // 2)}
+    for method in ("mode", "mean0", "random"):
+        a = pt.snp_fastImputeSimple(interop.pack_from_numpy(packed, n),
+                                    method, seed=1, device=cuda)
+        b = pt.snp_fastImputeSimple(interop.pack_from_numpy(packed, n),
+                                    method, seed=1, device="cpu")
+        assert np.array_equal(a.packed, b.packed)
+    na = np.isnan(X)
+    for method in ("ridge", "boost"):
+        a, ia = pt.snp_fastImpute(
+            interop.pack_from_numpy(packed, n, map=chrom), seed=1,
+            method=method, device=cuda)
+        b, ib = pt.snp_fastImpute(
+            interop.pack_from_numpy(packed, n, map=chrom), seed=1,
+            method=method, device="cpu")
+        assert np.array_equal(ia[0], ib[0])
+        da, db = a.to_dosage().T[na], b.to_dosage().T[na]
+        assert (da != db).sum() <= 1e-3 * na.sum()

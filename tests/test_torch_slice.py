@@ -6,7 +6,8 @@ scheme -> grid clumping -> grid PRS -> stacking; LD -> blocked lassosum2)
 and the fifth (randomSVD on an int8m operator -> GWAS -> LD -> the
 unblocked lassosum2 and LDpred2) through both packages on the same pack;
 all five slices (the second: LD -> LDSC -> blocks -> LDpred2-auto / grid
--> PRS) in the port alone with jax, pandas and the JAX package blocked;
+-> PRS) and imputation -> autoSVD in the port alone with jax, pandas and
+the JAX package blocked;
 the device rule (no CUDA and no request for the CPU -> an entry point
 raises); and chip_smoke.py's CPU rehearsal."""
 
@@ -360,6 +361,14 @@ SCRIPT = textwrap.dedent("""
     assert np.isfinite(g5["estim"]).all() and s5.u.shape == (len(train), 3)
     assert "dropped_r2_frac" not in auto5[0] and grid5.shape == (pack.m, 1)
     assert samp5.shape == (pack.m, 4) and bl5.shape == (pack.m, 12)
+    # slice 6d: imputation -> autoSVD on the imputed pack
+    nas = pt.snp_fake(203, 300, seed=2, na_prob=0.05)
+    imp, info = pt.snp_fastImpute(nas, seed=1)
+    boo, _ = pt.snp_fastImpute(nas, seed=1, method="boost")
+    for meth in ("mode", "mean0", "random", "mean2"):
+        pt.snp_fastImputeSimple(nas, meth, seed=1)
+    assert not np.isnan(imp.to_dosage()).any() and np.isfinite(info[1]).all()
+    assert pt.snp_autoSVD(imp, k=2, roll_size=10).u.shape == (203, 2)
     bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not bad, bad
     print("PORT-ONLY-OK")
@@ -414,7 +423,8 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                           "--lasso-points", "8", "--n6", "600",
                           "--n6-ref", "300", "--m6", "3000",
                           "--n-sumstats", "6000", "--n-grm", "200",
-                          "--n7", "300", "--m7", "1500"],
+                          "--n7", "300", "--m7", "1500", "--n8", "300",
+                          "--m8", "1500"],
                          cwd=REPO,
                          capture_output=True, text=True, timeout=300, env=ENV2)
     assert out.returncode == 3, out.stdout[-2000:] + out.stderr[-2000:]
@@ -441,5 +451,8 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "decode", "read_as='random'", "PCA on the byte path",
                   "snp_cor on the byte path", "snp_prodBGEN over",
                   "r(PRS on hard calls", ".dpk store", "byte path, ",
-                  "warmup sections"):
+                  "warmup sections", "[20]", "simple: discordance",
+                  "ridge stage on the host clock", "snp_fastImpute: "
+                  "discordance", "boost block at", "[20] imputed pack",
+                  "snp_autoSVD kept"):
         assert phase in out.stdout
