@@ -57,7 +57,14 @@ A second package beside the JAX one, ported slice by slice.
   of variants decoded and fitted on the device; torch ops, as the JAX
   package's are XLA). With it the port exports every public name of the
   JAX package.
-- Still to come (ROADMAP queue 1): slice 7 (several cards).
+- Slice 7, several devices (`parallel/`): the packed matrix on an (s, v)
+  mesh of shards, in one process or one shard a rank of a
+  torch.distributed job (`parallel.mesh.MeshOperator`, K1 / K2 on every
+  tile, sums over the mesh in shard order; `parallel.distributed`: each
+  rank reads only its own bytes of a .bed), under `snp_randomSVD(engine=
+  "mesh" | "mesh-device")`; and LDpred2-auto's chains or LD blocks split
+  over devices (`shard_chains`, `shard_blocks`), each shard on the sweep
+  kernel, bit-equal to the unsharded run.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`config.set_device("cpu")` or `device="cpu"`). The package imports

@@ -24,7 +24,10 @@ from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator
 from bigsnpr_tpu_torch.ops.matvec import DosageOperator, TorchOperator
 from bigsnpr_tpu_torch.ops.stats import bed_scaleBinom
+from bigsnpr_tpu_torch.parallel.mesh import MeshOperator, make_mesh
 from bigsnpr_tpu_torch.utils.assertions import check_args
+
+ENGINES = ("auto", "torch", "mesh", "mesh-device")
 
 
 @dataclass
@@ -190,6 +193,7 @@ def snp_randomSVD(
     engine: str = "auto",
     op=None,
     device=None,
+    mesh=None,
 ) -> BigSVD:
     """Truncated SVD of the standardized genotype matrix.
 
@@ -199,10 +203,16 @@ def snp_randomSVD(
     engine: "auto" runs the `GenoOperator` (kernels K1/K2, K7 under
     `config.pallas_mxu = "split2"` or K6 under "int8", on CUDA; their
     twins on the CPU);
-    "torch" the plain-torch `TorchOperator`.
-    op: a pre-built operator with the {device, n, m, power_dev} surface;
-    pack may then be None and fun_scaling must be a {"center","scale"}
-    mapping.
+    "torch" the plain-torch `TorchOperator`; "mesh" and "mesh-device" the
+    `parallel.mesh.MeshOperator` on `mesh` (default: one shard a CUDA
+    device, or one on the CPU when the call runs there), built on the
+    physically subset pack, as the JAX package builds it. Every engine
+    runs the Krylov loop on the operator's device (`_device_krylov`); a
+    DosagePack has no mesh engine (ValueError).
+    op: a pre-built operator with the {device, n, m, power_dev} surface
+    (such as a multi-process `MeshOperator` from
+    `parallel.distributed.distributed_binom_operator`); pack may then be
+    None and fun_scaling must be a {"center","scale"} mapping.
 
     The scaling is computed over all variants on the row subset and taken
     at ind_col (identical values to scaling the physical subset); the
@@ -210,12 +220,26 @@ def snp_randomSVD(
     physically (on the device), scaled, and run on the byte path
     (`DosageOperator`), as the JAX package runs it through
     `snp_cprodVec` / `snp_prodVec` on the subset."""
-    if engine not in ("auto", "torch"):
-        raise ValueError(f"engine must be 'auto' or 'torch', not {engine!r}")
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, not {engine!r}")
     if op is not None:
         sc = fun_scaling(op) if callable(fun_scaling) else fun_scaling
         center = np.asarray(sc["center"], dtype=np.float64)
         scale = np.asarray(sc["scale"], dtype=np.float64)
+    elif engine in ("mesh", "mesh-device"):
+        if hasattr(pack, "code256"):
+            raise ValueError("a DosagePack has no mesh engine: run it with "
+                             "engine='auto'")
+        device = config.resolve_device(device)
+        sub = (pack if ind_row is None and ind_col is None
+               else pack.subset(ind_row=ind_row, ind_col=ind_col,
+                                device=device))
+        sc = (call_scaling(fun_scaling, sub, None, device)
+              if callable(fun_scaling) else fun_scaling)
+        center = np.asarray(sc["center"], dtype=np.float64)
+        scale = np.asarray(sc["scale"], dtype=np.float64)
+        op = MeshOperator(sub, center, scale, mesh=(
+            mesh if mesh is not None else make_mesh(device=device)))
     elif hasattr(pack, "code256"):
         device = config.resolve_device(device)
         sub = (pack if ind_row is None and ind_col is None

@@ -207,6 +207,24 @@ def _pair_sums_nona_compact(packed_t, packed_b, n):
     return G, st, sst, sb, ssb
 
 
+def pair_gram(packed_t, packed_b, n):
+    """Targets (B, nb) x band (Wb, nb) packed rows -> the (3B, 3Wb) int64
+    Gram of the stacked planes [x, x^2, mask] of both sides: the NA-aware
+    pair sums before they are picked apart (the JAX package's `G` of
+    `_pair_sums_block` and `parallel.mesh.pair_sums_fn`)."""
+    B, Wb = packed_t.shape[0], packed_b.shape[0]
+    use_int = _int32_exact(n, 16)
+    G = torch.zeros((3 * B, 3 * Wb), dtype=torch.int64,
+                    device=packed_t.device)
+    for b0, b1, k in _chunks(n, B + Wb):
+        xt, mt = _planes(packed_t, n, b0, b1, k)
+        xb, mb = _planes(packed_b, n, b0, b1, k)
+        A = torch.cat([xt, xt * xt, mt])
+        C = torch.cat([xb, xb * xb, mb])
+        G += _exact_mm(A, C, use_int)
+    return G
+
+
 def _pair_sums_block(packed_t, packed_b, n, nona=False):
     """Targets (B, nb) x band (Wb, nb) packed rows -> the six (B, Wb)
     NA-aware pair sums (Sxy, Sx, Sy, Sxx, Syy, Npair) as int64, where e.g.
@@ -220,15 +238,7 @@ def _pair_sums_block(packed_t, packed_b, n, nona=False):
         nf = torch.full((B, Wb), n, dtype=torch.int64, device=Sxy.device)
         return (Sxy, st[:, None].expand(B, Wb), sb[None, :].expand(B, Wb),
                 sst[:, None].expand(B, Wb), ssb[None, :].expand(B, Wb), nf)
-    use_int = _int32_exact(n, 16)
-    G = torch.zeros((3 * B, 3 * Wb), dtype=torch.int64,
-                    device=packed_t.device)
-    for b0, b1, k in _chunks(n, B + Wb):
-        xt, mt = _planes(packed_t, n, b0, b1, k)
-        xb, mb = _planes(packed_b, n, b0, b1, k)
-        A = torch.cat([xt, xt * xt, mt])
-        C = torch.cat([xb, xb * xb, mb])
-        G += _exact_mm(A, C, use_int)
+    G = pair_gram(packed_t, packed_b, n)
     Sxy = G[0:B, 0:Wb]
     Sx = G[0:B, 2 * Wb:3 * Wb]
     Sy = G[2 * B:3 * B, 0:Wb]

@@ -282,13 +282,13 @@ def sweep_step(dot, cbj, bhj, c2j, c4j, s1j, uj, zsj, iop, pc, spc, sh,
 
 
 def sweep_plain(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
-                sparse, shrink, no_jump):
+                sparse, shrink, no_jump, per_block=False):
     """The kernel's function in torch ops: a loop over rows vectorised
     over every block and chain (the JAX package's `_sweep_gibbs_batched`,
     with all buckets zero-padded to one width), the same operations in
     the same order as the kernel. Updates dp in place; returns (new_beta,
     causal, postp_inc, beta_inc, dps) as (NC, m) and (h2_inc, gap) as
-    (NC,)."""
+    (NC,), or with per_block as (NC, nblk), a value a block."""
     NC, m = cb.shape
     dt, dev = sb.dtype, sb.device
     beta, causal, postp_o, binc, dps_o, _, _ = _outputs(NC, m, dt, dev, 0)
@@ -327,6 +327,8 @@ def sweep_plain(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
     for out, y in zip((beta, postp_o, binc, dps_o), ys[[0, 2, 3, 4]]):
         _gather_set(out, y, g)
     _gather_set(causal, ys[1] != 0, g)
+    if per_block:
+        return beta, causal, postp_o, binc, dps_o, h2, gap
     return beta, causal, postp_o, binc, dps_o, h2.sum(1), gap.sum(1)
 
 
@@ -460,21 +462,22 @@ def _plan_for(sb, NC, lasso=False):
 
 
 def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
-          sparse, shrink, no_jump):
+          sparse, shrink, no_jump, per_block=False):
     """One Gibbs sweep over every block for NC chains (see `sweep_plain`
     for the outputs). CUDA tensors launch `gibbs_ring_kernel`; CPU
     tensors take `sweep_plain`."""
     _check(sb, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p, sparse)
     if sb.device.type == "cpu":
         return sweep_plain(sb, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
-                           sparse, shrink, no_jump)
+                           sparse, shrink, no_jump, per_block)
     if sb.device.type != "cuda":
         raise ValueError(f"unsupported device {sb.device}")
     lib = _load()
     NC, m = cb.shape
     outs = _outputs(NC, m, sb.dtype, sb.device, sb.nblk)
     if sb.nblk == 0 or NC == 0:
-        return outs[:5] + (outs[5].sum(1), outs[6].sum(1))
+        return outs[:5] + ((outs[5], outs[6]) if per_block
+                           else (outs[5].sum(1), outs[6].sum(1)))
     pl = _plan_for(sb, NC)
     fn = lib.gibbs_sweep_f64 if sb.dtype == torch.float64 else \
         lib.gibbs_sweep_f32
@@ -490,6 +493,8 @@ def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
     if rc != 0:
         raise RuntimeError(f"gibbs_sweep launch failed: CUDA error {rc}")
     launches["sweep_global" if sb.nblk == 1 else "sweep"] += 1
+    if per_block:
+        return outs
     return outs[:5] + (outs[5].sum(1), outs[6].sum(1))
 
 

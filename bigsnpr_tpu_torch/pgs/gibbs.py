@@ -92,26 +92,57 @@ def _beta_draw(z2, u1, u2, a, b):
     return g1 / (g1 + g2)
 
 
-def _profile(a, sum_a, nb, wb, log_var, s_lo, s_hi):
+def _pad_rows(x, rows):
+    """x (NC, ...) zero-padded to `rows` rows."""
+    if x.shape[0] == rows:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0], *x.shape[1:]))])
+
+
+def _pad(x, rows):
+    """x (NC, k) zero-padded to `rows` rows and to a multiple of 4 columns,
+    so that every row starts 16-byte aligned."""
+    if x.shape[-1] % 4:
+        x = torch.nn.functional.pad(x, (0, -x.shape[-1] % 4))
+    return _pad_rows(x, rows)
+
+
+def row_sums(x, rows=None):
+    """x (NC, k) -> (NC,) row sums, reduced as `rows` rows (None: NC) of
+    a multiple of 4 columns (x zero-padded). On the card a reduction's
+    order changes with the number of rows, and with a row's alignment,
+    not with its place: so the chains of a `shard_chains` shard, reduced
+    as the whole run's chain count, get the bits of the unsharded run."""
+    return _pad(x, rows or x.shape[0]).sum(1)[:x.shape[0]]
+
+
+def _profile(a, sum_a, nb, wb, log_var, s_lo, s_hi, rows=None):
     """The MLE profile f(a) and its sigma2 at a (NC, G) grid of alpha+1,
     summed over variants in slabs so the (NC, G, m) exponentials never
-    materialize whole."""
+    materialize whole; the slabs and the batched products are those of
+    `rows` chains over a multiple of 4 variants (zeros pad them, as in
+    `row_sums`)."""
     NC, G = a.shape
-    m = log_var.shape[0]
-    step = max(1, _MLE_SLAB // max(1, NC * G))
-    sum_c = torch.zeros((NC, G), dtype=a.dtype, device=a.device)
-    for j0 in range(0, m, step):
-        E = torch.exp(-a[:, :, None] * log_var[None, None, j0:j0 + step])
-        sum_c += torch.bmm(E, wb[:, j0:j0 + step, None])[:, :, 0]
+    rows = rows or NC
+    a_r, wb_r = _pad_rows(a, rows), _pad(wb, rows)
+    lv = torch.nn.functional.pad(log_var, (0, wb_r.shape[1] - len(log_var)))
+    m4 = lv.shape[0]
+    step = max(4, _MLE_SLAB // max(1, rows * G) // 4 * 4)
+    sum_c = torch.zeros((rows, G), dtype=a.dtype, device=a.device)
+    for j0 in range(0, m4, step):
+        E = torch.exp(-a_r[:, :, None] * lv[None, None, j0:j0 + step])
+        sum_c += torch.bmm(E, wb_r[:, j0:j0 + step, None])[:, :, 0]
+    sum_c = sum_c[:NC]
     s = torch.minimum(torch.maximum(sum_c / torch.clamp(nb, min=1.0)[:, None],
                                     s_lo[:, None]), s_hi[:, None])
     return a * sum_a[:, None] + nb[:, None] * torch.log(s) + sum_c / s, s
 
 
 def _mle_alpha_profile(par_sigma2, wts, log_var, beta2, alpha_bounds,
-                       n_grid=64, n_refine=3):
+                       n_grid=64, n_refine=3, rows=None):
     """Box-constrained MLE of (alpha+1, sigma2) on the weighted causal set,
-    per chain: par_sigma2 (NC,), wts and beta2 (NC, m), log_var (m,).
+    per chain: par_sigma2 (NC,), wts and beta2 (NC, m), log_var (m,); its
+    sums over variants reduced as `rows` chains (`row_sums`).
 
     The reference minimizes f(a, s) = a*sum_a + nb*log(s) + sum_c(a)/s with
     L-BFGS-B (src/optim-MLE-alpha.h:38-65); for fixed a the minimum over s
@@ -119,8 +150,8 @@ def _mle_alpha_profile(par_sigma2, wts, log_var, beta2, alpha_bounds,
     profile is minimized on a grid of n_grid points refined n_refine
     times, as in the JAX package (which also takes the current alpha; the
     profile does not start from it)."""
-    nb = wts.sum(1)
-    sum_a = wts @ log_var
+    nb = wts.sum(1)           # integers: exact in any order
+    sum_a = row_sums(wts * log_var, rows)
     wb = wts * beta2
     s_lo, s_hi = par_sigma2 / 2, par_sigma2 * 2
     NC = wts.shape[0]
@@ -131,13 +162,14 @@ def _mle_alpha_profile(par_sigma2, wts, log_var, beta2, alpha_bounds,
         / (n_grid - 1)
     for _ in range(n_refine):
         grid = lo[:, None] + (hi - lo)[:, None] * frac[None, :]
-        vals, _ = _profile(grid, sum_a, nb, wb, log_var, s_lo, s_hi)
+        vals, _ = _profile(grid, sum_a, nb, wb, log_var, s_lo, s_hi, rows)
         best = grid.gather(1, vals.argmin(1, keepdim=True))[:, 0]
         stepw = (hi - lo) / (n_grid - 1)
         lo, hi = torch.maximum(best - stepw, lo), torch.minimum(best + stepw,
                                                                 hi)
     a_best = 0.5 * (lo + hi)
-    _, s_best = _profile(a_best[:, None], sum_a, nb, wb, log_var, s_lo, s_hi)
+    _, s_best = _profile(a_best[:, None], sum_a, nb, wb, log_var, s_lo, s_hi,
+                         rows)
     return a_best, s_best[:, 0]
 
 

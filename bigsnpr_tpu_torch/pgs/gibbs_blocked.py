@@ -17,6 +17,15 @@ device (`BlockBands.device_put`) every bucket goes into one flat arena
 covers every block of every bucket for every chain. The whole sweep loop,
 hyper-parameter updates included, stays on the device: nothing in it
 waits on the host.
+
+LDpred2-auto also runs over several devices: `gibbs_auto_shard_chains`
+splits its chains (each shard runs its own chains' sweeps), and
+`gibbs_auto_shard_blocks` its blocks (`split_blocks`: whole blocks,
+balanced by rows; each shard sweeps its blocks for every chain, and the
+per-chain step runs on the first shard from the shards' sums gathered in
+global order). Both give the unsharded result, bit for bit: a shard's
+per-chain sums over variants or blocks are reduced as the whole run's
+chain count (`pgs.gibbs.row_sums`).
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch
 from bigsnpr_tpu_torch.ops import gibbs_kernels
 from bigsnpr_tpu_torch.pgs.gibbs import (MIN_H2, _beta_draw,
                                          _mle_alpha_profile, _poisson1, draw,
-                                         poisson1_cdf)
+                                         poisson1_cdf, row_sums)
 
 
 def _round_up(x: int, candidates=(8, 16, 32, 64, 128)) -> int:
@@ -308,16 +317,18 @@ def auto_blocks(corr, ind_corr=None, max_block: int = 4096,
 # ---------------------------------------------------------------------------
 
 def sweeps_bucketed_mc(sb, dp, curr_beta, consts, u, z, inv_odd_p, p,
-                       sparse_vec, shrink_corr, no_jump_sign):
+                       sparse_vec, shrink_corr, no_jump_sign,
+                       per_block=False):
     """One full Gibbs sweep over every bucket for NC chains (the JAX
     package's `_sweeps_bucketed_mc`): curr_beta, u, z (NC, m); consts =
     (bh (m,), C2, C4, s1 each (NC, m)); inv_odd_p, p (NC,); sparse_vec
     bool (NC,). dp (NC, sb.dp_len) is updated in place. Returns nb (NC, m)
-    and aux = (gap, causal, h2_inc, postp, beta_inc, dps)."""
+    and aux = (gap, causal, h2_inc, postp, beta_inc, dps), with gap and
+    h2_inc (NC,), or (NC, nblk) by block with per_block."""
     bh, C2, C4, s1 = consts
     nb, causal, postp, binc, dps, h2_inc, gap = gibbs_kernels.sweep(
         sb, dp, curr_beta, bh, C2, C4, s1, u, z, inv_odd_p, p, sparse_vec,
-        shrink_corr, no_jump_sign)
+        shrink_corr, no_jump_sign, per_block)
     return nb, (gap, causal, h2_inc, postp, binc, dps)
 
 
@@ -399,6 +410,232 @@ def gibbs_one_blocked(sb, beta_hat, n_vec, h2, p, sparse, gen, burn_in,
                                [gen], burn_in, num_iter)[0]
 
 
+class _AutoPart:
+    """One shard of an LDpred2-auto run: its bands `sb`, the generators
+    of the run's chains on its device, and its per-variant state. Under
+    `shard_blocks` sb holds some of the blocks, its slots numbered over
+    its own variants, whose global ids are `var`, and `blk` gives each of
+    its blocks' place among all the blocks; else both are None."""
+
+    def __init__(self, sb, var, blk, gens, beta_hat, n_vec, log_var, NC,
+                 num_reports):
+        dt, dev = sb.dtype, sb.device
+        self.sb, self.var, self.blk, self.gens = sb, var, blk, gens
+        take = (lambda x: x) if var is None else (lambda x: x[var])
+        self.bh = take(_as(sb, beta_hat))
+        self.nv = take(_as(sb, n_vec))
+        self.lv = take(_as(sb, log_var))
+        self.dp = sb.dp0(NC)
+        self.curr = torch.zeros((NC, sb.m), dtype=dt, device=dev)
+        self.avg_postp, self.avg_beta, self.avg_bhat = (
+            torch.zeros_like(self.curr) for _ in range(3))
+        self.samples = torch.zeros((NC, max(num_reports, 1), sb.m),
+                                   dtype=dt, device=dev)
+        self.no_sparse = torch.zeros(NC, dtype=torch.bool, device=dev)
+        self.cdf = poisson1_cdf(dt, dev)
+
+    def cols(self, X, j0):
+        """Columns j0 + (this shard's variants) of the (NC, .) draws."""
+        if self.var is None:
+            return X[:, j0:j0 + self.sb.m].contiguous()
+        return X[:, j0 + self.var]
+
+
+class _AutoRun:
+    """The LDpred2-auto chains of one group (every chain of an unsharded
+    or `shard_blocks` run, one shard's chains under `shard_chains`) over
+    the shards of its blocks (`parts`: one, or several under
+    `shard_blocks`). The per-chain step runs once, on the first part's
+    device. Its sums over all blocks or variants (the divergence gap, the
+    h2 increment, the alpha-MLE sums) take the parts' values gathered
+    there in global block or variant order and reduce them as one part's
+    would be reduced, so a split of the blocks leaves every bit of the
+    result as it was."""
+
+    def __init__(self, parts, m, p_inits, h2_init, num_iter_tot, kw):
+        self.parts, self.m, self.kw = parts, m, kw
+        sb = parts[0].sb
+        dt, dev = sb.dtype, sb.device
+        self.dt, self.dev = dt, dev
+        p_inits = torch.as_tensor(p_inits, dtype=dt, device=dev)
+        NC = p_inits.shape[0]
+        self.p = torch.clamp(p_inits, *kw["p_bounds"])
+        h2_0 = max(float(h2_init), MIN_H2)
+        self.cur_h2 = torch.zeros(NC, dtype=dt, device=dev)
+        self.par_alpha = torch.zeros(NC, dtype=dt, device=dev)
+        self.par_sigma2 = h2_0 / (m * self.p)
+        self.paths = torch.full((NC, 3, num_iter_tot), torch.nan, dtype=dt,
+                                device=dev)
+        self.diverged = torch.zeros(NC, dtype=torch.bool, device=dev)
+        self.split = len(parts) > 1
+        bh = _as(sb, kw["beta_hat"])
+        self.gap0 = 2.0 * torch.sum(bh ** 2)
+        if self.split:
+            self.lv = _as(sb, kw["log_var"])
+            self.nblk = sum(part.sb.nblk for part in parts)
+            for part in parts:
+                part.blk_d, part.var_d = part.blk.to(dev), part.var.to(dev)
+
+    def sweep(self, k):
+        """Every part's sweep of iteration k, with its draws."""
+        kw, m, dt = self.kw, self.m, self.dt
+        use_mle = kw["use_mle"]
+        for i, part in enumerate(self.parts):
+            d = part.sb.device
+            p, ps, pa, div = (x.to(d) for x in (self.p, self.par_sigma2,
+                                                self.par_alpha,
+                                                self.diverged))
+            inv_odd_p = (1 - p) / p
+            C1 = ps[:, None] * part.nv[None, :]
+            if use_mle:
+                C1 = torch.exp(pa[:, None] * part.lv[None, :]) * C1
+            C2 = 1.0 / (1.0 + 1.0 / C1)
+            C4 = C2 / part.nv[None, :]
+            s1 = torch.sqrt(1 + C1)
+            U, Z = draw(part.gens, m + 16 + (m if use_mle else 0), m + 2,
+                        dt, d)
+            nb, aux = sweeps_bucketed_mc(
+                part.sb, part.dp, part.curr, (part.bh, C2, C4, s1),
+                part.cols(U, 0), part.cols(Z, 0), inv_odd_p, p,
+                part.no_sparse, kw["shrink_corr"], kw["no_jump_sign"],
+                per_block=True)
+            part.gap, part.causal, part.h2_inc, postp_inc, beta_inc, dps = aux
+            if k >= kw["burn_in"]:
+                pm = ~div[:, None]
+                part.avg_postp += torch.where(pm, postp_inc, 0.0)
+                part.avg_beta += torch.where(pm, beta_inc, 0.0)
+                part.avg_bhat += torch.where(pm, dps, 0.0)
+            if use_mle:
+                part.wts = _poisson1(part.cols(U, m + 16),
+                                     part.cdf) * part.causal
+            part.nb = nb
+            if i == 0:
+                self.uz = (U[:, m:m + 16], Z[:, m:m + 2])
+
+    def _whole(self, name, by_block=False):
+        """The parts' `name`, (NC, their blocks) or (NC, their variants),
+        gathered on `dev` in global block or variant order."""
+        first = getattr(self.parts[0], name)
+        out = torch.empty((first.shape[0], self.nblk if by_block else
+                           self.m), dtype=first.dtype, device=self.dev)
+        for part in self.parts:
+            out[:, part.blk_d if by_block else part.var_d] = getattr(
+                part, name).to(self.dev)
+        return out
+
+    def update(self, k):
+        """The per-chain step of iteration k."""
+        kw, m = self.kw, self.m
+        pb0, pb1 = kw["p_bounds"]
+        part = self.parts[0]
+        if self.split:
+            gap = row_sums(self._whole("gap", by_block=True))
+            h2_inc = row_sums(self._whole("h2_inc", by_block=True))
+            causal, nb, lv = self._whole("causal"), self._whole("nb"), self.lv
+            wts = self._whole("wts") if kw["use_mle"] else None
+        else:
+            rows = kw["chains"]
+            gap, h2_inc = row_sums(part.gap, rows), row_sums(part.h2_inc, rows)
+            causal, nb, lv = part.causal, part.nb, part.lv
+            wts = getattr(part, "wts", None)
+        ok = ~self.diverged
+        div2 = self.diverged | (gap > self.gap0)
+        nb_causal = causal.sum(1).to(self.dt)
+        U, Z = self.uz
+        mean_ld = kw["mean_ld"]
+        p2 = _beta_draw(Z, U[:, :8], U[:, 8:16], 1 + nb_causal / mean_ld,
+                        1 + (m - nb_causal) / mean_ld)
+        p2 = torch.where(ok, torch.clamp(p2, pb0, pb1), self.p)
+        h2_est2 = torch.where(ok, self.cur_h2 + h2_inc, self.cur_h2)
+        h2 = torch.clamp(h2_est2, min=MIN_H2)
+        if kw["use_mle"]:
+            pa, ps = _mle_alpha_profile(self.par_sigma2, wts, lv, nb * nb,
+                                        kw["alpha_bounds"],
+                                        rows=kw["chains"])
+            pa = torch.where(ok, pa, self.par_alpha)
+            ps = torch.where(ok, ps, self.par_sigma2)
+        else:
+            pa = self.par_alpha
+            ps = torch.where(ok, h2 / (m * p2), self.par_sigma2)
+
+        vals = torch.stack([p2, h2, pa - 1.0], dim=1)
+        self.paths[:, :, k] = torch.where(div2[:, None], self.paths[:, :, k],
+                                          vals)
+        burn_in, step, reps = (kw["burn_in"], kw["report_step"],
+                               kw["num_reports"])
+        if reps > 0 and k >= burn_in and (k - burn_in + 1) % step == 0:
+            rep = min(max((k - burn_in + 1) // step - 1, 0), reps - 1)
+            for part in self.parts:
+                dv = div2.to(part.sb.device)[:, None]
+                row = torch.where(part.causal & ~dv, part.nb, 0.0)
+                part.samples[:, rep] = torch.where(dv, part.samples[:, rep],
+                                                   row)
+        for part in self.parts:
+            part.curr = part.nb
+        self.p, self.cur_h2, self.par_alpha, self.par_sigma2 = (p2, h2_est2,
+                                                                pa, ps)
+        self.diverged = div2
+
+    def result(self, num_iter):
+        """The dict of (NC, ...) tensors on the first part's device, the
+        per-variant ones in global variant order."""
+        def whole(name):
+            if not self.split:
+                return getattr(self.parts[0], name)
+            first = getattr(self.parts[0], name)
+            out = torch.empty((*first.shape[:-1], self.m), dtype=self.dt,
+                              device=self.dev)
+            for part in self.parts:
+                out[..., part.var_d] = getattr(part, name).to(self.dev)
+            return out
+
+        nan = torch.where(self.diverged[:, None], torch.nan,
+                          0.0).to(self.dt)
+        return {
+            "beta_est": whole("avg_beta") / num_iter + nan,
+            "postp_est": whole("avg_postp") / num_iter + nan,
+            "corr_est": whole("avg_bhat") / num_iter + nan,
+            "sample_beta": whole("samples"),
+            "path_p_est": self.paths[:, 0], "path_h2_est": self.paths[:, 1],
+            "path_alpha_est": self.paths[:, 2],
+        }
+
+
+def _auto_runs(groups, beta_hat, n_vec, log_var, p_inits, h2_init,
+               shrink_corr, p_bounds, alpha_bounds, mean_ld, burn_in,
+               num_iter, report_step, use_mle, no_jump_sign):
+    """Run the chain groups side by side, sweep by sweep, so that groups
+    on different cards overlap: groups is a list of (chain slice of
+    p_inits, [(sb, var, blk, gens)] the group's parts). Returns each
+    group's `_AutoRun.result`."""
+    num_iter_tot = burn_in + num_iter
+    if report_step is None:
+        report_step = num_iter + 1
+    num_reports = num_iter // report_step if report_step <= num_iter else 0
+    p_inits = np.asarray(p_inits.cpu() if torch.is_tensor(p_inits)
+                         else p_inits, dtype=np.float64)
+    m = len(beta_hat)
+    kw = dict(shrink_corr=shrink_corr,
+              p_bounds=(float(p_bounds[0]), float(p_bounds[1])),
+              alpha_bounds=alpha_bounds, mean_ld=mean_ld, burn_in=burn_in,
+              report_step=report_step, num_reports=num_reports,
+              use_mle=use_mle, no_jump_sign=no_jump_sign,
+              beta_hat=beta_hat, log_var=log_var, chains=len(p_inits))
+    runs = []
+    for chains, shards in groups:
+        p0 = p_inits[chains]
+        parts = [_AutoPart(sb, var, blk, gens, beta_hat, n_vec, log_var,
+                           len(p0), num_reports)
+                 for sb, var, blk, gens in shards]
+        runs.append(_AutoRun(parts, m, p0, h2_init, num_iter_tot, kw))
+    for k in range(num_iter_tot):
+        for run in runs:
+            run.sweep(k)
+        for run in runs:
+            run.update(k)
+    return [run.result(num_iter) for run in runs]
+
+
 def gibbs_auto_blocked_multi(sb, beta_hat, n_vec, log_var, p_inits, h2_init,
                              gens, shrink_corr, p_bounds, alpha_bounds,
                              mean_ld, burn_in, num_iter, report_step=None,
@@ -408,92 +645,111 @@ def gibbs_auto_blocked_multi(sb, beta_hat, n_vec, log_var, p_inits, h2_init,
     R/LDpred2.R:233-236, in one chain-batched sweep). p_inits (NC,), gens
     one generator per chain, alpha_bounds on the alpha+1 scale. Returns a
     dict of (NC, ...) tensors."""
-    dt, dev = sb.dtype, sb.device
-    bh, nv, lv = _as(sb, beta_hat), _as(sb, n_vec), _as(sb, log_var)
-    p_inits = _as(sb, p_inits)
-    NC, m = p_inits.shape[0], sb.m
-    num_iter_tot = burn_in + num_iter
-    if report_step is None:
-        report_step = num_iter + 1
-    num_reports = num_iter // report_step if report_step <= num_iter else 0
-    pb0, pb1 = float(p_bounds[0]), float(p_bounds[1])
-    gap0 = 2.0 * torch.sum(bh**2)
+    return _auto_runs(
+        [(slice(None), [(sb, None, None, gens)])], beta_hat, n_vec, log_var,
+        p_inits, h2_init, shrink_corr, p_bounds, alpha_bounds, mean_ld,
+        burn_in, num_iter, report_step, use_mle, no_jump_sign)[0]
 
-    p = torch.clamp(p_inits, pb0, pb1)
-    h2_0 = max(float(h2_init), MIN_H2)
-    cur_h2 = torch.zeros(NC, dtype=dt, device=dev)
-    par_alpha = torch.zeros(NC, dtype=dt, device=dev)
-    par_sigma2 = h2_0 / (m * p)
-    dp = sb.dp0(NC)
-    curr = torch.zeros((NC, m), dtype=dt, device=dev)
-    avg_postp, avg_beta, avg_bhat = (torch.zeros_like(curr) for _ in
-                                     range(3))
-    samples = torch.zeros((NC, max(num_reports, 1), m), dtype=dt, device=dev)
-    paths = torch.full((NC, 3, num_iter_tot), torch.nan, dtype=dt,
-                       device=dev)
-    diverged = torch.zeros(NC, dtype=torch.bool, device=dev)
-    no_sparse = torch.zeros(NC, dtype=torch.bool, device=dev)
-    n_pois = m if use_mle else 0
-    cdf = poisson1_cdf(dt, dev)
 
-    for k in range(num_iter_tot):
-        inv_odd_p = (1 - p) / p
-        C1 = par_sigma2[:, None] * nv[None, :]
-        if use_mle:
-            C1 = torch.exp(par_alpha[:, None] * lv[None, :]) * C1
-        C2 = 1.0 / (1.0 + 1.0 / C1)
-        C4 = C2 / nv[None, :]
-        s1 = torch.sqrt(1 + C1)
-        U, Z = draw(gens, m + 16 + n_pois, m + 2, dt, dev)
-        nb, aux = sweeps_bucketed_mc(sb, dp, curr, (bh, C2, C4, s1),
-                                     U[:, :m].contiguous(),
-                                     Z[:, :m].contiguous(), inv_odd_p, p,
-                                     no_sparse, shrink_corr, no_jump_sign)
-        gap, causal, h2_inc, postp_inc, beta_inc, dps = aux
-        ok = ~diverged
-        div2 = diverged | (gap > gap0)
-        if k >= burn_in:
-            pm = ok[:, None]
-            avg_postp += torch.where(pm, postp_inc, 0.0)
-            avg_beta += torch.where(pm, beta_inc, 0.0)
-            avg_bhat += torch.where(pm, dps, 0.0)
+def gibbs_auto_shard_chains(shards, beta_hat, n_vec, log_var, p_inits,
+                            h2_init, shrink_corr, p_bounds, alpha_bounds,
+                            mean_ld, burn_in, num_iter, report_step=None,
+                            use_mle=True, no_jump_sign=False):
+    """`gibbs_auto_blocked_multi` with the chains split over shards:
+    shards is a list of (sb, gens), sb the bands on the shard's device and
+    gens the generators of its chains (chain c's stream does not depend
+    on the chains beside it, `pgs.gibbs.chain_generators`), the shards'
+    chains in chain order. Each shard sweeps its own chains; the results
+    are concatenated in chain order on the first shard's device."""
+    per = len(p_inits) // len(shards)
+    groups = [(slice(i * per, (i + 1) * per), [(sb, None, None, g)])
+              for i, (sb, g) in enumerate(shards)]
+    outs = _auto_runs(groups, beta_hat, n_vec, log_var, p_inits, h2_init,
+                      shrink_corr, p_bounds, alpha_bounds, mean_ld, burn_in,
+                      num_iter, report_step, use_mle, no_jump_sign)
+    dev = shards[0][0].device
+    return {k: torch.cat([o[k].to(dev) for o in outs]) for k in outs[0]}
 
-        nb_causal = causal.sum(1).to(dt)
-        p2 = _beta_draw(Z[:, m:m + 2], U[:, m:m + 8], U[:, m + 8:m + 16],
-                        1 + nb_causal / mean_ld, 1 + (m - nb_causal) / mean_ld)
-        p2 = torch.where(ok, torch.clamp(p2, pb0, pb1), p)
-        h2_est2 = torch.where(ok, cur_h2 + h2_inc, cur_h2)
-        h2 = torch.clamp(h2_est2, min=MIN_H2)
-        if use_mle:
-            wts = _poisson1(U[:, m + 16:], cdf) * causal
-            pa, ps = _mle_alpha_profile(par_sigma2, wts, lv, nb * nb,
-                                        alpha_bounds)
-            pa = torch.where(ok, pa, par_alpha)
-            ps = torch.where(ok, ps, par_sigma2)
-        else:
-            pa = par_alpha
-            ps = torch.where(ok, h2 / (m * p2), par_sigma2)
 
-        vals = torch.stack([p2, h2, pa - 1.0], dim=1)
-        paths[:, :, k] = torch.where(div2[:, None], paths[:, :, k], vals)
-        if num_reports > 0 and k >= burn_in and \
-                (k - burn_in + 1) % report_step == 0:
-            rep = min(max((k - burn_in + 1) // report_step - 1, 0),
-                      num_reports - 1)
-            row = torch.where(causal & ~div2[:, None], nb, 0.0)
-            samples[:, rep] = torch.where(div2[:, None], samples[:, rep], row)
-        curr, p, cur_h2, par_alpha, par_sigma2, diverged = (nb, p2, h2_est2,
-                                                            pa, ps, div2)
+def gibbs_auto_shard_blocks(shards, beta_hat, n_vec, log_var, p_inits,
+                            h2_init, shrink_corr, p_bounds, alpha_bounds,
+                            mean_ld, burn_in, num_iter, report_step=None,
+                            use_mle=True, no_jump_sign=False):
+    """`gibbs_auto_blocked_multi` with the LD blocks split over shards:
+    shards is a list of (sb, var, blk, gens) (`shard_block_bands`: a
+    shard's blocks, the global ids of their variants, their places among
+    all blocks) with gens every chain's generators on the shard's device.
+    Each shard sweeps its own blocks for every chain. After each sweep the
+    per-chain quantities summed over all blocks or variants (the
+    divergence gap, the h2 increment, the causal count, the alpha-MLE
+    sums) are reduced on the first shard from the shards' values in
+    global order, as the unsharded sampler reduces them, and the
+    per-chain step runs there once: every shard steps with the same
+    values, and the result is the unsharded one."""
+    return _auto_runs(
+        [(slice(None), list(shards))], beta_hat, n_vec, log_var, p_inits,
+        h2_init, shrink_corr, p_bounds, alpha_bounds, mean_ld, burn_in,
+        num_iter, report_step, use_mle, no_jump_sign)[0]
 
-    nan = torch.where(diverged[:, None], torch.nan, 0.0).to(dt)
-    return {
-        "beta_est": avg_beta / num_iter + nan,
-        "postp_est": avg_postp / num_iter + nan,
-        "corr_est": avg_bhat / num_iter + nan,
-        "sample_beta": samples,
-        "path_p_est": paths[:, 0], "path_h2_est": paths[:, 1],
-        "path_alpha_est": paths[:, 2],
-    }
+
+def split_blocks(bb: BlockBands, n: int):
+    """Whole blocks of `bb` over n shards, balanced by rows: the longest
+    block first, each to the shard with the fewest rows so far (the
+    lowest such shard on a tie). Returns per shard (its buckets, with
+    slots renumbered over its own variants; the global ids of those
+    variants, ascending; each of its blocks' place in bb's block order,
+    buckets first, as `SweepBands` numbers them)."""
+    blocks = [(int(r), k, b) for k, (_, gidx) in enumerate(bb.buckets)
+              for b, r in enumerate((np.asarray(gidx) >= 0).sum(1))]
+    if n > len(blocks):
+        raise ValueError(f"{n} shards for {len(blocks)} LD blocks: a shard "
+                         "needs at least one block")
+    load, owner = [0] * n, [0] * len(blocks)
+    for i in sorted(range(len(blocks)), key=lambda i: (-blocks[i][0], i)):
+        owner[i] = min(range(n), key=lambda s: (load[s], s))
+        load[owner[i]] += blocks[i][0]
+    out = []
+    for s in range(n):
+        mine = [i for i in range(len(blocks)) if owner[i] == s]
+        g = np.concatenate([np.asarray(bb.buckets[blocks[i][1]][1])
+                            [blocks[i][2]] for i in mine])
+        var = np.sort(g[g >= 0]).astype(np.int64)
+        buckets = []
+        for k, (bands, gidx) in enumerate(bb.buckets):
+            sel = [blocks[i][2] for i in mine if blocks[i][1] == k]
+            if sel:
+                gk = np.asarray(gidx)[sel]
+                loc = np.where(gk >= 0, np.searchsorted(var, gk), -1)
+                buckets.append((np.asarray(bands)[sel],
+                                loc.astype(np.int32)))
+        out.append((buckets, var, np.asarray(mine, dtype=np.int64)))
+    return out
+
+
+def shard_block_bands(bb: BlockBands, devices, dtype=None):
+    """`split_blocks` over the shard devices, each shard's bands on its
+    device (cached on bb by shard count, shard, device and dtype): per
+    shard (SweepBands, var, blk) with var and blk long tensors on its
+    device."""
+    from bigsnpr_tpu_torch import config
+
+    if dtype is None:
+        dtype = bb.buckets[0][0].dtype if bb.buckets else np.float32
+    tdt = _TORCH_DTYPES[np.dtype(dtype)]
+    out, split = [], None
+    for i, d in enumerate(devices):
+        dev = config.resolve_device(d)
+        key = ("shard", len(devices), i, str(dev), tdt)
+        if key not in bb._dev_cache:
+            if split is None:
+                split = split_blocks(bb, len(devices))
+            buckets, var, blk = split[i]
+            bb._dev_cache[key] = (
+                gibbs_kernels.SweepBands(buckets, len(var), dev, tdt),
+                torch.as_tensor(var, device=dev),
+                torch.as_tensor(blk, device=dev))
+        out.append(bb._dev_cache[key])
+    return out
 
 
 def gibbs_auto_blocked(sb, beta_hat, n_vec, log_var, p_init, h2_init, gen,

@@ -11,8 +11,10 @@ default, on the unblocked ones (`blocks=None`: one band over every
 variant, the reference's own sampler); either way every chain or grid
 cell runs in one chain-batched sweep through the CUDA sweep kernel.
 `return_sampling_betas` always takes the unblocked sampler, as in the JAX
-package. The sharding options raise until their slice (ROADMAP queue 1,
-slice 7).
+package. LDpred2-auto splits the blocked sampler over several devices
+(`parallel.mesh.shard_devices`) with `shard_chains` (its chains) or
+`shard_blocks` (its LD blocks); each shard runs the sweep kernel on its
+own part.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import scipy.sparse.linalg as spla
 
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.ops.ldscores import ld_scores_sfbm
+from bigsnpr_tpu_torch.parallel.mesh import shard_devices
 from bigsnpr_tpu_torch.pgs import gibbs
 from bigsnpr_tpu_torch.pgs import gibbs_blocked as gb
 from bigsnpr_tpu_torch.pgs.band import one_block_bands
@@ -63,9 +66,15 @@ def snp_ldpred2_inf(corr, df_beta, h2: float) -> np.ndarray:
 
 
 def _blocked_setup(corr, blocks, ind_corr, dt, device):
-    """The bucketed block bands on the device. blocks: a BlockBands (used
-    as it is), an array of block sizes, or "auto" — exact independence
-    cuts from the LD structure, oversized blocks split by snp_ldsplit."""
+    """The bucketed block bands and their copy on the device."""
+    bb = _block_bands(corr, blocks, ind_corr, dt)
+    return bb, bb.device_put(device, dtype=dt)
+
+
+def _block_bands(corr, blocks, ind_corr, dt):
+    """The bucketed block bands. blocks: a BlockBands (used as it is), an
+    array of block sizes, or "auto" — exact independence cuts from the LD
+    structure, oversized blocks split by snp_ldsplit."""
     if isinstance(blocks, gb.BlockBands):
         bb = blocks
     else:
@@ -81,7 +90,7 @@ def _blocked_setup(corr, blocks, ind_corr, dt, device):
             f"at block boundaries — consider ldsplit-derived blocks "
             f"(blocks='auto') or wider blocks.", RuntimeWarning,
             stacklevel=3)
-    return bb, bb.device_put(device, dtype=dt)
+    return bb
 
 
 def _unblocked_setup(corr, ind_corr, dt, device, n_beta):
@@ -156,20 +165,34 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
                      alpha_bounds=(-1.5, 0.5), ind_corr=None, seed: int = 1,
                      blocks=None, shard_blocks: bool = False,
                      shard_chains: bool = False, dtype="float32",
-                     device=None) -> list[dict]:
+                     device=None, mesh=None) -> list[dict]:
     """Auto model (reference snp_ldpred2_auto, R/LDpred2.R:203-286), all
     chains in one chain-batched sampler: unblocked (`blocks=None`, one
     band over every variant) or blocked.
+
+    shard_chains: split the chains of the blocked sampler over the shards
+    of `mesh` (a Mesh, a list of devices, or by default one shard a CUDA
+    device; `parallel.mesh.shard_devices`); needs blocks= and a chain
+    count that the shard count divides. Each chain draws its own stream,
+    so a chain's result does not depend on the split. shard_blocks: split
+    the blocked sampler's LD blocks over the shards, balanced by rows;
+    after each sweep the per-chain sums over all blocks and variants are
+    gathered to the first shard in global order and reduced there as the
+    unsharded run reduces them. It needs blocks= too (ValueError). The
+    two are mutually exclusive; both give the unsharded result.
 
     Returns a list (over vec_p_init) of dicts with beta_est, postp_est,
     corr_est, sample_beta, path_{p,h2,alpha}_est, {h2,p,alpha}_est,
     h2_init, p_init (and beta_est_sparse when sparse=True); the blocked
     sampler adds dropped_r2_frac."""
     assert h2_init > 0
-    if shard_blocks or shard_chains:
-        raise NotImplementedError(
-            "snp_ldpred2_auto: shard_blocks / shard_chains are multi-GPU "
-            "(ROADMAP queue 1, slice 7)")
+    assert not (shard_chains and blocks is None), \
+        "shard_chains requires blocks= (the chain-batched sampler)"
+    assert not (shard_chains and shard_blocks), \
+        "shard_chains and shard_blocks are mutually exclusive"
+    if shard_blocks and blocks is None:
+        raise ValueError("shard_blocks requires blocks= (it splits the LD "
+                         "blocks over the shards)")
     beta_hat, N, scale = _df_beta_arrays(df_beta)
     sd = 1.0 / scale
     log_var = 2.0 * np.log(sd)
@@ -183,20 +206,44 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
     vec_p_init = np.atleast_1d(np.asarray(vec_p_init, dtype=np.float64))
     NC = len(vec_p_init)
 
+    args = (beta_hat, N, log_var, vec_p_init, h2_init)
+    kw = dict(shrink_corr=shrink_corr, p_bounds=p_bounds,
+              alpha_bounds=np.asarray(alpha_bounds, dtype=np.float64) + 1,
+              mean_ld=mean_ld, burn_in=burn_in, num_iter=num_iter,
+              report_step=report_step, use_mle=use_MLE,
+              no_jump_sign=not allow_jump_sign)
+    run_grid = gibbs.gibbs_one if blocks is None else gb.gibbs_multi_blocked
+    sb = None
     if blocks is None:
-        bb, run_auto, run_grid = None, gibbs.gibbs_auto, gibbs.gibbs_one
+        bb = None
         sb = _unblocked_setup(corr, ind_corr, dt, dev, len(beta_hat))
+        outs = gibbs.gibbs_auto(sb, *args, chain_generators(seed, NC, dev),
+                                **kw)
+    elif shard_chains or shard_blocks:
+        bb = _block_bands(corr, blocks, ind_corr, dt)
+        assert bb.m == len(beta_hat)
+        shards = shard_devices(mesh, dev)
+        dev = shards[0]
+        if shard_chains:
+            assert NC % len(shards) == 0, (
+                f"{NC} chains must divide the {len(shards)}-shard chain "
+                "mesh")
+            per = NC // len(shards)
+            outs = gb.gibbs_auto_shard_chains(
+                [(bb.device_put(d, dtype=dt),
+                  chain_generators(seed, NC, d)[i * per:(i + 1) * per])
+                 for i, d in enumerate(shards)], *args, **kw)
+        else:
+            outs = gb.gibbs_auto_shard_blocks(
+                [(s, var, blk, chain_generators(seed, NC, d))
+                 for (s, var, blk), d in
+                 zip(gb.shard_block_bands(bb, shards, dt), shards)],
+                *args, **kw)
     else:
-        run_auto = gb.gibbs_auto_blocked_multi
-        run_grid = gb.gibbs_multi_blocked
         bb, sb = _blocked_setup(corr, blocks, ind_corr, dt, dev)
         assert bb.m == len(beta_hat)
-    outs = run_auto(
-        sb, beta_hat, N, log_var, vec_p_init, h2_init,
-        chain_generators(seed, NC, dev), shrink_corr, p_bounds,
-        np.asarray(alpha_bounds, dtype=np.float64) + 1, mean_ld,
-        burn_in, num_iter, report_step=report_step, use_mle=use_MLE,
-        no_jump_sign=not allow_jump_sign)
+        outs = gb.gibbs_auto_blocked_multi(
+            sb, *args, chain_generators(seed, NC, dev), **kw)
     outs_np = {k: v.double().cpu().numpy() for k, v in outs.items()}
     results = []
     for c in range(NC):
@@ -215,6 +262,8 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
         # the chains whose h2 estimate is finite, batched
         live = [c for c in range(NC) if np.isfinite(results[c]["h2_est"])]
         if live:
+            if sb is None:       # sharded: the sparse runs on the first shard
+                sb = bb.device_put(dev, dtype=dt)
             salted = chain_generators(seed, NC, dev, salt=(12345,))
             gens = [salted[c] for c in live]
             bg = run_grid(

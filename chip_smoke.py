@@ -194,6 +194,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bounds, K1 / K2 launched on the imputed pack and held against their
      twins there, the GWAS against dense float64; each stage timed.
 
+ 21. slice 7, several devices on the one card, on the data of slices 1 and
+     2 (run after [5] and after [8]): (a) slice 1's pack on an in-process
+     2 x 2 mesh of four shards (`parallel.mesh.MeshOperator`): the tiles'
+     K1 / K2 plans (and one past depth 2^23), cprod / prod / power at l =
+     20 within 1e-5 of max |float64| and of the single-device
+     GenoOperator, K1 / K2 launched once a tile, the power step timed
+     beside the single device's, colstats over the mesh equal to
+     snp_counts, snp_randomSVD(k = 10, engine "mesh") against [4]'s (d
+     within 1e-4, |cos| of each u column above 0.999) with its launches a
+     multiple of 4; (b) two ranks of torch.distributed on gloo, both on the
+     card (`parallel.selfcheck`), each reading only its own sample bytes of
+     [4]'s .bed through distributed_binom_operator: the scaling equal to
+     bed_scaleBinom's to 1e-12, every output bit-equal across the ranks,
+     cprod / prod and randomSVD within (a)'s limits of the single device,
+     and, started with them, one rank on NCCL with the same checks; (c)
+     slice 2's
+     LDpred2-auto (30 chains, 100 + 100 sweeps) unsharded, with
+     shard_chains over two shards (every chain bit-equal to the unsharded
+     run) and with shard_blocks over two (beta_est and path_h2_est within
+     rtol 5e-4), the sweep kernel launched once a shard a sweep.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
 `--rehearse-cpu` runs the same phases on the CPU through the twins at the
@@ -218,6 +238,7 @@ import tempfile
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -540,7 +561,7 @@ def phase_main_path(bp, gk, torch, dev, packed_np, pop, n, m, seed, tmp):
         f"at threshold {thr[best]:.2f} (floor 0.1)")
     if not r[best] > 0.1:
         fail("PRS does not predict the phenotype")
-    return pack, sc, launches
+    return pack, sc, launches, svd
 
 
 # (kernel, l, samples, what calls it on the main path); the JSON line
@@ -1093,11 +1114,11 @@ def phase_slice2(bp, gsk, gk, torch, dev, args):
     stage("bands to the device", lambda: bb.device_put(dev))
     p_init = np.geomspace(1e-4, 0.2, N_CHAINS)
 
-    def run_auto(burn_in, num_iter):
+    def run_auto(burn_in, num_iter, **kw):
         return bp.snp_ldpred2_auto(
             corr, df_beta, h2_init=max(h2_ldsc, 1e-3), vec_p_init=p_init,
             burn_in=burn_in, num_iter=num_iter, allow_jump_sign=False,
-            shrink_corr=0.95, blocks=bb)
+            shrink_corr=0.95, blocks=bb, **kw)
 
     auto = stage("snp_ldpred2_auto", lambda: run_auto(args.burn_in,
                                                       args.num_iter))
@@ -4417,6 +4438,254 @@ def phase_slice6d(bp, gk, torch, dev, args, smi, rows):
         + f"; [20] in all {total:.1f} s ({smi})")
 
 
+# ---------------------------------------------------------------------------
+# slice 7: several devices (the mesh, torch.distributed, sharded LDpred2)
+# on one card
+# ---------------------------------------------------------------------------
+
+def mesh_errors(torch, got, ref64, ref1):
+    """(max |got - float64| , max |got - single-device|) / max |float64|."""
+    scale = max(float(ref64.abs().max()), 1e-300)
+    return rel64(got, ref64), float((got - ref1).abs().max()) / scale
+
+
+def check_mesh_svd(svd, ref, what):
+    """d within 1e-4 relative and |cos| > 0.999 for every u column against
+    slice 1's single-device SVD; returns (d error, min |cos|)."""
+    d_err = float(np.max(np.abs(svd.d - ref.d) / ref.d))
+    cos = np.abs(np.sum(svd.u * ref.u, axis=0)) / (
+        np.linalg.norm(svd.u, axis=0) * np.linalg.norm(ref.u, axis=0))
+    log(f"    {what}: d max rel {d_err:.2e} (limit 1e-4), min |cos(u)| "
+        f"{cos.min():.6f} (floor 0.999), depths {svd.niter} (single "
+        f"device {ref.niter})")
+    if d_err > 1e-4 or cos.min() < 0.999:
+        fail(f"{what} disagrees with the single-device SVD")
+    return d_err, float(cos.min())
+
+
+def phase_mesh(bp, gk, torch, dev, pack, sc, svd, timer, seed, l=20):
+    """[21a]: slice 1's pack on an in-process 2 x 2 mesh of four shards on
+    the one device. Returns its stage times and K1 / K2 launches."""
+    from bigsnpr_tpu_torch.parallel import mesh as pmesh
+
+    n, m = pack.n, pack.m
+    log(f"[21a] slice 7: slice 1's {n} x {m} pack on a 2 x 2 mesh, four "
+        f"shards on {dev}")
+    times, out = {}, {}
+
+    def stage(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return res
+
+    mesh = pmesh.make_mesh(devices=[dev] * 4)
+    op = stage("tiles", lambda: pmesh.MeshOperator(pack, sc["center"],
+                                                   sc["scale"], mesh=mesh))
+    m_loc, n_loc = op.m_pad // 2, op.n_pad // 2
+    sms = gk._sm_count(dev) if dev.type == "cuda" else SMS
+    for what, mm, nn in (("K1 tile", m_loc, n_loc), ("K2 tile", m_loc, n_loc),
+                         ("K2 tile past depth 2^23",
+                          gk.MAX_COUNT_DEPTH + 4097, 64)):
+        prod = what.startswith("K2")
+        log(f"  {what} ({mm} variants x {nn} samples, l = {l}): plan "
+            f"{gk.plane_plan(prod, 3, mm, nn, l, sms)}")
+    log(f"  tiles {n_loc} samples x {m_loc} variants ({n_loc // 4} bytes) "
+        f"made in {times['tiles']:.3f} s")
+    rng = np.random.default_rng(seed + 21)
+    V = torch.as_tensor(rng.standard_normal((n, l)), dtype=torch.float32,
+                        device=dev)
+    U = torch.as_tensor(rng.standard_normal((m, l)), dtype=torch.float32,
+                        device=dev)
+    g = bp.GenoOperator(pack, sc["center"], sc["scale"])
+    P, c, inv = pack.device_packed(dev), g.center, g.inv
+    gk.reset_launches()
+    Bc = stage("cprod", lambda: op.cprod_dev(V))
+    Yu = stage("prod", lambda: op.prod_dev(U))
+    B, Y = stage("power", lambda: op.power_dev(V))
+    launches = dict(gk.launches)
+    B64 = product64(torch, P, n, c, inv, V, False)
+    errs = {"cprod": mesh_errors(torch, Bc, B64, g.cprod_dev(V)),
+            "prod": mesh_errors(torch, Yu, product64(torch, P, n, c, inv, U,
+                                                     True), g.prod_dev(U)),
+            "power B": mesh_errors(torch, B, B64, g.cprod_dev(V)),
+            "power Y": mesh_errors(torch, Y, product64(torch, P, n, c, inv,
+                                                       B, True),
+                                   g.prod_dev(B))}
+    for what, (e64, e1) in errs.items():
+        log(f"    {what:8s} vs float64 {e64:.2e}, vs the single-device "
+            f"GenoOperator {e1:.2e} (limit {DENSE_TOL} of max |float64|)")
+        if max(e64, e1) > DENSE_TOL:
+            fail(f"the mesh's {what} is off")
+    log(f"    K1 / K2 launches for cprod, prod and power: {launches['cprod']}"
+        f" / {launches['prod']} (4 tiles: 8 / 8)")
+    if dev.type == "cuda" and (launches["cprod"], launches["prod"]) != (8, 8):
+        fail("the mesh did not launch K1 / K2 once a tile")
+    t_mesh = timer(lambda: op.power_dev(V), 5)
+    t_one = timer(lambda: g.power_dev(V), 5)
+    log(f"    power step at l = {l}: mesh {t_mesh:.3f} ms, single device "
+        f"{t_one:.3f} ms (one card: the four tiles run one after another)")
+    st = stage("colstats", lambda: pmesh.colstats_fn(mesh)(op.packed))
+    cnt = bp.snp_counts(pack)
+    ok = (np.array_equal(st[0, :m], cnt[1] + 2 * cnt[2])
+          and np.array_equal(st[1, :m], cnt[1] + 4 * cnt[2])
+          and np.array_equal(st[2, :m], cnt[:3].sum(0)))
+    log(f"    colstats over the mesh equal to snp_counts: {ok} "
+        f"({times['colstats']:.3f} s)")
+    if not ok:
+        fail("the mesh's colstats differ from snp_counts")
+    gk.reset_launches()
+    s7 = stage("snp_randomSVD mesh", lambda: bp.snp_randomSVD(
+        pack, k=10, engine="mesh", mesh=mesh))
+    out["svd"] = dict(gk.launches)
+    t_svd = times["snp_randomSVD mesh"]
+    log(f"  snp_randomSVD(k = 10, engine \"mesh\") {t_svd:.3f} s; K1 / K2 "
+        f"launches {out['svd']['cprod']} / "
+        f"{out['svd']['prod']} (4 a power step)")
+    if dev.type == "cuda" and not (
+            out["svd"]["cprod"] > 0 and out["svd"]["cprod"] % 4 == 0
+            and out["svd"]["prod"] == out["svd"]["cprod"]):
+        fail("randomSVD on the mesh did not launch K1 / K2 on every tile")
+    check_mesh_svd(s7, svd, "randomSVD on the mesh")
+    log("  stage times " + ", ".join(f"{k} {v:.3f} s"
+                                     for k, v in times.items()))
+    return times, out
+
+
+def phase_ranks(bp, gk, torch, dev, pack, sc, svd, bedfile, tmp):
+    """[21b]: two ranks of torch.distributed on gloo, both on the one
+    device, each reading only its own sample bytes of slice 1's .bed, and
+    at the same time one rank on NCCL (on the card only). Returns the
+    wall time."""
+    from bigsnpr_tpu_torch.parallel import selfcheck
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "OMP_NUM_THREADS": "2",
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (here, os.environ.get("PYTHONPATH")) if p)}
+    rank_dev = "cuda:0" if dev.type == "cuda" else "cpu"
+    g = bp.GenoOperator(pack, sc["center"], sc["scale"])
+    P, c, inv = pack.device_packed(dev), g.center, g.inv
+    rng = np.random.default_rng(0)          # the ranks' operands
+    V = torch.as_tensor(rng.standard_normal((pack.n, 3)).astype(np.float32),
+                        device=dev)
+    U = torch.as_tensor(rng.standard_normal((pack.m, 3)).astype(np.float32),
+                        device=dev)
+    B64 = product64(torch, P, pack.n, c, inv, V, False)
+    Y64 = product64(torch, P, pack.n, c, inv, U, True)
+    B1, Y1 = g.cprod_dev(V), g.prod_dev(U)
+    runs = [("2 ranks, gloo", 2, "gloo", (2, 1))]
+    if dev.type == "cuda":                  # NCCL needs the card
+        runs.append(("1 rank, nccl", 1, "nccl", (1, 1)))
+    log(f"[21b] {' and '.join(r[0] for r in runs)} at once on {rank_dev}: "
+        f"each rank reads its own bytes of {os.path.basename(bedfile)}")
+    t0 = time.perf_counter()
+    jobs = [selfcheck.start(world, bedfile, os.path.join(tmp, f"r{world}"),
+                            backend=backend, device=rank_dev, shape=shape,
+                            k=10, tol=1e-4, env=env)
+            for _, world, backend, shape in runs]
+    try:
+        results = [selfcheck.collect(job, timeout=400) for job in jobs]
+    finally:                     # a failed job leaves no rank behind
+        for _, procs, _ in jobs:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    walls = {"ranks": time.perf_counter() - t0}
+    log(f"  wall {walls['ranks']:.1f} s (every rank: start, ingest, products "
+        f"and randomSVD)")
+    for (tag, world, backend, shape), res in zip(runs, results):
+        r0 = res[0]
+        same = all(np.array_equal(r0[k], r[k]) for r in res[1:] for k in (
+            "B", "Y", "Bp", "Yp", "d", "u", "v", "center", "scale"))
+        log(f"  {tag} (mesh {shape[0]} x {shape[1]}): rank 0's own "
+            f"{float(r0['seconds']):.1f} s after its start; backend "
+            f"{r0['backend']}; ranks bit-equal: {same}; K1 / K2 launches a "
+            f"rank {[(int(r['cprod']), int(r['prod'])) for r in res]}")
+        if not same:
+            fail(f"[21b] {tag}: the ranks disagree")
+        if dev.type == "cuda" and any(int(r["cprod"]) <= 0 or int(r["prod"])
+                                      <= 0 for r in res):
+            fail(f"[21b] {tag}: a rank launched no K1 / K2")
+        e_c = float(np.max(np.abs(r0["center"] - sc["center"])))
+        e_s = float(np.max(np.abs(r0["scale"] - sc["scale"])))
+        log(f"    center / scale vs bed_scaleBinom: {e_c:.1e} / {e_s:.1e} "
+            f"(limit 1e-12)")
+        if max(e_c, e_s) > 1e-12:
+            fail(f"[21b] {tag}: the scaling is off")
+        for what, got, ref64, ref1 in (("cprod", r0["B"], B64, B1),
+                                       ("prod", r0["Y"], Y64, Y1)):
+            e64, e1 = mesh_errors(torch, torch.as_tensor(got, device=dev),
+                                  ref64, ref1)
+            log(f"    {what:5s} vs float64 {e64:.2e}, vs the single device "
+                f"{e1:.2e} (limit {DENSE_TOL})")
+            if max(e64, e1) > DENSE_TOL:
+                fail(f"[21b] {tag}: {what} is off")
+        check_mesh_svd(SimpleNamespace(d=r0["d"], u=r0["u"],
+                                       niter=int(r0["niter"])), svd,
+                       f"randomSVD over {tag}")
+    return walls
+
+
+def phase_shard_ldpred2(gsk, torch, dev, run_auto, n_blocks, args):
+    """[21c]: slice 2's LDpred2-auto (30 chains) unsharded, with
+    shard_chains and with shard_blocks over two shards of the one device
+    (over as many as there are LD blocks, if fewer: a rehearsal's cohort
+    may have one), at half of [6]'s sweeps, at most 100 + 100. Returns the
+    wall times."""
+    burn, keep = min(100, args.burn_in // 2), min(100, args.num_iter // 2)
+    shards = {"unsharded": 1, "shard_chains": 2,
+              "shard_blocks": min(2, n_blocks)}
+    log(f"[21c] slice 2's snp_ldpred2_auto, {N_CHAINS} chains, {burn} + "
+        f"{keep} sweeps: unsharded, shard_chains over 2 shards and "
+        f"shard_blocks over {shards['shard_blocks']} ({n_blocks} LD blocks) "
+        f"of {dev}")
+    walls = {}
+
+    def timed(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        gsk.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        n_sweep = gsk.launches["sweep"]
+        log(f"  {name:13s} {walls[name]:8.3f} s; sweep launches {n_sweep}")
+        if dev.type == "cuda" and n_sweep != shards[name] * (burn + keep):
+            fail(f"[21c] {name} launched the sweep kernel {n_sweep} times")
+        return res
+
+    ref = timed("unsharded", lambda: run_auto(burn, keep))
+    keys = ("beta_est", "postp_est", "corr_est", "sample_beta",
+            "path_p_est", "path_h2_est", "path_alpha_est")
+    for shard in ("shard_chains", "shard_blocks"):
+        got = timed(shard, lambda: run_auto(
+            burn, keep, mesh=[dev] * shards[shard], **{shard: True}))
+        diff = max(float(np.nanmax(np.abs(g[k] - r[k]), initial=0.0))
+                   for g, r in zip(got, ref) for k in keys)
+        equal = all(np.array_equal(g[k], r[k], equal_nan=True)
+                    for g, r in zip(got, ref) for k in keys)
+        log(f"    {shard}: every chain bit-equal to the unsharded run: "
+            f"{equal} (max |difference| {diff:.3e})")
+        if shard == "shard_chains" and not equal:
+            fail("[21c] shard_chains differs from the unsharded run")
+        if shard == "shard_blocks":
+            for g, r in zip(got, ref):
+                for k, atol in (("beta_est", 1e-8), ("path_h2_est", 1e-7)):
+                    ok = np.allclose(g[k], r[k], rtol=5e-4, atol=atol,
+                                     equal_nan=True)
+                    if not ok:
+                        fail(f"[21c] shard_blocks {k} beyond rtol 5e-4")
+    return walls
+
+
 def arg_parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -4531,14 +4800,21 @@ def main(argv=None):
 
     with tempfile.TemporaryDirectory() as tmp:
         gsk.reset_launches()
-        pack, sc, launches = phase_main_path(bp, gk, torch, dev, packed_np,
-                                             pop, args.n, args.m, args.seed,
-                                             tmp)
+        pack, sc, launches, svd = phase_main_path(
+            bp, gk, torch, dev, packed_np, pop, args.n, args.m, args.seed,
+            tmp)
         if gsk.launches["sweep"]:
             fail("slice 1 launched the sweep kernel")
         rows = kernel_rows(gk, torch, dev, pack, sc, launches,
                            n_test=args.n - args.n * 4 // 5)
-        del pack, packed_np
+        # slice 7 on slice 1's data: [21a] and [21b] ([21c] after [8])
+        t21 = time.perf_counter()
+        times21, _ = phase_mesh(bp, gk, torch, dev, pack, sc, svd, timer,
+                                args.seed)
+        walls21 = phase_ranks(bp, gk, torch, dev, pack, sc, svd,
+                              os.path.join(tmp, "cohort.bed"), tmp)
+        t21 = time.perf_counter() - t21
+        del pack, packed_np, svd
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -4546,6 +4822,13 @@ def main(argv=None):
     rows += phase_sweep_kernels(bp, gsk, torch, dev, bb, launches2, timer,
                                 args.seed)
     phase_profile(torch, dev, run_auto, sweep_kernel="gibbs_ring_kernel")
+    t0 = time.perf_counter()
+    walls21.update(phase_shard_ldpred2(
+        gsk, torch, dev, run_auto, sum(len(g) for _, g in bb.buckets), args))
+    t21 += time.perf_counter() - t0
+    log(f"  [21] {t21:.1f} s in all: [21a] " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times21.items()) + "; [21b] / [21c] "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls21.items()))
     del bb, run_auto
     if dev.type == "cuda":
         torch.cuda.empty_cache()

@@ -1119,3 +1119,58 @@ def test_fast_impute_on_card_matches_cpu(cuda):
         assert np.array_equal(ia[0], ib[0])
         da, db = a.to_dosage().T[na], b.to_dosage().T[na]
         assert (da != db).sum() <= 1e-3 * na.sum()
+
+
+@pytest.mark.cuda
+def test_mesh_on_one_card_matches_geno_operator(cuda):
+    """A 2 x 2 mesh of four shards on cuda:0: K1 / K2 launched once a tile
+    a product, and cprod / prod / power within 1e-5 of max |float64| and
+    of the single-device GenoOperator; LDpred2-auto's shard_chains and
+    shard_blocks on two shards of the card bit-equal to the unsharded
+    run."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+    from bigsnpr_tpu_torch.parallel import mesh as pmesh
+
+    n, m, l = 2003, 3001, 20
+    pp = pt.snp_fake(n, m, seed=3, na_prob=0.02)
+    sc = pt.bed_scaleBinom(pp, device=cuda)
+    mesh = pmesh.make_mesh(devices=["cuda:0"] * 4)
+    op = pmesh.MeshOperator(pp, sc["center"], sc["scale"], mesh=mesh)
+    g = pt.GenoOperator(pp, sc["center"], sc["scale"], device=cuda)
+    V = torch.randn(n, l, device=cuda)
+    gk.reset_launches()
+    B, Y = op.power_dev(V)
+    torch.cuda.synchronize()
+    assert gk.launches["cprod"] == 4 and gk.launches["prod"] == 4
+    packed = pp.device_packed(cuda)
+    X = dense64(packed, n, g.center, g.inv)
+    B64 = X @ V.double()
+    Y64 = X.T @ B.double()
+    for got, ref64, ref in ((B, B64, g.cprod_dev(V)),
+                            (Y, Y64, g.prod_dev(B))):
+        scale = ref64.abs().max()
+        assert (got.double() - ref64).abs().max() <= 1e-5 * scale
+        assert (got - ref).abs().max() <= 1e-5 * scale
+    cols = pt.snp_colstats(pp, device=cuda)
+    st = pmesh.colstats_fn(mesh)(op.packed)[:, :m]
+    np.testing.assert_array_equal(st[0], cols["sumX"])
+    np.testing.assert_array_equal(st[2], cols["nona"])
+
+    rng = np.random.default_rng(0)
+    corr = pt.snp_cor(pp, size=100, device=cuda)
+    df = {"beta": rng.normal(0, 0.02, m), "beta_se": np.full(m, 0.02),
+          "n_eff": np.full(m, float(n))}
+    blocks = pt.auto_blocks(corr, max_block=300)
+    kw = dict(h2_init=0.2, vec_p_init=np.geomspace(0.01, 0.3, 6),
+              burn_in=10, num_iter=10, blocks=blocks, device=cuda)
+    ref = pt.snp_ldpred2_auto(corr, df, **kw)
+    gsk.reset_launches()
+    for shard in ("shard_chains", "shard_blocks"):
+        got = pt.snp_ldpred2_auto(corr, df, mesh=["cuda:0"] * 2,
+                                  **{shard: True}, **kw)
+        for r, s in zip(ref, got):
+            for k in ("beta_est", "path_h2_est", "path_p_est",
+                      "path_alpha_est", "corr_est"):
+                np.testing.assert_array_equal(s[k], r[k],
+                                              err_msg=f"{shard} {k}")
+    assert gsk.launches["sweep"] == 4 * 20

@@ -158,14 +158,30 @@ def test_ldpred2_inf_matches_jax(pipe):
 
 
 def test_unported_options_raise(pipe):
-    """The multi-GPU options raise until slice 7, with blocks or without;
-    blocks=None and return_sampling_betas run since slice 5
-    (tests/test_torch_unblocked.py holds them against the JAX package)."""
-    for kw in (dict(blocks=pipe["blocks"], shard_chains=True),
-               dict(blocks=pipe["blocks"], shard_blocks=True),
-               dict(shard_chains=True)):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], h2_init=0.3, **kw)
+    """The sharding options keep the JAX package's assertions:
+    shard_chains needs blocks= and excludes shard_blocks, and the chain
+    count must divide the shards (AssertionError in both packages);
+    shard_blocks without blocks= raises ValueError in the port, where the
+    JAX package ignores it. blocks=None and return_sampling_betas run
+    since slice 5 (tests/test_torch_unblocked.py holds them against the
+    JAX package)."""
+    blocks, cpu3 = pipe["blocks"], ["cpu"] * 3
+    for kw, err in ((dict(shard_chains=True), AssertionError),
+                    (dict(blocks=blocks, shard_chains=True,
+                          shard_blocks=True), AssertionError),
+                    (dict(blocks=blocks, shard_chains=True, mesh=cpu3,
+                          vec_p_init=[0.1, 0.2]), AssertionError),
+                    (dict(shard_blocks=True), ValueError)):
+        with pytest.raises(err):
+            pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], h2_init=0.3,
+                                burn_in=2, num_iter=2, **kw)
+    for kw in (dict(shard_chains=True),
+               dict(blocks=blocks, shard_chains=True, shard_blocks=True),
+               dict(blocks=blocks, shard_chains=True,
+                    vec_p_init=[0.1, 0.2, 0.3])):   # 3 chains, 8 devices
+        with pytest.raises(AssertionError):
+            jl.snp_ldpred2_auto(pipe["jc"], pipe["df"], h2_init=0.3,
+                                burn_in=2, num_iter=2, **kw)
     grid = {"p": [0.1], "h2": [0.3], "sparse": [False]}
     beta = pt.snp_ldpred2_grid(pipe["pc"], pipe["df"], grid, burn_in=5,
                                num_iter=5)
@@ -173,6 +189,79 @@ def test_unported_options_raise(pipe):
                                   num_iter=7, blocks=pipe["blocks"],
                                   return_sampling_betas=True)
     assert beta.shape == (pipe["m"], 1) and samples.shape == (pipe["m"], 7)
+
+
+SHARD_KW = dict(h2_init=0.3, vec_p_init=[0.02, 0.1, 0.3, 0.6], burn_in=20,
+                num_iter=20, report_step=10)
+
+
+def test_shard_chains_equals_unsharded(pipe):
+    """shard_chains over 2 CPU shards: each chain equals its unsharded
+    run, every output bit for bit (per-chain generators; the MLE's sums
+    are row sums, whose order does not change with the chain count)."""
+    kw = dict(SHARD_KW, blocks=pipe["blocks"], sparse=True)
+    ref = pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], **kw)
+    got = pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], shard_chains=True,
+                              mesh=["cpu", "cpu"], **kw)
+    assert len(got) == 4
+    for r, g in zip(ref, got):
+        assert set(r) == set(g)
+        for k in r:
+            np.testing.assert_array_equal(g[k], r[k], err_msg=k)
+
+
+@pytest.mark.parametrize("use_mle", [True, False])
+def test_shard_blocks_matches_unsharded(pipe, use_mle):
+    """shard_blocks over 2 and 3 CPU shards within the JAX package's own
+    bound for its sharded blocks (rtol 5e-4, tests/test_blocked.py); the
+    per-chain sums are reduced in global order, so the port's results
+    are in fact the unsharded ones, bit for bit."""
+    kw = dict(SHARD_KW, blocks=pipe["blocks"], use_MLE=use_mle)
+    ref = pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], **kw)
+    for shards in (2, 3):
+        got = pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], shard_blocks=True,
+                                  mesh=["cpu"] * shards, **kw)
+        for r, g in zip(ref, got):
+            np.testing.assert_allclose(g["beta_est"], r["beta_est"],
+                                       rtol=5e-4, atol=1e-8)
+            np.testing.assert_allclose(g["path_h2_est"], r["path_h2_est"],
+                                       rtol=5e-4, atol=1e-7)
+            for k in r:
+                np.testing.assert_array_equal(g[k], r[k], err_msg=k)
+
+
+def test_split_blocks_balances_whole_blocks(pipe):
+    bb = pt.build_block_bands(pipe["pc"], pipe["blocks"])
+    parts = pgb.split_blocks(bb, 3)
+    rows = [int(sum((g >= 0).sum() for _, g in b)) for b, _, _ in parts]
+    var = np.concatenate([v for _, v, _ in parts])
+    np.testing.assert_array_equal(np.sort(var), np.arange(pipe["m"]))
+    blk = np.concatenate([k for _, _, k in parts])
+    np.testing.assert_array_equal(np.sort(blk), np.arange(len(blk)))
+    assert max(rows) - min(rows) <= max(np.asarray(pipe["blocks"]))
+    for buckets, v, _ in parts:   # slots renumbered over the shard's own
+        for bands, loc in buckets:
+            assert loc.max() < len(v) and (loc >= -1).all()
+    with pytest.raises(ValueError, match="at least one block"):
+        pgb.split_blocks(bb, len(blk) + 1)
+
+
+def test_shard_blocks_matches_jax(pipe):
+    """The port's shard_blocks against the JAX package's shard_blocks=True
+    (its GSPMD run on the 8-device CPU mesh) at Monte-Carlo level: the
+    streams differ (threefry cannot be replayed, ROADMAP "RNG"), so the
+    bounds of test_auto_matches_jax."""
+    kw = dict(h2_init=0.3, vec_p_init=[0.1, 0.5], burn_in=100, num_iter=100,
+              blocks=pipe["blocks"], use_MLE=False)
+    got = pt.snp_ldpred2_auto(pipe["pc"], pipe["df"], shard_blocks=True,
+                              mesh=["cpu", "cpu"], **kw)
+    ref = jl.snp_ldpred2_auto(pipe["jc"], pipe["df"], shard_blocks=True,
+                              **kw)
+    for r, j in zip(got, ref):
+        assert np.isfinite(r["beta_est"]).all()
+        assert np.corrcoef(r["beta_est"], j["beta_est"])[0, 1] > 0.9
+        assert r_pred(pipe, r["beta_est"]) > 0.5
+        assert abs(r["h2_est"] - j["h2_est"]) < 0.35 * max(j["h2_est"], 0.1)
 
 
 def test_chain_streams_do_not_depend_on_other_chains(pipe):

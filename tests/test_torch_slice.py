@@ -454,5 +454,8 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "warmup sections", "[20]", "simple: discordance",
                   "ridge stage on the host clock", "snp_fastImpute: "
                   "discordance", "boost block at", "[20] imputed pack",
-                  "snp_autoSVD kept"):
+                  "snp_autoSVD kept", "[21a]", "randomSVD on the mesh",
+                  "colstats over the mesh", "[21b] 2 ranks, gloo",
+                  "randomSVD over 2 ranks", "[21c]",
+                  "shard_chains: every chain bit-equal", "shard_blocks: "):
         assert phase in out.stdout
