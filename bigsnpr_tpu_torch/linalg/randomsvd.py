@@ -87,6 +87,17 @@ def _cached_op(pack, ctor, c_f, s_f, ind_row, ind_col, device=None, cap=4):
     return cache[key]
 
 
+def auto_takes_mesh(device) -> bool:
+    """Whether engine "auto" runs on the mesh of every card: the JAX
+    package's rule (its "auto" shards over the mesh on a TPU with more
+    than one device) on CUDA, when the call runs on a bare "cuda" and
+    this process sees more than one card. A call that names one card
+    ("cuda:1") keeps that card."""
+    device = torch.device(device)
+    return (device.type == "cuda" and device.index is None
+            and torch.cuda.device_count() > 1)
+
+
 # --- the device block-Krylov loop -------------------------------------------
 
 def _cholqr2(Y: torch.Tensor) -> torch.Tensor:
@@ -202,7 +213,9 @@ def snp_randomSVD(
 
     engine: "auto" runs the `GenoOperator` (kernels K1/K2, K7 under
     `config.pallas_mxu = "split2"` or K6 under "int8", on CUDA; their
-    twins on the CPU);
+    twins on the CPU), or "mesh-device" when `auto_takes_mesh(device)`
+    (a bare "cuda" and more than one card, as the JAX package's "auto"
+    takes the mesh); a DosagePack under "auto" always runs on one device;
     "torch" the plain-torch `TorchOperator`; "mesh" and "mesh-device" the
     `parallel.mesh.MeshOperator` on `mesh` (default: one shard a CUDA
     device, or one on the CPU when the call runs there), built on the
@@ -222,6 +235,9 @@ def snp_randomSVD(
     `snp_cprodVec` / `snp_prodVec` on the subset."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, not {engine!r}")
+    if (engine == "auto" and op is None and not hasattr(pack, "code256")
+            and auto_takes_mesh(config.resolve_device(device))):
+        engine = "mesh-device"
     if op is not None:
         sc = fun_scaling(op) if callable(fun_scaling) else fun_scaling
         center = np.asarray(sc["center"], dtype=np.float64)

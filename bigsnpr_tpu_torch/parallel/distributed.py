@@ -2,19 +2,25 @@
 `bigsnpr_tpu/parallel/distributed.py`).
 
 The reference has no distributed backend (SURVEY.md §2.8). Here each
-rank of a torch.distributed job owns one shard of the ('s', 'v') mesh
-(`global_mesh`), reads only its own bytes of the `.bed` (its variant
-rows and sample byte columns, `shard_pack_distributed`), and the
-products' partials are summed over the mesh's subgroups exactly as in
-the single-process mesh (`parallel/mesh.py`).
+rank of a torch.distributed job holds L shards of the ('s', 'v') mesh
+(`global_mesh`), one on each of its devices (`rank_devices`), reads only
+its own tiles' bytes of the `.bed` (their variant rows and sample byte
+columns, `shard_pack_distributed`), and the products' partials are
+summed over the mesh exactly as in the single-process mesh
+(`parallel/mesh.py`).
 
-Launch one process a card, e.g. `torchrun --nproc-per-node N script.py`
-(rank and world size from its environment, backend "nccl"), or start the
-ranks yourself and pass `coordinator_address`, `num_processes` and
-`process_id`. The backend is stated, never found by trying one: the
-caller's, else "nccl" for a CUDA device and "gloo" for the CPU. NCCL
-takes one rank a card; two ranks on one card run on "gloo" (which also
-moves CUDA tensors), named by the caller.
+Two launches, both on "nccl":
+  - one rank a card: `torchrun --nproc-per-node N script.py` (rank,
+    world size, LOCAL_RANK and LOCAL_WORLD_SIZE from its environment);
+  - one process a host holding all of its cards, the JAX package's
+    layout: `torchrun --nproc-per-node 1 --nnodes H ...`, or start the
+    processes yourself and pass `coordinator_address`, `num_processes`
+    and `process_id`.
+A rank's devices are the cards it sees split evenly among the ranks of
+its host, unless the caller names them. The backend is stated, never
+found by trying one: the caller's, else "nccl" for a CUDA device and
+"gloo" for the CPU. NCCL takes one rank a card; two ranks on one card
+run on "gloo" (which also moves CUDA tensors), named by the caller.
 """
 
 from __future__ import annotations
@@ -31,8 +37,8 @@ from bigsnpr_tpu_torch.parallel.mesh import (Mesh, MeshOperator, Sharded,
                                              make_mesh, put_global,
                                              shard_tiles)
 
-# the device of this rank, set by init_distributed
-_RANK_DEVICE: list = []
+# the devices of this rank, set by init_distributed
+_RANK_DEVICES: list = []
 
 
 def _env_int(*names):
@@ -42,15 +48,29 @@ def _env_int(*names):
     return None
 
 
-def rank_device(device=None, process_id: int = 0) -> torch.device:
-    """This rank's device: `device`, else the configured one, a bare
-    "cuda" taking card LOCAL_RANK (or process_id) modulo the card count."""
+def rank_devices(device=None) -> list:
+    """This rank's devices, one a shard: `device` (else the configured
+    one) when it is the CPU or names one card; else, for a bare "cuda",
+    the cards this process sees split evenly among the LOCAL_WORLD_SIZE
+    ranks of its host (1 when unset), rank LOCAL_RANK (0) taking a
+    contiguous run from LOCAL_RANK * count / LOCAL_WORLD_SIZE; where the
+    host has more ranks than cards, card LOCAL_RANK modulo the count.
+    With no card and no request for the CPU this raises, as every entry
+    point does."""
     dev = config.resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        local = _env_int("LOCAL_RANK")
-        local = process_id if local is None else local
-        dev = torch.device("cuda", local % torch.cuda.device_count())
-    return dev
+    if dev.type != "cuda" or dev.index is not None:
+        return [dev]
+    count = torch.cuda.device_count()
+    local_world = _env_int("LOCAL_WORLD_SIZE") or 1
+    local = _env_int("LOCAL_RANK") or 0
+    if count % local_world == 0:
+        per = count // local_world
+        return [torch.device("cuda", local * per + i) for i in range(per)]
+    if local_world % count == 0:
+        return [torch.device("cuda", local % count)]
+    raise ValueError(f"{count} cards do not split evenly among the "
+                     f"{local_world} ranks of this host: name each rank's "
+                     "devices")
 
 
 def init_distributed(coordinator_address=None, num_processes=None,
@@ -60,19 +80,20 @@ def init_distributed(coordinator_address=None, num_processes=None,
 
     coordinator_address: "host:port" (tcp), or an init_method URL
     ("tcp://...", "file://..."); None reads torchrun's environment, as do
-    num_processes / process_id (WORLD_SIZE / RANK). backend: as given,
-    else "nccl" for a CUDA device and "gloo" for the CPU."""
+    num_processes / process_id (WORLD_SIZE / RANK). device: the rank's
+    devices are `rank_devices(device)`, kept for `global_mesh`. backend:
+    as given, else "nccl" for CUDA devices and "gloo" for the CPU."""
     if num_processes is None:
         num_processes = _env_int("WORLD_SIZE") or 1
     if process_id is None:
         process_id = _env_int("RANK") or 0
     if num_processes <= 1 and backend is None:
         return False
-    dev = rank_device(device, process_id)
+    devs = rank_devices(device)
     if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+        backend = "nccl" if devs[0].type == "cuda" else "gloo"
+    if devs[0].type == "cuda":
+        torch.cuda.set_device(devs[0])
     init = coordinator_address
     if init is None:
         init = "env://"
@@ -80,28 +101,33 @@ def init_distributed(coordinator_address=None, num_processes=None,
         init = f"tcp://{init}"
     dist.init_process_group(backend=backend, init_method=init,
                             world_size=num_processes, rank=process_id)
-    _RANK_DEVICE[:] = [dev]
+    _RANK_DEVICES[:] = devs
     return True
 
 
-def global_mesh(shape=None, device=None) -> Mesh:
-    """The (s, v) mesh of the job, one shard a rank (near-square by
-    default, `factor_mesh`); without torch.distributed, `make_mesh` over
-    this process's devices."""
+def global_mesh(shape=None, device=None, devices=None) -> Mesh:
+    """The (s, v) mesh of the job, each rank holding one shard on each of
+    its devices (`devices`, else `rank_devices(device)` when device is
+    given, else those `init_distributed` chose), the JAX package's layout
+    (`Mesh.across_processes`); near-square by default (`factor_mesh` of
+    every shard). Without torch.distributed, `make_mesh` over `devices`,
+    else over this process's devices."""
     if not (dist.is_available() and dist.is_initialized()):
-        return make_mesh(device=device)
+        return make_mesh(devices=devices, device=device)
+    if devices is None:
+        devices = (rank_devices(device) if device is not None or not
+                   _RANK_DEVICES else list(_RANK_DEVICES))
+    devices = [torch.device(d) for d in devices]
     world = dist.get_world_size()
-    shape = factor_mesh(world) if shape is None else tuple(shape)
-    dev = (torch.device(device) if device is not None
-           else _RANK_DEVICE[0] if _RANK_DEVICE
-           else rank_device(None, dist.get_rank()))
-    return Mesh.across_processes(shape, dist.get_rank(), dev)
+    shape = (factor_mesh(world * len(devices)) if shape is None
+             else tuple(shape))
+    return Mesh.across_processes(shape, dist.get_rank(), devices)
 
 
 def host_local_shard(mesh: Mesh, packed_local, axis: str = "s") -> Sharded:
     """The global ("v", "s") packed array from the tiles this process
-    holds: packed_local is its one tile (padded, as `shard_pack` pads) or
-    a {coord: tile} dict."""
+    holds: packed_local is a {coord: tile} dict (padded, as `shard_pack`
+    pads), or the one tile of a process that holds one shard."""
     parts = packed_local if isinstance(packed_local, dict) else {
         mesh.local[0]: packed_local}
     parts = {c: torch.as_tensor(np.asarray(t) if not torch.is_tensor(t)
@@ -146,7 +172,7 @@ def replicated(mesh: Mesh, arr, spec) -> Sharded:
 
 def shard_pack_distributed(bedfile, mesh: Mesh):
     """The packed ("v", "s") array of a .bed in which each process reads
-    only the bytes of its own tiles (its variant rows and sample byte
+    only the bytes of its own tiles (their variant rows and sample byte
     columns) from the memory-mapped body, under `shard_pack`'s padding:
     pad bytes and the tail byte's spare bits decode as NA.
 

@@ -19,16 +19,24 @@ A mesh lives in one process or across processes:
   - in one process (`make_mesh`), every shard is a torch device and a
     device may repeat (four shards on one card, eight on the CPU);
   - across processes (`parallel.distributed.global_mesh`), each rank of
-    torch.distributed owns one shard; the sums run over the subgroups of
-    its mesh column ('s') and row ('v'), made once with `dist.new_group`.
+    torch.distributed holds L shards, the same L on every rank: the
+    shards are laid out as the JAX package lays `jax.devices()` (by
+    process, then by local device) over the (s, v) grid, so rank r holds
+    the shards r * L ... r * L + L - 1 in row-major order. L = 1 is
+    torchrun's layout (one rank a card); L = the cards of a host is the
+    JAX package's (one process a host).
 
 Every sum over an axis adds the shards' partials in shard order 0, 1, ...
 on one device, so every shard of a group holds the same bits, whichever
-process holds it. Across processes the partials travel in one
-`all_reduce` of a buffer in which each rank fills only its own slot (a
-value plus zeros is exact), and are then added in that order; gathering
-a result to every rank is the same exchange. Only tall-skinny factors
-are gathered, never the packed matrix.
+process holds it. Across processes the ranks that hold shards of one
+axis group exchange, together with every rank that shares a group with
+them (`_components`: the groups of such ranks overlap, so they exchange
+as one): one `all_reduce` of a buffer with a slot for each shard of the
+component, in which each rank fills only its own shards' slots (a value
+plus zeros is exact); each shard then adds its group's slots in order.
+A component of one rank does not communicate. Gathering a result to
+every rank is the same exchange. Only tall-skinny factors are gathered,
+never the packed matrix.
 """
 
 from __future__ import annotations
@@ -69,14 +77,40 @@ def _with(coord, axis: int, i: int):
     return tuple(c)
 
 
+def _components(shape, owner, axis: int):
+    """The exchanges of a sum over `axis` across processes: [(ranks,
+    shards)], the ranks (sorted) that hold shards of axis groups linked
+    by a common rank, and every shard of those groups in row-major
+    order. owner maps a coordinate to its rank."""
+    S, V = shape
+    groups = {}                             # group key -> its shards
+    for si in range(S):
+        for vi in range(V):
+            key = vi if axis == 0 else si
+            groups.setdefault(key, []).append((si, vi))
+    comps = []                              # [(ranks, group keys)]
+    for key, shards in groups.items():
+        ranks = {owner[c] for c in shards}
+        keys = [key]
+        for comp in [c for c in comps if c[0] & ranks]:
+            comps.remove(comp)
+            ranks |= comp[0]
+            keys += comp[1]
+        comps.append((ranks, keys))
+    out = [(sorted(ranks), sorted(c for k in keys for c in groups[k]))
+           for ranks, keys in comps]
+    return sorted(out)
+
+
 class Mesh:
     """An (s, v) grid of shards, axis names "s" and "v".
 
     `Mesh(devices)` holds every shard in this process: devices is an (s,
     v) nested sequence, one device a shard (a device may repeat).
-    `Mesh.across_processes` holds one shard, this rank's. `local` lists
-    the (si, vi) coordinates of the shards this process holds; `device`
-    is the first one's device, where gathered results live."""
+    `Mesh.across_processes` holds this rank's L shards. `local` lists
+    the (si, vi) coordinates of the shards this process holds, in shard
+    order; `device` is the first one's device, where gathered results
+    live and through which this process exchanges."""
 
     def __init__(self, devices):
         grid = [[torch.device(d) for d in row] for row in devices]
@@ -85,33 +119,40 @@ class Mesh:
             raise ValueError("devices must be a non-empty (s, v) grid")
         self.shape = {"s": len(grid), "v": len(grid[0])}
         self.distributed = False
-        self.groups = None
+        self.exchanges = None
         self._dev = {(si, vi): d for si, row in enumerate(grid)
                      for vi, d in enumerate(row)}
 
     @classmethod
-    def across_processes(cls, shape, rank: int, device):
-        """The mesh of a torch.distributed job of s * v ranks, rank r
-        holding shard divmod(r, v). Every rank must call this, with the
-        same shape: each makes every column and row group, in one order."""
+    def across_processes(cls, shape, rank: int, devices):
+        """The mesh of a torch.distributed job whose ranks each hold L =
+        len(devices) shards, rank r the shards r * L ... r * L + L - 1 of
+        the row-major (s, v) grid, on devices in that order. The world
+        must be s * v / L ranks (so every rank has the same L). Every rank
+        must call this, with the same shape: each makes every exchange's
+        process group, in one order."""
         S, V = shape
-        if dist.get_world_size() != S * V:
-            raise ValueError(f"a {S} x {V} mesh needs {S * V} ranks, the "
-                             f"job has {dist.get_world_size()}")
+        devices = [torch.device(d) for d in devices]
+        L, world = len(devices), dist.get_world_size()
+        if S * V != world * L:
+            raise ValueError(f"a {S} x {V} mesh has {S * V} shards; the "
+                             f"job's {world} ranks of {L} shards hold "
+                             f"{world * L}")
         self = cls.__new__(cls)
         self.shape = {"s": S, "v": V}
         self.distributed = True
-        si, vi = divmod(rank, V)
-        self._dev = {(si, vi): torch.device(device)}
-        self.groups = {}
-        for v in range(V):
-            g = dist.new_group([s * V + v for s in range(S)])
-            if v == vi:
-                self.groups["s"] = g
-        for s in range(S):
-            g = dist.new_group([s * V + v for v in range(V)])
-            if s == si:
-                self.groups["v"] = g
+        owner = {divmod(f, V): f // L for f in range(S * V)}
+        self._dev = {divmod(rank * L + i, V): d
+                     for i, d in enumerate(devices)}
+        # per axis: (process group, or None when this rank alone holds
+        # them; the shards of this rank's exchange). The components are
+        # rank-disjoint, so a rank is in one exchange an axis.
+        self.exchanges = {}
+        for a, axis in enumerate(AXES):
+            for ranks, shards in _components((S, V), owner, a):
+                group = dist.new_group(ranks) if len(ranks) > 1 else None
+                if rank in ranks:
+                    self.exchanges[axis] = (group, shards)
         return self
 
     @property
@@ -130,23 +171,38 @@ class Mesh:
     def device_of(self, coord) -> torch.device:
         return self._dev[coord]
 
+    def _blocks(self, parts: dict, axis: str) -> dict:
+        """{shard: block} for every shard whose block a sum or a gather
+        over `axis` reads: in one process the parts themselves; across
+        processes every shard of this rank's exchange, the others' through
+        one `all_reduce` on `device` of a buffer in which each rank fills
+        only its own shards' slots."""
+        if not self.distributed:
+            return parts
+        group, shards = self.exchanges[axis]
+        if group is None:
+            return parts
+        t = parts[self.local[0]]
+        buf = torch.zeros((len(shards), *t.shape), dtype=t.dtype,
+                          device=self.device)
+        for i, c in enumerate(shards):
+            if c in parts:
+                buf[i] = parts[c]
+        dist.all_reduce(buf, group=group)
+        return dict(zip(shards, buf))
+
     def psum(self, parts: dict, axis: str) -> dict:
         """{coord: tensor} -> {coord: the sum over `axis` of the partials
         of coord's group}, added in shard order, on each shard's device."""
         a, k = AXES.index(axis), self.shape[axis]
-        if self.distributed:
-            (coord, t), = parts.items()
-            buf = torch.zeros((k, *t.shape), dtype=t.dtype, device=t.device)
-            buf[coord[a]] = t
-            dist.all_reduce(buf, group=self.groups[axis])
-            return {coord: ordered_sum(list(buf), t.device)}
+        blocks = self._blocks(parts, axis)
         out, sums = {}, {}
         for coord in parts:
             head = _with(coord, a, 0)
             if head not in sums:
                 sums[head] = ordered_sum(
-                    [parts[_with(coord, a, i)] for i in range(k)],
-                    self._dev[head])
+                    [blocks[_with(coord, a, i)] for i in range(k)],
+                    self._dev.get(head, self._dev[coord]))
             out[coord] = sums[head].to(self._dev[coord])
         return out
 
@@ -155,14 +211,8 @@ class Mesh:
         (the same on every shard of the other axis), on `device`, in every
         process."""
         a, k = AXES.index(axis), self.shape[axis]
-        if self.distributed:
-            (coord, t), = parts.items()
-            buf = torch.zeros((k, *t.shape), dtype=t.dtype, device=t.device)
-            buf[coord[a]] = t
-            dist.all_reduce(buf, group=self.groups[axis])
-            return torch.cat(list(buf), dim)
-        first = self.local[0]
-        return torch.cat([parts[_with(first, a, i)].to(self.device)
+        blocks, first = self._blocks(parts, axis), self.local[0]
+        return torch.cat([blocks[_with(first, a, i)].to(self.device)
                           for i in range(k)], dim)
 
 
@@ -195,10 +245,15 @@ def make_mesh(n_devices: int | None = None, devices=None,
 
 def shard_devices(mesh=None, device=None) -> list:
     """The flat shard list of a one-axis split: a Mesh's devices, a list
-    of devices, or `default_devices(device=device)`."""
+    of devices, or `default_devices(device=device)`. A mesh across
+    processes raises: a one-axis split runs in one process."""
     if mesh is None:
         return default_devices(device=device)
     if isinstance(mesh, Mesh):
+        if mesh.distributed:
+            raise ValueError("a mesh across processes cannot split "
+                             "LDpred2's chains or blocks: pass a Mesh of "
+                             "this process or a list of devices")
         return mesh.devices
     return [torch.device(d) for d in mesh]
 
@@ -244,8 +299,8 @@ def put_global(mesh: Mesh, arr, spec) -> Sharded:
 
 def fetch_global(x: Sharded) -> np.ndarray:
     """The whole array on the host of every process. Across processes one
-    `all_reduce` of the whole (zeros but the block of each rank that is
-    first along the axes the array does not split) assembles it: for
+    `all_reduce` of the whole (zeros but the blocks of the shards that
+    are first along the axes the array does not split) assembles it: for
     tall-skinny factors only, never the packed matrix."""
     mesh = x.mesh
     if not mesh.distributed:
@@ -255,11 +310,12 @@ def fetch_global(x: Sharded) -> np.ndarray:
         for c, block in parts.items():
             full[x.slices(c)] = block
         return full
-    (coord, t), = x.parts.items()
-    full = torch.zeros(x.shape, dtype=t.dtype, device=t.device)
+    t = x.parts[mesh.local[0]]
+    full = torch.zeros(x.shape, dtype=t.dtype, device=mesh.device)
     whole = [a for a in AXES if a not in x.spec]
-    if all(coord[AXES.index(a)] == 0 for a in whole):
-        full[x.slices(coord)] = t
+    for coord, t in x.parts.items():
+        if all(coord[AXES.index(a)] == 0 for a in whole):
+            full[x.slices(coord)] = t
     dist.all_reduce(full)
     return full.cpu().numpy()
 

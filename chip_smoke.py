@@ -203,12 +203,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      beside the single device's, colstats over the mesh equal to
      snp_counts, snp_randomSVD(k = 10, engine "mesh") against [4]'s (d
      within 1e-4, |cos| of each u column above 0.999) with its launches a
-     multiple of 4; (b) two ranks of torch.distributed on gloo, both on the
-     card (`parallel.selfcheck`), each reading only its own sample bytes of
-     [4]'s .bed through distributed_binom_operator: the scaling equal to
-     bed_scaleBinom's to 1e-12, every output bit-equal across the ranks,
-     cprod / prod and randomSVD within (a)'s limits of the single device,
-     and, started with them, one rank on NCCL with the same checks; (c)
+     multiple of 4, and which operator engine "auto" builds with
+     torch.cuda.device_count() cards (one: the single-device
+     GenoOperator, K1 / K2 once a power step on the whole pack; more: the
+     mesh of every card, held against [4]'s); (b) two ranks of
+     torch.distributed on gloo, both on the card (`parallel.selfcheck`),
+     each reading only its own tiles' bytes of [4]'s .bed through
+     distributed_binom_operator, one tile a rank of a 2 x 1 mesh and, at
+     the same time, two tiles a rank of a 2 x 2 mesh (the JAX package's
+     several devices a process): the scaling equal to bed_scaleBinom's to
+     1e-12, every output bit-equal across the ranks, cprod / prod and
+     randomSVD within (a)'s limits of float64 and the single device, K1 /
+     K2 once a tile a product; and, started with them, one rank on NCCL
+     with the same checks; (c)
      slice 2's
      LDpred2-auto (30 chains, 100 + 100 sweeps) unsharded, with
      shard_chains over two shards (every chain bit-equal to the unsharded
@@ -4551,9 +4558,36 @@ def phase_mesh(bp, gk, torch, dev, pack, sc, svd, timer, seed, l=20):
             and out["svd"]["prod"] == out["svd"]["cprod"]):
         fail("randomSVD on the mesh did not launch K1 / K2 on every tile")
     check_mesh_svd(s7, svd, "randomSVD on the mesh")
+    auto_engine(bp, gk, torch, dev, pack, svd, stage)
     log("  stage times " + ", ".join(f"{k} {v:.3f} s"
                                      for k, v in times.items()))
     return times, out
+
+
+def auto_engine(bp, gk, torch, dev, pack, svd, stage):
+    """Which operator snp_randomSVD(engine "auto") builds on this machine:
+    with one card the single-device GenoOperator (K1 / K2 once a power
+    step, on the whole pack), with more the mesh of every card (once a
+    card a power step), held against [4]'s single-device SVD."""
+    from bigsnpr_tpu_torch.linalg.randomsvd import auto_takes_mesh
+
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    takes = auto_takes_mesh(dev)
+    gk.reset_launches()
+    got = stage("snp_randomSVD auto", lambda: bp.snp_randomSVD(pack, k=10))
+    la = dict(gk.launches)
+    per = cards if takes else 1
+    log(f"  torch.cuda.device_count() {cards}: engine \"auto\" builds "
+        + (f"the mesh of every card ({cards} shards)" if takes
+           else "the single-device GenoOperator")
+        + f"; K1 / K2 launches {la['cprod']} / {la['prod']} in {got.niter} "
+        f"depths ({per} a power step)")
+    if dev.type == "cuda" and not (
+            la["cprod"] == la["prod"]
+            and la["cprod"] in (per * got.niter, per * (got.niter + 1))):
+        fail("engine \"auto\" did not build the operator its rule names")
+    check_mesh_svd(got, svd, "randomSVD \"auto\" on every card" if takes
+                   else "randomSVD \"auto\" on the one card")
 
 
 def phase_ranks(bp, gk, torch, dev, pack, sc, svd, bedfile, tmp):
@@ -4578,16 +4612,19 @@ def phase_ranks(bp, gk, torch, dev, pack, sc, svd, bedfile, tmp):
     B64 = product64(torch, P, pack.n, c, inv, V, False)
     Y64 = product64(torch, P, pack.n, c, inv, U, True)
     B1, Y1 = g.cprod_dev(V), g.prod_dev(U)
-    runs = [("2 ranks, gloo", 2, "gloo", (2, 1))]
+    # (tag, ranks, backend, mesh, shards a rank)
+    runs = [("2 ranks, gloo", 2, "gloo", (2, 1), 1),
+            ("2 ranks x 2 shards, gloo", 2, "gloo", (2, 2), 2)]
     if dev.type == "cuda":                  # NCCL needs the card
-        runs.append(("1 rank, nccl", 1, "nccl", (1, 1)))
-    log(f"[21b] {' and '.join(r[0] for r in runs)} at once on {rank_dev}: "
-        f"each rank reads its own bytes of {os.path.basename(bedfile)}")
+        runs.append(("1 rank, nccl", 1, "nccl", (1, 1), 1))
+    log(f"[21b] {', '.join(r[0] for r in runs)} at once on {rank_dev}: "
+        f"each rank reads its own tiles' bytes of "
+        f"{os.path.basename(bedfile)}")
     t0 = time.perf_counter()
-    jobs = [selfcheck.start(world, bedfile, os.path.join(tmp, f"r{world}"),
+    jobs = [selfcheck.start(world, bedfile, os.path.join(tmp, f"r{i}"),
                             backend=backend, device=rank_dev, shape=shape,
-                            k=10, tol=1e-4, env=env)
-            for _, world, backend, shape in runs]
+                            shards_per_rank=L, k=10, tol=1e-4, env=env)
+            for i, (_, world, backend, shape, L) in enumerate(runs)]
     try:
         results = [selfcheck.collect(job, timeout=400) for job in jobs]
     finally:                     # a failed job leaves no rank behind
@@ -4599,19 +4636,28 @@ def phase_ranks(bp, gk, torch, dev, pack, sc, svd, bedfile, tmp):
     walls = {"ranks": time.perf_counter() - t0}
     log(f"  wall {walls['ranks']:.1f} s (every rank: start, ingest, products "
         f"and randomSVD)")
-    for (tag, world, backend, shape), res in zip(runs, results):
+    for (tag, world, backend, shape, L), res in zip(runs, results):
         r0 = res[0]
-        same = all(np.array_equal(r0[k], r[k]) for r in res[1:] for k in (
-            "B", "Y", "Bp", "Yp", "d", "u", "v", "center", "scale"))
+        same = all(np.array_equal(r0[k], r[k]) for r in res[1:]
+                   for k in selfcheck.KEYS)
+        # a tile a product: cprod, prod, power and one power step a depth
+        # (one more when the depths ran out)
+        steps = 2 + int(r0["niter"])
         log(f"  {tag} (mesh {shape[0]} x {shape[1]}): rank 0's own "
             f"{float(r0['seconds']):.1f} s after its start; backend "
-            f"{r0['backend']}; ranks bit-equal: {same}; K1 / K2 launches a "
-            f"rank {[(int(r['cprod']), int(r['prod'])) for r in res]}")
+            f"{r0['backend']}; shards a rank "
+            f"{[[tuple(map(int, c)) for c in r['coords']] for r in res]}; "
+            f"ranks bit-equal: {same}; K1 / K2 launches a rank "
+            f"{[(int(r['cprod']), int(r['prod'])) for r in res]} ({L} "
+            f"tile(s) x {steps} products)")
         if not same:
             fail(f"[21b] {tag}: the ranks disagree")
-        if dev.type == "cuda" and any(int(r["cprod"]) <= 0 or int(r["prod"])
-                                      <= 0 for r in res):
-            fail(f"[21b] {tag}: a rank launched no K1 / K2")
+        if dev.type == "cuda" and any(
+                int(r["cprod"]) != int(r["prod"])
+                or int(r["cprod"]) not in (L * steps, L * (steps + 1))
+                for r in res):
+            fail(f"[21b] {tag}: a rank did not launch K1 / K2 once a tile "
+                 "a product")
         e_c = float(np.max(np.abs(r0["center"] - sc["center"])))
         e_s = float(np.max(np.abs(r0["scale"] - sc["scale"])))
         log(f"    center / scale vs bed_scaleBinom: {e_c:.1e} / {e_s:.1e} "

@@ -241,3 +241,87 @@ def test_autosvd_mesh_engine_gives_jax_subset():
     np.testing.assert_allclose(got.d, ref.d, rtol=1e-4)
     cos = np.abs(np.sum(ref.u * got.u, axis=0))
     assert cos.min() > 0.999, cos
+
+
+def test_auto_takes_the_mesh_on_several_cards(monkeypatch):
+    """The JAX package's rule for engine "auto" (the mesh when it runs
+    with more than one device), on CUDA: a bare "cuda" with two cards
+    takes the mesh; one card, a named card or the CPU keep one device."""
+    from bigsnpr_tpu_torch.linalg import randomsvd
+
+    for count, device, want in ((2, "cuda", True), (8, "cuda", True),
+                                (1, "cuda", False), (2, "cuda:1", False),
+                                (2, "cuda:0", False), (2, "cpu", False)):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=count: c)
+        assert randomsvd.auto_takes_mesh(torch.device(device)) is want, (
+            count, device)
+
+
+def test_auto_on_the_mesh_is_mesh_device(monkeypatch):
+    """"auto", steered onto a 2-shard CPU mesh by the rule, gives the same
+    bits as engine="mesh-device" on that mesh, with a row and a column
+    subset; with the rule off it runs the single-device GenoOperator."""
+    from bigsnpr_tpu_torch.linalg import randomsvd
+
+    _, pp, _ = packs(203, 131, seed=9, na_prob=0.03)
+    mesh = pmesh.make_mesh(2)
+    rows, cols = np.arange(0, 203, 2), np.arange(1, 131, 2)
+    kw = dict(k=4, tol=1e-7, mesh=mesh, ind_row=rows, ind_col=cols)
+    ref = pt.snp_randomSVD(pp, engine="mesh-device", **kw)
+    built = []
+    real = randomsvd.MeshOperator
+
+    def spy(*a, **k):
+        built.append(k["mesh"])
+        return real(*a, **k)
+
+    monkeypatch.setattr(randomsvd, "MeshOperator", spy)
+    monkeypatch.setattr(randomsvd, "auto_takes_mesh", lambda dev: True)
+    got = pt.snp_randomSVD(pp, engine="auto", **kw)
+    assert built == [mesh]
+    for key in ("d", "u", "v", "center", "scale", "niter"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(ref, key),
+                                      err_msg=key)
+    monkeypatch.setattr(randomsvd, "auto_takes_mesh", lambda dev: False)
+    one = pt.snp_randomSVD(pp, engine="auto", **kw)
+    assert built == [mesh]
+    assert any(type(op) is pt.GenoOperator
+               for op in pp._op_cache.values())
+    np.testing.assert_allclose(one.d, ref.d, rtol=1e-5)
+
+
+def test_auto_keeps_a_dosage_pack_on_one_device(monkeypatch):
+    """A DosagePack under "auto" runs on DosageOperator whatever the rule
+    says (the JAX package runs it unsharded), and does not meet the mesh
+    engines' ValueError."""
+    from bigsnpr_tpu_torch.linalg import randomsvd
+
+    pack = pt.snp_fake(60, 40, seed=3)
+    codes = np.nan_to_num(pack.to_dosage().T, nan=3).astype(np.uint8)
+    dpack = pt.DosagePack(codes=codes, n=60)
+    built = []
+    real = randomsvd.DosageOperator
+
+    def spy(*a, **k):
+        built.append(True)
+        return real(*a, **k)
+
+    def no_mesh(*a, **k):
+        raise AssertionError("a DosagePack reached the mesh")
+
+    monkeypatch.setattr(randomsvd, "DosageOperator", spy)
+    monkeypatch.setattr(randomsvd, "MeshOperator", no_mesh)
+    monkeypatch.setattr(randomsvd, "auto_takes_mesh", lambda dev: True)
+    svd = pt.snp_randomSVD(dpack, k=2)
+    assert built == [True] and svd.d.shape == (2,)
+
+
+def test_one_axis_split_refuses_a_mesh_across_processes():
+    """LDpred2's shard_chains / shard_blocks split over the shards of one
+    process: a mesh across processes raises, where taking its local
+    shards alone would run the chains of this rank only."""
+    mesh = pmesh.make_mesh(2)
+    assert pmesh.shard_devices(mesh) == [torch.device("cpu")] * 2
+    mesh.distributed = True
+    with pytest.raises(ValueError, match="across processes"):
+        pmesh.shard_devices(mesh)

@@ -456,6 +456,8 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "discordance", "boost block at", "[20] imputed pack",
                   "snp_autoSVD kept", "[21a]", "randomSVD on the mesh",
                   "colstats over the mesh", "[21b] 2 ranks, gloo",
-                  "randomSVD over 2 ranks", "[21c]",
+                  "randomSVD over 2 ranks", "engine \"auto\" builds",
+                  "2 ranks x 2 shards, gloo (mesh 2 x 2)",
+                  "randomSVD over 2 ranks x 2 shards", "[21c]",
                   "shard_chains: every chain bit-equal", "shard_blocks: "):
         assert phase in out.stdout
