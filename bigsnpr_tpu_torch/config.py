@@ -5,8 +5,14 @@ the caller asks for the CPU, either globally (`set_device("cpu")`) or per
 call (`device="cpu"`). With no CUDA and no request for the CPU an entry
 point raises: there is no silent fallback.
 
-Precision: float32 products are full float32 everywhere (no TF32), the
-counterpart of the JAX package's `matmul_precision="highest"`.
+matmul_precision: the JAX package's speed-for-accuracy option of the same
+name (env BIGSNPR_MATMUL_PRECISION, default "highest"), read by the float32
+torch products that port the JAX package's XLA products which read it
+(`ops/precision.py`, port DEVIATIONS #36): "highest" is IEEE float32,
+"high" bf16x3 and "default" one bf16 pass with float32 accumulation, their
+meanings on a TPU. Every other product is IEEE float32: TF32 is switched
+off here once, and the option never changes a process-wide flag.
+`dot_precision()` returns the name (torch has no precision enum).
 
 pallas_mxu: the scheme of the genotype operator's kernels, the JAX
 package's option of the same name (env BIGSNPR_PALLAS_MXU): "highest"
@@ -29,6 +35,9 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 device: str = "cuda"
+MATMUL_PRECISIONS = ("default", "high", "highest")
+# read as the JAX package reads it; checked where a product reads it
+matmul_precision: str = os.environ.get("BIGSNPR_MATMUL_PRECISION", "highest")
 # read as the JAX package reads it; an operator checks it when built
 pallas_mxu: str = os.environ.get("BIGSNPR_PALLAS_MXU", "highest")
 
@@ -52,6 +61,26 @@ def resolve_device(dev=None) -> torch.device:
     return d
 
 
+def check_precision(name: str) -> str:
+    """`name` if it is one of MATMUL_PRECISIONS, else ValueError."""
+    if name not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul_precision must be one of "
+                         f"{MATMUL_PRECISIONS}, not {name!r}")
+    return name
+
+
+def set_matmul_precision(name: str) -> None:
+    """The precision of the products that read the option."""
+    global matmul_precision
+    matmul_precision = check_precision(name)
+
+
+def dot_precision() -> str:
+    """The current `matmul_precision`, checked (the JAX package returns
+    its `jax.lax.Precision`; torch has no such enum)."""
+    return check_precision(matmul_precision)
+
+
 MXU_SCHEMES = ("highest", "split2", "int8")
 # schemes an operator takes; "int8m" only by its constructor's argument
 OPERATOR_SCHEMES = MXU_SCHEMES + ("int8m",)
@@ -71,6 +100,8 @@ def get_option(name: str):
 
     if name == "device":
         return device
+    if name == "matmul_precision":
+        return matmul_precision
     if name == "pallas_mxu":
         return pallas_mxu
     if name == "check_args":
@@ -84,6 +115,8 @@ def set_option(name: str, value) -> None:
 
     if name == "device":
         set_device(value)
+    elif name == "matmul_precision":
+        set_matmul_precision(value)
     elif name == "pallas_mxu":
         if value not in MXU_SCHEMES:
             raise ValueError(
@@ -100,7 +133,8 @@ def set_option(name: str, value) -> None:
 
 @contextmanager
 def options(**kw):
-    """Scoped option override: `with options(device="cpu"):`"""
+    """Scoped option override: `with options(device="cpu",
+    matmul_precision="default"):`"""
     old = {k: get_option(k) for k in kw}
     try:
         for k, v in kw.items():
@@ -109,3 +143,20 @@ def options(**kw):
     finally:
         for k, v in old.items():
             set_option(k, v)
+
+
+def enable_compilation_cache(path: str | None = None) -> str:
+    """Build the port's native libraries (nvcc and g++, `ops/cuda_build`)
+    into `path`, by default $BIGSNPR_COMPILE_CACHE, else the package's
+    `_build/` (where they go without this call). Creates the directory and
+    returns it. A library is named by the hash of its source, the headers
+    beside it and the flags, so a second process reuses what the first
+    built. The JAX package's function of this name persists XLA's
+    compilations instead."""
+    from bigsnpr_tpu_torch.ops import cuda_build
+
+    path = str(path or os.environ.get("BIGSNPR_COMPILE_CACHE")
+               or cuda_build.DEFAULT_BUILD_DIR)
+    os.makedirs(path, exist_ok=True)
+    cuda_build.set_build_dir(path)
+    return path

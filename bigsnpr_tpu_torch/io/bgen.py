@@ -37,7 +37,7 @@ from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.core import unpack as up
 from bigsnpr_tpu_torch.core.dosage import DosagePack
 from bigsnpr_tpu_torch.core.genotypes import GenoPack
-from bigsnpr_tpu_torch.ops import cuda_build
+from bigsnpr_tpu_torch.ops import cuda_build, precision
 
 # decode[e] for e = 2*p0 + p1 in 0..510 (reference R/read-bgen.R:206)
 DECODE_DOSAGE_CODE = (207 - np.round(np.arange(511) * 100 / 255)).astype(
@@ -391,9 +391,11 @@ def snp_prodBGEN(bgenfile, beta, list_snp_id, ind_row=None, bgi_dir=None,
     Blocks of `block_size` variants are inflated and decoded on the host by
     the native pool into exact pair sums e (integers) and multiplied:
       - "host": a float64 product a block (the JAX package's "host");
-      - "device": a float32 product on the port's device (full float32, no
-        TF32) with beta split into hi + lo float32 parts, ~1e-6 relative;
-        the next block is decoded while the device multiplies;
+      - "device": a float32 product on the port's device at
+        `config.matmul_precision` (`ops/precision.py`; "highest" is IEEE
+        float32) with beta split into hi + lo float32 parts, ~1e-6 relative
+        under "highest"; the next block is decoded while the device
+        multiplies;
       - "auto": "device" when the port's device is CUDA, else "host".
     The /255 dosage scaling is applied once at the end in float64, so the
     products hold exact small integers."""
@@ -431,6 +433,7 @@ def snp_prodBGEN(bgenfile, beta, list_snp_id, ind_row=None, bgi_dir=None,
                 acc += rev.T @ beta[b0:b0 + block_size]
             out = acc / 255.0
         else:
+            prec = precision.resolve()
             b_hi = beta.astype(np.float32)
             b_lo = (beta - b_hi).astype(np.float32)   # double-single split
             bh = torch.as_tensor(b_hi, device=dev)
@@ -448,8 +451,10 @@ def snp_prodBGEN(bgenfile, beta, list_snp_id, ind_row=None, bgi_dir=None,
                     rev = 510.0 - e_t.float()               # exact in f32
                     rev = torch.where(e_t < 0, torch.full_like(rev, np.nan),
                                       rev)
-                    acc_hi.addmm_(rev.T, bh[b0:b0 + block_size])
-                    acc_lo.addmm_(rev.T, bl[b0:b0 + block_size])
+                    precision.addmm_(acc_hi, rev.T, bh[b0:b0 + block_size],
+                                     prec)
+                    precision.addmm_(acc_lo, rev.T, bl[b0:b0 + block_size],
+                                     prec)
             out = (acc_hi.double() + acc_lo.double()).cpu().numpy() / 255.0
     finally:
         buf.close()

@@ -27,7 +27,12 @@ from bigsnpr_tpu_torch.ops.stats import bed_scaleBinom
 from bigsnpr_tpu_torch.parallel.mesh import MeshOperator, make_mesh
 from bigsnpr_tpu_torch.utils.assertions import check_args
 
-ENGINES = ("auto", "torch", "mesh", "mesh-device")
+ENGINES = ("auto", "pallas", "device", "torch", "xla", "mesh",
+           "mesh-device")
+# the JAX package's names: its Pallas operator (with or without the device
+# Krylov loop, which the port always runs) is the kernels' GenoOperator,
+# its XlaOperator the plain-torch TorchOperator
+_KERNEL_ENGINES = ("auto", "pallas", "device")
 
 
 @dataclass
@@ -215,13 +220,16 @@ def snp_randomSVD(
     `config.pallas_mxu = "split2"` or K6 under "int8", on CUDA; their
     twins on the CPU), or "mesh-device" when `auto_takes_mesh(device)`
     (a bare "cuda" and more than one card, as the JAX package's "auto"
-    takes the mesh); a DosagePack under "auto" always runs on one device;
-    "torch" the plain-torch `TorchOperator`; "mesh" and "mesh-device" the
+    takes the mesh); "pallas" and "device" (the JAX package's names) the
+    `GenoOperator` on one device; "torch" and "xla" the plain-torch
+    `TorchOperator` (the JAX package's `XlaOperator`, whose products read
+    `config.matmul_precision`); "mesh" and "mesh-device" the
     `parallel.mesh.MeshOperator` on `mesh` (default: one shard a CUDA
     device, or one on the CPU when the call runs there), built on the
     physically subset pack, as the JAX package builds it. Every engine
-    runs the Krylov loop on the operator's device (`_device_krylov`); a
-    DosagePack has no mesh engine (ValueError).
+    runs the Krylov loop on the operator's device (`_device_krylov`). A
+    DosagePack runs on one device under every engine, as in the JAX
+    package (it has no 2-bit bytes to shard).
     op: a pre-built operator with the {device, n, m, power_dev} surface
     (such as a multi-process `MeshOperator` from
     `parallel.distributed.distributed_binom_operator`); pack may then be
@@ -242,30 +250,20 @@ def snp_randomSVD(
         sc = fun_scaling(op) if callable(fun_scaling) else fun_scaling
         center = np.asarray(sc["center"], dtype=np.float64)
         scale = np.asarray(sc["scale"], dtype=np.float64)
-    elif engine in ("mesh", "mesh-device"):
+    elif engine in ("mesh", "mesh-device") or hasattr(pack, "code256"):
+        device = config.resolve_device(device)
+        sub = (pack if ind_row is None and ind_col is None
+               else pack.subset(ind_row=ind_row, ind_col=ind_col,
+                                device=device))
+        sc = (call_scaling(fun_scaling, sub, None, device)
+              if callable(fun_scaling) else fun_scaling)
+        center = np.asarray(sc["center"], dtype=np.float64)
+        scale = np.asarray(sc["scale"], dtype=np.float64)
         if hasattr(pack, "code256"):
-            raise ValueError("a DosagePack has no mesh engine: run it with "
-                             "engine='auto'")
-        device = config.resolve_device(device)
-        sub = (pack if ind_row is None and ind_col is None
-               else pack.subset(ind_row=ind_row, ind_col=ind_col,
-                                device=device))
-        sc = (call_scaling(fun_scaling, sub, None, device)
-              if callable(fun_scaling) else fun_scaling)
-        center = np.asarray(sc["center"], dtype=np.float64)
-        scale = np.asarray(sc["scale"], dtype=np.float64)
-        op = MeshOperator(sub, center, scale, mesh=(
-            mesh if mesh is not None else make_mesh(device=device)))
-    elif hasattr(pack, "code256"):
-        device = config.resolve_device(device)
-        sub = (pack if ind_row is None and ind_col is None
-               else pack.subset(ind_row=ind_row, ind_col=ind_col,
-                                device=device))
-        sc = (call_scaling(fun_scaling, sub, None, device)
-              if callable(fun_scaling) else fun_scaling)
-        center = np.asarray(sc["center"], dtype=np.float64)
-        scale = np.asarray(sc["scale"], dtype=np.float64)
-        op = DosageOperator(sub, center, scale, device=device)
+            op = DosageOperator(sub, center, scale, device=device)
+        else:
+            op = MeshOperator(sub, center, scale, mesh=(
+                mesh if mesh is not None else make_mesh(device=device)))
     else:
         device = config.resolve_device(device)
         sc = (call_scaling(fun_scaling, pack, ind_row, device)
@@ -276,7 +274,7 @@ def snp_randomSVD(
             raise ValueError("scaling length mismatch with pack")
         center = c_f if ind_col is None else c_f[np.asarray(ind_col)]
         scale = s_f if ind_col is None else s_f[np.asarray(ind_col)]
-        ctor = GenoOperator if engine == "auto" else TorchOperator
+        ctor = GenoOperator if engine in _KERNEL_ENGINES else TorchOperator
         op = _cached_op(pack, ctor, c_f, s_f, ind_row, ind_col, device=device)
     n, m = op.n, op.m
 

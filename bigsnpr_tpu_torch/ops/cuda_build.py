@@ -2,7 +2,8 @@
 
 Every CUDA source under `csrc/` is compiled with nvcc for sm_90a into a
 shared library with a plain C interface, and every host C++ source under
-`native/` with g++; both land in `_build/` (git-ignored), named by the
+`native/` with g++; both land in BUILD_DIR, by default `_build/`
+(git-ignored; `config.enable_compilation_cache` moves it), named by the
 hash of the source, the headers beside it (`*.cuh`, `*.h`) and the flags,
 and are loaded with ctypes. Nothing is
 built when a module is imported: the wrappers call `load` when they first
@@ -20,7 +21,8 @@ import threading
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
-BUILD_DIR = PKG / "_build"
+DEFAULT_BUILD_DIR = PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
@@ -48,10 +50,16 @@ def _compiler(source: Path):
     return gxx, GXX_FLAGS
 
 
+def set_build_dir(path) -> None:
+    """Build (and look for built libraries) in `path` from now on."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+
+
 def build(source, verbose: bool = False, extra=(), libs=()) -> Path:
     """Compile `source` (a path under the package) with the default flags
     plus `extra`, linked against `libs` (given after the source, e.g.
-    "-l:libz.so.1"), into `_build/` unless the library for this source,
+    "-l:libz.so.1"), into BUILD_DIR unless the library for this source,
     its headers and these flags is there already; returns the library's
     path. With
     verbose, prints the compiler's report (for nvcc: ptxas' registers,

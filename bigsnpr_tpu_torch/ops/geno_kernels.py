@@ -47,7 +47,7 @@ import torch
 
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.core.unpack import codes_to_dosage, unpack_codes
-from bigsnpr_tpu_torch.ops import cuda_build
+from bigsnpr_tpu_torch.ops import cuda_build, precision
 from bigsnpr_tpu_torch.ops.blocks import pick_block
 from bigsnpr_tpu_torch.ops.corr import _pack_is_nona
 
@@ -134,33 +134,34 @@ def standardized(packed: torch.Tensor, n: int, center: torch.Tensor,
     return x.masked_fill(na, 0.0)
 
 
-def cprod_plain(packed, n, V, center, inv, block=None):
+def cprod_plain(packed, n, V, center, inv, block=None, prec="highest"):
     """K1's function in torch ops: decode a variant block, f32 matmul (the
     direct product, as the JAX package's HIGHEST kernel computes it; the
-    kernel reaches it through the plane algebra)."""
+    kernel reaches it through the plane algebra). `TorchOperator` passes
+    its `matmul_precision` as `prec` (`ops/precision.py`)."""
     m = packed.shape[0]
     block = block or pick_block(n)
     out = torch.empty((m, V.shape[1]), dtype=torch.float32,
                       device=packed.device)
     for j0 in range(0, m, block):
         j1 = min(m, j0 + block)
-        out[j0:j1] = standardized(packed[j0:j1], n, center[j0:j1],
-                                  inv[j0:j1]) @ V
+        out[j0:j1] = precision.mm(standardized(
+            packed[j0:j1], n, center[j0:j1], inv[j0:j1]), V, prec)
     return out
 
 
-def prod_plain(packed, n, U, center, inv, block=None):
+def prod_plain(packed, n, U, center, inv, block=None, prec="highest"):
     """K2's function in torch ops: decode a variant block, f32 matmul,
     accumulated over variant blocks (the direct product, which the kernel
-    reaches through the plane algebra)."""
+    reaches through the plane algebra); `prec` as for `cprod_plain`."""
     m = packed.shape[0]
     block = block or pick_block(n)
     out = torch.zeros((n, U.shape[1]), dtype=torch.float32,
                       device=packed.device)
     for j0 in range(0, m, block):
         j1 = min(m, j0 + block)
-        out += standardized(packed[j0:j1], n, center[j0:j1],
-                            inv[j0:j1]).T @ U[j0:j1]
+        out += precision.mm(standardized(
+            packed[j0:j1], n, center[j0:j1], inv[j0:j1]).T, U[j0:j1], prec)
     return out
 
 

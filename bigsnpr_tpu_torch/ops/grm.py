@@ -5,9 +5,11 @@ X̃ X̃ᵀ with per-block scaling accumulated on disk. The JAX package runs it
 as one XLA scan over variant blocks (`_grm_blocked`, not a Pallas
 kernel); here each block of variants is decoded and standardized on the
 device (`core/unpack.unpack_standardized`) and added into the (n, n)
-float32 accumulator, which stays on the device, by one `torch.matmul`
-update in float32 (TF32 off, `config`). Monomorphic variants get scale 1,
-as in the JAX package (they standardize to 0).
+float32 accumulator, which stays on the device, by one `addmm_` update
+at `config.matmul_precision` (`ops/precision.py`: IEEE float32 under
+"highest", bf16 tensor-core products under "high" / "default", as the JAX
+package's scan reads the option). Monomorphic variants get scale 1, as in
+the JAX package (they standardize to 0).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.core.unpack import unpack_standardized
 from bigsnpr_tpu_torch.linalg.randomsvd import call_scaling
+from bigsnpr_tpu_torch.ops import precision
 from bigsnpr_tpu_torch.ops.blocks import pick_block
 from bigsnpr_tpu_torch.ops.stats import bed_scaleBinom
 
@@ -25,13 +28,15 @@ from bigsnpr_tpu_torch.ops.stats import bed_scaleBinom
 def grm_blocked(packed: torch.Tensor, n: int, center: torch.Tensor,
                 scale: torch.Tensor, block: int) -> torch.Tensor:
     """(n, n) float32 X̃ X̃ᵀ of a (m, nb) packed tensor, accumulated over
-    blocks of `block` variants on the pack's device."""
+    blocks of `block` variants on the pack's device at
+    `config.matmul_precision`."""
+    prec = precision.resolve()
     acc = torch.zeros((n, n), dtype=torch.float32, device=packed.device)
     for j0 in range(0, packed.shape[0], block):
         j1 = j0 + block
         xt = unpack_standardized(packed[j0:j1], n, center[j0:j1],
                                  scale[j0:j1])           # (block, n)
-        acc.addmm_(xt.T, xt)
+        precision.addmm_(acc, xt.T, xt, prec)
     return acc
 
 

@@ -12,9 +12,13 @@ A byte-coded `DosagePack` takes the JAX package's byte path
 device: a block of variants (`blocks.byte_rows`: ~256 MB of float32, fewer
 where its int64 gather indices would pass 512 MB) is decoded through a
 per-variant table of (code256 - center) / scale (NaN codes -> 0;
-`blocks.decode_bytes`) into float32 and multiplied with `torch.matmul` (full float32,
-no TF32); the decoded matrix is never whole. It runs no hand-written
-kernel: the JAX package's byte path is XLA, not Pallas.
+`blocks.decode_bytes`) into float32 and multiplied at
+`config.matmul_precision` (`ops/precision.py`: IEEE float32 under
+"highest", bf16 tensor-core products under "high" / "default", as the JAX
+package's byte path reads the option); the decoded matrix is never whole.
+It runs no hand-written kernel: the JAX package's byte path is XLA, not
+Pallas. So does `TorchOperator`'s "highest" scheme, the counterpart of the
+JAX package's `XlaOperator`.
 
 Conventions (the reference's G orientation, samples x variants):
   prodVec : X (n x m) @ u (m[, l]) -> (n[, l])
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from bigsnpr_tpu_torch import config
-from bigsnpr_tpu_torch.ops import geno_kernels
+from bigsnpr_tpu_torch.ops import geno_kernels, precision
 from bigsnpr_tpu_torch.ops.blocks import byte_rows, decode_bytes
 from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator, StdOperator
 
@@ -39,7 +43,9 @@ class TorchOperator(GenoOperator):
     the K7 twins (`cprod_split_plain`, `prod_split_plain`), under "int8"
     the K6 twins (`cprod_i8_plain`, `prod_i8_plain`), under "int8m" the K8
     twins on the operator's materialized planes (`cprod_i8m_plain`,
-    `prod_i8m_plain`)."""
+    `prod_i8m_plain`). Under "highest" its products read
+    `config.matmul_precision` at each call, as `XlaOperator`'s do; the
+    other schemes keep their twins' arithmetic."""
 
     def __init__(self, pack, center, scale, ind_row=None, ind_col=None,
                  block=None, device=None, mxu=None, nona=None):
@@ -59,7 +65,8 @@ class TorchOperator(GenoOperator):
             return geno_kernels.cprod_split_plain(self.packed, self.n_full,
                                                   V, self.center, self.inv)
         return geno_kernels.cprod_plain(self.packed, self.n_full, V,
-                                        self.center, self.inv, self.block)
+                                        self.center, self.inv, self.block,
+                                        precision.resolve())
 
     def _prod_full(self, U):
         if self.mxu == "int8m":
@@ -73,7 +80,8 @@ class TorchOperator(GenoOperator):
             return geno_kernels.prod_split_plain(self.packed, self.n_full, U,
                                                  self.center, self.inv)
         return geno_kernels.prod_plain(self.packed, self.n_full, U,
-                                       self.center, self.inv, self.block)
+                                       self.center, self.inv, self.block,
+                                       precision.resolve())
 
 
 def _prep(pack, w, rows, what, center, scale, device):
@@ -102,29 +110,31 @@ def _prep(pack, w, rows, what, center, scale, device):
 
 def cprod_bytes(codes, table, V, center, scale, block=None):
     """X~^T V on the device of the (m, n) byte codes: V (n, l) ->
-    (m, l) float32, block by block."""
+    (m, l) float32, block by block, at `config.matmul_precision`."""
     m, n = codes.shape
     block = byte_rows(n, block)
+    prec = precision.resolve()
     out = torch.empty((m, V.shape[1]), dtype=torch.float32,
                       device=codes.device)
     for b0 in range(0, m, block):
         X = decode_bytes(codes[b0:b0 + block], table,
                          center[b0:b0 + block], scale[b0:b0 + block])
-        torch.matmul(X, V, out=out[b0:b0 + block])
+        precision.mm(X, V, prec, out=out[b0:b0 + block])
     return out
 
 
 def prod_bytes(codes, table, U, center, scale, block=None):
     """X~ U on the device of the (m, n) byte codes: U (m, l) -> (n, l)
-    float32, accumulated block by block."""
+    float32, accumulated block by block, at `config.matmul_precision`."""
     m, n = codes.shape
     block = byte_rows(n, block)
+    prec = precision.resolve()
     acc = torch.zeros((n, U.shape[1]), dtype=torch.float32,
                       device=codes.device)
     for b0 in range(0, m, block):
         X = decode_bytes(codes[b0:b0 + block], table,
                          center[b0:b0 + block], scale[b0:b0 + block])
-        acc.addmm_(X.T, U[b0:b0 + block])
+        precision.addmm_(acc, X.T, U[b0:b0 + block], prec)
     return acc
 
 

@@ -408,9 +408,10 @@ def _launch(mesh, packed, W, center, inv, prod):
 
 
 def _check_precision(precision):
-    if precision != "highest":
-        raise ValueError(f"precision must be 'highest' (K1 / K2), not "
-                         f"{precision!r}")
+    """The JAX package's three names are taken; each runs K1 / K2, whose
+    products are exact and whose float32 sums are at least "highest"'s
+    (the JAX package's Pallas kernels ignore the option too)."""
+    config.check_precision(precision)
 
 
 def cprod_fn(mesh: Mesh, precision="highest"):

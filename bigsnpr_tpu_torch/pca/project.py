@@ -8,7 +8,8 @@ Online Augmentation, Decomposition, and Procrustes (Zhang, Dey & Lee 2020).
 
 `prod_and_row_sums_sq` is the JAX package's XLA scan as torch ops: one
 pass over blocks of the variants, each decoded and standardized once for
-both X̃ V and the row sums of X̃². `pca_OADP_proj` is a copy of the host
+both X̃ V (at `config.matmul_precision`, `ops/precision.py`) and the row
+sums of X̃². `pca_OADP_proj` is a copy of the host
 numpy code. `bed_projectPCA` matches the two maps with `utils/match`.
 """
 
@@ -19,6 +20,7 @@ import torch
 
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.core.unpack import unpack_standardized
+from bigsnpr_tpu_torch.ops import precision
 from bigsnpr_tpu_torch.ops.blocks import pick_block
 
 
@@ -36,6 +38,7 @@ def prod_and_row_sums_sq(pack, V, center, scale, ind_col=None, block=None,
     V = np.asarray(V, dtype=np.float64)
     assert V.shape[0] == m
     block = block or pick_block(n)
+    prec = precision.resolve()
     f32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32),  # noqa: E731
                                     device=dev)
     Vt, c, s = f32(V), f32(center), f32(scale)
@@ -45,7 +48,7 @@ def prod_and_row_sums_sq(pack, V, center, scale, ind_col=None, block=None,
         j1 = min(m, j0 + block)
         pb = packed[j0:j1] if cols is None else packed[cols[j0:j1]]
         xt = unpack_standardized(pb, n, c[j0:j1], s[j0:j1])   # (block, n)
-        xv += xt.T @ Vt[j0:j1]
+        xv += precision.mm(xt.T, Vt[j0:j1], prec)
         xn += (xt * xt).sum(dim=0)
     return (xv.cpu().numpy().astype(np.float64),
             xn.cpu().numpy().astype(np.float64))

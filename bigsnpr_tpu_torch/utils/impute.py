@@ -33,6 +33,7 @@ import torch
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.core import unpack
 from bigsnpr_tpu_torch.core.genotypes import GenoPack
+from bigsnpr_tpu_torch.ops import precision
 from bigsnpr_tpu_torch.ops.blocks import pick_block
 from bigsnpr_tpu_torch.ops.corr import snp_cor
 from bigsnpr_tpu_torch.ops.stats import snp_counts
@@ -180,7 +181,9 @@ def _impute_block_ridge(packed_win, n, nb_idx, nb_valid, y_idx, train,
     Inputs, on one device: packed_win (W, nb) uint8; nb_idx (B, K)
     window-local neighbour rows; nb_valid (B, K) {0, 1} float32; y_idx
     (B,) window-local target rows; train (B, n) {0, 1} float32. Returns
-    (preds (B, n), y (B, n) dosages, y_na (B, n) bool), float32. A variant
+    (preds (B, n), y (B, n) dosages, y_na (B, n) bool), float32; its three
+    products run at `config.matmul_precision` (`ops/precision.py`), as the
+    JAX block's do. A variant
     whose normal equations do not factor (no training row: ntr = 0) gets
     NaN predictions, as JAX's `cho_factor` gives them."""
     d, na = unpack.unpack_dosage(packed_win, n)             # (W, n)
@@ -194,14 +197,15 @@ def _impute_block_ridge(packed_win, n, nb_idx, nb_valid, y_idx, train,
     A = torch.cat([torch.ones((B, 1, n), dtype=F.dtype, device=F.device),
                    F[nb_idx] * nb_valid[:, :, None]], dim=1)   # (B, K+1, n)
     Aw = A * t[:, None, :]
-    G = torch.bmm(Aw, A.transpose(1, 2))
+    prec = precision.resolve()
+    G = precision.bmm(Aw, A.transpose(1, 2), prec)
     ntr = t.sum(1)
     G = G + (ridge * ntr)[:, None, None] * torch.eye(
         K + 1, dtype=G.dtype, device=G.device)
-    b = torch.bmm(Aw, y[:, :, None])
+    b = precision.bmm(Aw, y[:, :, None], prec)
     L, info = torch.linalg.cholesky_ex(G)
     w = torch.cholesky_solve(b, L)                           # (B, K+1, 1)
-    preds = torch.bmm(w.transpose(1, 2), A)[:, 0]
+    preds = precision.bmm(w.transpose(1, 2), A, prec)[:, 0]
     # what cholesky_solve gives on a failed factor is not defined
     preds = torch.where((info > 0)[:, None],
                         torch.full((), float("nan"), device=preds.device),

@@ -221,6 +221,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      shard_chains over two shards (every chain bit-equal to the unsharded
      run) and with shard_blocks over two (beta_est and path_h2_est within
      rtol 5e-4), the sweep kernel launched once a shard a sweep.
+ 22. the JAX package's matmul_precision option ("highest" IEEE float32,
+     "high" bf16x3, "default" one bf16 pass; `ops/precision.py`), each
+     name in turn: (a, after [21b], on slice 1's pack) bed_GRM on its
+     first 10,000 samples (--n-grm) over all 100,000 variants, 64 rows
+     against float64, the accumulation timed with its TFLOP/s against
+     the f32 and bf16 peaks, and snp_randomSVD(k = 10, engine "xla")
+     (TorchOperator, the JAX package's XlaOperator) against [4]'s first 5
+     singular values; (b, inside [19], on its DosagePack) the byte path's
+     cprod / prod at l = 20 against float64, timed beside its bound.
+     Limits (of max |float64|, or relative on d): "highest" today's, 1e-5
+     on products and 1e-4 on d; "high" 1e-4 and 1e-3; "default" 1e-2 and
+     5e-2 (tests/test_torch_precision.py's); "default" off float64 by more
+     than 4x "highest" on the GRM; TF32 and torch's float32 matmul
+     precision still off / "highest" afterwards.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Without a CUDA device the script exits non-zero and prints no result.
 `--rehearse-cpu` runs the same phases on the CPU through the twins at the
@@ -3985,6 +3999,7 @@ def phase_slice6c(bp, gk, gsk, torch, dev, args, timer):
 
         log("  the byte path against its bound:")
         byte_path_timed(bp, torch, dev, pack, timer)
+        precision_byte_path(bp, torch, dev, pack, timer)
         del pack, packq, hard, op
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -4590,6 +4605,159 @@ def auto_engine(bp, gk, torch, dev, pack, svd, stage):
                    else "randomSVD \"auto\" on the one card")
 
 
+PRECISIONS = ("highest", "high", "default")
+# [22]'s limits: of max |float64| on a product, relative on d
+PRECISION_TOL = {"highest": (DENSE_TOL, 1e-4), "high": (1e-4, 1e-3),
+                 "default": (1e-2, 5e-2)}
+# bf16 passes a float32 product takes at each name
+PRECISION_PASSES = {"high": 3, "default": 1}
+
+
+def flags_untouched(torch, where):
+    """TF32 off and torch's float32 matmul precision "highest": the
+    option never changes a process-wide flag."""
+    ok = (torch.backends.cuda.matmul.allow_tf32 is False
+          and torch.get_float32_matmul_precision() == "highest")
+    log(f"    TF32 off and float32 matmul precision \"highest\" after "
+        f"{where}: {ok}")
+    if not ok:
+        fail(f"a process-wide matmul flag changed in {where}")
+
+
+def precision_bound_s(flop, name):
+    """The least time of `flop` float32-product operations at `name`:
+    the f32 peak, or its bf16 passes over the bf16 peak."""
+    if name == "highest":
+        return flop / PEAK_F32_FLOP_PER_S
+    return PRECISION_PASSES[name] * flop / PEAK_BF16_FLOP_PER_S
+
+
+def phase_precision(bp, torch, dev, pack, svd, timer, args):
+    """[22a]: the option's sites on slice 1's pack, at each name: bed_GRM
+    on its first --n-grm samples against float64 and snp_randomSVD(engine
+    "xla") against [4]'s. Returns its times."""
+    from bigsnpr_tpu_torch.ops.blocks import pick_block
+    from bigsnpr_tpu_torch.ops.grm import grm_blocked
+
+    n_g = min(args.n_grm, pack.n)
+    log(f"[22a] matmul_precision on slice 1's pack: bed_GRM on {n_g} "
+        f"samples x {pack.m} variants, snp_randomSVD(engine \"xla\")")
+    t_all = time.perf_counter()
+    sub = pack.subset(ind_row=np.arange(n_g), device=dev)
+    m = sub.m
+    sc = bp.bed_scaleBinom(sub, device=dev)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    c, s = f32(sc["center"]), f32(np.where(sc["scale"] > 0, sc["scale"], 1))
+    P = sub.device_packed(dev)
+    pick = np.sort(np.random.default_rng(args.seed + 22).choice(
+        n_g, min(64, n_g), replace=False))
+    acc = torch.zeros((len(pick), n_g), dtype=torch.float64, device=dev)
+    inv = 1.0 / s
+    for j0 in range(0, m, 4096):
+        X = dense64(torch, P[j0:j0 + 4096], n_g, c[j0:j0 + 4096],
+                    inv[j0:j0 + 4096])
+        acc += X[:, pick].T @ X
+    ref = acc.cpu().numpy() / m
+    del acc, X
+    flop = 2.0 * n_g * n_g * m
+    out, errs, grams = {}, {}, {}
+    for name in PRECISIONS:
+        with bp.config.options(matmul_precision=name):
+            t0 = time.perf_counter()
+            G = bp.bed_GRM(sub, device=dev)
+            t_grm = time.perf_counter() - t0
+            ms = timer(lambda: grm_blocked(P, n_g, c, s, pick_block(n_g)),
+                       reps=1, warmup=0)
+            t0 = time.perf_counter()
+            sv = bp.snp_randomSVD(pack, k=10, engine="xla", device=dev)
+            t_svd = time.perf_counter() - t0
+        e_g = float(np.abs(G[pick] - ref).max() / np.abs(ref).max())
+        e_d = float(np.max(np.abs(sv.d[:5] - svd.d[:5]) / svd.d[:5]))
+        tol_p, tol_d = PRECISION_TOL[name]
+        bound = precision_bound_s(flop, name) * 1e3
+        log(f"  {name:8s} bed_GRM {t_grm:.3f} s (the accumulation "
+            f"{ms:.3f} ms, {flop / ms / 1e9:.1f} TFLOP/s: "
+            f"{flop / ms / 1e9 / (PEAK_F32_FLOP_PER_S / 1e12):.3f} of the f32 "
+            f"peak, {flop / ms / 1e9 / (PEAK_BF16_FLOP_PER_S / 1e12):.3f} of "
+            f"the bf16 peak; its bound {bound:.3f} ms); 64 rows vs float64 "
+            f"{e_g:.2e} (limit {tol_p:g}); randomSVD \"xla\" {t_svd:.3f} s, "
+            f"{sv.niter} depths, d[:5] vs [4]'s max rel {e_d:.2e} (limit "
+            f"{tol_d:g})")
+        if not (np.isfinite(G).all() and G.shape == (n_g, n_g)
+                and np.isfinite(sv.d).all()):
+            fail(f"[22a] {name}: non-finite or misshapen output")
+        if e_g > tol_p or e_d > tol_d:
+            fail(f"[22a] {name}: the GRM or randomSVD is off its limit")
+        out[name] = {"grm_s": t_grm, "grm_ms": ms, "svd_s": t_svd}
+        errs[name] = e_g
+        grams[name] = G[pick]
+    moved = float(np.abs(grams["default"] - grams["highest"]).max()
+                  / np.abs(ref).max())
+    log(f"  \"default\" moves the GRM off \"highest\" by {moved:.2e} of "
+        f"max |G| (its error {errs['default']:.2e} against \"highest\"'s "
+        f"{errs['highest']:.2e}; more than 4x required)")
+    if not errs["default"] > 4 * errs["highest"] or moved == 0:
+        fail("[22a] \"default\" does not reach the GRM's product")
+    flags_untouched(torch, "[22a]")
+    log(f"  [22a] {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def precision_byte_path(bp, torch, dev, pack, timer, l=20):
+    """[22b]: the byte path's cprod / prod on [19]'s DosagePack at each
+    name against float64, timed beside its bound. Returns its times."""
+    from bigsnpr_tpu_torch.ops import matvec as pmv
+
+    log(f"[22b] matmul_precision on the byte path ({pack.n} x {pack.m} "
+        f"codes, l = {l})")
+    t_all = time.perf_counter()
+    sc = bp.snp_scaleBinom()(pack)
+    scale = np.where(sc["scale"] > 0, sc["scale"], 1.0)
+    op = pmv.DosageOperator(pack, sc["center"], scale)
+    n, m = pack.n, pack.m
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    V = torch.randn((n, l), generator=g, device=dev)
+    U = torch.randn((m, l), generator=g, device=dev)
+    tab = op.table.double()
+    c64 = torch.as_tensor(sc["center"], dtype=torch.float64, device=dev)
+    s64 = torch.as_tensor(scale, dtype=torch.float64, device=dev)
+    ref_c = torch.empty((m, l), dtype=torch.float64, device=dev)
+    ref_p = torch.zeros((n, l), dtype=torch.float64, device=dev)
+    for j0 in range(0, m, 4096):
+        X = (tab[op.codes[j0:j0 + 4096].long()] - c64[j0:j0 + 4096, None]) \
+            / s64[j0:j0 + 4096, None]
+        X = torch.nan_to_num(X, nan=0.0)
+        ref_c[j0:j0 + 4096] = X @ V.double()
+        ref_p += X.T @ U[j0:j0 + 4096].double()
+    del X
+    flop = 2.0 * n * m * l
+    out = {}
+    for name in PRECISIONS:
+        tol_p = PRECISION_TOL[name][0]
+        with bp.config.options(matmul_precision=name):
+            for what, fn, ref, rows in (
+                    ("cprod", lambda: op.cprod_dev(V), ref_c, n),
+                    ("prod", lambda: op.prod_dev(U), ref_p, m)):
+                y = fn()
+                err = rel64(y, ref)
+                ms = timer(fn, reps=3)
+                nbytes = m * n + rows * l * 4 + (m + n - rows) * l * 4 \
+                    + 2 * m * 4 + 256 * 4
+                bound = max(nbytes / PEAK_BYTES_PER_S,
+                            precision_bound_s(flop, name)) * 1e3
+                log(f"  {name:8s} {what:5s} {ms:.3f} ms ({ms / bound:.1f}x "
+                    f"its bound {bound:.3f} ms); vs float64 {err:.2e} (limit "
+                    f"{tol_p:g})")
+                if not (torch.isfinite(y).all() and err <= tol_p):
+                    fail(f"[22b] {name} {what}: off float64")
+                out[f"{what} {name}"] = ms
+    flags_untouched(torch, "[22b]")
+    log(f"  [22b] {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def phase_ranks(bp, gk, torch, dev, pack, sc, svd, bedfile, tmp):
     """[21b]: two ranks of torch.distributed on gloo, both on the one
     device, each reading only its own sample bytes of slice 1's .bed, and
@@ -4860,6 +5028,7 @@ def main(argv=None):
         walls21 = phase_ranks(bp, gk, torch, dev, pack, sc, svd,
                               os.path.join(tmp, "cohort.bed"), tmp)
         t21 = time.perf_counter() - t21
+        phase_precision(bp, torch, dev, pack, svd, timer, args)
         del pack, packed_np, svd
     if dev.type == "cuda":
         torch.cuda.empty_cache()

@@ -1174,3 +1174,57 @@ def test_mesh_on_one_card_matches_geno_operator(cuda):
                 np.testing.assert_array_equal(s[k], r[k],
                                               err_msg=f"{shard} {k}")
     assert gsk.launches["sweep"] == 4 * 20
+
+
+# the sites' shapes: a decoded block against a thin operand (the byte path,
+# the projection, TorchOperator), a GRM block (6,704 variants of 10,000
+# samples) and the imputation's ridge block (512 variants, 32 neighbours and
+# the intercept, 20,000 samples)
+PRECISION_SHAPES = {"mm": [(1, 301, 4097, 20)],
+                    "addmm_": [(1, 301, 4097, 20), (1, 2000, 6704, 2000)],
+                    "bmm": [(3, 301, 4097, 20), (512, 33, 20000, 33)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["high", "default"])
+@pytest.mark.parametrize("op", ["mm", "addmm_", "bmm"])
+def test_precision_helpers_follow_the_cpu_rounding(cuda, name, op):
+    """`ops/precision.py` on the card (bf16 tensor-core products, the depth
+    in DEPTH_CHUNK pieces summed in float32) and on the CPU against
+    float64 products of the same bf16 operands (the name's rounding rule):
+    within 1e-6 of max |float64|, or within twice the error of the card's
+    IEEE float32 product of those operands where a long depth makes that
+    larger (tests/test_torch_precision.py holds the CPU rule at small
+    shapes to 1e-6). No process-wide flag moves."""
+    from bigsnpr_tpu_torch.ops import precision
+
+    if op == "mm":
+        fn = lambda x, y, z: precision.mm(x[0], y[0], name)  # noqa: E731
+    elif op == "addmm_":
+        fn = lambda x, y, z: precision.addmm_(  # noqa: E731
+            z.clone(), x[0].mT.contiguous().mT, y[0], name)
+    else:
+        fn = lambda x, y, z: precision.bmm(x, y, name)  # noqa: E731
+    for Bt, M, K, N in PRECISION_SHAPES[op]:
+        g = torch.Generator(device=cuda).manual_seed(5)
+        a = torch.randn((Bt, M, K), generator=g, device=cuda) + 0.5
+        b = torch.randn((Bt, K, N), generator=g, device=cuda)
+        acc = torch.randn((M, N), generator=g, device=cuda)
+        A, B = precision.operands(a, b, name)
+        ref = torch.bmm(A.double(), B.double())
+        f32 = torch.bmm(A.float(), B.float())
+        if op != "bmm":
+            ref, f32 = ref[0], f32[0]
+        if op == "addmm_":
+            ref, f32 = ref + acc.double(), f32 + acc
+        top = ref.abs().max()
+        tol = max(1e-6, 2 * float((f32.double() - ref).abs().max() / top))
+        got = fn(a, b, acc)
+        assert got.dtype == torch.float32 and got.device == a.device
+        assert (got.double() - ref).abs().max() <= tol * top
+        rows = min(Bt, 2)            # the CPU rule on the first batches
+        cpu = fn(a[:rows].cpu(), b[:rows].cpu(), acc.cpu())
+        ref = ref[:rows] if op == "bmm" else ref
+        assert (cpu.double() - ref.cpu()).abs().max() <= tol * top.cpu()
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -147,5 +147,10 @@ def test_randomsvd_reuses_cached_operator():
     b = pt.bed_randomSVD(pp, k=3, tol=1e-7)
     assert len(pp._op_cache) == 1
     np.testing.assert_array_equal(a.d, b.d)
+    # the JAX package's "pallas" / "device" share the kernels' operator
+    for engine in ("pallas", "device"):
+        np.testing.assert_array_equal(
+            pt.snp_randomSVD(pp, k=3, tol=1e-7, engine=engine).d, a.d)
+    assert len(pp._op_cache) == 1
     with pytest.raises(ValueError):
-        pt.snp_randomSVD(pp, k=3, engine="xla")
+        pt.snp_randomSVD(pp, k=3, engine="nope")

@@ -166,9 +166,15 @@ def test_shard_invariance_and_functions():
     Q = pmesh.put_global(mesh, Vp, ("s", None))
     Y = pmesh.power_iter_fn(mesh, op.n_pad)(op.packed, Q, op.center, op.inv)
     np.testing.assert_array_equal(pmesh.fetch_global(Y)[:203], outs[0][1])
+    # the JAX package's three names run K1 / K2 alike; another raises
+    for name in ("default", "high"):
+        got = pmesh.MeshOperator(pp, sc["center"], sc["scale"], mesh=mesh,
+                                 precision=name).power(V)
+        np.testing.assert_array_equal(got[0], op.power(V)[0])
+        np.testing.assert_array_equal(got[1], op.power(V)[1])
     with pytest.raises(ValueError, match="precision"):
         pmesh.MeshOperator(pp, sc["center"], sc["scale"], mesh=mesh,
-                           precision="default")
+                           precision="bf16")
 
 
 def test_tiles_launch_k1_k2_per_tile(monkeypatch):
@@ -214,17 +220,19 @@ def test_random_svd_mesh_engines_match_jax(engine):
 
 
 def test_random_svd_mesh_engine_refuses_dosages():
-    """A DosagePack under "mesh" raises, where the JAX package runs it
-    unsharded (port DEVIATIONS #4); an unknown engine raises."""
+    """A DosagePack under "mesh" runs unsharded on one device, as the JAX
+    package runs it (port DEVIATIONS #4; it raised before): the same
+    result as under "auto". An unknown engine raises."""
     pack = pt.snp_fake(40, 30, seed=1)
     codes = np.nan_to_num(pack.to_dosage().T, nan=3).astype(np.uint8)
     dpack = pt.DosagePack(codes=codes, n=40)
     with pytest.raises(ValueError, match="engine"):
-        pt.snp_randomSVD(pack, k=2, engine="xla")
+        pt.snp_randomSVD(pack, k=2, engine="nope")
+    ref = pt.snp_randomSVD(dpack, k=2)
+    assert ref.d.shape == (2,)
     for engine in ("mesh", "mesh-device"):
-        with pytest.raises(ValueError, match="mesh engine"):
-            pt.snp_randomSVD(dpack, k=2, engine=engine)
-    assert pt.snp_randomSVD(dpack, k=2).d.shape == (2,)
+        got = pt.snp_randomSVD(dpack, k=2, engine=engine)
+        np.testing.assert_array_equal(got.d, ref.d)
 
 
 @needs_8
@@ -292,8 +300,7 @@ def test_auto_on_the_mesh_is_mesh_device(monkeypatch):
 
 def test_auto_keeps_a_dosage_pack_on_one_device(monkeypatch):
     """A DosagePack under "auto" runs on DosageOperator whatever the rule
-    says (the JAX package runs it unsharded), and does not meet the mesh
-    engines' ValueError."""
+    says (the JAX package runs it unsharded), never on the mesh."""
     from bigsnpr_tpu_torch.linalg import randomsvd
 
     pack = pt.snp_fake(60, 40, seed=3)

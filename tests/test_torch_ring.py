@@ -469,6 +469,16 @@ def lassosum_ring(sb, pl, dp, beta, bh, pf, lam, delta, active):
             torch.stack([a[2] for a in accs], 1).amax(1))
 
 
+def differ(a, b):
+    """What torch.equal saw when it failed: how many entries differ, how
+    many are NaN on either side (NaN never equals itself), the largest
+    difference."""
+    ne = a != b
+    return (f"{int(ne.sum())} of {a.numel()} entries differ, NaN "
+            f"{int(torch.isnan(a).sum())} / {int(torch.isnan(b).sum())}, "
+            f"max |diff| {float((a.double() - b.double()).abs().max())}")
+
+
 def sweep_state(sb, NC, seed):
     rng = np.random.default_rng(seed)
     m, dt = sb.m, sb.dtype
@@ -526,9 +536,9 @@ def test_ring_schedule_matches_sweep_twin(case, dtype):
     dp_ref, dp_ring = st["dp"].clone(), st["dp"].clone()
     ref = gk.sweep_plain(sb, dp_ref, *args)
     got = sweep_ring(sb, pl, dp_ring, *args)
-    assert torch.equal(dp_ring, dp_ref)
+    assert torch.equal(dp_ring, dp_ref), differ(dp_ring, dp_ref)
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        assert torch.equal(a, b), differ(a, b)
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -459,5 +459,6 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
                   "randomSVD over 2 ranks", "engine \"auto\" builds",
                   "2 ranks x 2 shards, gloo (mesh 2 x 2)",
                   "randomSVD over 2 ranks x 2 shards", "[21c]",
-                  "shard_chains: every chain bit-equal", "shard_blocks: "):
+                  "shard_chains: every chain bit-equal", "shard_blocks: ",
+                  "[22a]", "moves the GRM off", "[22b]"):
         assert phase in out.stdout
