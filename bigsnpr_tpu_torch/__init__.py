@@ -126,7 +126,7 @@ from bigsnpr_tpu_torch.assoc.mhtest import (
 )
 from bigsnpr_tpu_torch.assoc.max3 import snp_MAX3
 from bigsnpr_tpu_torch.assoc.fst import snp_fst
-from bigsnpr_tpu_torch.utils.profiling import StageTimer, trace
+from bigsnpr_tpu_torch.utils.profiling import StageTimer, recording, trace
 from bigsnpr_tpu_torch.utils.match import (
     snp_match,
     same_ref,

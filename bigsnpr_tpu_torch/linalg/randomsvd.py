@@ -26,6 +26,7 @@ from bigsnpr_tpu_torch.ops.matvec import DosageOperator, TorchOperator
 from bigsnpr_tpu_torch.ops.stats import bed_scaleBinom
 from bigsnpr_tpu_torch.parallel.mesh import MeshOperator, make_mesh
 from bigsnpr_tpu_torch.utils.assertions import check_args
+from bigsnpr_tpu_torch.utils.profiling import count, span, to_host
 
 ENGINES = ("auto", "pallas", "device", "torch", "xla", "mesh",
            "mesh-device")
@@ -66,7 +67,8 @@ def call_scaling(fun_scaling, pack, ind_row, device):
 def _cached_op(pack, ctor, c_f, s_f, ind_row, ind_col, device=None, cap=4):
     """Reuse operators across calls on the same pack, keyed by content
     (scaling + masks + device + scheme), FIFO-capped. The packed bytes stay
-    shared through the pack's device cache.
+    shared through the pack's device cache. Counted as `svd.op_cache_hit`
+    or `svd.op_build` (a miss, built inside an `svd.op_build` span).
 
     Keys include id(pack.packed), so a pack whose packed array was swapped
     does not serve operators built on stale bytes (nor a stale NA-free
@@ -84,9 +86,13 @@ def _cached_op(pack, ctor, c_f, s_f, ind_row, ind_col, device=None, cap=4):
     cache = pack._op_cache
     if cache is None:
         cache = pack._op_cache = {}
-    if key not in cache:
-        if len(cache) >= cap:
-            cache.pop(next(iter(cache)))
+    if key in cache:
+        count("svd.op_cache_hit")
+        return cache[key]
+    count("svd.op_build")
+    if len(cache) >= cap:
+        cache.pop(next(iter(cache)))
+    with span("svd.op_build"):
         cache[key] = ctor(pack, c_f, s_f, ind_row=ind_row, ind_col=ind_col,
                           device=device, mxu=mxu)
     return cache[key]
@@ -142,21 +148,24 @@ def _krylov_update(K, M, G, Q, B, filled):
 
 
 def _ritz_host(G, filled, k):
-    Gh = G[:filled, :filled].cpu().numpy().astype(np.float64)
+    Gh = to_host(G[:filled, :filled]).astype(np.float64)
     d = np.sqrt(np.maximum(np.linalg.eigvalsh(Gh)[::-1][:k], 0.0))
     return np.pad(d, (0, k - len(d)))  # filled < k at shallow depth
 
 
 def _device_krylov(op, n, m, k, l, tol, max_depth, seed, verbose):
     """Block-Krylov on `op.power_dev` with all state on the operator's
-    device. Returns (d, u, v, niter) as float64 numpy."""
+    device. Returns (d, u, v, niter) as float64 numpy. Spans: `svd.power`
+    for each power step, and per depth `svd.ritz`, then, unless it stops
+    there, `svd.newdirs` and `svd.update`; `svd.finish` for the result."""
     dev = op.device
     Lmax = l * max_depth
     rng_h = np.random.default_rng(seed)
     Y = torch.as_tensor(rng_h.standard_normal((n, l)).astype(np.float32),
                         device=dev)
     Q = _cholqr2(Y)
-    B, Y = op.power_dev(Q)
+    with span("svd.power"):
+        B, Y = op.power_dev(Q)
     K = torch.zeros((n, Lmax), dtype=torch.float32, device=dev)
     M = torch.zeros((m, Lmax), dtype=torch.float32, device=dev)
     G = torch.zeros((Lmax, Lmax), dtype=torch.float32, device=dev)
@@ -168,33 +177,40 @@ def _device_krylov(op, n, m, k, l, tol, max_depth, seed, verbose):
     niter = 0
     for it in range(max_depth):
         niter = it + 1
-        d_now = _ritz_host(G, filled, k)
+        with span("svd.ritz"):
+            d_now = _ritz_host(G, filled, k)
         rel = np.max(np.abs(d_now - d_prev) / np.maximum(d_now, 1e-30))
         if verbose:
             print(f"  randomSVD[device] depth {niter}: rel {rel:.2e}")
         if rel < tol or filled + l > Lmax or filled >= min(n, m):
             break
         d_prev = d_now
-        Q = _krylov_newdirs(K, Y, filled)
-        B, Y = op.power_dev(Q)
-        _krylov_update(K, M, G, Q, B, filled)
+        with span("svd.newdirs"):
+            Q = _krylov_newdirs(K, Y, filled)
+        with span("svd.power"):
+            B, Y = op.power_dev(Q)
+        with span("svd.update"):
+            _krylov_update(K, M, G, Q, B, filled)
         filled += l
 
-    Gh = G[:filled, :filled].cpu().numpy().astype(np.float64)
-    evals, Wh = np.linalg.eigh(Gh)
-    order = np.argsort(evals)[::-1][:min(k, filled)]
-    d = np.pad(np.sqrt(np.maximum(evals[order], 0.0)), (0, k - len(order)))
-    W = np.zeros((filled, k), np.float32)
-    W[:, :len(order)] = Wh[:, order]
-    W = torch.as_tensor(W, device=dev)
-    u = K[:, :filled] @ W
-    v = (M[:, :filled] @ W) / torch.clamp(
-        torch.as_tensor(d, dtype=torch.float32, device=dev), min=1e-30)
-    return (d, u.cpu().numpy().astype(np.float64),
-            v.cpu().numpy().astype(np.float64), niter)
+    with span("svd.finish"):
+        Gh = to_host(G[:filled, :filled]).astype(np.float64)
+        evals, Wh = np.linalg.eigh(Gh)
+        order = np.argsort(evals)[::-1][:min(k, filled)]
+        d = np.pad(np.sqrt(np.maximum(evals[order], 0.0)),
+                   (0, k - len(order)))
+        W = np.zeros((filled, k), np.float32)
+        W[:, :len(order)] = Wh[:, order]
+        W = torch.as_tensor(W, device=dev)
+        u = K[:, :filled] @ W
+        v = (M[:, :filled] @ W) / torch.clamp(
+            torch.as_tensor(d, dtype=torch.float32, device=dev), min=1e-30)
+        return (d, to_host(u).astype(np.float64),
+                to_host(v).astype(np.float64), niter)
 
 
 @check_args()
+@span("svd")
 def snp_randomSVD(
     pack,
     fun_scaling=bed_scaleBinom,
@@ -255,8 +271,9 @@ def snp_randomSVD(
         sub = (pack if ind_row is None and ind_col is None
                else pack.subset(ind_row=ind_row, ind_col=ind_col,
                                 device=device))
-        sc = (call_scaling(fun_scaling, sub, None, device)
-              if callable(fun_scaling) else fun_scaling)
+        with span("svd.scaling"):
+            sc = (call_scaling(fun_scaling, sub, None, device)
+                  if callable(fun_scaling) else fun_scaling)
         center = np.asarray(sc["center"], dtype=np.float64)
         scale = np.asarray(sc["scale"], dtype=np.float64)
         if hasattr(pack, "code256"):
@@ -266,8 +283,9 @@ def snp_randomSVD(
                 mesh if mesh is not None else make_mesh(device=device)))
     else:
         device = config.resolve_device(device)
-        sc = (call_scaling(fun_scaling, pack, ind_row, device)
-              if callable(fun_scaling) else fun_scaling)
+        with span("svd.scaling"):
+            sc = (call_scaling(fun_scaling, pack, ind_row, device)
+                  if callable(fun_scaling) else fun_scaling)
         c_f = np.asarray(sc["center"], dtype=np.float64)
         s_f = np.asarray(sc["scale"], dtype=np.float64)
         if len(c_f) != pack.m:
@@ -275,13 +293,16 @@ def snp_randomSVD(
         center = c_f if ind_col is None else c_f[np.asarray(ind_col)]
         scale = s_f if ind_col is None else s_f[np.asarray(ind_col)]
         ctor = GenoOperator if engine in _KERNEL_ENGINES else TorchOperator
-        op = _cached_op(pack, ctor, c_f, s_f, ind_row, ind_col, device=device)
+        with span("svd.operator"):
+            op = _cached_op(pack, ctor, c_f, s_f, ind_row, ind_col,
+                            device=device)
     n, m = op.n, op.m
 
     l0 = min(k + oversample, min(n, m))
     max_depth = max(2, min(max_iter, -(-min(n, m) // l0), 64))
-    d, u, v, niter = _device_krylov(op, n, m, k, l0, tol, max_depth, seed,
-                                    verbose)
+    with span("svd.krylov"):
+        d, u, v, niter = _device_krylov(op, n, m, k, l0, tol, max_depth,
+                                        seed, verbose)
     # sign convention: largest-|loading| coordinate of each u positive
     signs = np.sign(u[np.argmax(np.abs(u), axis=0), np.arange(k)])
     signs[signs == 0] = 1

@@ -50,6 +50,7 @@ from bigsnpr_tpu_torch.core.unpack import codes_to_dosage, unpack_codes
 from bigsnpr_tpu_torch.ops import cuda_build, precision
 from bigsnpr_tpu_torch.ops.blocks import pick_block
 from bigsnpr_tpu_torch.ops.corr import _pack_is_nona
+from bigsnpr_tpu_torch.utils.profiling import to_host
 
 I8_SOURCE = cuda_build.PKG / "csrc" / "geno_i8.cu"
 SPLIT_SOURCE = cuda_build.PKG / "csrc" / "geno_split.cu"
@@ -1024,19 +1025,19 @@ class StdOperator:
     def cprod(self, V):
         """X~^T V: V (n, l) -> (m, l) numpy float32."""
         V, squeeze = self._as_2d(V)
-        out = self.cprod_dev(V).cpu().numpy()
+        out = to_host(self.cprod_dev(V))
         return out[:, 0] if squeeze else out
 
     def prod(self, U):
         """X~ U: U (m, l) -> (n, l) numpy float32."""
         U, squeeze = self._as_2d(U)
-        out = self.prod_dev(U).cpu().numpy()
+        out = to_host(self.prod_dev(U))
         return out[:, 0] if squeeze else out
 
     def power(self, V):
         """One Krylov step, (X~^T V, X~ X~^T V), as numpy arrays."""
         B, Y = self.power_dev(self._as_2d(V)[0])
-        return B.cpu().numpy(), Y.cpu().numpy()
+        return to_host(B), to_host(Y)
 
     def power_dev(self, V: torch.Tensor):
         """Power step on the device, cprod then prod (on a GenoOperator K1

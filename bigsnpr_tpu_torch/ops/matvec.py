@@ -34,6 +34,7 @@ from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.ops import geno_kernels, precision
 from bigsnpr_tpu_torch.ops.blocks import byte_rows, decode_bytes
 from bigsnpr_tpu_torch.ops.geno_kernels import GenoOperator, StdOperator
+from bigsnpr_tpu_torch.utils.profiling import span, to_host
 
 
 class TorchOperator(GenoOperator):
@@ -191,10 +192,11 @@ def snp_cprodVec(pack, v, center=None, scale=None, block=None, device=None):
                           scale, block, device).cprod(v)
     packed, V, squeeze, c, inv = _prep(pack, v, pack.n, "cprodVec (n_samples)",
                                        center, scale, device)
-    out = geno_kernels.cprod(packed, pack.n, V, c, inv).cpu().numpy()
+    out = to_host(geno_kernels.cprod(packed, pack.n, V, c, inv))
     return out[:, 0] if squeeze else out
 
 
+@span("prodvec")
 def snp_prodVec(pack, u, center=None, scale=None, block=None, device=None):
     """X̃ u: per-sample scores (reference bed_prodVec,
     R/bed-mult-vec.R:20-49 / src/bed-prod-vec.cpp:15-51). Returns numpy
@@ -206,7 +208,7 @@ def snp_prodVec(pack, u, center=None, scale=None, block=None, device=None):
                           scale, block, device).prod(u)
     packed, U, squeeze, c, inv = _prep(pack, u, pack.m, "prodVec (m_variants)",
                                        center, scale, device)
-    out = geno_kernels.prod(packed, pack.n, U, c, inv).cpu().numpy()
+    out = to_host(geno_kernels.prod(packed, pack.n, U, c, inv))
     return out[:, 0] if squeeze else out
 
 

@@ -22,6 +22,7 @@ from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.core.unpack import unpack_codes
 from bigsnpr_tpu_torch.ops.blocks import (byte_rows, decode_bytes, pick_block,
                                           present_bytes)
+from bigsnpr_tpu_torch.utils.profiling import to_host
 
 
 def snp_counts(pack, ind_row=None, block=None, device=None) -> np.ndarray:
@@ -48,7 +49,7 @@ def snp_counts(pack, ind_row=None, block=None, device=None) -> np.ndarray:
             codes = codes[:, ir]
         for r, code in enumerate((3, 2, 0, 1)):   # dosage 0, 1, 2, NA
             out[r, b0:b0 + block] = (codes == code).sum(1, dtype=torch.int32)
-    return out.cpu().numpy()
+    return to_host(out)
 
 
 bed_counts = snp_counts

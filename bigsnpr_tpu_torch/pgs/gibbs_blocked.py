@@ -39,6 +39,7 @@ from bigsnpr_tpu_torch.ops import gibbs_kernels
 from bigsnpr_tpu_torch.pgs.gibbs import (MIN_H2, _beta_draw,
                                          _mle_alpha_profile, _poisson1, draw,
                                          poisson1_cdf, row_sums)
+from bigsnpr_tpu_torch.utils.profiling import span
 
 
 def _round_up(x: int, candidates=(8, 16, 32, 64, 128)) -> int:
@@ -357,23 +358,29 @@ def gibbs_multi_blocked(sb, beta_hat, n_vec, h2_vec, p_vec, sparse_vec, gens,
     """LDpred2-grid over NC cells at once (the reference's process grid,
     R/LDpred2.R:100-114, in one chain-batched sweep): h2_vec, p_vec (NC,),
     sparse_vec (NC,) bool, gens one generator per cell. Returns (NC, m)
-    average betas on the scaled axis, NaN rows where a cell diverged."""
-    consts, inv_odd_p, p, gap0 = _grid_consts(sb, beta_hat, n_vec, h2_vec,
-                                              p_vec)
-    spv = _as(sb, sparse_vec, torch.bool)
-    NC, m = p.shape[0], sb.m
-    dp = sb.dp0(NC)
-    curr = torch.zeros((NC, m), dtype=sb.dtype, device=sb.device)
-    avg = torch.zeros_like(curr)
-    diverged = torch.zeros(NC, dtype=torch.bool, device=sb.device)
+    average betas on the scaled axis, NaN rows where a cell diverged.
+    Spans: `ldpred2.setup`, and per sweep `gibbs.sweep` around
+    `gibbs.draw` and `gibbs.kernel`."""
+    with span("ldpred2.setup"):
+        consts, inv_odd_p, p, gap0 = _grid_consts(sb, beta_hat, n_vec,
+                                                  h2_vec, p_vec)
+        spv = _as(sb, sparse_vec, torch.bool)
+        NC, m = p.shape[0], sb.m
+        dp = sb.dp0(NC)
+        curr = torch.zeros((NC, m), dtype=sb.dtype, device=sb.device)
+        avg = torch.zeros_like(curr)
+        diverged = torch.zeros(NC, dtype=torch.bool, device=sb.device)
     for k in range(burn_in + num_iter):
-        u, z = draw(gens, m, m, sb.dtype, sb.device)
-        curr, aux = sweeps_bucketed_mc(sb, dp, curr, consts, u, z,
-                                       inv_odd_p, p, spv, 1.0, False)
-        gap, beta_inc = aux[0], aux[4]
-        if k >= burn_in:
-            avg += torch.where(~diverged[:, None], beta_inc, 0.0)
-        diverged = diverged | (gap > gap0)
+        with span("gibbs.sweep"):
+            with span("gibbs.draw"):
+                u, z = draw(gens, m, m, sb.dtype, sb.device)
+            with span("gibbs.kernel"):
+                curr, aux = sweeps_bucketed_mc(sb, dp, curr, consts, u, z,
+                                               inv_odd_p, p, spv, 1.0, False)
+            gap, beta_inc = aux[0], aux[4]
+            if k >= burn_in:
+                avg += torch.where(~diverged[:, None], beta_inc, 0.0)
+            diverged = diverged | (gap > gap0)
     return torch.where(diverged[:, None], torch.nan, avg / num_iter)
 
 
@@ -476,8 +483,10 @@ class _AutoRun:
             for part in parts:
                 part.blk_d, part.var_d = part.blk.to(dev), part.var.to(dev)
 
+    @span("auto.sweep")
     def sweep(self, k):
-        """Every part's sweep of iteration k, with its draws."""
+        """Every part's sweep of iteration k, with its draws (`gibbs.draw`
+        and `gibbs.kernel` spans a part)."""
         kw, m, dt = self.kw, self.m, self.dt
         use_mle = kw["use_mle"]
         for i, part in enumerate(self.parts):
@@ -492,13 +501,15 @@ class _AutoRun:
             C2 = 1.0 / (1.0 + 1.0 / C1)
             C4 = C2 / part.nv[None, :]
             s1 = torch.sqrt(1 + C1)
-            U, Z = draw(part.gens, m + 16 + (m if use_mle else 0), m + 2,
-                        dt, d)
-            nb, aux = sweeps_bucketed_mc(
-                part.sb, part.dp, part.curr, (part.bh, C2, C4, s1),
-                part.cols(U, 0), part.cols(Z, 0), inv_odd_p, p,
-                part.no_sparse, kw["shrink_corr"], kw["no_jump_sign"],
-                per_block=True)
+            with span("gibbs.draw"):
+                U, Z = draw(part.gens, m + 16 + (m if use_mle else 0),
+                            m + 2, dt, d)
+            with span("gibbs.kernel"):
+                nb, aux = sweeps_bucketed_mc(
+                    part.sb, part.dp, part.curr, (part.bh, C2, C4, s1),
+                    part.cols(U, 0), part.cols(Z, 0), inv_odd_p, p,
+                    part.no_sparse, kw["shrink_corr"], kw["no_jump_sign"],
+                    per_block=True)
             part.gap, part.causal, part.h2_inc, postp_inc, beta_inc, dps = aux
             if k >= kw["burn_in"]:
                 pm = ~div[:, None]
@@ -523,37 +534,46 @@ class _AutoRun:
                 part, name).to(self.dev)
         return out
 
+    @span("auto.update")
     def update(self, k):
-        """The per-chain step of iteration k."""
+        """The per-chain step of iteration k: spans `auto.sums` (the sums
+        over blocks and variants), `auto.p` (the draw of p) and `auto.mle`
+        (alpha and sigma2); h2 and the paths in the step's own time."""
         kw, m = self.kw, self.m
         pb0, pb1 = kw["p_bounds"]
         part = self.parts[0]
-        if self.split:
-            gap = row_sums(self._whole("gap", by_block=True))
-            h2_inc = row_sums(self._whole("h2_inc", by_block=True))
-            causal, nb, lv = self._whole("causal"), self._whole("nb"), self.lv
-            wts = self._whole("wts") if kw["use_mle"] else None
-        else:
-            rows = kw["chains"]
-            gap, h2_inc = row_sums(part.gap, rows), row_sums(part.h2_inc, rows)
-            causal, nb, lv = part.causal, part.nb, part.lv
-            wts = getattr(part, "wts", None)
-        ok = ~self.diverged
-        div2 = self.diverged | (gap > self.gap0)
-        nb_causal = causal.sum(1).to(self.dt)
-        U, Z = self.uz
-        mean_ld = kw["mean_ld"]
-        p2 = _beta_draw(Z, U[:, :8], U[:, 8:16], 1 + nb_causal / mean_ld,
-                        1 + (m - nb_causal) / mean_ld)
-        p2 = torch.where(ok, torch.clamp(p2, pb0, pb1), self.p)
+        with span("auto.sums"):
+            if self.split:
+                gap = row_sums(self._whole("gap", by_block=True))
+                h2_inc = row_sums(self._whole("h2_inc", by_block=True))
+                causal, nb = self._whole("causal"), self._whole("nb")
+                lv = self.lv
+                wts = self._whole("wts") if kw["use_mle"] else None
+            else:
+                rows = kw["chains"]
+                gap = row_sums(part.gap, rows)
+                h2_inc = row_sums(part.h2_inc, rows)
+                causal, nb, lv = part.causal, part.nb, part.lv
+                wts = getattr(part, "wts", None)
+            ok = ~self.diverged
+            div2 = self.diverged | (gap > self.gap0)
+            nb_causal = causal.sum(1).to(self.dt)
+        with span("auto.p"):
+            U, Z = self.uz
+            mean_ld = kw["mean_ld"]
+            p2 = _beta_draw(Z, U[:, :8], U[:, 8:16],
+                            1 + nb_causal / mean_ld,
+                            1 + (m - nb_causal) / mean_ld)
+            p2 = torch.where(ok, torch.clamp(p2, pb0, pb1), self.p)
         h2_est2 = torch.where(ok, self.cur_h2 + h2_inc, self.cur_h2)
         h2 = torch.clamp(h2_est2, min=MIN_H2)
         if kw["use_mle"]:
-            pa, ps = _mle_alpha_profile(self.par_sigma2, wts, lv, nb * nb,
-                                        kw["alpha_bounds"],
-                                        rows=kw["chains"])
-            pa = torch.where(ok, pa, self.par_alpha)
-            ps = torch.where(ok, ps, self.par_sigma2)
+            with span("auto.mle"):
+                pa, ps = _mle_alpha_profile(self.par_sigma2, wts, lv,
+                                            nb * nb, kw["alpha_bounds"],
+                                            rows=kw["chains"])
+                pa = torch.where(ok, pa, self.par_alpha)
+                ps = torch.where(ok, ps, self.par_sigma2)
         else:
             pa = self.par_alpha
             ps = torch.where(ok, h2 / (m * p2), self.par_sigma2)

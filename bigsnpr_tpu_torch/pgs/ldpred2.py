@@ -34,6 +34,7 @@ from bigsnpr_tpu_torch.pgs import gibbs_blocked as gb
 from bigsnpr_tpu_torch.pgs.band import one_block_bands
 from bigsnpr_tpu_torch.pgs.gibbs import chain_generators
 from bigsnpr_tpu_torch.utils.assertions import check_args
+from bigsnpr_tpu_torch.utils.profiling import span, to_host
 
 
 def _dtype(dtype):
@@ -102,6 +103,7 @@ def _unblocked_setup(corr, ind_corr, dt, device, n_beta):
 
 
 @check_args()
+@span("ldpred2.grid")
 def snp_ldpred2_grid(corr, df_beta, grid_param, burn_in: int = 50,
                      num_iter: int = 100,
                      return_sampling_betas: bool = False, ind_corr=None,
@@ -121,23 +123,27 @@ def snp_ldpred2_grid(corr, df_beta, grid_param, burn_in: int = 50,
     h2_grid = np.atleast_1d(np.asarray(grid_param["h2"], dtype=np.float64))
     sp_grid = np.atleast_1d(np.asarray(grid_param["sparse"], dtype=bool))
     assert np.all(h2_grid > 0)
-    gens = chain_generators(seed, len(p_grid), dev)
+    with span("ldpred2.setup"):
+        gens = chain_generators(seed, len(p_grid), dev)
+        if return_sampling_betas:
+            assert len(p_grid) == 1, "only one set of parameters allowed"
+        if return_sampling_betas or blocks is None:
+            sb = _unblocked_setup(corr, ind_corr, dt, dev, len(beta_hat))
+        else:
+            bb, sb = _blocked_setup(corr, blocks, ind_corr, dt, dev)
+            assert bb.m == len(beta_hat)
     if return_sampling_betas:
-        assert len(p_grid) == 1, "only one set of parameters allowed"
-        sb = _unblocked_setup(corr, ind_corr, dt, dev, len(beta_hat))
         out = gibbs.gibbs_one_sampling(sb, beta_hat, N, h2_grid[0],
                                        p_grid[0], bool(sp_grid[0]), gens[0],
                                        burn_in, num_iter)
     elif blocks is None:
-        sb = _unblocked_setup(corr, ind_corr, dt, dev, len(beta_hat))
         out = gibbs.gibbs_one(sb, beta_hat, N, h2_grid, p_grid, sp_grid,
                               gens, burn_in, num_iter)
     else:
-        bb, sb = _blocked_setup(corr, blocks, ind_corr, dt, dev)
-        assert bb.m == len(beta_hat)
         out = gb.gibbs_multi_blocked(sb, beta_hat, N, h2_grid, p_grid,
                                      sp_grid, gens, burn_in, num_iter)
-    return out.double().cpu().numpy().T * scale[:, None]
+    with span("ldpred2.to_host"):
+        return to_host(out.double()).T * scale[:, None]
 
 
 def _mean_ld(corr, ind_corr_np):

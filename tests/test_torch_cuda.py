@@ -1228,3 +1228,33 @@ def test_precision_helpers_follow_the_cpu_rounding(cuda, name, op):
         assert (cpu.double() - ref.cpu()).abs().max() <= tol * top.cpu()
     assert torch.get_float32_matmul_precision() == "highest"
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+@pytest.mark.cuda
+def test_spans_count_the_launches(cuda):
+    """The recorder on the card: randomSVD's `svd.power` spans one a K1 /
+    K2 pair and `svd.ritz` one a depth, LDpred2-grid's `gibbs.sweep` one
+    a sweep launch, and `host_reads` the reads through `to_host`."""
+    from bigsnpr_tpu_torch.ops import gibbs_kernels as gsk
+
+    pp = pt.snp_fake(1003, 2000, seed=5, na_prob=0.02)
+    before = dict(gk.launches)
+    with pt.recording() as rec:
+        svd = pt.bed_randomSVD(pp, k=5, device=cuda)
+    pairs = gk.launches["cprod"] - before["cprod"]
+    assert gk.launches["prod"] - before["prod"] == pairs
+    assert rec.n("svd.power") == pairs > 0
+    assert rec.n("svd.ritz") == svd.niter
+    assert rec.counters["host_reads"] == svd.niter + 4
+    rng = np.random.default_rng(1)
+    corr = pt.snp_cor(pp, size=100, device=cuda)
+    df = {"beta": rng.normal(0, 0.02, 2000), "beta_se": np.full(2000, 0.02),
+          "n_eff": np.full(2000, 1003.0)}
+    grid = {"p": [0.01, 0.1], "h2": [0.2, 0.2], "sparse": [False, True]}
+    s0 = gsk.launches["sweep"]
+    with pt.recording() as rec:
+        pt.snp_ldpred2_grid(corr, df, grid, burn_in=3, num_iter=4,
+                            blocks=pt.auto_blocks(corr, max_block=300),
+                            device=cuda)
+    assert gsk.launches["sweep"] - s0 == rec.n("gibbs.sweep") == 7
+    assert rec.counters["host_reads"] == 1
