@@ -27,12 +27,14 @@ dosage d = 2 - ((g + 1) >> 1) of 2-bit code g, and NA (g == 1) -> 0.
 
 The kernels live in `csrc/geno_split.cu` (K1, K2 and K7: one template,
 `plane_wgmma_kernel<PROD, TERMS, BNC>`) and `csrc/geno_i8.cu` (K6 and
-K8), built with nvcc at first use
+K8), and `snp_counts`' kernel in `csrc/geno_counts.cu` (`counts`, whose
+twin is `ops/stats.py::counts_plain`), built with nvcc at first use
 (keyed by the source's hash) into `_build/` and loaded with ctypes by
 `ops/cuda_build.py`. Each
 wrapper launches its kernel for CUDA tensors and counts the launch in
-`launches`; for CPU tensors it runs the plain twin. There is no fallback
-from a CUDA tensor to the twin.
+`launches`; for CPU tensors it runs the plain twin (`counts` refuses
+them: `snp_counts` takes the twin itself). There is no fallback from a
+CUDA tensor to the twin.
 
 Unlike the TPU kernels, these work in true sample order on the unpadded
 pack: the kernels mask the ragged edges themselves.
@@ -54,6 +56,7 @@ from bigsnpr_tpu_torch.utils.profiling import to_host
 
 I8_SOURCE = cuda_build.PKG / "csrc" / "geno_i8.cu"
 SPLIT_SOURCE = cuda_build.PKG / "csrc" / "geno_split.cu"
+COUNTS_SOURCE = cuda_build.PKG / "csrc" / "geno_counts.cu"
 # the int8 and bit-plane epilogues round as the twins' separate torch ops do
 I8_FLAGS = ("--fmad=false",)
 SPLIT_FLAGS = ("--fmad=false",)
@@ -71,7 +74,7 @@ MAX_COUNT_DEPTH = 1 << 23
 launches = {"cprod": 0, "prod": 0, "cprod_split": 0, "prod_split": 0,
             "cprod_i8": 0, "cprod_i8_nona": 0, "prod_i8": 0, "prod_i8_nona": 0,
             "cprod_i8m": 0, "cprod_i8m_nona": 0, "prod_i8m": 0,
-            "prod_i8m_nona": 0}
+            "prod_i8m_nona": 0, "counts": 0}
 
 
 def reset_launches() -> None:
@@ -88,6 +91,12 @@ def build_split(verbose: bool = False):
     """Compile `csrc/geno_split.cu` (K1, K2, K7) at first use; returns its
     path."""
     return cuda_build.build(SPLIT_SOURCE, verbose=verbose, extra=SPLIT_FLAGS)
+
+
+def build_counts(verbose: bool = False):
+    """Compile `csrc/geno_counts.cu` (`snp_counts`' kernel) at first use;
+    returns its path."""
+    return cuda_build.build(COUNTS_SOURCE, verbose=verbose)
 
 
 def _bind_i8(lib):
@@ -121,6 +130,60 @@ def _bind_split(lib):
 
 def _load_split():
     return cuda_build.load(SPLIT_SOURCE, _bind_split, extra=SPLIT_FLAGS)
+
+
+def _bind_counts(lib):
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.geno_counts.argtypes = [ptr, i64, i32, i64, ptr, i32, ptr]
+    lib.geno_counts.restype = i32
+    lib.geno_counts_rows.argtypes = [ptr, i64, i64, ptr, i32, ptr, i32, ptr]
+    lib.geno_counts_rows.restype = i32
+
+
+def _load_counts():
+    return cuda_build.load(COUNTS_SOURCE, _bind_counts)
+
+
+def counts(packed, n, ind_row=None):
+    """(4, m) int32 counts of dosage 0, 1, 2 and NA per variant of the
+    (m, ceil(n / 4)) uint8 pack on a CUDA device, in one launch of the
+    counts kernel: over all n samples, or over the sample indices
+    `ind_row` (host integers in [0, n), a repeat counted as often as it
+    appears). The plain twin, for CPU tensors, is
+    `ops/stats.py::counts_plain`."""
+    m, nb = packed.shape
+    if packed.device.type != "cuda":
+        raise ValueError("counts: the kernel takes a CUDA pack; "
+                         "ops.stats.counts_plain counts on the CPU")
+    if (packed.dtype != torch.uint8 or nb != (n + 3) // 4
+            or packed.stride(1) != 1 or not 0 <= n < 2**31):
+        raise ValueError(f"counts: packed {tuple(packed.shape)} "
+                         f"{packed.dtype} does not hold n={n} samples")
+    dev = packed.device
+    rows = None
+    if ind_row is not None:
+        ind_row = np.asarray(ind_row)
+        if ind_row.size and not 0 <= ind_row.min() <= ind_row.max() < n:
+            raise IndexError(f"counts: ind_row outside [0, {n})")
+        rows = torch.from_numpy(
+            np.ascontiguousarray(ind_row, dtype=np.int32)).to(dev)
+    out = torch.empty((4, m), dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
+    lib = _load_counts()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if rows is None:
+            rc = lib.geno_counts(packed.data_ptr(), m, n, packed.stride(0),
+                                 out.data_ptr(), _sm_count(dev), stream)
+        else:
+            rc = lib.geno_counts_rows(packed.data_ptr(), m, packed.stride(0),
+                                      rows.data_ptr(), rows.numel(),
+                                      out.data_ptr(), _sm_count(dev), stream)
+    if rc != 0:
+        raise RuntimeError(f"geno counts launch failed: CUDA error {rc}")
+    launches["counts"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,11 @@ Counterparts of the reference's single-pass C++/OpenMP column kernels:
   - snp_counts:   4-level histograms (reference src/bed-fun.cpp:51-98)
   - snp_MAF / bed_MAF / scaling (reference R/binom-scaling.R)
 
-Counts are integers decoded and summed on the device, block by block;
-everything after them is float64 on the host, as in the JAX package. On a
+Counts are integers taken on the device: on a card in one launch of the
+counts kernel over the packed bytes (`ops/geno_kernels.py::counts`,
+`csrc/geno_counts.cu`), on the CPU by its plain twin `counts_plain`, which
+decodes and sums block by block; everything after them is float64 on the
+host, as in the JAX package. On a
 byte-coded `DosagePack`, `snp_colstats` (and so `snp_MAF` and the
 scalings) decodes the codes through code256 in float64 on the device;
 `snp_counts` / `bed_MAF` take 2-bit codes only and raise AttributeError
@@ -20,36 +23,52 @@ import torch
 
 from bigsnpr_tpu_torch import config
 from bigsnpr_tpu_torch.core.unpack import unpack_codes
+from bigsnpr_tpu_torch.ops import geno_kernels as gk
 from bigsnpr_tpu_torch.ops.blocks import (byte_rows, decode_bytes, pick_block,
                                           present_bytes)
 from bigsnpr_tpu_torch.utils.profiling import to_host
+
+
+def counts_plain(packed, n, ind_row=None, block=None) -> torch.Tensor:
+    """(4, m) int32 counts of dosage 0/1/2/NA of the (m, nb) pack, over
+    the sample indices `ind_row` (a long tensor) when given: the counts
+    kernel's plain twin, decoding `block` variants at a time."""
+    m = packed.shape[0]
+    block = block or 4 * pick_block(n)   # uint8 codes: 4x the f32 block
+    out = torch.empty((4, m), dtype=torch.int32, device=packed.device)
+    for b0 in range(0, m, block):
+        codes = unpack_codes(packed[b0:b0 + block], n)
+        if ind_row is not None:
+            codes = codes[:, ind_row]
+        for r, code in enumerate((3, 2, 0, 1)):   # dosage 0, 1, 2, NA
+            out[r, b0:b0 + block] = (codes == code).sum(1, dtype=torch.int32)
+    return out
 
 
 def snp_counts(pack, ind_row=None, block=None, device=None) -> np.ndarray:
     """(4, m) int32 counts of dosage 0/1/2/NA per variant.
 
     Reference: bed_counts / bed_col_counts_cpp (src/bed-fun.cpp:51-98).
-    A DosagePack has no 2-bit codes: AttributeError, as in the JAX
-    package."""
+    On a card, one launch of the counts kernel (`block` is not read);
+    on the CPU, `counts_plain` in `block`-variant blocks. A negative
+    `ind_row` index counts from the end, as in numpy. A DosagePack has no
+    2-bit codes: AttributeError, as in the JAX package."""
     if hasattr(pack, "code256"):
         raise AttributeError(
             "snp_counts: a DosagePack has no 2-bit codes ('packed'); use "
             "snp_colstats")
     dev = config.resolve_device(device)
-    n, m = pack.n, pack.m
-    block = block or 4 * pick_block(n)   # uint8 codes: 4x the f32 block
+    n = pack.n
     packed = pack.device_packed(dev)
-    ir = (None if ind_row is None
-          else torch.as_tensor(np.asarray(ind_row), dtype=torch.long,
-                               device=dev))
-    out = torch.empty((4, m), dtype=torch.int32, device=dev)
-    for b0 in range(0, m, block):
-        codes = unpack_codes(packed[b0:b0 + block], n)
-        if ir is not None:
-            codes = codes[:, ir]
-        for r, code in enumerate((3, 2, 0, 1)):   # dosage 0, 1, 2, NA
-            out[r, b0:b0 + block] = (codes == code).sum(1, dtype=torch.int32)
-    return to_host(out)
+    ir = None
+    if ind_row is not None:
+        ir = np.asarray(ind_row).astype(np.int64)
+        ir = np.where(ir < 0, ir + n, ir)
+    if packed.device.type == "cuda":
+        return to_host(gk.counts(packed, n, ir))
+    if ir is not None:
+        ir = torch.from_numpy(ir)
+    return to_host(counts_plain(packed, n, ir, block))
 
 
 bed_counts = snp_counts

@@ -51,7 +51,7 @@ def build_all(device=None, verbose: bool = False) -> float:
              lambda: cuda_build.load(splitld.SOURCE, splitld._bind),
              bgen._lib]
     if dev.type == "cuda":
-        loads += [gk._load_i8, gk._load_split, gsk._load]
+        loads += [gk._load_i8, gk._load_split, gk._load_counts, gsk._load]
     with ThreadPoolExecutor(len(loads)) as pool:
         list(pool.map(lambda f: f(), loads))
     dt = time.perf_counter() - t0

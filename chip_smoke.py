@@ -13,7 +13,12 @@
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. build the CUDA kernels from bigsnpr_tpu_torch/csrc/ (one nvcc a
-     source, the three started together);
+     source, the four started together);
+ 2b. snp_counts' kernel (csrc/geno_counts.cu) bit-equal to its twin at
+     awkward shapes (n = 0..3 mod 4, random pad bits, repeated row
+     indices, m = 70,001), then both timed on random bytes at the PCA
+     cell's shape (488,377 x 200,000), also on half the rows, beside the
+     bound (the pack read once);
   3. hold K1 and K2 (bf16 bit planes against the operand, centred, split
      into three bf16 terms) against their plain-torch twins
      on the card at awkward shapes (n = 1, 2, 3 mod 4, ragged m, NA, monomorphic and
@@ -285,6 +290,10 @@ I8M_REPLACES = {"cprod_i8m": "bigsnpr_tpu/ops/pallas_kernels.py:463",
                 "prod_i8m_nona": "bigsnpr_tpu/ops/pallas_kernels.py:478"}
 PEAK_INT8_OP_PER_S = 1979e12
 SPLIT_SOURCE = "bigsnpr_tpu_torch/csrc/geno_split.cu"
+COUNTS_SOURCE = "bigsnpr_tpu_torch/csrc/geno_counts.cu"
+# [2b] times snp_counts' kernel at the PCA cell's shape
+# (benchmark/configs/pca_ukbb.json)
+PCA_SHAPE = (488_377, 200_000)
 SPLIT_REPLACES = {"cprod_split": "bigsnpr_tpu/ops/pallas_kernels.py:136",
                   "prod_split": "bigsnpr_tpu/ops/pallas_kernels.py:165"}
 SPLIT_TOL = 1e-5     # K7 vs twin: f32 sums of exact products in two orders
@@ -401,6 +410,81 @@ def small_pack(rng, n, m):
     q = pad.reshape(m, nb, 4)
     return (q[..., 0] | q[..., 1] << 2 | q[..., 2] << 4 | q[..., 3] << 6
             ).astype(np.uint8)
+
+
+def phase_counts(gk, torch, dev, args, chunk=8192):
+    """[2b] snp_counts' kernel (`gk.counts`) bit-equal to its twin
+    (`counts_plain`) at awkward shapes, with and without row indices, then
+    both timed on random bytes at the PCA cell's shape (--n x 1,000 in a
+    CPU rehearsal) beside the bound: the pack read once. Returns the kernel
+    table's row."""
+    from bigsnpr_tpu_torch.ops.stats import counts_plain
+
+    rng = np.random.default_rng([args.seed, 2])
+
+    count = gk.counts if dev.type == "cuda" else (
+        lambda p, n, ir=None: counts_plain(
+            p, n, None if ir is None else torch.as_tensor(ir)))
+    log("[2b] the counts kernel (csrc/geno_counts.cu) against its twin")
+    for n, m in ((1, 3), (2, 5), (3, 40), (4, 7), (1003, 517),
+                 (4098, 33), (37, 70_001)):
+        packed = torch.as_tensor(
+            rng.integers(0, 256, (m, (n + 3) // 4), dtype=np.uint8),
+            device=dev)          # random pad bits in the last byte
+        ir = rng.integers(0, n, 2 * n + 1)       # repeated, unsorted
+        for rows in (None, ir):
+            got = count(packed, n, rows)
+            ref = counts_plain(packed, n, None if rows is None
+                               else torch.as_tensor(rows, device=dev))
+            if not torch.equal(got, ref):
+                fail(f"counts kernel at n={n}, m={m}, rows "
+                     f"{rows is not None}: not equal to its twin")
+    log("  bit-equal to the twin at 7 shapes (n = 0..3 mod 4, odd row "
+        "lengths, random pad bits, m = 70,001), with and without repeated "
+        "row indices")
+    n, m = PCA_SHAPE if dev.type == "cuda" else (args.n, 1_000)
+    nb = (n + 3) // 4
+    packed = torch.empty((m, nb), dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    for j0 in range(0, m, chunk):
+        packed[j0:j0 + chunk].random_(0, 256, generator=gen)
+    half = np.sort(rng.choice(n, n // 2, replace=False))
+    half_t = torch.as_tensor(half, device=dev)
+    timer = Timer(torch, dev)
+    before = gk.launches["counts"]
+    got, ref = count(packed, n), counts_plain(packed, n)
+    same = torch.equal(got, ref)
+    same_rows = torch.equal(count(packed, n, half),
+                            counts_plain(packed, n, half_t))
+    launched = gk.launches["counts"] - before
+    del got, ref
+    ms = timer(lambda: count(packed, n), reps=10)
+    rows_ms = timer(lambda: count(packed, n, half), reps=3)
+    plain_ms = timer(lambda: counts_plain(packed, n), reps=2)
+    rows_plain_ms = timer(lambda: counts_plain(packed, n, half_t), reps=1)
+    nbytes = m * nb + 4 * m * 4
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"  {m} variants x {n} samples ({m * nb / 1e9:.2f} GB of random "
+        f"bytes): kernel {ms:.3f} ms ({nbytes / ms / 1e9:.3f} TB/s, "
+        f"{100 * bound / ms:.1f}% of the bound), twin {plain_ms:.3f} ms; "
+        f"bound {bound:.3f} ms (bytes: the pack once and the counts, "
+        f"{nbytes / 1e9:.3f} GB over 3.35 TB/s); on {n // 2} row indices: "
+        f"kernel {rows_ms:.3f} ms, twin {rows_plain_ms:.3f} ms; bit-equal "
+        f"to the twin {same}, on the rows {same_rows}; {launched} launches "
+        f"for 2 calls")
+    if not (same and same_rows):
+        fail("counts kernel at the PCA shape: not equal to its twin")
+    if dev.type == "cuda" and launched != 2:
+        fail(f"counts kernel: {launched} launches for 2 calls")
+    del packed
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"name": "geno_counts (snp_counts)", "route": "cuda",
+            "source": COUNTS_SOURCE, "replaces": "none",
+            "launches": 0, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None}
 
 
 def phase_small_shapes(gk, torch, dev, rng):
@@ -528,7 +612,7 @@ def phase_main_path(bp, gk, torch, dev, packed_np, pop, n, m, seed, tmp):
     launches = dict(gk.launches)
     log(f"  total            {sum(times.values()):9.3f} s; kernel launches "
         f"{launches}; randomSVD depths {svd.niter}")
-    for k in K1K2:
+    for k in (*K1K2, "counts"):
         if dev.type == "cuda" and launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
     if dev.type == "cuda" and any(launches[k] for k in K6):
@@ -1999,8 +2083,8 @@ def phase_i8_timed(bp, gk, torch, dev, pack, svd, train, path, args, reps=5):
     if dev.type == "cuda" and not (
             nona_path["cprod_i8_nona"] and nona_path["prod_i8_nona"]
             and nona_path["cprod_i8m_nona"] and nona_path["prod_i8m_nona"]
-            and sum(v for k, v in nona_path.items()
-                    if not k.endswith("_nona")) == 0):
+            and sum(v for k, v in nona_path.items()   # counts: the scaling
+                    if not k.endswith("_nona") and k != "counts") == 0):
         fail("the NA-free randomSVDs did not run on the _nona kernels alone")
     for r in rows:
         key = r["name"].split()[0][len("geno_"):]
@@ -4993,17 +5077,21 @@ def main(argv=None):
         log("[2] build (one nvcc a source, in parallel)")
         t0 = time.perf_counter()
         # K6 and K8 share geno_i8.cu; K1, K2 and K7 geno_split.cu
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(4) as pool:
             libs = list(pool.map(lambda b: b(verbose=True),
-                                 (gk.build_i8, gk.build_split, gsk.build)))
+                                 (gk.build_i8, gk.build_split, gsk.build,
+                                  gk.build_counts)))
         log(f"  built {', '.join(os.path.relpath(p, here) for p in libs)} "
             f"in {time.perf_counter() - t0:.1f} s")
         i8_ptxas_summary(libs[0])
         plane_ptxas_summary(libs[1])
         sweep_ptxas_summary(libs[2])
+        ptxas_summary(libs[3], "snp_counts' kernels",
+                      r"(geno_counts(?:_rows)?_kernel)", lambda t: t[1])
 
     rng = np.random.default_rng(args.seed)
     timer = Timer(torch, dev)
+    counts_row = phase_counts(gk, torch, dev, args)
     phase_small_shapes(gk, torch, dev, rng)
 
     t0 = time.perf_counter()
@@ -5019,8 +5107,9 @@ def main(argv=None):
             tmp)
         if gsk.launches["sweep"]:
             fail("slice 1 launched the sweep kernel")
-        rows = kernel_rows(gk, torch, dev, pack, sc, launches,
-                           n_test=args.n - args.n * 4 // 5)
+        counts_row["launches"] = launches["counts"]
+        rows = [counts_row] + kernel_rows(gk, torch, dev, pack, sc, launches,
+                                          n_test=args.n - args.n * 4 // 5)
         # slice 7 on slice 1's data: [21a] and [21b] ([21c] after [8])
         t21 = time.perf_counter()
         times21, _ = phase_mesh(bp, gk, torch, dev, pack, sc, svd, timer,

@@ -1258,3 +1258,90 @@ def test_spans_count_the_launches(cuda):
                             device=cuda)
     assert gsk.launches["sweep"] - s0 == rec.n("gibbs.sweep") == 7
     assert rec.counters["host_reads"] == 1
+
+
+def counts_case(n, m, na, seed):
+    """(m, ceil(n / 4)) bytes of random codes at NA rate `na`, variant 0
+    monomorphic, variant 1 all NA, and random values in the last byte's
+    pad bits."""
+    from bigsnpr_tpu_torch.core.unpack import np_pack_codes
+
+    rng = np.random.default_rng(seed)
+    codes = rng.choice(np.array([0, 2, 3], np.uint8), (m, n))
+    codes[rng.random((m, n)) < na] = 1
+    codes[0], codes[1] = 3, 1
+    packed = np_pack_codes(codes)
+    if n % 4:
+        pad = np.uint8((0xFF << (2 * (n % 4))) & 0xFF)
+        packed[:, -1] |= rng.integers(0, 256, m, dtype=np.uint8) & pad
+    return packed, codes, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,na", [(1000, 300, 0.0), (1001, 301, 0.3),
+                                    (1002, 17, 0.3), (1003, 513, 0.0),
+                                    (37, 70_001, 0.3)])
+def test_counts_kernel_matches_twin(cuda, n, m, na):
+    """snp_counts' kernel bit-equal to its twin and to the codes, over
+    every sample and over repeated, unsorted row indices: n = 0..3 mod 4,
+    odd and even row lengths (rows start at any alignment), NA rates 0
+    and 0.3, a monomorphic and an all-NA variant, set pad bits, and at n
+    = 37 more rows than the grid's warps; one launch a call, and a second
+    launch bit-equal to the first."""
+    from bigsnpr_tpu_torch.ops.stats import counts_plain
+
+    packed, codes, rng = counts_case(n, m, na, n + m)
+    rows = rng.integers(0, n, 2 * n + 5)
+    P = torch.as_tensor(packed, device=cuda)
+    for ir in (None, rows):
+        before = gk.launches["counts"]
+        got = gk.counts(P, n, ir)
+        assert gk.launches["counts"] == before + 1
+        again = gk.counts(P, n, ir)
+        twin = counts_plain(torch.as_tensor(packed), n,
+                            None if ir is None else torch.as_tensor(ir))
+        c = codes if ir is None else codes[:, ir]
+        ref = np.stack([(c == k).sum(1) for k in (3, 2, 0, 1)])
+        assert torch.equal(got, again)
+        np.testing.assert_array_equal(got.cpu().numpy(), twin.numpy())
+        np.testing.assert_array_equal(twin.numpy(), ref)
+    k = len(rows)                # the monomorphic and the all-NA variant
+    np.testing.assert_array_equal(got[:, :2].cpu().numpy(),
+                                  [[k, 0], [0, 0], [0, 0], [0, k]])
+    pp = pt.GenoPack(packed=packed, n=n)
+    np.testing.assert_array_equal(pt.snp_counts(pp, device=cuda)[:, :2],
+                                  [[n, 0], [0, 0], [0, 0], [0, n]])
+    np.testing.assert_array_equal(pt.snp_counts(pp, ind_row=rows, device=cuda),
+                                  pt.snp_counts(pp, ind_row=rows, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_counts_kernel_never_syncs(cuda):
+    """The counts kernel issues no synchronizing call, and snp_counts
+    syncs as often (its one read of the counts) at 300 variants as at
+    200,000, where the twin decodes four blocks."""
+    import warnings
+
+    P = torch.randint(0, 256, (2000, 251), dtype=torch.uint8, device=cuda)
+    gk.counts(P, 1001)                   # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gk.counts(P, 1001)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    def syncs(m):
+        pp = pt.GenoPack(packed=counts_case(37, m, 0.1, m)[0], n=37)
+        pp.device_packed(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                pt.snp_counts(pp, device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(x.message) for x in w)
+
+    assert syncs(300) == syncs(200_000)

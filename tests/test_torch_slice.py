@@ -430,7 +430,7 @@ def test_chip_smoke_rehearses_every_phase_on_cpu():
     assert out.returncode == 3, out.stdout[-2000:] + out.stderr[-2000:]
     assert "CPU rehearsal passed" in out.stderr
     assert '"ok"' not in out.stdout
-    for phase in ("[3]", "[3b]", "[4]", "[5]", "r(PRS, y)", "[6]",
+    for phase in ("[2b]", "[3]", "[3b]", "[4]", "[5]", "r(PRS, y)", "[6]",
                   "snp_ldpred2_auto", "r(PRS_auto, y_test)",
                   "without the r2 floor", "[7]", "K3 shape", "K4 shape",
                   "K5 shape", "grid shape", "f64 shape", "[9]",

@@ -25,22 +25,74 @@ def to_port(jpack):
     return interop.pack_from_numpy(np.asarray(jpack.packed), jpack.n)
 
 
+def with_pad_bits(packed, n, rng):
+    """The bytes with random values in the last byte's pad bits (the
+    samples >= n), which count as nothing."""
+    packed = packed.copy()
+    if n % 4:
+        pad = rng.integers(0, 256, len(packed), dtype=np.uint8)
+        packed[:, -1] |= pad & np.uint8((0xFF << (2 * (n % 4))) & 0xFF)
+    return packed
+
+
 @pytest.mark.parametrize("n,m,na", [(101, 70, 0.0), (102, 70, 0.1),
-                                    (103, 133, 0.3), (64, 9, 0.02)])
+                                    (103, 133, 0.3), (64, 9, 0.02),
+                                    (1, 5, 0.3), (250, 17, 0.5)])
 def test_counts_and_colstats_bit_equal(n, m, na):
     jp = bt.snp_fake(n, m, seed=n, na_prob=na)
     pp = to_port(jp)
     np.testing.assert_array_equal(pt.snp_counts(pp), bt.snp_counts(jp))
-    ind_row = np.random.default_rng(1).choice(n, size=n // 2, replace=False)
+    rng = np.random.default_rng(1)
+    ind_row = rng.choice(n, size=max(n // 2, 1), replace=False)
     np.testing.assert_array_equal(pt.snp_counts(pp, ind_row=ind_row),
                                   bt.snp_counts(jp, ind_row=ind_row))
+    # repeated, unsorted indices count as often as they appear
+    rep = rng.integers(0, n, 2 * n + 3)
+    np.testing.assert_array_equal(pt.snp_counts(pp, ind_row=rep),
+                                  bt.snp_counts(jp, ind_row=rep))
     # a small block forces several device blocks
     np.testing.assert_array_equal(pt.snp_counts(pp, block=16),
                                   bt.snp_counts(jp))
+    # set pad bits are dropped, as in the JAX package
+    padded = with_pad_bits(np.asarray(jp.packed), n, rng)
+    jq, pq = bt.GenoPack(packed=padded, n=n), interop.pack_from_numpy(padded,
+                                                                      n)
+    for ir in (None, rep):
+        np.testing.assert_array_equal(pt.snp_counts(pq, ind_row=ir),
+                                      bt.snp_counts(jq, ind_row=ir))
+        np.testing.assert_array_equal(pt.snp_counts(pq, ind_row=ir),
+                                      pt.snp_counts(pp, ind_row=ir))
     for ir in (None, ind_row):
         ps, js = pt.snp_colstats(pp, ind_row=ir), bt.snp_colstats(jp, ind_row=ir)
         for key in ("sumX", "denoX", "nona"):
             np.testing.assert_array_equal(ps[key], js[key])
+
+
+def test_counts_twin_against_the_codes():
+    """`counts_plain` against counts taken from `np_unpack_codes`, with
+    pad bits set and repeated row indices; a negative index counts from
+    the end; the kernel's wrapper refuses a CPU pack."""
+    from bigsnpr_tpu_torch.core.unpack import np_unpack_codes
+    from bigsnpr_tpu_torch.ops import geno_kernels as gk
+    from bigsnpr_tpu_torch.ops.stats import counts_plain
+
+    rng = np.random.default_rng(5)
+    n, m = 1003, 41
+    packed = rng.integers(0, 256, (m, (n + 3) // 4), dtype=np.uint8)
+    codes = np_unpack_codes(packed, n)
+    rows = rng.integers(0, n, 3 * n)
+    for ir in (None, rows):
+        c = codes if ir is None else codes[:, ir]
+        ref = np.stack([(c == k).sum(1) for k in (3, 2, 0, 1)])
+        got = counts_plain(torch.as_tensor(packed), n,
+                           None if ir is None else torch.as_tensor(ir),
+                           block=8)
+        np.testing.assert_array_equal(got.numpy(), ref)
+    pp = pt.GenoPack(packed=packed, n=n)
+    np.testing.assert_array_equal(pt.snp_counts(pp, ind_row=[-1, 0, -n]),
+                                  pt.snp_counts(pp, ind_row=[n - 1, 0, 0]))
+    with pytest.raises(ValueError, match="CUDA pack"):
+        gk.counts(torch.as_tensor(packed), n)
 
 
 def test_maf_and_scaling_match_jax():
