@@ -482,14 +482,15 @@ def sweep(sb: SweepBands, dp, cb, bh, C2, C4, s1, u, z, inv_odd_p, p,
     fn = lib.gibbs_sweep_f64 if sb.dtype == torch.float64 else \
         lib.gibbs_sweep_f32
     ptr = lambda t: t.data_ptr()  # noqa: E731
-    rc = fn(ptr(sb.band), ptr(sb.blk_band), ptr(sb.blk_dp), ptr(sb.blk_gidx),
-            ptr(sb.blk_rows), ptr(sb.blk_W), ptr(sb.blk_order), sb.nblk,
-            ptr(sb.gidx), ptr(dp), sb.dp_len, ptr(cb), ptr(bh), ptr(C2),
-            ptr(C4), ptr(s1), ptr(u), ptr(z), m, ptr(inv_odd_p), ptr(p),
-            ptr(sparse), float(shrink), int(bool(no_jump)),
-            *(ptr(t) for t in outs), NC, pl.nct, pl.threads, pl.ring_len,
-            pl.stage, sb.band.numel(),
-            torch.cuda.current_stream(sb.device).cuda_stream)
+    with torch.cuda.device(sb.device):  # the launch goes to the current card
+        rc = fn(ptr(sb.band), ptr(sb.blk_band), ptr(sb.blk_dp),
+                ptr(sb.blk_gidx), ptr(sb.blk_rows), ptr(sb.blk_W),
+                ptr(sb.blk_order), sb.nblk, ptr(sb.gidx), ptr(dp), sb.dp_len,
+                ptr(cb), ptr(bh), ptr(C2), ptr(C4), ptr(s1), ptr(u), ptr(z),
+                m, ptr(inv_odd_p), ptr(p), ptr(sparse), float(shrink),
+                int(bool(no_jump)), *(ptr(t) for t in outs), NC, pl.nct,
+                pl.threads, pl.ring_len, pl.stage, sb.band.numel(),
+                torch.cuda.current_stream(sb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gibbs_sweep launch failed: CUDA error {rc}")
     launches["sweep_global" if sb.nblk == 1 else "sweep"] += 1
@@ -631,12 +632,14 @@ def lassosum_sweep(sb: SweepBands, dp, beta, bh, pf, lam, delta, active):
     fn = lib.lassosum_sweep_f64 if sb.dtype == torch.float64 else \
         lib.lassosum_sweep_f32
     ptr = lambda t: t.data_ptr()  # noqa: E731
-    rc = fn(ptr(sb.band), ptr(sb.blk_band), ptr(sb.blk_dp), ptr(sb.blk_gidx),
-            ptr(sb.blk_rows), ptr(sb.blk_W), ptr(sb.blk_order), sb.nblk,
-            ptr(sb.gidx), ptr(dp), sb.dp_len, ptr(beta), ptr(bh), ptr(pf), m,
-            ptr(lam), ptr(delta), ptr(active), ptr(gap), ptr(df), ptr(ms),
-            NG, pl.nct, pl.threads, pl.ring_len, pl.stage, sb.band.numel(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):        # the launch goes to the current card
+        rc = fn(ptr(sb.band), ptr(sb.blk_band), ptr(sb.blk_dp),
+                ptr(sb.blk_gidx), ptr(sb.blk_rows), ptr(sb.blk_W),
+                ptr(sb.blk_order), sb.nblk, ptr(sb.gidx), ptr(dp), sb.dp_len,
+                ptr(beta), ptr(bh), ptr(pf), m, ptr(lam), ptr(delta),
+                ptr(active), ptr(gap), ptr(df), ptr(ms), NG, pl.nct,
+                pl.threads, pl.ring_len, pl.stage, sb.band.numel(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lassosum_sweep launch failed: CUDA error {rc}")
     launches["lassosum_global" if sb.nblk == 1 else "lassosum"] += 1

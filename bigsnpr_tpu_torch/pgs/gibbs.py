@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bigsnpr_tpu_torch.utils.profiling import count, recording
+
 MIN_H2 = 1e-3  # reference src/ldpred2-auto.cpp:11
 
 # Poisson(1) CDF, P(K > 16) < 1e-14
@@ -121,7 +123,7 @@ def _profile(a, sum_a, nb, wb, log_var, s_lo, s_hi, rows=None):
     summed over variants in slabs so the (NC, G, m) exponentials never
     materialize whole; the slabs and the batched products are those of
     `rows` chains over a multiple of 4 variants (zeros pad them, as in
-    `row_sums`)."""
+    `row_sums`). Counts each slab's exponentials in `auto.mle_exps`."""
     NC, G = a.shape
     rows = rows or NC
     a_r, wb_r = _pad_rows(a, rows), _pad(wb, rows)
@@ -131,6 +133,7 @@ def _profile(a, sum_a, nb, wb, log_var, s_lo, s_hi, rows=None):
     sum_c = torch.zeros((rows, G), dtype=a.dtype, device=a.device)
     for j0 in range(0, m4, step):
         E = torch.exp(-a_r[:, :, None] * lv[None, None, j0:j0 + step])
+        count("auto.mle_exps", E.numel())
         sum_c += torch.bmm(E, wb_r[:, j0:j0 + step, None])[:, :, 0]
     sum_c = sum_c[:NC]
     s = torch.minimum(torch.maximum(sum_c / torch.clamp(nb, min=1.0)[:, None],
@@ -171,6 +174,72 @@ def _mle_alpha_profile(par_sigma2, wts, log_var, beta2, alpha_bounds,
     _, s_best = _profile(a_best[:, None], sum_a, nb, wb, log_var, s_lo, s_hi,
                          rows)
     return a_best, s_best[:, 0]
+
+
+# a side stream a card for the MLE graphs' first calls and captures: one
+# a process, so that the blocks its first calls leave in the allocator's
+# cache are the next run's to reuse
+_SIDE: dict = {}
+
+
+class MleGraph:
+    """`_mle_alpha_profile` at one run's alpha bounds and row count, as
+    LDpred2-auto's sampler calls it each sweep; the run owns it, so what
+    it holds goes with the run. On a card the first call runs it on a side
+    stream of the inputs' card and captures it there as a CUDA graph; each
+    later call copies its inputs into the graph's and replays it: the same
+    kernels on the same shapes, so the same result bit for bit, at one
+    launch in place of ~280 (the host paces the sweeps). A replay counts
+    in `auto.mle_exps` the exponentials the captured call counted."""
+
+    def __init__(self, alpha_bounds, rows):
+        self.alpha_bounds, self.rows = alpha_bounds, rows
+        self.graph = None
+
+    def _direct(self, *args):
+        return _mle_alpha_profile(*args, self.alpha_bounds, rows=self.rows)
+
+    def __call__(self, par_sigma2, wts, log_var, beta2):
+        args = (par_sigma2, wts, log_var, beta2)
+        if wts.device.type != "cuda":
+            return self._direct(*args)
+        if self.graph is None:
+            return self._capture(args)
+        for dst, src in zip(self.ins, args):
+            dst.copy_(src)
+        self.graph.replay()
+        count("auto.mle_exps", self.exps)
+        return tuple(x.clone() for x in self.outs)
+
+    def _capture(self, args):
+        """The first call, run eagerly on the side stream (the warm-up a
+        capture asks for), then the capture on that stream into a pool of
+        the graph's own. Both under the inputs' card as the current
+        device, so that a run on another card than the current one
+        captures its own launches; and without `torch.cuda.graph`'s
+        synchronize and emptied cache, which would reach past the run."""
+        dev = args[1].device
+        with torch.cuda.device(dev):
+            cur = torch.cuda.current_stream()
+            self.ins = [x.clone() for x in args]
+            side = _SIDE.get(dev.index)
+            if side is None:
+                side = _SIDE[dev.index] = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                first = self._direct(*self.ins)
+                graph = torch.cuda.CUDAGraph()
+                with recording() as rec:     # captured, not evaluated
+                    graph.capture_begin()
+                    try:
+                        self.outs = self._direct(*self.ins)
+                    finally:
+                        graph.capture_end()
+            cur.wait_stream(side)
+            for x in first:
+                x.record_stream(cur)
+        self.graph, self.exps = graph, rec.counters.get("auto.mle_exps", 0)
+        return first
 
 
 # ---------------------------------------------------------------------------

@@ -36,9 +36,9 @@ import numpy as np
 import torch
 
 from bigsnpr_tpu_torch.ops import gibbs_kernels
-from bigsnpr_tpu_torch.pgs.gibbs import (MIN_H2, _beta_draw,
-                                         _mle_alpha_profile, _poisson1, draw,
-                                         poisson1_cdf, row_sums)
+from bigsnpr_tpu_torch.pgs.gibbs import (MIN_H2, MleGraph, _beta_draw,
+                                         _poisson1, draw, poisson1_cdf,
+                                         row_sums)
 from bigsnpr_tpu_torch.utils.profiling import span
 
 
@@ -425,7 +425,7 @@ class _AutoPart:
     its blocks' place among all the blocks; else both are None."""
 
     def __init__(self, sb, var, blk, gens, beta_hat, n_vec, log_var, NC,
-                 num_reports):
+                 num_reports, num_kept):
         dt, dev = sb.dtype, sb.device
         self.sb, self.var, self.blk, self.gens = sb, var, blk, gens
         take = (lambda x: x) if var is None else (lambda x: x[var])
@@ -440,6 +440,13 @@ class _AutoPart:
                                    dtype=dt, device=dev)
         self.no_sparse = torch.zeros(NC, dtype=torch.bool, device=dev)
         self.cdf = poisson1_cdf(dt, dev)
+        # the kept states on the host, page-locked where the sweep runs on
+        # a card so that their copies do not wait: (kept sweeps, 4, NC,
+        # its variants), the current effects and the sums behind beta_est,
+        # postp_est and corr_est
+        self.state = (torch.empty((num_kept, 4, NC, sb.m), dtype=dt,
+                                  pin_memory=dev.type == "cuda")
+                      if num_kept else None)
 
     def cols(self, X, j0):
         """Columns j0 + (this shard's variants) of the (NC, .) draws."""
@@ -471,9 +478,12 @@ class _AutoRun:
         self.cur_h2 = torch.zeros(NC, dtype=dt, device=dev)
         self.par_alpha = torch.zeros(NC, dtype=dt, device=dev)
         self.par_sigma2 = h2_0 / (m * self.p)
-        self.paths = torch.full((NC, 3, num_iter_tot), torch.nan, dtype=dt,
+        self.paths = torch.full((NC, 4, num_iter_tot), torch.nan, dtype=dt,
                                 device=dev)
+        self.state_h2 = torch.zeros((NC, len(kw["keep"])), dtype=dt,
+                                    device=dev)
         self.diverged = torch.zeros(NC, dtype=torch.bool, device=dev)
+        self.mle = MleGraph(kw["alpha_bounds"], kw["chains"])
         self.split = len(parts) > 1
         bh = _as(sb, kw["beta_hat"])
         self.gap0 = 2.0 * torch.sum(bh ** 2)
@@ -537,8 +547,9 @@ class _AutoRun:
     @span("auto.update")
     def update(self, k):
         """The per-chain step of iteration k: spans `auto.sums` (the sums
-        over blocks and variants), `auto.p` (the draw of p) and `auto.mle`
-        (alpha and sigma2); h2 and the paths in the step's own time."""
+        over blocks and variants), `auto.p` (the draw of p), `auto.mle`
+        (alpha and sigma2) and, at a kept sweep, `auto.keep` (the state's
+        copies); h2 and the paths in the step's own time."""
         kw, m = self.kw, self.m
         pb0, pb1 = kw["p_bounds"]
         part = self.parts[0]
@@ -569,16 +580,14 @@ class _AutoRun:
         h2 = torch.clamp(h2_est2, min=MIN_H2)
         if kw["use_mle"]:
             with span("auto.mle"):
-                pa, ps = _mle_alpha_profile(self.par_sigma2, wts, lv,
-                                            nb * nb, kw["alpha_bounds"],
-                                            rows=kw["chains"])
+                pa, ps = self.mle(self.par_sigma2, wts, lv, nb * nb)
                 pa = torch.where(ok, pa, self.par_alpha)
                 ps = torch.where(ok, ps, self.par_sigma2)
         else:
             pa = self.par_alpha
             ps = torch.where(ok, h2 / (m * p2), self.par_sigma2)
 
-        vals = torch.stack([p2, h2, pa - 1.0], dim=1)
+        vals = torch.stack([p2, h2, pa - 1.0, ps], dim=1)
         self.paths[:, :, k] = torch.where(div2[:, None], self.paths[:, :, k],
                                           vals)
         burn_in, step, reps = (kw["burn_in"], kw["report_step"],
@@ -595,6 +604,14 @@ class _AutoRun:
         self.p, self.cur_h2, self.par_alpha, self.par_sigma2 = (p2, h2_est2,
                                                                 pa, ps)
         self.diverged = div2
+        slot = kw["keep"].get(k)
+        if slot is not None:
+            with span("auto.keep"):
+                for part in self.parts:
+                    for i, x in enumerate((part.curr, part.avg_beta,
+                                           part.avg_postp, part.avg_bhat)):
+                        part.state[slot, i].copy_(x, non_blocking=True)
+                self.state_h2[:, slot] = h2_est2
 
     def result(self, num_iter):
         """The dict of (NC, ...) tensors on the first part's device, the
@@ -611,24 +628,61 @@ class _AutoRun:
 
         nan = torch.where(self.diverged[:, None], torch.nan,
                           0.0).to(self.dt)
-        return {
+        out = {
             "beta_est": whole("avg_beta") / num_iter + nan,
             "postp_est": whole("avg_postp") / num_iter + nan,
             "corr_est": whole("avg_bhat") / num_iter + nan,
             "sample_beta": whole("samples"),
             "path_p_est": self.paths[:, 0], "path_h2_est": self.paths[:, 1],
             "path_alpha_est": self.paths[:, 2],
+            "path_sigma2_est": self.paths[:, 3],
         }
+        if self.kw["keep"]:
+            out["state"], out["state_h2"] = self._states(), self.state_h2
+        return out
+
+    def _states(self):
+        """The kept states, (NC, kept, 4, m) on the host in global
+        variant order, once their copies have landed."""
+        for part in self.parts:
+            if part.sb.device.type == "cuda":
+                torch.cuda.current_stream(part.sb.device).synchronize()
+        st = self.parts[0].state
+        if self.split:
+            st = torch.empty((*st.shape[:-1], self.m), dtype=st.dtype)
+            for part in self.parts:
+                st[..., part.var.cpu()] = part.state
+        return st.permute(2, 0, 1, 3)
+
+
+def kept_sweeps(state_sweeps, num_iter_tot: int) -> dict:
+    """{sweep: slot} of the sweeps whose states a run keeps, in
+    ascending order; ValueError for a sweep outside [0, num_iter_tot) or
+    named twice."""
+    if state_sweeps is None:
+        return {}
+    ks = [int(k) for k in np.atleast_1d(np.asarray(state_sweeps))]
+    if len(set(ks)) != len(ks) or any(not 0 <= k < num_iter_tot
+                                      for k in ks):
+        raise ValueError(f"state_sweeps must be distinct sweeps in [0, "
+                         f"{num_iter_tot}), got {ks}")
+    return {k: i for i, k in enumerate(sorted(ks))}
 
 
 def _auto_runs(groups, beta_hat, n_vec, log_var, p_inits, h2_init,
                shrink_corr, p_bounds, alpha_bounds, mean_ld, burn_in,
-               num_iter, report_step, use_mle, no_jump_sign):
+               num_iter, report_step, use_mle, no_jump_sign,
+               state_sweeps=None):
     """Run the chain groups side by side, sweep by sweep, so that groups
     on different cards overlap: groups is a list of (chain slice of
     p_inits, [(sb, var, blk, gens)] the group's parts). Returns each
-    group's `_AutoRun.result`."""
+    group's `_AutoRun.result`: with `state_sweeps`, also its states after
+    those sweeps, `state` (NC, kept, 4, m: the current effects and the
+    sums behind beta_est, postp_est and corr_est) and `state_h2` (NC,
+    kept: the running h2 before its floor). The states are copied as the
+    run goes, without waiting: into page-locked host memory on a card."""
     num_iter_tot = burn_in + num_iter
+    keep = kept_sweeps(state_sweeps, num_iter_tot)
     if report_step is None:
         report_step = num_iter + 1
     num_reports = num_iter // report_step if report_step <= num_iter else 0
@@ -640,12 +694,13 @@ def _auto_runs(groups, beta_hat, n_vec, log_var, p_inits, h2_init,
               alpha_bounds=alpha_bounds, mean_ld=mean_ld, burn_in=burn_in,
               report_step=report_step, num_reports=num_reports,
               use_mle=use_mle, no_jump_sign=no_jump_sign,
-              beta_hat=beta_hat, log_var=log_var, chains=len(p_inits))
+              beta_hat=beta_hat, log_var=log_var, chains=len(p_inits),
+              keep=keep)
     runs = []
     for chains, shards in groups:
         p0 = p_inits[chains]
         parts = [_AutoPart(sb, var, blk, gens, beta_hat, n_vec, log_var,
-                           len(p0), num_reports)
+                           len(p0), num_reports, len(keep))
                  for sb, var, blk, gens in shards]
         runs.append(_AutoRun(parts, m, p0, h2_init, num_iter_tot, kw))
     for k in range(num_iter_tot):
@@ -659,22 +714,25 @@ def _auto_runs(groups, beta_hat, n_vec, log_var, p_inits, h2_init,
 def gibbs_auto_blocked_multi(sb, beta_hat, n_vec, log_var, p_inits, h2_init,
                              gens, shrink_corr, p_bounds, alpha_bounds,
                              mean_ld, burn_in, num_iter, report_step=None,
-                             use_mle=True, no_jump_sign=False):
+                             use_mle=True, no_jump_sign=False,
+                             state_sweeps=None):
     """LDpred2-auto for NC chains at once (ldpred2_gibbs_auto,
     src/ldpred2-auto.cpp:56-202; the reference's 30-process chain grid,
     R/LDpred2.R:233-236, in one chain-batched sweep). p_inits (NC,), gens
     one generator per chain, alpha_bounds on the alpha+1 scale. Returns a
-    dict of (NC, ...) tensors."""
+    dict of (NC, ...) tensors (`_auto_runs`)."""
     return _auto_runs(
         [(slice(None), [(sb, None, None, gens)])], beta_hat, n_vec, log_var,
         p_inits, h2_init, shrink_corr, p_bounds, alpha_bounds, mean_ld,
-        burn_in, num_iter, report_step, use_mle, no_jump_sign)[0]
+        burn_in, num_iter, report_step, use_mle, no_jump_sign,
+        state_sweeps)[0]
 
 
 def gibbs_auto_shard_chains(shards, beta_hat, n_vec, log_var, p_inits,
                             h2_init, shrink_corr, p_bounds, alpha_bounds,
                             mean_ld, burn_in, num_iter, report_step=None,
-                            use_mle=True, no_jump_sign=False):
+                            use_mle=True, no_jump_sign=False,
+                            state_sweeps=None):
     """`gibbs_auto_blocked_multi` with the chains split over shards:
     shards is a list of (sb, gens), sb the bands on the shard's device and
     gens the generators of its chains (chain c's stream does not depend
@@ -686,15 +744,18 @@ def gibbs_auto_shard_chains(shards, beta_hat, n_vec, log_var, p_inits,
               for i, (sb, g) in enumerate(shards)]
     outs = _auto_runs(groups, beta_hat, n_vec, log_var, p_inits, h2_init,
                       shrink_corr, p_bounds, alpha_bounds, mean_ld, burn_in,
-                      num_iter, report_step, use_mle, no_jump_sign)
+                      num_iter, report_step, use_mle, no_jump_sign,
+                      state_sweeps)
     dev = shards[0][0].device
-    return {k: torch.cat([o[k].to(dev) for o in outs]) for k in outs[0]}
+    return {k: torch.cat([o[k] if k == "state" else o[k].to(dev)
+                          for o in outs]) for k in outs[0]}
 
 
 def gibbs_auto_shard_blocks(shards, beta_hat, n_vec, log_var, p_inits,
                             h2_init, shrink_corr, p_bounds, alpha_bounds,
                             mean_ld, burn_in, num_iter, report_step=None,
-                            use_mle=True, no_jump_sign=False):
+                            use_mle=True, no_jump_sign=False,
+                            state_sweeps=None):
     """`gibbs_auto_blocked_multi` with the LD blocks split over shards:
     shards is a list of (sb, var, blk, gens) (`shard_block_bands`: a
     shard's blocks, the global ids of their variants, their places among
@@ -709,7 +770,7 @@ def gibbs_auto_shard_blocks(shards, beta_hat, n_vec, log_var, p_inits,
     return _auto_runs(
         [(slice(None), list(shards))], beta_hat, n_vec, log_var, p_inits,
         h2_init, shrink_corr, p_bounds, alpha_bounds, mean_ld, burn_in,
-        num_iter, report_step, use_mle, no_jump_sign)[0]
+        num_iter, report_step, use_mle, no_jump_sign, state_sweeps)[0]
 
 
 def split_blocks(bb: BlockBands, n: int):

@@ -34,7 +34,7 @@ from bigsnpr_tpu_torch.pgs import gibbs_blocked as gb
 from bigsnpr_tpu_torch.pgs.band import one_block_bands
 from bigsnpr_tpu_torch.pgs.gibbs import chain_generators
 from bigsnpr_tpu_torch.utils.assertions import check_args
-from bigsnpr_tpu_torch.utils.profiling import span, to_host
+from bigsnpr_tpu_torch.utils.profiling import count, span, to_host
 
 
 def _dtype(dtype):
@@ -171,7 +171,8 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
                      alpha_bounds=(-1.5, 0.5), ind_corr=None, seed: int = 1,
                      blocks=None, shard_blocks: bool = False,
                      shard_chains: bool = False, dtype="float32",
-                     device=None, mesh=None) -> list[dict]:
+                     device=None, mesh=None,
+                     state_sweeps=None) -> list[dict]:
     """Auto model (reference snp_ldpred2_auto, R/LDpred2.R:203-286), all
     chains in one chain-batched sampler: unblocked (`blocks=None`, one
     band over every variant) or blocked.
@@ -190,7 +191,19 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
     Returns a list (over vec_p_init) of dicts with beta_est, postp_est,
     corr_est, sample_beta, path_{p,h2,alpha}_est, {h2,p,alpha}_est,
     h2_init, p_init (and beta_est_sparse when sparse=True); the blocked
-    sampler adds dropped_r2_frac."""
+    sampler adds dropped_r2_frac.
+
+    state_sweeps (off the R API): None, the default, returns the above
+    and nothing else. A sequence, which may be empty, of sweeps (0-based
+    over burn_in + num_iter) adds path_sigma2_est, the sigma2 each sweep's
+    update sets, and the chains' states after those sweeps, copied as the
+    run goes without a host sync (into page-locked host memory when the
+    sampler runs on a card): in the sampler's dtype, on its scaled axis
+    (beta / scale), a row a kept sweep in ascending order, state_beta
+    (the current effects), state_sum_beta, state_sum_postp and
+    state_sum_corr (the running sums behind beta_est, postp_est and
+    corr_est), and state_h2 (the running h2 before its floor of 1e-3).
+    Either way every other output is the same, bit for bit."""
     assert h2_init > 0
     assert not (shard_chains and blocks is None), \
         "shard_chains requires blocks= (the chain-batched sampler)"
@@ -217,7 +230,7 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
               alpha_bounds=np.asarray(alpha_bounds, dtype=np.float64) + 1,
               mean_ld=mean_ld, burn_in=burn_in, num_iter=num_iter,
               report_step=report_step, use_mle=use_MLE,
-              no_jump_sign=not allow_jump_sign)
+              no_jump_sign=not allow_jump_sign, state_sweeps=state_sweeps)
     run_grid = gibbs.gibbs_one if blocks is None else gb.gibbs_multi_blocked
     sb = None
     if blocks is None:
@@ -250,7 +263,17 @@ def snp_ldpred2_auto(corr, df_beta, h2_init: float, vec_p_init=0.1,
         assert bb.m == len(beta_hat)
         outs = gb.gibbs_auto_blocked_multi(
             sb, *args, chain_generators(seed, NC, dev), **kw)
+    state, state_h2 = outs.pop("state", None), outs.pop("state_h2", None)
+    if state_sweeps is None:
+        del outs["path_sigma2_est"]
     outs_np = {k: v.double().cpu().numpy() for k, v in outs.items()}
+    count("auto.diverged", int(np.isnan(outs_np["path_p_est"][:, -1]).sum()))
+    if state is not None:
+        state, state_h2 = state.numpy(), state_h2.cpu().numpy()
+        for i, k in enumerate(("state_beta", "state_sum_beta",
+                               "state_sum_postp", "state_sum_corr")):
+            outs_np[k] = state[:, :, i]
+        outs_np["state_h2"] = state_h2
     results = []
     for c in range(NC):
         res = {k: v[c] for k, v in outs_np.items()}
